@@ -8,18 +8,31 @@ CUDA toolkit. It needs no arguments and no network, and it exits non-zero
 without a CUDA device or without the port's package beside it. Phases:
 
 1. the card's name and power limit, and the torch / CUDA versions;
-2. the kernel build (nvcc, csrc/ -> build/kernels/), timed, with ptxas's
-   register report;
-3. each kernel against its plain PyTorch version at main-path geometry
-   (a 2048-query batch against the 1M-row arena, group 128): the scan must
-   be bit-identical; the merge stages must give identical values and
-   identical positions on the non-empty slots. Times come from CUDA events;
-4. the main path at full size: a 1M x 128 SIFT-like corpus (seed 0) with
+2. the kernel build (one nvcc per csrc/*.cu, all at once, then a link into
+   build/kernels/), timed, with ptxas's register report;
+3. the narrow scan and the merge kernels against their plain PyTorch
+   versions at the SIFT path's geometry (a 2048-query batch against the
+   1M-row arena, group 128, k 100): the scan must be bit-identical; the
+   merge stages must give identical values and identical positions on the
+   non-empty slots. Times come from CUDA events;
+4. the SIFT path at full size: a 1M x 128 SIFT-like corpus (seed 0) with
    bench.py's tree RBAC world (100 roles, 10k users), 8192 queries drawn
-   from the corpus's held-out pool as bench.py draws them, top-100,
+   from the corpus's held-out pool as bench.py draws them, top-100, L2,
    through build_searcher("rls") and run_benchmark against the exact
-   float32 oracle. Recall must reach 0.95, every returned row must be
-   readable by its user, and each kernel's launch count must rise.
+   float32 oracle;
+3b. the wide scan against its plain version at the 768-d path's geometry
+   (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
+   metric, score shift 3, group 128), bit-identical, then the merge
+   kernels on its minima at kk = 100 + 32 (keep 136);
+4b. the 768-d path at full size: the cohere-like 1M x 768 corpus (seed 0),
+   the same world, 8192 queries, top-100, cosine, residual4 rerank,
+   through build_searcher("rls") and run_benchmark against the exact
+   cosine oracle.
+On each path recall must reach 0.95, every returned row must be readable
+by its user, and each kernel of the path must have launched while it ran
+(the counts are set to 0 just before it). Each path prints short content
+hashes of its workload (query vectors and user ids) and of its ground
+truth, so that a change of recall can be traced to the input that moved.
 
 Neither jax nor the JAX package (vectorsearch_rbac_tpu) is imported; the
 run fails if either was loaded.
@@ -28,6 +41,8 @@ Its last lines are one JSON object of per-kernel results, the card's
 nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
+import gc
+import hashlib
 import json
 import os
 import subprocess
@@ -41,6 +56,8 @@ TOPK = 100
 BATCH = 2048          # the main path's query batch
 BLOCK_ROWS = 131072   # bench.py's default arena padding
 RECALL_FLOOR = 0.95
+GROUP = 128           # the group width both paths' indexes pick at 1M
+RERANK_MARGIN = 32    # kk = TOPK + 32 on the 768-d path
 
 
 def fail(msg: str) -> None:
@@ -70,6 +87,109 @@ def cuda_ms(fn, reps: int) -> float:
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
+
+
+def digest(*arrays) -> str:
+    """Short content hash of numpy arrays (dtype, shape and bytes)."""
+    import numpy as np
+
+    h = hashlib.blake2b(digest_size=8)
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def report(title, rows) -> None:
+    """Print kernel-vs-plain rows and fail on any disagreement."""
+    say(title)
+    for name, (ok, err, ms, plain_ms) in rows.items():
+        say(f"  {name:14s} identical={ok} max_abs_err={err} kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    bad = [name for name, row in rows.items() if not row[0]]
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
+
+
+def check_merge(packed, k, nsub=32, t=16):
+    """The merge kernels against their plain versions on packed minima:
+    (ok, max_abs_err, kernel ms, plain ms) per stage, and the inputs."""
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops import merge, scan_int8
+
+    keep = 8 * ((k + 7) // 8)
+    y, meta = merge.extract_pairs(packed, nsub, t)
+    y_plain, meta_plain = merge.extract_pairs_plain(packed, nsub, t)
+    ys, gs = merge.bitonic_pairs(y, meta, keep)
+    ys_plain, gs_plain = merge.bitonic_pairs_plain(y, meta, keep)
+    torch.cuda.synchronize()
+    empty = scan_int8.EMPTY_I32
+    out = {
+        "merge_extract": (
+            torch.equal(y, y_plain)
+            and torch.equal(meta[y < empty], meta_plain[y < empty]),
+            max_abs_err(y, y_plain),
+            cuda_ms(lambda: merge.extract_pairs(packed, nsub, t), 10),
+            cuda_ms(lambda: merge.extract_pairs_plain(packed, nsub, t), 3)),
+        "merge_bitonic": (
+            torch.equal(ys, ys_plain)
+            and torch.equal(gs[ys < empty], gs_plain[ys < empty]),
+            max_abs_err(ys, ys_plain),
+            cuda_ms(lambda: merge.bitonic_pairs(y, meta, keep), 10),
+            cuda_ms(lambda: merge.bitonic_pairs_plain(y, meta, keep), 3)),
+    }
+    return out, keep
+
+
+def drive_path(name, searcher, corpus, world, workload, truth, arena,
+               kernels, smi):
+    """Run one path through run_benchmark with every launch count set to 0
+    just before, and check it: recall, group, readable rows, launches.
+    Returns the launch counts of the run."""
+    import numpy as np
+
+    from vectorsearch_rbac_tpu_torch.bench import run_benchmark
+    from vectorsearch_rbac_tpu_torch.ops import _build
+
+    index = searcher.partitions[0].index
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_benchmark(searcher, corpus, world, workload, None, k=TOPK,
+                        warmup_runs=2, timed_batches=64, timed_passes=8,
+                        recall_sample=None, truth=truth)
+    launches = dict(_build.LAUNCHES)
+    say(f"{name} path ({time.perf_counter() - t0:.1f} s, {smi}): "
+        f"recall@{TOPK} {res.avg_recall}, {res.qps} QPS over "
+        f"{workload.num_queries} queries (pass walls ms "
+        f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 p50 "
+        f"{res.p50_ms} ms p95 {res.p95_ms} ms, group {index.group}, rerank "
+        f"{index.rerank_mode if index.rerank else None}, launches {launches}")
+    if res.avg_recall < RECALL_FLOOR:
+        fail(f"{name}: recall {res.avg_recall:.4f} < {RECALL_FLOOR}")
+    if index.group != GROUP:
+        fail(f"{name}: the index chose group {index.group}, not {GROUP}")
+    idle = [k for k in kernels if launches[k] == 0]
+    if idle:
+        fail(f"{name}: the path never launched {idle}")
+
+    # every returned row exists and is readable by the querying user
+    _, ids = searcher.search_batch(workload.vectors[:BATCH],
+                                   workload.user_ids[:BATCH],
+                                   world.user_masks, TOPK)
+    if ids.shape != (BATCH, TOPK) or ids.min() < -1 or ids.max() >= corpus.n:
+        fail(f"{name}: result ids out of range: shape {ids.shape}, "
+             f"[{ids.min()}, {ids.max()}]")
+    masks = world.user_masks[workload.user_ids[:BATCH]]
+    rows = arena.host_bits[np.maximum(ids, 0)]
+    readable = (rows & masks[:, None, :]).any(axis=2) | (ids < 0)
+    if not readable.all():
+        fail(f"{name}: {int((~readable).sum())} returned rows are not "
+             "readable by their users")
+    say(f"{name} permissions: all {int((ids >= 0).sum())} returned rows "
+        "readable")
+    return launches
 
 
 def main() -> None:
@@ -114,138 +234,149 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"  ptxas: {line.strip()}")
 
-    # ---- data at full size (host), shared by phases 3 and 4
     import numpy as np
 
     from vectorsearch_rbac_tpu_torch.bench import (
-        GroundTruthOracle, compute_truth_sample, make_scenario, run_benchmark,
+        GroundTruthOracle, compute_truth_sample, make_scenario,
         serving_config)
     from vectorsearch_rbac_tpu_torch.core import build_device_arena
-    from vectorsearch_rbac_tpu_torch.ops import merge, scan_int8
+    from vectorsearch_rbac_tpu_torch.ops import scan_int8
+    from vectorsearch_rbac_tpu_torch.ops.merge import merge_supported
     from vectorsearch_rbac_tpu_torch.partition import build_searcher
 
+    cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, batch=BATCH,
+                         topk=TOPK)
+    result = {}          # kernel -> (ok, max_abs_err, ms, plain_ms)
+
+    def oracle_truth(corpus, world, workload, metric):
+        t0 = time.perf_counter()
+        gt_arena = build_device_arena(corpus, world, device=device,
+                                      block_rows=65536, dtype="float32",
+                                      metric=metric)
+        oracle = GroundTruthOracle(gt_arena, block_rows=65536,
+                                   query_batch=1024)
+        truth = compute_truth_sample(oracle, corpus, world, workload, TOPK,
+                                     recall_sample=None)
+        say(f"exact {metric} oracle ({len(truth)} queries, float32 on the "
+            f"card): {time.perf_counter() - t0:.1f} s")
+        del oracle, gt_arena
+        torch.cuda.empty_cache()
+        return truth
+
+    def batch_operands(arena, workload, world, metric):
+        quant = arena.quant
+        qv = workload.vectors[:BATCH]
+        if metric == "l2":
+            q8, _ = quant.quantize_queries(qv, with_norms=False)
+        else:
+            q8, _, _ = quant.quantize_queries_ip(
+                qv, cosine=metric == "cosine")
+        qbits = np.ascontiguousarray(
+            world.user_masks[workload.user_ids[:BATCH]]).view(np.int32)
+        return (torch.from_numpy(q8).to(device), quant.vectors_q,
+                quant.norms_q, arena.role_bits,
+                torch.from_numpy(qbits).to(device))
+
+    # ---- the SIFT path: data, phase 3, phase 4
     t0 = time.perf_counter()
     corpus, world, workload = make_scenario(n=N_ROWS, num_queries=N_QUERIES,
                                             topk=TOPK, seed=0)
     arena = build_device_arena(corpus, world, device=device,
                                block_rows=BLOCK_ROWS, dtype="int8")
-    say(f"data: {corpus.n} x {corpus.dim}, {world.num_roles} roles, "
+    say(f"SIFT data: {corpus.n} x {corpus.dim}, {world.num_roles} roles, "
         f"{world.num_users} users, {N_QUERIES} queries, arena "
-        f"{arena.n_padded} rows: {time.perf_counter() - t0:.1f} s")
+        f"{arena.n_padded} rows: {time.perf_counter() - t0:.1f} s; workload "
+        f"hash {digest(workload.vectors, workload.user_ids)}")
 
-    # ---- 3. kernels against their plain versions, main-path geometry
-    quant = arena.quant
-    group = 128
-    q8, _ = quant.quantize_queries(workload.vectors[:BATCH],
-                                   with_norms=False)
-    q8 = torch.from_numpy(q8).to(device)
-    qbits = torch.from_numpy(np.ascontiguousarray(
-        world.user_masks[workload.user_ids[:BATCH]]).view(np.int32)).to(device)
-    scan_args = (q8, quant.vectors_q, quant.norms_q, arena.role_bits, qbits,
-                 group, "l2", quant.score_shift)
-    nsub, t = 32, 16
-    n_groups = arena.n_padded // group
-    if not merge.merge_supported(n_groups, TOPK, nsub, t):
-        fail(f"the merge gate refuses the main-path shape ({n_groups} "
+    scan_args = (*batch_operands(arena, workload, world, "l2"), GROUP, "l2",
+                 arena.quant.score_shift)
+    n_groups = arena.n_padded // GROUP
+    if not merge_supported(n_groups, TOPK):
+        fail(f"the merge gate refuses the SIFT path's shape ({n_groups} "
              f"groups, k {TOPK})")
-    keep = 8 * ((TOPK + 7) // 8)
     packed = scan_int8.int8_group_minima(*scan_args)
     packed_plain = scan_int8.int8_group_minima_plain(*scan_args)
-    y, meta = merge.extract_pairs(packed, nsub, t)
-    y_plain, meta_plain = merge.extract_pairs_plain(packed, nsub, t)
-    ys, gs = merge.bitonic_pairs(y, meta, keep)
-    ys_plain, gs_plain = merge.bitonic_pairs_plain(y, meta, keep)
     torch.cuda.synchronize()
-
-    empty = scan_int8.EMPTY_I32
-    checks = {
-        "scan_int8": torch.equal(packed, packed_plain),
-        "merge_extract": torch.equal(y, y_plain) and torch.equal(
-            meta[y < empty], meta_plain[y < empty]),
-        "merge_bitonic": torch.equal(ys, ys_plain) and torch.equal(
-            gs[ys < empty], gs_plain[ys < empty]),
-    }
-    errs = {
-        "scan_int8": max_abs_err(packed, packed_plain),
-        "merge_extract": max_abs_err(y, y_plain),
-        "merge_bitonic": max_abs_err(ys, ys_plain),
-    }
-    t_kernel = {
-        "scan_int8": cuda_ms(lambda: scan_int8.int8_group_minima(*scan_args), 10),
-        "merge_extract": cuda_ms(lambda: merge.extract_pairs(packed, nsub, t), 10),
-        "merge_bitonic": cuda_ms(lambda: merge.bitonic_pairs(y, meta, keep), 10),
-    }
-    t_plain = {
-        "scan_int8": cuda_ms(
-            lambda: scan_int8.int8_group_minima_plain(*scan_args), 3),
-        "merge_extract": cuda_ms(
-            lambda: merge.extract_pairs_plain(packed, nsub, t), 3),
-        "merge_bitonic": cuda_ms(
-            lambda: merge.bitonic_pairs_plain(y, meta, keep), 3),
-    }
-    say(f"kernel vs plain at Q={BATCH} x {arena.n_padded} rows, group "
-        f"{group}, nsub {nsub}, t {t}, keep {keep} ({smi}); tolerance 0: "
-        "values bit-identical, merge positions identical where the value "
-        "is a candidate:")
-    for name in checks:
-        say(f"  {name:14s} identical={checks[name]} max_abs_err="
-            f"{errs[name]} kernel {t_kernel[name]:.3f} ms, plain "
-            f"{t_plain[name]:.3f} ms")
-    bad = [name for name, ok in checks.items() if not ok]
-    if bad:
-        fail(f"kernels disagree with their plain versions: {bad}")
-    del packed_plain, y_plain, meta_plain, ys_plain, gs_plain
+    result["scan_int8"] = (
+        torch.equal(packed, packed_plain), max_abs_err(packed, packed_plain),
+        cuda_ms(lambda: scan_int8.int8_group_minima(*scan_args), 10),
+        cuda_ms(lambda: scan_int8.int8_group_minima_plain(*scan_args), 3))
+    del packed_plain
+    merges, keep = check_merge(packed, TOPK)
+    result.update(merges)
+    report(f"kernel vs plain at Q={BATCH} x {arena.n_padded} rows x d_pad "
+           f"128, group {GROUP}, nsub 32, t 16, keep {keep} ({smi}); "
+           "tolerance 0: values bit-identical, merge positions identical "
+           "where the value is a candidate:",
+           {k: result[k] for k in ("scan_int8", *merges)})
+    del packed
     torch.cuda.empty_cache()
 
-    # ---- 4. the main path at full size
-    t0 = time.perf_counter()
-    gt_arena = build_device_arena(corpus, world, device=device,
-                                  block_rows=65536, dtype="float32")
-    oracle = GroundTruthOracle(gt_arena, block_rows=65536, query_batch=1024)
-    truth = compute_truth_sample(oracle, corpus, world, workload, TOPK,
-                                 recall_sample=None)
-    say(f"exact oracle ({len(truth)} queries, float32 on the card): "
-        f"{time.perf_counter() - t0:.1f} s")
-    del oracle, gt_arena
-    torch.cuda.empty_cache()
-
-    cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, batch=BATCH,
-                         topk=TOPK)
-
-    _build.reset_launches()
-    t0 = time.perf_counter()
+    truth = oracle_truth(corpus, world, workload, "l2")
+    say(f"SIFT ground-truth hash {digest(truth)}")
     searcher = build_searcher("rls", corpus, world, arena, cfg)
-    res = run_benchmark(searcher, corpus, world, workload, None, k=TOPK,
-                        warmup_runs=2, timed_batches=64, timed_passes=8,
-                        recall_sample=None, truth=truth)
-    launches = dict(_build.LAUNCHES)
-    say(f"main path ({time.perf_counter() - t0:.1f} s, {smi}): recall@{TOPK} "
-        f"{res.avg_recall}, {res.qps} QPS over {N_QUERIES} queries, "
-        f"batch-1 p50 {res.p50_ms} ms p95 {res.p95_ms} ms, group "
-        f"{searcher.partitions[0].index.group}, launches {launches}")
-    if res.avg_recall < RECALL_FLOOR:
-        fail(f"recall {res.avg_recall:.4f} < {RECALL_FLOOR}")
-    if searcher.partitions[0].index.group != group:
-        fail(f"the index chose group {searcher.partitions[0].index.group}, "
-             f"not the main path's {group}")
-    idle = [name for name, n in launches.items() if n == 0]
-    if idle:
-        fail(f"the main path never launched {idle}")
+    launches_sift = drive_path(
+        "SIFT (1M x 128, l2)", searcher, corpus, world, workload, truth,
+        arena, ("scan_int8", "merge_extract", "merge_bitonic"), smi)
+    # free the SIFT arrays before the 768-d corpus (3 GB of float32)
+    del corpus, world, workload, arena, truth, searcher, scan_args
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # every returned row exists and is readable by the querying user
-    _, ids = searcher.search_batch(workload.vectors[:BATCH],
-                                   workload.user_ids[:BATCH],
-                                   world.user_masks, TOPK)
-    if ids.shape != (BATCH, TOPK) or ids.min() < -1 or ids.max() >= corpus.n:
-        fail(f"result ids out of range: shape {ids.shape}, "
-             f"[{ids.min()}, {ids.max()}]")
-    masks = world.user_masks[workload.user_ids[:BATCH]]
-    rows = arena.host_bits[np.maximum(ids, 0)]
-    readable = (rows & masks[:, None, :]).any(axis=2) | (ids < 0)
-    if not readable.all():
-        fail(f"{int((~readable).sum())} returned rows are not readable by "
-             "their users")
-    say(f"permissions: all {int((ids >= 0).sum())} returned rows readable")
+    # ---- the 768-d path: data, phase 3b, phase 4b
+    t0 = time.perf_counter()
+    corpus, world, workload = make_scenario(n=N_ROWS, num_queries=N_QUERIES,
+                                            topk=TOPK, seed=0,
+                                            dataset="cohere")
+    t_data = time.perf_counter() - t0
+    arena = build_device_arena(corpus, world, device=device,
+                               block_rows=BLOCK_ROWS, dtype="int8",
+                               metric="cosine")
+    shift = arena.quant.score_shift
+    say(f"cohere data: {corpus.n} x {corpus.dim}, {N_QUERIES} queries: "
+        f"{t_data:.1f} s; cosine int8 arena {arena.n_padded} rows x d_pad "
+        f"{arena.quant.d_pad}, score shift {shift}: "
+        f"{time.perf_counter() - t0 - t_data:.1f} s; workload hash "
+        f"{digest(workload.vectors, workload.user_ids)}")
+    if shift != 3:
+        fail(f"score shift {shift} at d_pad {arena.quant.d_pad}, not 3")
+
+    wide_args = (*batch_operands(arena, workload, world, "cosine"), GROUP,
+                 "ip", shift)
+    kk = TOPK + RERANK_MARGIN
+    if not merge_supported(arena.n_padded // GROUP, kk):
+        fail(f"the merge gate refuses the 768-d path's shape (k {kk})")
+    packed = scan_int8.int8_group_minima_wide(*wide_args)
+    packed_plain = scan_int8.int8_group_minima_wide_plain(*wide_args)
+    torch.cuda.synchronize()
+    result["scan_int8_wide"] = (
+        torch.equal(packed, packed_plain), max_abs_err(packed, packed_plain),
+        cuda_ms(lambda: scan_int8.int8_group_minima_wide(*wide_args), 10),
+        cuda_ms(lambda: scan_int8.int8_group_minima_wide_plain(*wide_args),
+                3))
+    del packed_plain
+    merges_kk, keep = check_merge(packed, kk)
+    report(f"kernel vs plain at Q={BATCH} x {arena.n_padded} rows x d_pad "
+           f"{arena.quant.d_pad}, ip, shift {shift}, group {GROUP}; merge at "
+           f"kk {kk}, keep {keep} ({smi}); tolerance 0 as above:",
+           {"scan_int8_wide": result["scan_int8_wide"], **merges_kk})
+    for k, (ok, err, _, _) in merges_kk.items():    # one row per kernel
+        result[k] = (result[k][0] and ok, max(result[k][1], err),
+                     *result[k][2:])
+    del packed, wide_args
+    torch.cuda.empty_cache()
+
+    truth = oracle_truth(corpus, world, workload, "cosine")
+    say(f"cohere ground-truth hash {digest(truth)}")
+    searcher = build_searcher("rls", corpus, world, arena, cfg)
+    mode = searcher.partitions[0].index.rerank_mode
+    if mode != "residual4":
+        fail(f"the 768-d index reranks with {mode!r}, not 'residual4'")
+    launches_wide = drive_path(
+        "768-d (1M x 768, cosine)", searcher, corpus, world, workload, truth,
+        arena, ("scan_int8_wide", "merge_extract", "merge_bitonic"), smi)
+    launches = {k: launches_sift[k] + launches_wide[k] for k in launches_sift}
+
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "vectorsearch_rbac_tpu")]
     if loaded:
@@ -254,6 +385,8 @@ def main() -> None:
     sources = {
         "scan_int8": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
                       "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:40"),
+        "scan_int8_wide": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8_wide.cu",
+                           "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:295"),
         "merge_extract": ("vectorsearch_rbac_tpu_torch/csrc/merge.cu",
                           "vectorsearch_rbac_tpu/ops/pallas_merge.py:55"),
         "merge_bitonic": ("vectorsearch_rbac_tpu_torch/csrc/merge.cu",
@@ -261,8 +394,8 @@ def main() -> None:
     }
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": t_kernel[name], "plain_ms": t_plain[name]}
+         "launches": launches[name], "max_abs_err": result[name][1],
+         "ms": result[name][2], "plain_ms": result[name][3]}
         for name, (src, rep) in sources.items()]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

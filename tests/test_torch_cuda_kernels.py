@@ -8,9 +8,9 @@ conftest is left out):
         tests/test_torch_cuda_kernels.py
 
 The shapes here are small and deliberately ragged (query counts that fill
-no block, every group width, 1-8 bitset words, d_pad 256, the ip metric,
-a score shift, ties everywhere) to reach the corners the main-path run in
-chip_smoke.py does not."""
+no block, every group width, 1-8 bitset words, d_pad 256 and the wide
+384-768, the ip metric, score shifts, ties everywhere) to reach the
+corners the main-path runs in chip_smoke.py do not."""
 
 import numpy as np
 import pytest
@@ -64,6 +64,46 @@ def test_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group, metric,
     assert (got[:, 0] == scan_int8.MASKED_I32).all()
 
 
+@pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift", [
+    (1, 128, 384, 1, 128, "l2", 2),
+    (37, 1152, 384, 4, 8, "ip", 0),
+    (65, 1024, 512, 8, 16, "l2", 1),
+    (130, 2048, 768, 2, 32, "ip", 3),
+    (300, 1280, 768, 3, 64, "l2", 3),
+    (2048, 8192, 768, 4, 128, "ip", 3),
+])
+def test_wide_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group,
+                                        metric, shift):
+    args = _scan_inputs(np.random.default_rng(nq), dev, nq, npad, d_pad, w)
+    before = dict(_build.LAUNCHES)
+    got = scan_int8.int8_group_minima(*args, group=group, metric=metric,
+                                      score_shift=shift)
+    assert _build.LAUNCHES["scan_int8_wide"] == before["scan_int8_wide"] + 1
+    assert _build.LAUNCHES["scan_int8"] == before["scan_int8"]
+    want = scan_int8.int8_group_minima_wide_plain(
+        *args, group=group, metric=metric, score_shift=shift)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got[:, 0] == scan_int8.MASKED_I32).all()
+
+
+def test_merge_kernels_at_the_rerank_width(dev):
+    """K3 + K4 at kk = 100 + 32 (keep 136), the 768-d path's merge."""
+    p = torch.from_numpy(_packed_with_ties(np.random.default_rng(132), 8192,
+                                           200)).to(dev)
+    assert merge.merge_supported(8192, 132)
+    y, meta = merge.extract_pairs(p, 32, 16)
+    ys, gs = merge.bitonic_pairs(y, meta, 136)
+    ys_p, gs_p = merge.bitonic_pairs_plain(*merge.extract_pairs_plain(
+        p, 32, 16), 136)
+    torch.cuda.synchronize()
+    assert torch.equal(ys, ys_p)
+    cand = ys < scan_int8.EMPTY_I32
+    assert torch.equal(gs[cand], gs_p[cand])
+    vals, pos = merge.merge_topk(p, 132)
+    assert vals.shape == pos.shape == (200, 132)
+
+
 def _packed_with_ties(rng, ng, nq):
     p = rng.integers(1 << 10, (1 << 10) + 24, size=(ng, nq)).astype(np.int32)
     p = (p << 7) | rng.integers(0, 4, size=(ng, nq)).astype(np.int32)
@@ -112,13 +152,42 @@ def test_masked_topk_cuda_equals_cpu(dev):
     assert torch.equal(i.cpu(), i_c) and torch.equal(d.cpu(), d_c)
 
 
+def test_wide_search_cuda_equals_cpu(dev):
+    """The 768-d cosine index (K2, merge, residual4 rerank, ids wire) on the
+    card against the same index on the CPU (plain versions). The int8
+    stages are bit-identical; the rerank's float32 sums run in another
+    order, so the returned rows agree as sets except at near-ties."""
+    from vectorsearch_rbac_tpu_torch import build_device_arena, build_searcher
+    from vectorsearch_rbac_tpu_torch.bench import make_scenario, serving_config
+
+    corpus, w, wl = make_scenario(n=16384, num_queries=300, topk=20,
+                                  dataset="cohere")
+    cfg = serving_config(block_rows=16384, batch=128, topk=20)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        arena = build_device_arena(corpus, w, device=d, block_rows=16384,
+                                   dtype="int8", metric="cosine")
+        s = build_searcher("rls", corpus, w, arena, cfg)
+        assert s.partitions[0].index.rerank_mode == "residual4"
+        before = _build.LAUNCHES["scan_int8_wide"]
+        _, got[d.type] = s.search_batch(wl.vectors, wl.user_ids,
+                                        w.user_masks, 20)
+        assert _build.LAUNCHES["scan_int8_wide"] == before + (
+            3 if d.type == "cuda" else 0)
+    same = [len(set(a) & set(b)) for a, b in zip(got["cuda"], got["cpu"])]
+    assert np.mean(same) >= 19.9 and min(same) >= 18
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 384, 1)
-    with pytest.raises(NotImplementedError, match="wide"):
-        scan_int8.int8_group_minima(*args)
     args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 128, 9)
     with pytest.raises(ValueError):
         scan_int8.int8_group_minima(*args)
+    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 384, 9)
+    with pytest.raises(ValueError):
+        scan_int8.int8_group_minima(*args)      # the wide kernel: W > 8
+    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1000, 384, 1)
+    with pytest.raises(ValueError):
+        scan_int8.int8_group_minima(*args, group=8)   # npad % 128
     y = torch.zeros((4096, 8), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         merge.bitonic_pairs(y, y, 8)

@@ -7,9 +7,11 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import vectorsearch_rbac_tpu_torch as port
 from vectorsearch_rbac_tpu import core as ref_core
+from vectorsearch_rbac_tpu.data import cohere_like_corpus as ref_cohere_like
 from vectorsearch_rbac_tpu.data import sift_like_corpus as ref_sift_like
 from vectorsearch_rbac_tpu.rbac.generators import (
     TreeRBACGenerator as RefTreeGenerator)
@@ -18,6 +20,7 @@ from vectorsearch_rbac_tpu.rbac.world import (
 from vectorsearch_rbac_tpu.utils.config import (
     FrameworkConfig as RefFrameworkConfig)
 from vectorsearch_rbac_tpu_torch import core, rbac
+from vectorsearch_rbac_tpu_torch.ops.rerank import rebuild_query
 
 
 @pytest.mark.parametrize("n,seed", [(12_000, 0), (3_000, 7)])
@@ -104,6 +107,119 @@ def test_quantization_identical(kind):
                 assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("n,dim,seed", [(3_000, 768, 0), (1_000, 384, 3)])
+def test_cohere_like_corpus_identical(n, dim, seed):
+    want, want_pool = ref_cohere_like(num_vectors=n, dim=dim, seed=seed)
+    got, got_pool = port.cohere_like_corpus(num_vectors=n, dim=dim,
+                                            seed=seed)
+    for field in ("vectors", "doc_ids", "block_ids"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype and np.array_equal(a, b), field
+    assert got_pool.dtype == want_pool.dtype
+    assert np.array_equal(got_pool, want_pool)
+
+
+def _quant_pair(x):
+    xq, nq, scale, center, lossless, qclip = core.quantize_corpus(
+        x, core.pad_rows(len(x), 256))
+    mine = core.ArenaQuant(vectors_q=xq, norms_q=nq, scale=scale,
+                           center=center, lossless=lossless, qclip=qclip)
+    ref = ref_core.ArenaQuant(vectors_q=xq, norms_q=nq, roles8=None,
+                              scale=scale, center=center, lossless=lossless,
+                              qclip=qclip)
+    return mine, ref
+
+
+@pytest.mark.parametrize("cosine", [False, True])
+@pytest.mark.parametrize("dim", [100, 768])
+def test_ip_query_quantizers_identical(cosine, dim):
+    """quantize_queries_ip and the residual8 / residual4 codes, bit for bit
+    (the residual codes of the padding columns included)."""
+    rng = np.random.default_rng(dim)
+    x = rng.standard_normal((500, dim), dtype=np.float32)
+    q = rng.standard_normal((40, dim), dtype=np.float32) * 3.0
+    q[5] = 0.0                                  # a zero query
+    mine, ref = _quant_pair(x)
+    got, want = (mine.quantize_queries_ip(q, cosine=cosine),
+                 ref.quantize_queries_ip(q, cosine=cosine))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    q8, inv, _ = want
+    for name in ("query_residual8", "query_residual4"):
+        a = getattr(mine, name)(q, q8, inv, cosine=cosine)
+        b = getattr(ref, name)(q, q8, inv, cosine=cosine)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    r4 = mine.query_residual4(q, q8, inv, cosine=cosine)
+    assert r4.dtype == np.uint8 and r4.shape == (40, q8.shape[1] // 2)
+
+
+def test_residual4_rebuild_recovers_the_query():
+    """The nibble codes rebuild each component of the scaled query to
+    within 1/30 of an int8 step (the code's half step), the low nibble
+    being the even component: a swapped nibble order fails this."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((300, 130), dtype=np.float32)
+    q = rng.standard_normal((12, 130), dtype=np.float32)
+    mine, _ = _quant_pair(x)
+    q8, inv, _ = mine.quantize_queries_ip(q)
+    r4 = mine.query_residual4(q, q8, inv)
+    t = torch.from_numpy
+    got = rebuild_query("residual4", "ip", 130, t(q8), inv=t(inv),
+                        q_dequant=float(np.float32(mine.scale)),
+                        residual=t(r4)).numpy()
+    qs = 1.0 / (inv * mine.scale)
+    err = np.abs(got - q) * qs[:, None]         # in int8 steps
+    assert err.max() <= 1 / 30 + 1e-4, err.max()
+
+
+def test_cosine_arena_identical():
+    """The cosine arena's host arrays (rows normalized at ingest, their
+    norms, the int8 copy and its scale and center) and its bfloat16 mirror,
+    against the reference's build_device_arena."""
+    corpus, _ = port.cohere_like_corpus(num_vectors=2_000, dim=384, seed=1)
+    corpus = core.Corpus(vectors=corpus.vectors * 3.0, doc_ids=corpus.doc_ids,
+                         block_ids=corpus.block_ids)   # not unit rows
+    w = port.TreeRBACGenerator(num_users=30, num_roles=12,
+                               num_docs=corpus.num_docs, seed=2).generate()
+    ref_corpus = ref_core.Corpus(vectors=corpus.vectors,
+                                 doc_ids=corpus.doc_ids,
+                                 block_ids=corpus.block_ids)
+    want = ref_core.build_device_arena(
+        ref_corpus, RefTreeGenerator(num_users=30, num_roles=12,
+                                     num_docs=corpus.num_docs,
+                                     seed=2).generate(),
+        block_rows=1024, dtype="int8", metric="cosine")
+    got = core.build_device_arena(corpus, w, device="cpu", block_rows=1024,
+                                  dtype="int8", metric="cosine")
+    assert got.metric == want.metric == "cosine"
+    np.testing.assert_array_equal(
+        got.vectors.to(torch.float32).numpy(),
+        np.asarray(want.vectors).astype(np.float32))
+    np.testing.assert_array_equal(got.norms.numpy(), want.host_norms)
+    np.testing.assert_array_equal(got.host_bits, want.host_bits)
+    np.testing.assert_array_equal(got.quant.vectors_q.numpy(),
+                                  want.quant.host_vectors_q)
+    np.testing.assert_array_equal(got.quant.norms_q.numpy(),
+                                  want.quant.host_norms_q)
+    assert got.quant.scale == want.quant.scale
+    np.testing.assert_array_equal(got.quant.center, want.quant.center)
+    assert not got.quant.lossless and got.quant.score_shift == 2
+    mirror = core.arena_from_reference(want, "cpu")
+    assert mirror.metric == "cosine"
+    assert torch.equal(mirror.vectors, got.vectors)
+
+
+def test_quantize_corpus_row_chunks_identical(monkeypatch):
+    """The port quantizes in row chunks; with chunks that do not divide the
+    row count the output still equals the reference's whole-array code."""
+    monkeypatch.setattr(core, "_QUANT_ROWS", 97)
+    x = np.random.default_rng(6).standard_normal((500, 768),
+                                                 dtype=np.float32)
+    for a, b in zip(core.quantize_corpus(x, 512),
+                    ref_core.quantize_corpus(x, 512)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_pad_rows_and_score_shift_identical():
     for n in (1, 127, 128, 1_000_000, 1_048_577):
         for m in (128, 8192, 131072):
@@ -131,5 +247,9 @@ def test_resolve_dataset():
     want, want_pool = ref_sift_like(num_vectors=1_000, seed=3)
     assert np.array_equal(got.vectors, want.vectors)
     assert np.array_equal(pool, want_pool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.resolve_dataset("cohere", num_vectors=1_000)
+    got, pool = port.resolve_dataset("cohere", num_vectors=1_000, seed=3)
+    want, want_pool = ref_cohere_like(num_vectors=1_000, seed=3)
+    assert np.array_equal(got.vectors, want.vectors)
+    assert np.array_equal(pool, want_pool)
+    with pytest.raises(NotImplementedError, match="synthetic"):
+        port.resolve_dataset("synthetic", num_vectors=1_000)

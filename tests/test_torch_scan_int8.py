@@ -116,9 +116,25 @@ def test_cuda_tensor_never_takes_the_plain_version(prob, monkeypatch):
 
 
 def test_ip_decode_refused(prob):
-    """The ip/cosine decode needs per-query scales the port does not carry
-    yet: it refuses rather than return wrong distances."""
+    """The ip decode takes one scale or one per query, and a bias per query:
+    operands that do not match the batch, or a metric the int8 scan does
+    not score, are refused rather than broadcast into wrong distances."""
     q8, qn, x8, norms, rbits, qbits = _torch_args(prob)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        int8_masked_topk(q8, qn, x8, norms, rbits, qbits, 1.0, 10,
+    inv = torch.ones(Q - 1)
+    with pytest.raises(ValueError, match="per-query inv"):
+        int8_masked_topk(q8, None, x8, norms, rbits, qbits, inv, 10,
                          group=128, metric="ip")
+    with pytest.raises(ValueError, match="query_bias"):
+        int8_masked_topk(q8, None, x8, norms, rbits, qbits, torch.ones(Q),
+                         10, group=128, metric="ip",
+                         query_bias=torch.ones(Q + 1))
+    with pytest.raises(ValueError, match="cosine rides ip"):
+        int8_masked_topk(q8, qn, x8, norms, rbits, qbits, 1.0, 10,
+                         group=128, metric="cosine")
+    d, _ = int8_masked_topk(q8, None, x8, norms, rbits, qbits,
+                            torch.full((Q,), 0.5), 10, group=128,
+                            metric="ip", query_bias=torch.ones(Q))
+    d0, _ = int8_masked_topk(q8, None, x8, norms, rbits, qbits, 1.0, 10,
+                             group=128, metric="ip")
+    fin = torch.isfinite(d0)
+    assert torch.equal(d[fin], d0[fin] * 0.5 + 1.0)

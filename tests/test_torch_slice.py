@@ -1,12 +1,14 @@
-"""The port's RLS int8 slice end to end against the JAX reference.
+"""The port's RLS int8 slices end to end against the JAX reference.
 
-Both packages build the same small SIFT-like world from the same seeds,
-each with its own code; the port's arenas come from the reference's
-through arena_from_reference, so both compute on the same state. The
-reference runs as its own tests run it on the CPU (Pallas in interpret
-mode); the port runs its kernels' plain versions. Ids are compared per
-query with equal-distance ids as sets (torch.topk and lax.top_k order
-ties differently)."""
+Both packages build the same small worlds from the same seeds, each with
+its own code: a SIFT-like one (L2, lossless, the narrow kernel) and a
+cohere-like one (384-d unit vectors, lossy, the wide kernel and the
+float32 rerank, for cosine and L2). The port's arenas come from the
+reference's through arena_from_reference, so both compute on the same
+state. The reference runs as its own tests run it on the CPU (Pallas in
+interpret mode); the port runs its kernels' plain versions. Ids are
+compared per query with equal-distance ids as sets (torch.topk and
+lax.top_k order ties differently)."""
 
 import os
 import shutil
@@ -22,6 +24,7 @@ from vectorsearch_rbac_tpu.bench.ground_truth import (
 from vectorsearch_rbac_tpu.bench.queries import (
     generate_query_workload as ref_workload)
 from vectorsearch_rbac_tpu.core import build_device_arena as ref_arena
+from vectorsearch_rbac_tpu.data import cohere_like_corpus as ref_cohere
 from vectorsearch_rbac_tpu.data import sift_like_corpus as ref_corpus
 from vectorsearch_rbac_tpu.partition import build_searcher as ref_searcher
 from vectorsearch_rbac_tpu.rbac.generators import (
@@ -36,10 +39,11 @@ from vectorsearch_rbac_tpu_torch.ops.merge import merge_supported
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_ROWS, N_QUERIES, K, BLOCK = 16384, 128, 10, 8192
+COHERE_DIM = 384
 
 
-def _build(corpus_fn, generator, config):
-    corpus, _ = corpus_fn(num_vectors=N_ROWS, seed=0)
+def _build(corpus_fn, generator, config, **corpus_kw):
+    corpus, pool = corpus_fn(num_vectors=N_ROWS, seed=0, **corpus_kw)
     w = generator(num_users=400, num_roles=40, num_docs=corpus.num_docs,
                   h=3, b0=3, b1=3, seed=0).generate()
     cfg = config(seed=0)
@@ -47,13 +51,14 @@ def _build(corpus_fn, generator, config):
     cfg.search.batch_size = N_QUERIES
     cfg.search.block_rows = BLOCK
     cfg.search.wire_dist = "ids"
-    return corpus, w, cfg
+    return corpus, pool, w, cfg
 
 
 @pytest.fixture(scope="module")
 def world():
     """The reference's (corpus, world, workload, cfg)."""
-    corpus, w, cfg = _build(ref_corpus, RefTreeGenerator, RefFrameworkConfig)
+    corpus, _, w, cfg = _build(ref_corpus, RefTreeGenerator,
+                               RefFrameworkConfig)
     workload = ref_workload(corpus, w, num_queries=N_QUERIES, topk=K,
                             zipf_param=0, seed=1)
     return corpus, w, workload, cfg
@@ -62,10 +67,35 @@ def world():
 @pytest.fixture(scope="module")
 def port_world():
     """The port's (corpus, world, workload, cfg), built by its own code."""
-    corpus, w, cfg = _build(port.sift_like_corpus, port.TreeRBACGenerator,
-                            port.FrameworkConfig)
+    corpus, _, w, cfg = _build(port.sift_like_corpus, port.TreeRBACGenerator,
+                               port.FrameworkConfig)
     workload = generate_query_workload(corpus, w, num_queries=N_QUERIES,
                                        topk=K, zipf_param=0, seed=1)
+    return corpus, w, workload, cfg
+
+
+@pytest.fixture(scope="module")
+def cohere_world():
+    """The reference's cohere-like (corpus, world, workload, cfg), 384-d,
+    queries from the held-out pool as bench.py draws them; the f32 wire,
+    so that both sides' rerank distances come back."""
+    corpus, pool, w, cfg = _build(ref_cohere, RefTreeGenerator,
+                                  RefFrameworkConfig, dim=COHERE_DIM)
+    cfg.search.wire_dist = "f32"
+    workload = ref_workload(corpus, w, num_queries=N_QUERIES, topk=K,
+                            zipf_param=0, query_pool=pool, seed=1)
+    return corpus, w, workload, cfg
+
+
+@pytest.fixture(scope="module")
+def port_cohere_world():
+    corpus, pool, w, cfg = _build(port.cohere_like_corpus,
+                                  port.TreeRBACGenerator,
+                                  port.FrameworkConfig, dim=COHERE_DIM)
+    cfg.search.wire_dist = "f32"
+    workload = generate_query_workload(corpus, w, num_queries=N_QUERIES,
+                                       topk=K, zipf_param=0, query_pool=pool,
+                                       seed=1)
     return corpus, w, workload, cfg
 
 
@@ -85,6 +115,31 @@ def assert_same_up_to_ties(corpus, q, got, want):
         kth = dw[qi].max()
         inner = dw[qi] < kth
         assert set(want[qi][inner]) == set(got[qi][dg[qi] < kth]), qi
+
+
+def _metric_dists(corpus, q, ids, metric):
+    """Exact float64 distance of each returned row (-1 -> inf): squared L2,
+    or 1 - cos."""
+    x = corpus.vectors[np.maximum(ids, 0)].astype(np.float64)
+    q = q.astype(np.float64)[:, None, :]
+    if metric == "l2":
+        d = ((x - q) ** 2).sum(axis=2)
+    else:
+        x /= np.linalg.norm(x, axis=2, keepdims=True)
+        d = 1.0 - (x * q).sum(axis=2) / np.linalg.norm(q, axis=2)
+    return np.where(ids < 0, np.inf, d)
+
+
+def assert_same_up_to_near_ties(got_d, got_i, want_d, want_i, atol):
+    """Both sides' float32 distances, sorted, agree to atol; the id sets
+    agree except ids whose distance lies within atol of the k-th (there
+    float32 sums taken in another order may pick another row)."""
+    np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=atol)
+    for q in range(len(got_i)):
+        both = set(got_i[q]) & set(want_i[q])
+        kth = want_d[q, -1]
+        for d, i in [*zip(got_d[q], got_i[q]), *zip(want_d[q], want_i[q])]:
+            assert i in both or abs(d - kth) <= atol, (q, i, d, kth)
 
 
 def test_workload_copy_is_identical(world, port_world):
@@ -112,6 +167,59 @@ def test_rls_ids_match_reference(world, port_world):
     assert got.shape == want.shape == (N_QUERIES, K)
     assert (got >= 0).sum() > 0.9 * got.size
     assert_same_up_to_ties(corpus, workload.vectors, got, want)
+
+
+@pytest.mark.parametrize("metric,mode", [("cosine", "residual4"),
+                                         ("l2", "dequant")])
+def test_cohere_rls_ids_match_reference(cohere_world, port_cohere_world,
+                                        metric, mode):
+    """The 384-d slice: the wide scan, the merge at kk = k + 32 and the
+    mode the reference picks by default on wide rows. The f32 wire carries
+    both sides' rerank distances: they agree to 1e-5 (float32 dots of 384
+    terms in another summation order), the ids as sets up to near-ties."""
+    corpus, w, workload, cfg = cohere_world
+    ra = ref_arena(corpus, w, block_rows=BLOCK, dtype="int8", metric=metric)
+    ref = ref_searcher("rls", corpus, w, ra, cfg)
+    want_d, want_i = ref.search_batch(workload.vectors, workload.user_ids,
+                                      w.user_masks, K)
+
+    p_corpus, p_w, p_workload, p_cfg = port_cohere_world
+    searcher = build_searcher("rls", p_corpus, p_w,
+                              arena_from_reference(ra, "cpu"), p_cfg)
+    index = searcher.partitions[0].index
+    assert index.wide and index.rerank and index.rerank_mode == mode
+    assert ref.partitions[0].index.rerank_mode == mode
+    assert index.group == ref.partitions[0].index.group == 8
+    got_d, got_i = searcher.search_batch(p_workload.vectors,
+                                         p_workload.user_ids, p_w.user_masks,
+                                         K)
+    assert got_i.shape == want_i.shape == (N_QUERIES, K)
+    assert (got_i >= 0).sum() > 0.9 * got_i.size
+    assert_same_up_to_near_ties(got_d, got_i, want_d, want_i, atol=1e-5)
+
+
+def test_cosine_oracle_matches_reference(cohere_world, port_cohere_world,
+                                         tmp_path):
+    corpus, w, workload, _ = cohere_world
+    ra = ref_arena(corpus, w, block_rows=BLOCK, dtype="float32",
+                   with_aug=False, metric="cosine")
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    want = RefOracle(ra, cache_dir=str(ref_dir), block_rows=BLOCK,
+                     query_batch=64).compute(corpus, w, workload, K)
+    p_corpus, p_w, p_workload, _ = port_cohere_world
+    oracle = GroundTruthOracle(arena_from_reference(ra, "cpu"),
+                               cache_dir=str(port_dir), block_rows=BLOCK,
+                               query_batch=64)
+    got = oracle.compute(p_corpus, p_w, p_workload, K)
+    # exact float64 cosine distances; the two float32 oracles may swap
+    # only rows within 1e-6 of the k-th
+    dg = _metric_dists(corpus, workload.vectors, got, "cosine")
+    dw = _metric_dists(corpus, workload.vectors, want, "cosine")
+    assert_same_up_to_near_ties(np.sort(dg, axis=1), got,
+                                np.sort(dw, axis=1), want, atol=1e-6)
+    # the cache key is the reference's, metric included
+    (cached,) = port_dir.glob("gt_*.npy")
+    assert [cached.name] == [p.name for p in ref_dir.glob("gt_*.npy")]
 
 
 def test_oracle_matches_reference(world, port_world, tmp_path):
@@ -160,6 +268,16 @@ arena = build_device_arena(corpus, w, device="cpu", block_rows=16384,
 s = build_searcher("rls", corpus, w, arena, cfg)
 _, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
 assert ids.shape == (8, 5), ids.shape
+# the 768-d cosine path: wide scan, merge, residual4 rerank
+corpus, w, wl = make_scenario(n=16384, num_queries=8, topk=5,
+                              dataset="cohere")
+arena = build_device_arena(corpus, w, device="cpu", block_rows=16384,
+                           dtype="int8", metric="cosine")
+s = build_searcher("rls", corpus, w, arena, cfg)
+index = s.partitions[0].index
+assert index.wide and index.rerank_mode == "residual4", index.rerank_mode
+_, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
+assert ids.shape == (8, 5) and (ids >= 0).all(), ids
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = [m for m in sys.modules if m.split(".")[0] == "vectorsearch_rbac_tpu"]
 assert not ref, ref
@@ -168,9 +286,10 @@ print("JAX_FREE_OK")
 
 
 def test_port_never_imports_jax():
-    """Import + build + search, through the entry points chip_smoke.py
-    uses, in a fresh interpreter (this one has jax loaded by
-    tests/conftest.py): neither jax nor the reference package loads."""
+    """Import + build + search (the SIFT-like L2 path and the 768-d cosine
+    path), through the entry points chip_smoke.py uses, in a fresh
+    interpreter (this one has jax loaded by tests/conftest.py): neither jax
+    nor the reference package loads."""
     out = subprocess.run([sys.executable, "-c", _JAX_FREE], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -195,8 +314,12 @@ def test_bench_entry_refuses_unported_and_cpu():
     from vectorsearch_rbac_tpu_torch.bench.__main__ import parse_args
 
     assert parse_args([]).strategy == "rls"
-    with pytest.raises(SystemExit):
-        parse_args(["--strategy", "role"])
+    args = parse_args(["--dataset", "cohere", "--metric", "cosine"])
+    assert (args.dataset, args.metric) == ("cohere", "cosine")
+    for off in (["--strategy", "role"], ["--dataset", "synthetic"],
+                ["--metric", "l1"], ["--dtype", "float32"]):
+        with pytest.raises(SystemExit):
+            parse_args(off)
     out = subprocess.run([sys.executable, "-m",
                           "vectorsearch_rbac_tpu_torch.bench", "--smoke"],
                          cwd=REPO, capture_output=True, text=True,

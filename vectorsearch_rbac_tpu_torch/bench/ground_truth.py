@@ -3,7 +3,7 @@
 Counterpart of vectorsearch_rbac_tpu/bench/ground_truth.py: an exact
 masked scan over the whole arena on the port's FlatIndex (float32, TF32
 off), cached on disk under the reference's content-hash key of (corpus,
-world, workload, k).
+world, workload, k, metric).
 """
 
 from __future__ import annotations
@@ -25,10 +25,13 @@ logger = get_logger("ground_truth")
 
 
 def _workload_digest(corpus: Corpus, world: RBACWorld,
-                     workload: QueryWorkload, k: int) -> str:
-    """The reference's cache key for squared L2 (its other metrics prefix
-    the metric name)."""
+                     workload: QueryWorkload, k: int,
+                     metric: str = "l2") -> str:
+    """The reference's cache key: other metrics than l2 prefix their name,
+    so l2 keys stay as they were."""
     h = hashlib.sha256()
+    if metric != "l2":
+        h.update(metric.encode())
     # ALL query vectors + the full user assignment
     h.update(np.ascontiguousarray(workload.vectors, dtype=np.float32).tobytes())
     h.update(np.ascontiguousarray(workload.user_ids).tobytes())
@@ -66,7 +69,8 @@ class GroundTruthOracle:
         cache_path = None
         if self.cache_dir:
             os.makedirs(self.cache_dir, exist_ok=True)
-            digest = _workload_digest(corpus, world, workload, k)
+            digest = _workload_digest(corpus, world, workload, k,
+                                      self._index.metric)
             cache_path = os.path.join(self.cache_dir, f"gt_{digest}.npy")
             if os.path.exists(cache_path):
                 logger.info("ground truth cache hit: %s", cache_path)

@@ -1,11 +1,12 @@
 """The benchmark scenario: bench.py's world and serving configuration.
 
-One place for what bench.py builds by default, so the port's bench entry,
-its profile and chip_smoke.py run the same scenario: a SIFT-shaped corpus
-(the seeded `sift_like_corpus` twin when no SIFT file is present), the
-tree RBAC world of bench.py:128 (100 roles, 10k users), uniform queries
-drawn from the corpus's held-out pool, and the rls / flat_approx / int8
-serving configuration with the ids wire.
+One place for what bench.py builds, so the port's bench entry, its profile
+and chip_smoke.py run the same scenario: the dataset's seeded twin
+(`sift_like_corpus` for sift1m, `cohere_like_corpus` for cohere, as the
+reference resolves them when no file is present), the tree RBAC world of
+bench.py:128 (100 roles, 10k users), uniform queries drawn from the
+corpus's held-out pool, and the rls / flat_approx / int8 serving
+configuration with the ids wire.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """The corpus, its int8 quantization, and the device arena.
 
 Counterpart of vectorsearch_rbac_tpu/core.py. The host half (`Corpus`,
-`pad_rows`, `score_shift_for`, `quantize_corpus` and the query quantizer)
-is a copy of the reference's numpy code, so that the port runs where the
-JAX package is absent; tests/test_torch_host.py holds it equal to the
-reference. The device half (`DeviceArena`, `build_device_arena`) puts the
-tensors on an explicit torch device.
+`pad_rows`, `score_shift_for`, `quantize_corpus`, the query quantizers and
+the cosine normalization at ingest) is a copy of the reference's numpy
+code, so that the port runs where the JAX package is absent;
+tests/test_torch_host.py holds it equal to the reference. The device half
+(`DeviceArena`, `build_device_arena`) puts the tensors on an explicit
+torch device.
 
 Role bitsets stay (Npad, W) on the device as an int32 view of the uint32
 words (torch's uint32 support for bitwise ops is thin). The int8 role
@@ -80,11 +81,19 @@ def score_shift_for(d_pad: int, qclip: int) -> int:
     return s
 
 
+_QUANT_ROWS = 65536   # quantize_corpus works in row chunks of this size
+
+
 def quantize_corpus(vectors: np.ndarray, npad: int):
     """Symmetric int8 quantization. Returns (x_q (npad, d_pad) int8,
     norms (npad,) int32 ||x_q||^2, scale, center (d,), lossless, qclip).
     Integer-valued corpora in [0, 255] (the SIFT family) take center 128
-    and scale 1, which is exact."""
+    and scale 1, which is exact.
+
+    Every step after the column range is row-local, so the port runs it in
+    row chunks: the same output as the reference's whole-array code, with
+    host temporaries of one chunk instead of several corpus-sized ones (the
+    reference's int64 copy alone is 6.3 GB at 1M x 768)."""
     n, d = vectors.shape
     d_pad = ((d + 127) // 128) * 128
     lo = vectors.min(axis=0) if n else np.zeros(d, np.float32)
@@ -102,11 +111,14 @@ def quantize_corpus(vectors: np.ndarray, npad: int):
         qclip = 127
         scale, lossless = qclip / span, False
     xq = np.zeros((npad, d_pad), dtype=np.int8)
-    xs = (vectors - center[None, :]) * scale
-    xq[:n, :d] = np.clip(np.rint(xs), -qclip, min(qclip, 127)).astype(np.int8)
     norms = np.zeros(npad, dtype=np.int32)
-    x64 = xq[:n].astype(np.int64)
-    norms[:n] = np.einsum("nd,nd->n", x64, x64).astype(np.int32)
+    for r0 in range(0, n, _QUANT_ROWS):
+        r1 = min(r0 + _QUANT_ROWS, n)
+        xs = (vectors[r0:r1] - center[None, :]) * scale
+        xq[r0:r1, :d] = np.clip(np.rint(xs), -qclip,
+                                min(qclip, 127)).astype(np.int8)
+        x64 = xq[r0:r1].astype(np.int64)
+        norms[r0:r1] = np.einsum("nd,nd->n", x64, x64).astype(np.int32)
     return xq, norms, scale, center, lossless, qclip
 
 
@@ -147,6 +159,74 @@ class ArenaQuant:
         q64 = qq.astype(np.int64)
         return qq, np.einsum("qd,qd->q", q64, q64).astype(np.int32)
 
+    def quantize_queries_ip(self, q: np.ndarray, cosine: bool = False
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """ip/cosine query quantization. Returns (q8 (Q, d_pad) int8, inv
+        (Q,) float32, bias (Q,) float32) such that the kernel's -q8.x8 score
+        times inv[q] plus bias[q] is the metric's distance. Every query
+        keeps its own scale (one outlier component would otherwise coarsen
+        a whole batch's codes); the corpus center contributes the constant
+        -q.center, folded into bias, and cosine normalizes q first and adds
+        the +1 of 1 - cos."""
+        qf = np.asarray(q, dtype=np.float32)
+        if cosine:
+            qf = qf / np.maximum(
+                np.linalg.norm(qf, axis=1, keepdims=True), 1e-30)
+        clip = min(self.qclip, 127)
+        qs = clip / np.maximum(np.max(np.abs(qf), axis=1), 1e-30)  # (Q,)
+        qq = np.clip(np.rint(qf * qs[:, None]), -self.qclip,
+                     clip).astype(np.int8)
+        if qq.shape[1] < self.d_pad:
+            qq = np.concatenate([qq, np.zeros(
+                (qq.shape[0], self.d_pad - qq.shape[1]), np.int8)], axis=1)
+        inv = (1.0 / (qs * self.scale)).astype(np.float32)
+        bias = -(qf @ self.center.astype(np.float64)).astype(np.float32)
+        if cosine:
+            bias = bias + 1.0
+        return qq, inv, bias
+
+    def query_residual8(self, q: np.ndarray, q8: np.ndarray,
+                        inv: np.ndarray, cosine: bool = False) -> np.ndarray:
+        """(Q, d) float queries and their int8 codes -> (Q, d_pad) int8
+        residual codes r8 = round((q * qs - q8) * 254), from which the
+        device rebuilds a ~16-bit fixed-point query (q8 + r8 / 254) / qs."""
+        qf = np.asarray(q, dtype=np.float32)
+        if cosine:
+            qf = qf / np.maximum(
+                np.linalg.norm(qf, axis=1, keepdims=True), 1e-30)
+        # qs from quantize_queries_ip: inv = 1 / (qs * scale)
+        qs = 1.0 / (np.asarray(inv, dtype=np.float32) * self.scale)
+        d = qf.shape[1]
+        r = qf * qs[:, None] - q8[:, :d].astype(np.float32)
+        r8 = np.clip(np.rint(r * 254.0), -127, 127).astype(np.int8)
+        if d < q8.shape[1]:
+            r8 = np.concatenate(
+                [r8, np.zeros((r8.shape[0], q8.shape[1] - d), np.int8)],
+                axis=1)
+        return r8
+
+    def query_residual4(self, q: np.ndarray, q8: np.ndarray,
+                        inv: np.ndarray, cosine: bool = False) -> np.ndarray:
+        """Nibble-packed residual codes: (Q, d_pad // 2) uint8, each byte
+        two 4-bit codes (component 2j in the low nibble, 2j+1 in the high),
+        code = clip(round(r * 15), -8, 7) + 8 with r = q * qs - q8 in
+        [-0.5, 0.5]. The device rebuilds q8 + (code - 8) / 15, a ~12-bit
+        query at half the residual8 codes' bytes."""
+        qf = np.asarray(q, dtype=np.float32)
+        if cosine:
+            qf = qf / np.maximum(
+                np.linalg.norm(qf, axis=1, keepdims=True), 1e-30)
+        qs = 1.0 / (np.asarray(inv, dtype=np.float32) * self.scale)
+        d = qf.shape[1]
+        d_pad = q8.shape[1]
+        r = qf * qs[:, None] - q8[:, :d].astype(np.float32)
+        code = (np.clip(np.rint(r * 15.0), -8, 7) + 8).astype(np.uint8)
+        if d < d_pad:
+            code = np.concatenate(
+                [code, np.full((code.shape[0], d_pad - d), 8, np.uint8)],
+                axis=1)
+        return (code[:, 0::2] | (code[:, 1::2] << 4)).astype(np.uint8)
+
 
 @dataclass(frozen=True)
 class DeviceArena:
@@ -160,7 +240,10 @@ class DeviceArena:
     doc_ids: np.ndarray
     block_ids: np.ndarray
     host_bits: np.ndarray     # (Npad, W) uint32 host mirror of role_bits
-    quant: Optional[ArenaQuant] = None   # distances are squared L2
+    quant: Optional[ArenaQuant] = None
+    # "l2" squared L2, "ip" negative inner product, "cosine" 1 - cos: the
+    # rows are L2-normalized at ingest, so cosine scores on the ip path
+    metric: str = "l2"
 
     @property
     def n_padded(self) -> int:
@@ -184,8 +267,11 @@ def _bits_tensor(bits: np.ndarray, device) -> torch.Tensor:
                 device)
 
 
+METRICS = ("l2", "ip", "cosine")
+
+
 def _assemble(vecs, norms, bits, n, doc_ids, block_ids, quant_parts,
-              device) -> DeviceArena:
+              metric, device) -> DeviceArena:
     quant = None
     if quant_parts is not None:
         xq, nq_, scale, center, lossless, qclip = quant_parts
@@ -200,28 +286,34 @@ def _assemble(vecs, norms, bits, n, doc_ids, block_ids, quant_parts,
         norms=_put(norms, device),
         role_bits=_bits_tensor(bits, device),
         n=int(n), doc_ids=doc_ids, block_ids=block_ids, host_bits=bits,
-        quant=quant)
+        quant=quant, metric=metric)
 
 
 def build_device_arena(corpus: Corpus, world: RBACWorld, *, device,
-                       block_rows: int = 16384,
-                       dtype: str = "float32") -> DeviceArena:
-    """Upload the corpus once, padded to pad_rows(n, block_rows) rows, for
-    squared L2 (ip/cosine arenas are ROADMAP slice 2). dtype "int8" adds
-    the quantized serving copy (ArenaQuant)."""
+                       block_rows: int = 16384, dtype: str = "float32",
+                       metric: str = "l2") -> DeviceArena:
+    """Upload the corpus once, padded to pad_rows(n, block_rows) rows.
+    dtype "int8" adds the quantized serving copy (ArenaQuant). metric
+    "l2" | "ip" | "cosine"; cosine rows are L2-normalized here, once."""
     if dtype not in ("float32", "int8"):
         raise NotImplementedError(f"arena dtype {dtype!r} is not ported")
+    if metric not in METRICS:
+        raise NotImplementedError(f"metric {metric!r}: the port serves "
+                                  f"{METRICS}")
     n, d = corpus.n, corpus.dim
     npad = pad_rows(max(n, 1), block_rows)
     vecs = np.zeros((npad, d), dtype=np.float32)
     vecs[:n] = corpus.vectors
+    if metric == "cosine" and n:
+        nrm = np.linalg.norm(vecs[:n], axis=1, keepdims=True)
+        vecs[:n] /= np.maximum(nrm, 1e-30)
     norms = np.zeros(npad, dtype=np.float32)
     norms[:n] = np.einsum("nd,nd->n", vecs[:n], vecs[:n], dtype=np.float64)
     bits = np.zeros((npad, world.words), dtype=np.uint32)
     bits[:n] = corpus.vector_role_bits(world)
     quant_parts = quantize_corpus(vecs[:n], npad) if dtype == "int8" else None
     return _assemble(vecs, norms, bits, n, corpus.doc_ids, corpus.block_ids,
-                     quant_parts, device)
+                     quant_parts, metric, device)
 
 
 def arena_from_reference(ref, device) -> DeviceArena:
@@ -229,12 +321,13 @@ def arena_from_reference(ref, device) -> DeviceArena:
     (host_vectors, host_norms, host_bits and the quant's host_vectors_q,
     host_norms_q, scale, center, lossless, qclip), so that both packages
     compute on the same state."""
-    if ref.metric != "l2":
-        raise NotImplementedError(
-            f"metric {ref.metric!r}: ip/cosine arenas are ROADMAP slice 2")
+    if ref.metric not in METRICS:
+        raise NotImplementedError(f"metric {ref.metric!r}: the port serves "
+                                  f"{METRICS}")
     q = ref.quant
     quant_parts = None if q is None else (
         q.host_vectors_q, q.host_norms_q, q.scale, q.center, q.lossless,
         q.qclip)
     return _assemble(ref.host_vectors, ref.host_norms, ref.host_bits, ref.n,
-                     ref.doc_ids, ref.block_ids, quant_parts, device)
+                     ref.doc_ids, ref.block_ids, quant_parts, ref.metric,
+                     device)

@@ -1,11 +1,12 @@
-"""The main path's corpus: the seeded SIFT-like twin.
+"""The seeded corpora: the SIFT-like and the cohere-like twins.
 
-A copy of vectorsearch_rbac_tpu/data/datasets.py `sift_like_corpus` and
-the SIFT branches of `resolve_dataset`, so that the port runs where the
-JAX package is absent; tests/test_torch_host.py holds the arrays equal to
-the reference's for the same seed. Loading SIFT files (HDF5, .mat) and
-the cohere-like and synthetic float corpora come with the slices that
-serve them (ROADMAP.md).
+A copy of vectorsearch_rbac_tpu/data/datasets.py `sift_like_corpus`,
+`cohere_like_corpus` and the SIFT and cohere/wikipedia branches of
+`resolve_dataset`, so that the port runs where the JAX package is absent;
+tests/test_torch_host.py holds the arrays equal to the reference's for the
+same seed. Dataset files (SIFT HDF5/.mat, embedding dumps) are not read:
+the reference also falls back to these twins when no file is present. The
+float synthetic corpus comes with the slice that serves it (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -58,13 +59,29 @@ def sift_like_corpus(num_vectors: int = 1_000_000, dim: int = 128,
             vecs[num_vectors:])
 
 
+def cohere_like_corpus(num_vectors: int = 1_000_000, dim: int = 768,
+                       blocks_per_doc: int = SIFT_DOCUMENT_VECTOR_COUNT,
+                       seed: int = 0) -> Tuple[Corpus, np.ndarray]:
+    """Cohere wikipedia-22-12-shaped synthetic data: unit-normalized dense
+    embeddings (768-d). Returns (corpus, query_pool), the pool being 10k
+    held-out vectors (a copy, so the full draw can be freed)."""
+    rng = np.random.default_rng(seed)
+    total = num_vectors + 10_000
+    vecs = rng.standard_normal((total, dim), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    corpus = _group_into_documents(vecs[:num_vectors], blocks_per_doc)
+    return corpus, vecs[num_vectors:].copy()
+
+
 def resolve_dataset(name: str, num_vectors: int = 1_000_000,
                     seed: int = 0) -> Tuple[Corpus, np.ndarray]:
-    """(corpus, query_pool) for a dataset name. "sift", "sift1m" and
-    "sift10m" give the seeded SIFT-like twin, as the reference does when
-    no dataset file is given."""
+    """(corpus, query_pool) for a dataset name, as the reference resolves it
+    when no dataset file is given: "sift", "sift1m" and "sift10m" give the
+    SIFT-like twin, "cohere" and "wikipedia" the cohere-like one."""
     if name in ("sift", "sift1m", "sift10m"):
         return sift_like_corpus(num_vectors=num_vectors, seed=seed)
+    if name in ("cohere", "wikipedia"):
+        return cohere_like_corpus(num_vectors=num_vectors, seed=seed)
     raise NotImplementedError(
-        f"dataset {name!r}: the cohere-like and synthetic float corpora need "
-        "the rerank tiers (ROADMAP slice 2); dataset files are not read yet")
+        f"dataset {name!r}: the float synthetic corpus is not ported; "
+        "dataset files are not read")

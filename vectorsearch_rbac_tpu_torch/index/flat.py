@@ -21,6 +21,7 @@ class FlatIndex:
         self.block_rows = block_rows
         self.query_batch = query_batch
         self.n_rows = arena.n
+        self.metric = arena.metric
         self._arena = arena
 
     def search_deferred(self, queries: np.ndarray, query_masks: np.ndarray,
@@ -35,7 +36,8 @@ class FlatIndex:
         pending = [
             masked_scan_topk(q[s:s + self.query_batch],
                              a.vectors, a.norms, a.role_bits,
-                             m[s:s + self.query_batch], k, self.block_rows)
+                             m[s:s + self.query_batch], k, self.block_rows,
+                             self.metric)
             for s in range(0, q.shape[0], self.query_batch)]
 
         def finalize():

@@ -1,7 +1,9 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
-Every `*.cu` file under the package's `csrc/` compiles into ONE shared
-library with a plain C interface, for `sm_90a` (Hopper). The library's
+Every `*.cu` file under the package's `csrc/` compiles, one nvcc process
+per source and all of them at once, into an object for `sm_90a` (Hopper);
+the objects link into ONE shared library with a plain C interface. The
+library's
 name carries a hash of the sources, so an edited kernel never loads a
 stale build and an unchanged one builds once per checkout. The build runs
 at first use, never at import: the CPU-only test environment imports every
@@ -28,18 +30,21 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/build/kernels: listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 # Launch counts, one per kernel: a wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that it went through them.
-LAUNCHES = {"scan_int8": 0, "merge_extract": 0, "merge_bitonic": 0}
+LAUNCHES = {"scan_int8": 0, "scan_int8_wide": 0, "merge_extract": 0,
+            "merge_bitonic": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group, l2,
     # score_shift, stream
     "vsr_scan_int8": [_P] * 6 + [_I] * 7 + [_P],
+    "vsr_scan_int8_wide": [_P] * 6 + [_I] * 7 + [_P],   # same arguments
     # mins, out_y, out_m, nq, nsub, sub, t, stream
     "vsr_extract_pairs": [_P] * 3 + [_I] * 4 + [_P],
     # y, meta, out_y, out_m, nq, npc, keep, stream
@@ -80,23 +85,46 @@ def library_path() -> Path:
 
 
 def build() -> Tuple[Path, str]:
-    """Compile csrc/*.cu into the hashed library unless it exists.
-    Returns (library path, nvcc's output: ptxas's register and spill
-    report; empty when the library was already built)."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one nvcc
+    per source, all started together, then one link. Returns (library
+    path, nvcc's output: ptxas's register and spill report per source;
+    empty when the library was already built)."""
     so = library_path()
     if so.is_file():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
+                               + "".join(logs))
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               + "".join(logs))
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)   # atomic: a concurrent loader never sees half a file
-    return so, log
+    return so, "".join(logs)
 
 
 def lib() -> ctypes.CDLL:

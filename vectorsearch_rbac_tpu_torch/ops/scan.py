@@ -1,12 +1,12 @@
 """Exact RBAC-masked distance scan with top-k: the ground-truth oracle.
 
 Counterpart of vectorsearch_rbac_tpu/ops/scan.py `masked_scan_topk` in
-exact mode, for squared L2. Plain PyTorch: the reference leaves this scan
-to XLA, not to a Pallas kernel. Rows are scanned in blocks; each block
-keeps its k best admissible rows and one exact merge over all blocks'
-candidates follows, as in the reference. Float32 throughout with TF32 off,
-so on integer-valued corpora (SIFT family, |q.x| < 2^24) every score is
-exact.
+exact mode, for squared L2, negative inner product and cosine distance.
+Plain PyTorch: the reference leaves this scan to XLA, not to a Pallas
+kernel. Rows are scanned in blocks; each block keeps its k best admissible
+rows and one exact merge over all blocks' candidates follows, as in the
+reference. Float32 throughout with TF32 off, so on integer-valued corpora
+(SIFT family, |q.x| < 2^24) every score is exact.
 """
 
 from __future__ import annotations
@@ -46,10 +46,18 @@ def masked_scan_topk(
     query_bits: torch.Tensor,   # (Q, W) int32 user role masks
     k: int,
     block_rows: int = 16384,
+    metric: str = "l2",         # "l2" | "ip" | "cosine" (unit corpus rows:
+                                # core.build_device_arena normalizes them)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Return (dists (Q, k) squared L2 ascending, idx (Q, k) int32). Slots
-    with no admissible vector get dist=+inf and idx=-1."""
+    """Return (dists (Q, k) ascending in the metric's distance: squared
+    L2, -q.x, or cosine distance 1 - cos; idx (Q, k) int32). Slots with no
+    admissible vector get dist=+inf and idx=-1."""
     q = queries.to(torch.float32)
+    if metric == "cosine":
+        q = q / torch.clamp_min(
+            torch.linalg.vector_norm(q, dim=1, keepdim=True), 1e-30)
+    elif metric not in ("l2", "ip"):
+        raise NotImplementedError(f"metric {metric!r} is not ported")
     npad = vectors.shape[0]
     if npad % block_rows:
         raise ValueError(f"npad {npad} is not a multiple of {block_rows}")
@@ -58,7 +66,9 @@ def masked_scan_topk(
     with exact_f32_matmul():
         for off in range(0, npad, block_rows):
             xb = vectors[off:off + block_rows].to(torch.float32)
-            scores = norms[None, off:off + block_rows] - 2.0 * (q @ xb.T)
+            dots = q @ xb.T
+            scores = (norms[None, off:off + block_rows] - 2.0 * dots
+                      if metric == "l2" else -dots)
             allowed = admissible(query_bits, role_bits[off:off + block_rows])
             scores = scores.masked_fill(~allowed, torch.inf)
             bvals, bpos = torch.topk(scores, min(k, block_rows), dim=1,
@@ -69,5 +79,11 @@ def masked_scan_topk(
                            largest=False)
     idx = torch.gather(torch.cat(cand_idx, dim=1), 1, pos)
     empty = torch.isinf(vals)
-    dists = torch.where(empty, torch.inf, torch.clamp_min(vals + qn, 0.0))
+    if metric == "l2":
+        dists = torch.clamp_min(vals + qn, 0.0)
+    elif metric == "cosine":
+        dists = torch.clamp(1.0 + vals, 0.0, 2.0)
+    else:
+        dists = vals
+    dists = torch.where(empty, torch.inf, dists)
     return dists, torch.where(empty, -1, idx)

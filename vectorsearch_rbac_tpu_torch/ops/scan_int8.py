@@ -1,18 +1,21 @@
 """Fused int8 RBAC-masked scan, its decode, and the result wire.
 
 Counterpart of vectorsearch_rbac_tpu/ops/pallas_scan_int8.py. The scan
-itself is the hand-written CUDA kernel in csrc/scan_int8.cu (see the note
-there); `int8_group_minima_plain` is its plain PyTorch version, used for CPU
-tensors and as the reference the kernel is checked against on the card.
+itself is two hand-written CUDA kernels: csrc/scan_int8.cu for d_pad <= 256
+and csrc/scan_int8_wide.cu for wider rows (see the notes there), chosen by
+d_pad as the reference chooses between int8_masked_topk and
+int8_masked_topk_wide. `int8_group_minima_plain` is the plain PyTorch
+version of both (`int8_group_minima_wide_plain` names it for the wide
+kernel), used for CPU tensors and as the reference the kernels are checked
+against on the card.
 
 Admissibility is read from the (N, W) role bitsets directly, as an int32
 view of the uint32 words, not from int8 role one-hots: the kernel ANDs
 W words per pair, which is the same predicate as the TPU kernel's one-hot
 matmul (core.bits_to_onehot8 is a bit-for-bit expansion).
 
-Left out against the reference (ROADMAP.md): the wide d-split kernel
-(d_pad > 256), the admit-dedup `mask_sub_block` form, the approx/cascade
-merges, and the bf16/u8 wires.
+Left out against the reference (ROADMAP.md): the admit-dedup
+`mask_sub_block` form, the approx/cascade merges, and the bf16/u8 wires.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ from .scan import admissible, exact_f32_matmul
 LANE_MASK = 0x7F
 MASKED_I32 = 0x7F000000  # > any packed score (|score| << 7 < 2^30)
 EMPTY_I32 = 0x7E000000
-TILE_ROWS = 128          # the kernel stages 128-row tiles
-MAX_WORDS = 8            # role bitset words the kernel holds (256 roles)
+TILE_ROWS = 128          # the kernels stage 128-row tiles
+MAX_WORDS = 8            # role bitset words the kernels hold (256 roles)
+NARROW_MAX_D = 256       # wider rows take the wide kernel
 _CHUNK_ELEMS = 1 << 27   # plain version: elements per (rows, Q) temporary
+_EXACT_D = 768           # plain version: columns per float32 partial dot
 
 
 def _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
@@ -54,16 +59,18 @@ def _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
 def int8_group_minima_plain(queries_q, vectors_q, norms_q, role_bits,
                             query_bits, group: int = 128, metric: str = "l2",
                             score_shift: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the scan kernel: (n_groups, Q) int32 packed
+    """Plain PyTorch version of the scan kernels: (n_groups, Q) int32 packed
     (score << 7 | lane) group minima, 0x7F000000 where no row is admissible.
 
-    The dots run as a float32 matmul (CUDA has no int8/int32 matmul), chunked
-    over rows so (Q, Npad) never exists. This is exact: every partial sum is
-    an integer with |.| <= 128 * 128 * d_pad < 2^24 for d_pad <= 768, and
-    float32 holds every integer below 2^24. TF32 is switched off around it."""
+    The dots run as float32 matmuls (CUDA has no int8/int32 matmul), chunked
+    over rows so (Q, Npad) never exists and over columns in slices of at
+    most 768, whose int32 partials are summed. This is exact at any d_pad:
+    every partial sum inside one slice is an integer with |.| <= 128 * 128 *
+    768 < 2^24, and float32 holds every integer below 2^24. TF32 is switched
+    off around it."""
     _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
                      group)
-    nq = queries_q.shape[0]
+    nq, d_pad = queries_q.shape
     npad = vectors_q.shape[0]
     dev = queries_q.device
     qf = queries_q.to(torch.float32)
@@ -73,7 +80,11 @@ def int8_group_minima_plain(queries_q, vectors_q, norms_q, role_bits,
     with exact_f32_matmul():
         for r0 in range(0, npad, chunk):
             r1 = min(r0 + chunk, npad)
-            dots = (vectors_q[r0:r1].to(torch.float32) @ qf.T).to(torch.int32)
+            dots = None
+            for c0 in range(0, d_pad, _EXACT_D):
+                part = (vectors_q[r0:r1, c0:c0 + _EXACT_D].to(torch.float32)
+                        @ qf[:, c0:c0 + _EXACT_D].T).to(torch.int32)
+                dots = part if dots is None else dots + part
             if metric == "l2":
                 score = norms_q[r0:r1, None] - 2 * dots
             else:
@@ -91,14 +102,73 @@ def int8_group_minima_plain(queries_q, vectors_q, norms_q, role_bits,
     return out
 
 
+# the plain version of the wide kernel (csrc/scan_int8_wide.cu) is the same
+# function: the contract does not depend on d_pad
+int8_group_minima_wide_plain = int8_group_minima_plain
+
+
+def _check_kernel_tensors(tensors, w: int) -> None:
+    """What both scan kernels take: contiguous int8 / int32 tensors on one
+    device, int8 rows 16-byte aligned, 128-row tiles, at most MAX_WORDS
+    bitset words."""
+    npad = tensors[1].shape[0]
+    if npad % TILE_ROWS or w > MAX_WORDS:
+        raise ValueError(f"npad {npad} must be a multiple of {TILE_ROWS} and "
+                         f"W {w} at most {MAX_WORDS}")
+    dtypes = (torch.int8, torch.int8, torch.int32, torch.int32, torch.int32)
+    for t, dt in zip(tensors, dtypes):
+        if t.device != tensors[0].device or t.dtype != dt \
+                or not t.is_contiguous() \
+                or t.data_ptr() % (16 if dt == torch.int8 else 4):
+            raise ValueError(f"scan_int8 takes contiguous {dt} tensors on one "
+                             f"device, int8 rows 16-byte aligned; got "
+                             f"{t.dtype} on {t.device}")
+
+
+def int8_group_minima_wide(queries_q, vectors_q, norms_q, role_bits,
+                           query_bits, group: int = 128, metric: str = "l2",
+                           score_shift: int = 0) -> torch.Tensor:
+    """int8_group_minima for any d_pad that is a multiple of 128 (the
+    reference's int8_masked_topk_wide). CPU tensors take the plain version;
+    CUDA tensors launch csrc/scan_int8_wide.cu."""
+    if queries_q.device.type == "cpu":
+        return int8_group_minima_wide_plain(
+            queries_q, vectors_q, norms_q, role_bits, query_bits, group,
+            metric, score_shift)
+    _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
+                     group)
+    nq, d_pad = queries_q.shape
+    npad, w = vectors_q.shape[0], role_bits.shape[1]
+    if d_pad % 128:
+        raise ValueError(f"d_pad {d_pad}: the wide scan takes multiples of "
+                         "128")
+    tensors = (queries_q, vectors_q, norms_q, role_bits, query_bits)
+    _check_kernel_tensors(tensors, w)
+    out = torch.empty((npad // group, nq), dtype=torch.int32,
+                      device=queries_q.device)
+    err = _build.lib().vsr_scan_int8_wide(
+        *(t.data_ptr() for t in tensors), out.data_ptr(), nq, npad, d_pad, w,
+        group, int(metric == "l2"), score_shift,
+        _build.stream_ptr(queries_q.device))
+    _build.check(err, "vsr_scan_int8_wide")
+    _build.LAUNCHES["scan_int8_wide"] += 1
+    return out
+
+
 def int8_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
                       group: int = 128, metric: str = "l2",
                       score_shift: int = 0) -> torch.Tensor:
     """(n_groups, Q) int32 packed group minima.
 
     queries_q (Q, d_pad) int8, vectors_q (Npad, d_pad) int8, norms_q (Npad,)
-    int32, role_bits (Npad, W) int32, query_bits (Q, W) int32. CPU tensors
-    take the plain version; CUDA tensors launch csrc/scan_int8.cu."""
+    int32, role_bits (Npad, W) int32, query_bits (Q, W) int32. Rows wider
+    than 256 go to int8_group_minima_wide (the reference's `wide` rule).
+    Otherwise CPU tensors take the plain version and CUDA tensors launch
+    csrc/scan_int8.cu."""
+    if queries_q.shape[1] > NARROW_MAX_D:
+        return int8_group_minima_wide(queries_q, vectors_q, norms_q,
+                                      role_bits, query_bits, group, metric,
+                                      score_shift)
     if queries_q.device.type == "cpu":
         return int8_group_minima_plain(queries_q, vectors_q, norms_q,
                                        role_bits, query_bits, group, metric,
@@ -108,21 +178,10 @@ def int8_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
     nq, d_pad = queries_q.shape
     npad, w = vectors_q.shape[0], role_bits.shape[1]
     if d_pad not in (128, 256):
-        raise NotImplementedError(
-            f"d_pad {d_pad}: the CUDA scan takes d_pad 128 or 256; the wide "
-            "d-split kernel is ROADMAP queue 2 item 2")
-    if npad % TILE_ROWS or w > MAX_WORDS:
-        raise ValueError(f"npad {npad} must be a multiple of {TILE_ROWS} and "
-                         f"W {w} at most {MAX_WORDS}")
+        raise ValueError(f"d_pad {d_pad}: the narrow scan takes d_pad 128 or "
+                         "256")
     tensors = (queries_q, vectors_q, norms_q, role_bits, query_bits)
-    dtypes = (torch.int8, torch.int8, torch.int32, torch.int32, torch.int32)
-    for t, dt in zip(tensors, dtypes):
-        if t.device != queries_q.device or t.dtype != dt \
-                or not t.is_contiguous() \
-                or t.data_ptr() % (16 if dt == torch.int8 else 4):
-            raise ValueError(f"scan_int8 takes contiguous {dt} tensors on one "
-                             f"device, int8 rows 16-byte aligned; got "
-                             f"{t.dtype} on {t.device}")
+    _check_kernel_tensors(tensors, w)
     out = torch.empty((npad // group, nq), dtype=torch.int32,
                       device=queries_q.device)
     err = _build.lib().vsr_scan_int8(
@@ -136,38 +195,57 @@ def int8_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
 
 def int8_masked_topk(
     queries_q: torch.Tensor,    # (Q, d_pad) int8 quantized queries
-    query_norms: torch.Tensor,  # (Q,) int32 ||q_q||^2
+    query_norms,                # (Q,) int32 ||q_q||^2 (l2); None for ip
     vectors_q: torch.Tensor,    # (Npad, d_pad) int8
     norms_q: torch.Tensor,      # (Npad,) int32
     role_bits: torch.Tensor,    # (Npad, W) int32 view of the uint32 bitsets
     query_bits: torch.Tensor,   # (Q, W) int32 user masks
-    inv_scale_sq: float,        # 1 / scale^2
+    inv_scale_sq,               # float 1 / scale^2, or (Q,) float32 per query
     k: int,
     group: int = 128,
     merge: str = "kernel",      # "kernel" (merge.cu, the counterpart of the
                                 # reference's "pallas") | "exact"
-    metric: str = "l2",
+    metric: str = "l2",         # the kernel metric: "l2" | "ip"
     score_shift: int = 0,
+    query_bias=None,            # (Q,) float32 added to ip distances
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Return (dists (Q, k) float32 ascending, idx (Q, k) int32 arena rows;
     -1 / +inf on empty slots)."""
     packed = int8_group_minima(queries_q, vectors_q, norms_q, role_bits,
                                query_bits, group, metric, score_shift)
     return merge_group_minima(packed, query_norms, inv_scale_sq, k, group,
-                              merge, metric, score_shift)
+                              merge, metric, score_shift, query_bias)
 
 
-def merge_group_minima(packed, query_norms, inv_scale_sq: float, k, group,
-                       merge, metric, score_shift=0):
+def merge_group_minima(packed, query_norms, inv_scale_sq, k, group, merge,
+                       metric, score_shift=0, query_bias=None):
     """(n_groups, Q) packed minima -> (dists (Q, k), idx (Q, k)): the
-    reference's _merge_group_minima for its "pallas" and "exact" branches,
-    squared L2. Shapes the merge kernels' gate refuses take the exact
-    merge."""
-    if metric != "l2":
-        raise NotImplementedError(
-            "the ip/cosine decode needs per-query scales and bias (ROADMAP "
-            "slice 2)")
-    n_groups = packed.shape[0]
+    reference's _merge_group_minima for its "pallas" and "exact" branches.
+    Shapes the merge kernels' gate refuses take the exact merge.
+
+    The decode, as the reference's: l2 gives (score + ||q||^2) * inv,
+    clamped at 0; ip gives score * inv. `inv_scale_sq` is one float (l2:
+    1 / scale^2) or a (Q,) float32 tensor (ip/cosine: every query keeps its
+    own int8 scale, core.ArenaQuant.quantize_queries_ip); `query_bias`
+    (Q,) is then added (the corpus center's share of -q.x, and cosine's +1).
+    """
+    n_groups, nq = packed.shape
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"kernel metric {metric!r}: the int8 scan scores l2 "
+                         "or ip (cosine rides ip)")
+    if torch.is_tensor(inv_scale_sq):
+        if inv_scale_sq.shape != (nq,):
+            raise ValueError(f"per-query inv {tuple(inv_scale_sq.shape)} for "
+                             f"{nq} queries")
+        inv2 = inv_scale_sq[:, None]
+    else:
+        # a Python scalar, not a device tensor: building one from host
+        # memory is a pageable copy, which waits for the stream's queued
+        # kernels
+        inv2 = float(inv_scale_sq)
+    if query_bias is not None and query_bias.shape != (nq,):
+        raise ValueError(f"query_bias {tuple(query_bias.shape)} for {nq} "
+                         "queries")
     if merge == "kernel" and not merge_supported(n_groups, k):
         merge = "exact"
     if merge == "kernel":
@@ -185,11 +263,13 @@ def merge_group_minima(packed, query_norms, inv_scale_sq: float, k, group,
     if score_shift:
         score = score << score_shift
     empty = vals >= EMPTY_I32
-    # a Python scalar, not a device tensor: building one from host memory
-    # is a pageable copy, which waits for the stream's queued kernels
-    inv2 = float(inv_scale_sq)
-    dists = torch.clamp_min(
-        (score + query_norms[:, None]).to(torch.float32) * inv2, 0.0)
+    if metric == "l2":
+        dists = torch.clamp_min(
+            (score + query_norms[:, None]).to(torch.float32) * inv2, 0.0)
+    else:
+        dists = score.to(torch.float32) * inv2
+    if query_bias is not None:
+        dists = dists + query_bias[:, None]
     dists = torch.where(empty, torch.inf, dists)
     idx = torch.where(empty, -1, idx)
     return dists, idx
