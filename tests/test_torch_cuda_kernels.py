@@ -9,8 +9,9 @@ conftest is left out):
 
 The shapes here are small and deliberately ragged (query counts that fill
 no block, every group width, 1-8 bitset words, d_pad 256 and the wide
-384-768, the ip metric, score shifts, ties everywhere) to reach the
-corners the main-path runs in chip_smoke.py do not."""
+384-768, the ip metric, score shifts, ties everywhere, both slot layouts
+of the admit-dedup form) to reach the corners the main-path runs in
+chip_smoke.py do not."""
 
 import numpy as np
 import pytest
@@ -85,6 +86,72 @@ def test_wide_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group,
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert (got[:, 0] == scan_int8.MASKED_I32).all()
+
+
+@pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift,sb,tile", [
+    (16, 1024, 128, 4, 128, "l2", 0, 16, 0),
+    (48, 1152, 128, 1, 8, "l2", 0, 16, 0),
+    (96, 2048, 128, 8, 32, "ip", 0, 16, 32),
+    (272, 1280, 256, 2, 64, "l2", 3, 8, 0),
+    (320, 8192, 128, 4, 16, "l2", 0, 16, 64),
+    (2048, 8192, 128, 4, 32, "l2", 0, 16, 2048),
+])
+def test_slot_form_bit_identical(dev, nq, npad, d_pad, w, group, metric,
+                                 shift, sb, tile):
+    """K1's slot form, contiguous (tile 0) and interleaved, against its
+    plain version and against the per-query form on the expanded masks;
+    slot 0 reads an empty mask, and sparse rows let whole warps skip."""
+    q8, x8, norms, rb, qb = _scan_inputs(np.random.default_rng(nq + sb), dev,
+                                         nq, npad, d_pad, w)
+    slots = qb[:nq // sb].contiguous()
+    kw = dict(group=group, metric=metric, score_shift=shift)
+    before = dict(_build.LAUNCHES)
+    got = scan_int8.int8_group_minima(q8, x8, norms, rb, slots,
+                                      mask_sub_block=sb, slot_tile=tile, **kw)
+    assert _build.LAUNCHES["scan_int8"] == before["scan_int8"] + 1
+    assert _build.LAUNCHES["scan_int8_slots"] == before["scan_int8_slots"] + 1
+    want = scan_int8.int8_group_minima_plain(
+        q8, x8, norms, rb, slots, mask_sub_block=sb, slot_tile=tile, **kw)
+    per_query = slots.index_select(0, scan_int8.slot_of_query(
+        nq, sb, tile, dev)).contiguous()
+    ctl = scan_int8.int8_group_minima(q8, x8, norms, rb, per_query, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, ctl)
+    assert (got[:, 0] == scan_int8.MASKED_I32).all()
+
+
+def test_tiled_searcher_cuda_equals_cpu(dev):
+    """A two-tier TiledSearcher (a 6000-row big tier, whose 1024 queries
+    admit-dedup groups into slots, beside the chunk
+    engine's partitions and the fan-out merge) on the card and on the
+    CPU: identical distances and ids (lossless int8, exact float32 dots).
+    1024 queries of four users, 256 each: whole slots, so the gate
+    pads nothing."""
+    from vectorsearch_rbac_tpu_torch import build_device_arena
+    from vectorsearch_rbac_tpu_torch.bench import make_scenario
+    from vectorsearch_rbac_tpu_torch.partition import TiledSearcher
+
+    corpus, w, wl = make_scenario(n=16384, num_queries=1024, topk=10)
+    rows = {0: np.arange(6000), 1: np.arange(6000, 9000),
+            2: np.arange(9000, 13000)}
+    users = np.random.default_rng(5).permutation(
+        np.repeat([3, 300, 3000, 7000], 256))
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        arena = build_device_arena(corpus, w, device=d, block_rows=16384,
+                                   dtype="int8")
+        s = TiledSearcher(arena, rows, lambda uid: (0, 1) if uid % 2 else (0,
+                          2), "mixed", big_chunks=2)
+        assert list(s._big) == [0]
+        before = dict(_build.LAUNCHES)
+        got[d.type] = s.search_batch(wl.vectors, users, w.user_masks, 10)
+        assert s._big[0]._last_dedup
+        slot_launches = _build.LAUNCHES["scan_int8_slots"] - before[
+            "scan_int8_slots"]
+        assert slot_launches == (1 if d.type == "cuda" else 0)
+    np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
+    np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
+    assert (got["cpu"][1] >= 0).mean() > 0.9
 
 
 def test_merge_kernels_at_the_rerank_width(dev):

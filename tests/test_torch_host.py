@@ -236,7 +236,7 @@ def test_config_defaults_match_reference():
     ref = RefFrameworkConfig()
     mine = port.FrameworkConfig()
     assert mine.seed == ref.seed
-    for part in ("search", "index"):
+    for part in ("search", "index", "optimizer"):
         for f in dataclasses.fields(getattr(mine, part)):
             assert (getattr(getattr(mine, part), f.name)
                     == getattr(getattr(ref, part), f.name)), (part, f.name)
@@ -253,3 +253,132 @@ def test_resolve_dataset():
     assert np.array_equal(pool, want_pool)
     with pytest.raises(NotImplementedError, match="synthetic"):
         port.resolve_dataset("synthetic", num_vectors=1_000)
+
+
+# ---- the planner's host layer: world and corpus helpers, cost model,
+# optimizer, refinement, weights
+
+
+def test_world_comb_helpers_identical():
+    params = dict(num_users=400, num_roles=40, num_docs=163, h=3, b0=3,
+                  b1=3, seed=5)
+    want = RefTreeGenerator(**params).generate()
+    got = port.TreeRBACGenerator(**params).generate()
+    assert got.comb_user_counts == want.comb_user_counts
+    assert got.comb_weights == want.comb_weights
+    for comb in got.combs[:10] + [(0, 3, 7), ()]:
+        assert got.comb_docs(comb) == want.comb_docs(comb)
+    for r in (0, 17, 39):
+        assert got.role_selectivity(r) == want.role_selectivity(r)
+    for u in (0, 200, 399):
+        assert got.user_selectivity(u) == want.user_selectivity(u)
+    assert got.average_role_selectivity() == want.average_role_selectivity()
+    assert got.average_user_selectivity() == want.average_user_selectivity()
+    assert got.storage_ratio() == want.storage_ratio()
+
+
+def test_corpus_row_helpers_identical():
+    got, _ = port.sift_like_corpus(num_vectors=3_000, blocks_per_doc=7,
+                                   seed=2)
+    want, _ = ref_sift_like(num_vectors=3_000, blocks_per_doc=7, seed=2)
+    assert got.avg_blocks_per_doc == want.avg_blocks_per_doc
+    np.testing.assert_array_equal(got.doc_row_index, want.doc_row_index)
+    for docs in ([], [0], [5, 2, 400, 3], np.arange(0, want.num_docs, 3)):
+        a, b = got.rows_for_docs(docs), want.rows_for_docs(docs)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_cost_models_identical():
+    from vectorsearch_rbac_tpu.models import cost as ref_cost
+    from vectorsearch_rbac_tpu_torch.models import cost
+
+    for name in ("CostModelParams", "TPUCostParams", "IVFCoverageParams"):
+        a, b = getattr(cost, name)(), getattr(ref_cost, name)()
+        assert a.to_dict() == b.to_dict(), name
+        for target in (None, 0.5, 0.9, 0.99):
+            for sel in (0.01, 0.2, 1.0):
+                for n in (0.0, 5e4, 1e6):
+                    assert (cost.model_ef_for_recall(a, target, 10, sel, n)
+                            == ref_cost.model_ef_for_recall(b, target, 10,
+                                                            sel, n))
+        for n_rows in (1, 100, 1e6):
+            for ef in (10.0, 300.0):
+                assert (cost.model_partition_time(a, n_rows, ef)
+                        == ref_cost.model_partition_time(b, n_rows, ef))
+    p = cost.CostModelParams(ef_offset=-5.0, n_ref=1e5, gamma_n=0.3)
+    q = ref_cost.CostModelParams(ef_offset=-5.0, n_ref=1e5, gamma_n=0.3)
+    for ef in (5.0, 50.0, 500.0):
+        assert (cost.RecallModel(p).recall(ef, 10, 0.1, 2e5)
+                == ref_cost.RecallModel(q).recall(ef, 10, 0.1, 2e5))
+    assert (cost.QueryTimeModel(p).query_time([10.0, 1e4], 40.0)
+            == ref_cost.QueryTimeModel(q).query_time([10.0, 1e4], 40.0))
+
+
+def _ref_random_world():
+    from vectorsearch_rbac_tpu.rbac.generators import RandomRBACGenerator
+
+    return RandomRBACGenerator(num_users=60, num_roles=10, num_docs=120,
+                               m_roles=3, m_perms=30, seed=3).generate()
+
+
+@pytest.mark.parametrize("world_kind,alpha", [
+    ("tree", 2.0), ("tree", 1.2), ("random", 2.5), ("random", 1.5)])
+def test_planner_identical(world_kind, alpha):
+    """The copied planner (greedy split, both stages, heavy-partition
+    refinement, renumbering, coverage) gives the reference's plan: the
+    same assignment, trackers and split log. The random world has
+    multi-role users, whose combs reach the planner's stage 2."""
+    from vectorsearch_rbac_tpu.core import Corpus as RefCorpus
+    from vectorsearch_rbac_tpu.partition.dynamic import (
+        plan_dynamic_partitions as ref_plan)
+    from vectorsearch_rbac_tpu.partition.dynamic.materialize import (
+        PlannerInputs as RefInputs)
+    from vectorsearch_rbac_tpu.models.cost import (
+        CostModelParams as RefParams)
+    from vectorsearch_rbac_tpu_torch.partition.dynamic import (
+        plan_dynamic_partitions, planner_inputs)
+
+    if world_kind == "tree":
+        world = RefTreeGenerator(num_users=300, num_roles=30, num_docs=200,
+                                 h=3, b0=2, b1=3, seed=7).generate()
+    else:
+        world = _ref_random_world()
+    corpus = RefCorpus(vectors=np.zeros((world.num_docs * 3, 2), np.float32),
+                       doc_ids=np.repeat(np.arange(world.num_docs),
+                                         3).astype(np.int32),
+                       block_ids=np.tile(np.arange(3), world.num_docs
+                                         ).astype(np.int32))
+    cfg = port.FrameworkConfig()
+    cfg.optimizer.storage_alpha = alpha
+    mine = planner_inputs(corpus, world, cfg)
+    want_inputs = RefInputs(
+        role_to_docs=world.role_to_docs, combs=world.combs,
+        comb_weights=world.comb_weights,
+        single_role_weights={r: 1.0 / world.num_roles
+                             for r in range(world.num_roles)},
+        params=RefParams(), alpha=alpha, topk=10,
+        avg_blocks_per_doc=corpus.avg_blocks_per_doc)
+    got = plan_dynamic_partitions(world, mine)
+    want = ref_plan(world, want_inputs)
+    assert got.assignment == want.assignment
+    assert got.trackers == want.trackers
+    assert got.split_log == want.split_log
+    assert len(got.assignment) > 1
+
+
+def test_workload_weights_identical():
+    from vectorsearch_rbac_tpu.bench.queries import (
+        generate_query_workload as ref_workload)
+    from vectorsearch_rbac_tpu.partition.dynamic import weights as ref_w
+    from vectorsearch_rbac_tpu_torch.partition.dynamic import weights
+
+    world = _ref_random_world()
+    corpus, _ = ref_sift_like(num_vectors=360, blocks_per_doc=3, dim=8,
+                              seed=1)
+    wl = ref_workload(corpus, world, num_queries=50, topk=5, zipf_param=0,
+                      seed=2)
+    assert (weights.comb_weights_from_workload(world, wl)
+            == ref_w.comb_weights_from_workload(world, wl))
+    assert (weights.single_role_weights_from_workload(world, wl)
+            == ref_w.single_role_weights_from_workload(world, wl))

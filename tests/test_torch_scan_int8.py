@@ -16,7 +16,8 @@ from vectorsearch_rbac_tpu.core import bits_to_onehot8
 from vectorsearch_rbac_tpu.ops.pallas_scan_int8 import (
     int8_masked_topk as jax_int8_masked_topk)
 from vectorsearch_rbac_tpu_torch.ops.scan_int8 import (
-    int8_group_minima, int8_masked_topk)
+    int8_group_minima, int8_group_minima_plain, int8_masked_topk,
+    slot_of_query)
 
 N, D, R, Q = 8192, 128, 128, 64
 
@@ -138,3 +139,95 @@ def test_ip_decode_refused(prob):
                              group=128, metric="ip")
     fin = torch.isfinite(d0)
     assert torch.equal(d[fin], d0[fin] * 0.5 + 1.0)
+
+
+# ---- the admit-dedup slot form (mask_sub_block), both slot layouts
+
+SB, Q_TILE = 8, 32
+
+
+@pytest.fixture(scope="module")
+def slot_prob(prob):
+    """The fixture's rows and queries with 5 distinct masks spread over
+    Q / SB slots (slot s carries mask s % 5): (vecs, norms, rbits,
+    queries, slot bits (Q / SB, W) uint32)."""
+    vecs, norms, rbits, queries, _, qbits = prob
+    pool = qbits[[0, 1, 2, 3, 4]]                 # mask 3 sees nothing
+    slots = pool[np.arange(Q // SB) % len(pool)]
+    return vecs, norms, rbits, queries, slots
+
+
+def _expand(slots, slot_tile):
+    """Per-query masks: query j reads slot_of_query(j)."""
+    return slots[slot_of_query(Q, SB, slot_tile).numpy()]
+
+
+def test_slot_layouts():
+    assert slot_of_query(16, 4).tolist() == [i // 4 for i in range(16)]
+    # interleaved within tiles of 8: nsb = 2 slots a tile, query j of
+    # tile t reads slot 2t + j % 2
+    assert slot_of_query(16, 4, 8).tolist() == [
+        2 * (j // 8) + j % 2 for j in range(16)]
+    with pytest.raises(ValueError):
+        slot_of_query(12, 8)
+    with pytest.raises(ValueError):
+        slot_of_query(16, 4, 6)
+
+
+def test_slot_form_plain_matches_tpu_kernel(slot_prob):
+    """The interleaved layout is the TPU kernel's own: the plain slot form
+    is bit-identical to int8_masked_topk(mask_sub_block=SB) in interpret
+    mode, fed the same slot one-hots."""
+    vecs, norms, rbits, queries, slots = slot_prob
+    want, _ = jax_int8_masked_topk(
+        jnp.asarray(queries), jnp.zeros(Q, jnp.int32), jnp.asarray(vecs),
+        jnp.asarray(norms), jnp.asarray(bits_to_onehot8(rbits, R, R)),
+        jnp.asarray(bits_to_onehot8(slots, R, R)), jnp.float32(1.0), 10,
+        q_tile=Q_TILE, block_rows=2048, group=32, merge="none",
+        mask_sub_block=SB, interpret=True)
+    t = torch.from_numpy
+    got = int8_group_minima_plain(
+        t(queries), t(vecs), t(norms), t(rbits.view(np.int32)),
+        t(slots.view(np.int32)), group=32, mask_sub_block=SB,
+        slot_tile=Q_TILE)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("slot_tile", [0, Q_TILE],
+                         ids=["contiguous", "interleaved"])
+@pytest.mark.parametrize("group,metric,score_shift", [
+    (8, "l2", 0), (128, "ip", 0), (32, "l2", 3)])
+def test_slot_form_equals_expanded_masks(slot_prob, slot_tile, group, metric,
+                                         score_shift):
+    """Either layout gives, bit for bit, the TPU kernel's per-query output
+    on the masks expanded from the slots (the lab's parity check,
+    scripts/r4_admit_lab.py parity())."""
+    vecs, norms, rbits, queries, slots = slot_prob
+    per_query = _expand(slots, slot_tile)
+    want, _ = jax_int8_masked_topk(
+        jnp.asarray(queries), jnp.zeros(Q, jnp.int32), jnp.asarray(vecs),
+        jnp.asarray(norms), jnp.asarray(bits_to_onehot8(rbits, R, R)),
+        jnp.asarray(bits_to_onehot8(per_query, R, R)), jnp.float32(1.0), 10,
+        q_tile=Q, block_rows=2048, group=group, merge="none", metric=metric,
+        score_shift=score_shift, interpret=True)
+    t = torch.from_numpy
+    got = int8_group_minima(
+        t(queries), t(vecs), t(norms), t(rbits.view(np.int32)),
+        t(slots.view(np.int32)), group=group, metric=metric,
+        score_shift=score_shift, mask_sub_block=SB, slot_tile=slot_tile)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the query that reads the empty mask sees nothing
+    empty = np.flatnonzero(~per_query.any(axis=1))
+    assert len(empty) and (got.numpy()[:, empty] == 0x7F000000).all()
+
+
+def test_slot_form_refuses_ragged_slots(slot_prob):
+    vecs, norms, rbits, queries, slots = slot_prob
+    t = torch.from_numpy
+    args = (t(queries), t(vecs), t(norms), t(rbits.view(np.int32)))
+    with pytest.raises(ValueError, match="bitset shapes"):
+        int8_group_minima(*args, t(slots[:-1].view(np.int32)),
+                          mask_sub_block=SB)
+    with pytest.raises(ValueError, match="do not tile"):
+        int8_group_minima(*args, t(slots.view(np.int32)), mask_sub_block=SB,
+                          slot_tile=12)

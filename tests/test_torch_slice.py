@@ -278,6 +278,23 @@ index = s.partitions[0].index
 assert index.wide and index.rerank_mode == "residual4", index.rerank_mode
 _, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
 assert ids.shape == (8, 5) and (ids >= 0).all(), ids
+# AnonySys: the port's planner and the chunk engine; then a big tier
+import numpy as np
+from vectorsearch_rbac_tpu_torch.partition import TiledSearcher
+corpus, w, wl = make_scenario(n=16384, num_queries=8, topk=5)
+arena = build_device_arena(corpus, w, device="cpu", block_rows=16384,
+                           dtype="int8")
+cfg = serving_config(block_rows=16384, topk=5, strategy="dynamic")
+cfg.optimizer.storage_alpha = 2.0
+s = build_searcher("dynamic", corpus, w, arena, cfg)
+assert len(s.plan.assignment) > 1, s.plan.assignment
+_, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
+assert ids.shape == (8, 5) and (ids >= 0).all(), ids
+s = TiledSearcher(arena, {0: np.arange(6000)}, lambda uid: (0,), "big",
+                  big_chunks=2)
+assert list(s._big) == [0]
+_, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
+assert ids.shape == (8, 5) and ids.max() < 6000, ids
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = [m for m in sys.modules if m.split(".")[0] == "vectorsearch_rbac_tpu"]
 assert not ref, ref
@@ -286,8 +303,9 @@ print("JAX_FREE_OK")
 
 
 def test_port_never_imports_jax():
-    """Import + build + search (the SIFT-like L2 path and the 768-d cosine
-    path), through the entry points chip_smoke.py uses, in a fresh
+    """Import + build + search (the SIFT-like L2 path, the 768-d cosine
+    path, and the AnonySys planner with the chunk engine and a big tier),
+    through the entry points chip_smoke.py uses, in a fresh
     interpreter (this one has jax loaded by tests/conftest.py): neither jax
     nor the reference package loads."""
     out = subprocess.run([sys.executable, "-c", _JAX_FREE], cwd=REPO,
@@ -310,16 +328,20 @@ def test_chip_smoke_refuses_without_cuda(tmp_path, alone):
     assert '"ok": true' not in out.stdout
 
 
-def test_bench_entry_refuses_unported_and_cpu():
+def test_bench_entry_refuses_unported_and_cpu(capsys):
     from vectorsearch_rbac_tpu_torch.bench.__main__ import parse_args
 
     assert parse_args([]).strategy == "rls"
     args = parse_args(["--dataset", "cohere", "--metric", "cosine"])
     assert (args.dataset, args.metric) == ("cohere", "cosine")
-    for off in (["--strategy", "role"], ["--dataset", "synthetic"],
-                ["--metric", "l1"], ["--dtype", "float32"]):
+    for name in ("role", "user", "dynamic"):
+        assert parse_args(["--strategy", name]).strategy == name
+    for off in (["--strategy", "qdtree"], ["--dataset", "synthetic"],
+                ["--metric", "l1"], ["--dtype", "float32"],
+                ["--strategy", "role", "--metric", "cosine"]):
         with pytest.raises(SystemExit):
             parse_args(off)
+    assert "ROADMAP" in capsys.readouterr().err
     out = subprocess.run([sys.executable, "-m",
                           "vectorsearch_rbac_tpu_torch.bench", "--smoke"],
                          cwd=REPO, capture_output=True, text=True,

@@ -2,24 +2,29 @@
 
 A port of `vectorsearch_rbac_tpu` (JAX/Pallas, written for a TPU), which
 stays beside it as the reference. This package serves the RLS strategy over
-the int8 arena for l2, ip and cosine: the global masked scan (narrow and
-wide rows), the group-minima merge, the float32 rerank and the result wire
-run on the card, in CUDA C++ kernels written for sm_90a (`csrc/`, built
-with nvcc at first use) wherever the reference runs a Pallas kernel. The
+the int8 arena for l2, ip and cosine, and the partitioned strategies ROLE,
+USER and AnonySys (`dynamic`) over the int8 l2 arena: the global masked
+scan (narrow and wide rows, and the admit-dedup slot form), the
+group-minima merge, the float32 rerank, the result wire and the chunk
+engine of the partitions run on the card, in CUDA C++ kernels written for
+sm_90a (`csrc/`, built with nvcc at first use) wherever the reference runs
+a Pallas kernel, and in PyTorch where it leaves the work to XLA. The
 package imports neither jax nor the reference package: the host layers
 it needs (corpus, quantizers, RBAC world, the SIFT-like and cohere-like
-data, config) are copies, held equal to the reference by tests.
+data, config, the planner and its cost model) are copies, held equal to
+the reference by tests.
 
 Layer map:
     config      serving config + logger          (reference utils/)
     rbac        RBAC world + tree generator      (reference rbac/)
     data        SIFT-like, cohere-like corpora   (reference data/)
     core        corpus, quantizers, device arena (reference core.py)
+    models      the planner's cost models        (reference models/)
     ops/        oracle scan, int8 scans, merge,  (reference ops/)
-                rerank
+                rerank, chunk engine, host merge
     csrc/       the CUDA kernels                 (reference Pallas kernels)
     index/      exact flat + int8 flat indexes   (reference index/)
-    partition/  the global (RLS) strategy        (reference partition/)
+    partition/  RLS, ROLE, USER, AnonySys        (reference partition/)
     bench/      workload, oracle, harness, CLI   (reference bench/, bench.py)
 """
 

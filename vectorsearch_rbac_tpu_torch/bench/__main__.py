@@ -5,10 +5,12 @@
 The counterpart of the repository's bench.py, with the same flags, the
 same defaults and the same single JSON line on stdout:
   {"metric": ..., "value": N, "unit": "qps", "vs_baseline": N}
-The port serves --strategy rls --index flat_approx --dtype int8 with
---dataset sift1m or cohere and --metric l2, ip or cosine; any other
-combination is refused. It needs a CUDA device and exits non-zero
-without one.
+The port serves --index flat_approx --dtype int8 with --strategy rls over
+--dataset sift1m or cohere and --metric l2, ip or cosine, and --strategy
+role, user or dynamic (AnonySys, the planner at cfg.optimizer's defaults)
+over l2; any other combination is refused (qdtree and the ip/cosine
+partitions are ROADMAP slice 3 items). It needs a CUDA device and exits
+non-zero without one.
 
 Scenario: by default a SIFT1M-shaped corpus (1M x 128-d, 100 blocks/doc);
 with --dataset cohere the cohere-like 1M x 768 unit-normalized corpus,
@@ -27,8 +29,12 @@ import sys
 import time
 
 BASELINE_QPS = 1000.0 / 0.118  # ~8474 QPS, physical role partition, CPU
-PORTED = {"strategy": ("rls",), "index": ("flat_approx",), "dtype": ("int8",),
+PORTED = {"strategy": ("rls", "role", "user", "dynamic"),
+          "index": ("flat_approx",), "dtype": ("int8",),
           "dataset": ("sift1m", "cohere"), "metric": ("l2", "ip", "cosine")}
+_ROADMAP = {"qdtree": "QDTree is ROADMAP slice 3 (queue 1 item 9)",
+            "partitions": "ip/cosine partitions need the PackedSearcher, "
+                          "ROADMAP slice 3 (queue 1 item 8)"}
 
 
 def log(msg):
@@ -56,15 +62,22 @@ def parse_args(argv=None):
                     help="serving query batch (0 = strategy default)")
     ap.add_argument("--wire", default="",
                     choices=["", "ids", "u8", "bf16", "f32"],
-                    help="result wire coding (default: 'ids' for rls)")
+                    help="result wire coding (default: 'ids' for rls, 'u8' "
+                         "otherwise, which partition tiers never read: they "
+                         "carry f32 distances)")
     ap.add_argument("--per-query", default="",
                     help="write per-query JSON records to this path")
     args = ap.parse_args(argv)
     off = {f: getattr(args, f) for f, v in PORTED.items()
            if getattr(args, f) not in v}
     if off:
+        why = _ROADMAP["qdtree"] if off.get("strategy") == "qdtree" else ""
         ap.error(f"not ported: {off}; the port serves "
-                 + " ".join(f"--{f} {'|'.join(v)}" for f, v in PORTED.items()))
+                 + " ".join(f"--{f} {'|'.join(v)}" for f, v in PORTED.items())
+                 + (f" ({why})" if why else ""))
+    if args.strategy != "rls" and args.metric != "l2":
+        ap.error(f"not ported: --strategy {args.strategy} --metric "
+                 f"{args.metric} ({_ROADMAP['partitions']})")
     if args.smoke:
         args.n = min(args.n, 100_000)
         args.queries = min(args.queries, 256)
@@ -98,9 +111,9 @@ def main(argv=None):
         f"world: {world.num_roles} roles, {len(world.combs)} combs, "
         f"{workload.num_queries} queries in {time.perf_counter() - t0:.1f}s")
     cfg = serving_config(seed=args.seed, block_rows=args.block_rows,
-                         batch=args.batch or 2048, topk=args.topk,
-                         wire=args.wire or "ids", index=args.index,
-                         dtype=args.dtype)
+                         batch=args.batch, topk=args.topk, wire=args.wire,
+                         index=args.index, dtype=args.dtype,
+                         strategy=args.strategy)
 
     # phase A: exact ground truth on the float32 oracle arena, then free it
     gt_rows = min(args.block_rows, 65536)
@@ -128,6 +141,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     searcher = build_searcher(args.strategy, corpus, world, arena, cfg)
     strat_build_s = time.perf_counter() - t0
+    log(f"strategy '{args.strategy}' build: {strat_build_s:.2f}s")
 
     res = run_benchmark(searcher, corpus, world, workload, None,
                         k=args.topk, warmup_runs=2,

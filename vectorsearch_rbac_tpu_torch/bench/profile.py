@@ -2,22 +2,83 @@
 
     python -m vectorsearch_rbac_tpu_torch.bench.profile [--n N] [--queries Q]
         [--dataset sift1m|cohere] [--metric l2|ip|cosine]
+        [--strategy rls|role|user|dynamic] [--topk K] [--batch B]
 
 Builds bench's world for the dataset and metric (tree RBAC with 100 roles
-and 10k users, int8 arena, rls, ids wire, batch 2048, top-100), runs two
-warm passes, times three untraced passes, then traces one pass with
-torch.profiler. It prints the untraced and traced pass walls (their
-difference is the tracing cost), the spans of the index layer with their
-host time and the device time of the kernels launched inside them (the
-per-batch stages scan, merge, rerank and wire split a pass), the device
-time by kernel and copy, and the device's busy and idle share of the
-untraced pass (busy = the summed device time of kernels and copies, which
-run one after another on the one stream). Needs a CUDA device.
+and 10k users, int8 arena) and the strategy at bench's serving
+configuration, runs two warm passes, times three untraced passes, then
+traces one pass with torch.profiler. It prints the untraced and traced
+pass walls (their difference is the tracing cost), the spans of the
+searcher and index layers with their host time and the device time of
+the kernels and copies that ran inside them (nested spans included), the
+device time by kernel and copy, and the device's busy and idle share of
+the untraced pass (busy = the summed device time of kernels and copies,
+which run one after another on the one stream). The spans split a pass:
+
+- rls: flat_int8.dedup, .quantize_upload, .enqueue (per batch .scan,
+  .merge, .rerank, .wire) and .fetch_unpack;
+- role, user, dynamic: tiled.route (host), tiled.big_enqueue (the big
+  tier's scans and merges, flat_int8.* inside), tiled.chunk_scan (the
+  chunk engine), tiled.big_fetch and tiled.merge (the host's fan-out
+  merge).
+
+Needs a CUDA device.
 """
 
 import argparse
 import sys
 import time
+
+SPAN_PREFIXES = ("flat_int8.", "tiled.", "partitioned.")
+
+
+def profile_pass(one_pass):
+    """Trace one call of one_pass() (which must end in a device sync) ->
+    (wall ms, {span: (host ms, device ms)}, [(device ms, count, kernel)]
+    sorted by device time, device busy ms). A span's device ms is the
+    summed time of the kernels and copies that ran inside its range on
+    the device's timeline or inside the range of a span nested in it on
+    the host, each counted once (a big tier's flat_int8.scan counts in
+    tiled.big_enqueue too). The kernels launched through ctypes belong to
+    no torch op, so the range is what ties them to the span that launched
+    them; and a span that launches nothing itself, only through nested
+    spans, gets no range of its own on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    spans, host_ranges, ranges, work = {}, [], [], []
+    for ev in prof.events():
+        named = ev.name.startswith(SPAN_PREFIXES)
+        tr = ev.time_range
+        if ev.device_type == DeviceType.CPU and named:
+            host, dev = spans.get(ev.name, (0.0, 0.0))
+            spans[ev.name] = (host + ev.cpu_time_total / 1000.0, dev)
+            host_ranges.append((ev.name, tr.start, tr.end))
+        elif ev.device_type == DeviceType.CUDA:
+            (ranges if named else work).append((ev.name, tr.start, tr.end))
+    # span -> itself and every span that ran inside it on the host
+    within = {name: {name} for name in spans}
+    for outer, s0, e0 in host_ranges:
+        within[outer].update(n for n, s, e in host_ranges
+                             if s0 <= s and e <= e0)
+    for _, start, end in work:
+        inside = {n for n, s, e in ranges if s <= start and end <= e}
+        for name, names in within.items():
+            if inside & names:
+                host, dev = spans[name]
+                spans[name] = (host, dev + (end - start) / 1000.0)
+    rows = [(ev.self_device_time_total / 1000.0, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total
+            and not ev.key.startswith(SPAN_PREFIXES)]
+    rows.sort(reverse=True)
+    return wall_ms, spans, rows, sum(r[0] for r in rows)
 
 
 def main(argv=None) -> int:
@@ -26,17 +87,18 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=32768)
     ap.add_argument("--topk", type=int, default=100)
-    ap.add_argument("--batch", type=int, default=2048)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="serving query batch (0 = the strategy's default)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dataset", default="sift1m",
                     choices=["sift1m", "cohere"])
     ap.add_argument("--metric", default="l2",
                     choices=["l2", "ip", "cosine"])
+    ap.add_argument("--strategy", default="rls",
+                    choices=["rls", "role", "user", "dynamic"])
     args = ap.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("no CUDA device: the profile is of the GPU port",
@@ -51,60 +113,53 @@ def main(argv=None) -> int:
     corpus, world, workload = make_scenario(
         n=args.n, num_queries=args.queries, topk=args.topk, seed=args.seed,
         dataset=args.dataset)
-    cfg = serving_config(seed=args.seed, batch=args.batch, topk=args.topk)
+    cfg = serving_config(seed=args.seed, batch=args.batch, topk=args.topk,
+                         strategy=args.strategy)
     arena = build_device_arena(corpus, world, device=device,
                                block_rows=cfg.search.block_rows, dtype="int8",
                                metric=args.metric)
-    searcher = build_searcher("rls", corpus, world, arena, cfg)
-    index = searcher.partitions[0].index
+    t0 = time.perf_counter()
+    searcher = build_searcher(args.strategy, corpus, world, arena, cfg)
+    build_s = time.perf_counter() - t0
+    if args.strategy == "rls":
+        index = searcher.partitions[0].index
+        shape = (f"group {index.group}, rerank "
+                 f"{index.rerank_mode if index.rerank else None}")
+    else:
+        rep = searcher.storage_report()
+        shape = (f"{rep['num_partitions']} partitions "
+                 f"({len(searcher._big)} big tier), "
+                 f"{rep['total_mb']:.1f} MB, build {build_s:.2f} s")
 
     def one_pass():
         searcher.search_batch(workload.vectors, workload.user_ids,
                               world.user_masks, args.topk)
+        torch.cuda.synchronize()
 
     for _ in range(2):
         one_pass()
-    torch.cuda.synchronize()
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
         one_pass()
-        torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1000.0)
     untraced_ms = sum(walls) / len(walls)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_pass()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1000.0
-
-    # a span appears twice: its host range (CPU) and, where it enqueued
-    # device work, its range on the device's timeline (CUDA)
-    rows, spans = [], {}
-    for ev in prof.key_averages():
-        if ev.key.startswith("flat_int8."):
-            host, dev = spans.get(ev.key, (0.0, 0.0))
-            if ev.device_type == DeviceType.CUDA:
-                dev = ev.device_time_total / 1000.0
-            else:
-                host = ev.cpu_time_total / 1000.0
-            spans[ev.key] = (host, dev)
-        elif ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
-            rows.append((ev.self_device_time_total / 1000.0, ev.count,
-                         ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
+    wall_ms, spans, rows, busy_ms = profile_pass(one_pass)
     print(f"{torch.cuda.get_device_name(device)}: {args.dataset} "
-          f"{args.metric}, pass of {args.queries} queries x "
-          f"{arena.n_padded} rows x d_pad {arena.quant.d_pad}, group "
-          f"{index.group}, rerank {index.rerank_mode if index.rerank else None}"
-          f"; wall untraced {untraced_ms:.3f}"
+          f"{args.metric} {args.strategy}, pass of {args.queries} queries x "
+          f"{arena.n_padded} rows x d_pad {arena.quant.d_pad}, top-"
+          f"{args.topk}, {shape}; wall untraced {untraced_ms:.3f}"
           f" ms (passes {', '.join(f'{w:.3f}' for w in walls)}), traced "
           f"{wall_ms:.3f} ms; device busy {busy_ms:.3f} ms, idle share of "
           f"the untraced pass {max(0.0, 1 - busy_ms / untraced_ms):.3f}")
     for key, (host, dev) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
         print(f"  span {key:26s} host {host:10.3f} ms, device {dev:10.3f} ms")
+    if args.strategy != "rls":
+        dev = {k: v[1] for k, v in spans.items()}
+        chunk = dev.get("tiled.chunk_scan", 0.0)
+        big = dev.get("tiled.big_enqueue", 0.0) + dev.get("tiled.big_fetch",
+                                                          0.0)
+        print(f"  device: chunk engine {chunk:.3f} ms, big tier {big:.3f} ms")
     for ms, count, key in rows[:20]:
         print(f"  device {ms:10.3f} ms {count:6d}x  {key[:80]}")
     return 0

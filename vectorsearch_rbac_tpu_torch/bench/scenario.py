@@ -5,8 +5,10 @@ and chip_smoke.py run the same scenario: the dataset's seeded twin
 (`sift_like_corpus` for sift1m, `cohere_like_corpus` for cohere, as the
 reference resolves them when no file is present), the tree RBAC world of
 bench.py:128 (100 roles, 10k users), uniform queries drawn from the
-corpus's held-out pool, and the rls / flat_approx / int8 serving
-configuration with the ids wire.
+corpus's held-out pool, and bench.py's serving configuration: flat_approx
+over the int8 arena, batch 2048 and the ids wire for rls, batch 1024 and
+the "u8" wire setting for the partitioned strategies (whose partition
+tiers always carry f32 distances, so the setting is never read there).
 """
 
 from __future__ import annotations
@@ -35,15 +37,16 @@ def make_scenario(n: int = 1_000_000, num_queries: int = 32768,
 
 
 def serving_config(seed: int = 0, block_rows: int = 131072,
-                   batch: int = 2048, topk: int = 100, wire: str = "ids",
-                   index: str = "flat_approx",
-                   dtype: str = "int8") -> FrameworkConfig:
-    """bench.py's serving configuration for the rls strategy."""
+                   batch: int = 0, topk: int = 100, wire: str = "",
+                   index: str = "flat_approx", dtype: str = "int8",
+                   strategy: str = "rls") -> FrameworkConfig:
+    """bench.py's serving configuration for a strategy (bench.py:136-145);
+    batch 0 and wire "" take the strategy's defaults."""
     cfg = FrameworkConfig(seed=seed)
     cfg.search.block_rows = block_rows
-    cfg.search.batch_size = batch
+    cfg.search.batch_size = batch or (2048 if strategy == "rls" else 1024)
     cfg.search.topk = topk
     cfg.search.dtype = dtype
-    cfg.search.wire_dist = wire
+    cfg.search.wire_dist = wire or ("ids" if strategy == "rls" else "u8")
     cfg.index.kind = index
     return cfg

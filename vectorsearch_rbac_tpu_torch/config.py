@@ -1,10 +1,10 @@
 """Serving configuration and the package logger.
 
 The fields of vectorsearch_rbac_tpu/utils/config.py `FrameworkConfig` that
-the ported path reads, with the reference's defaults and the same nesting
-(`cfg.search.*`, `cfg.index.*`), so that a reference config object works
-here too. The other knobs (HNSW, IVF, optimizer) come with the slices that
-read them.
+the ported paths read, with the reference's defaults and the same nesting
+(`cfg.search.*`, `cfg.index.*`, `cfg.optimizer.*`), so that a reference
+config object works here too. The other knobs (HNSW, IVF, binary) come
+with the slices that read them.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import logging
 import os
 import sys
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass
@@ -21,12 +22,35 @@ class SearchConfig:
     batch_size: int = 256        # queries per device dispatch
     block_rows: int = 16384      # arena rows per scan block
     dtype: str = "float32"       # arena dtype: "float32" | "int8"
+    scan_group: int = 32         # tiled chunk engine: packed group-min
+                                 # width (0 = exact per-chunk top-k)
     wire_dist: str = "u8"        # result wire: the port has "ids" and "f32"
 
 
 @dataclass
 class IndexConfig:
     kind: str = "flat"           # "flat" | "flat_approx"
+    big_logical: bool = False    # tiled big tier: gather the partition's
+                                 # rows from the shared arena per pass
+                                 # instead of keeping a contiguous copy
+
+
+@dataclass
+class OptimizerConfig:
+    """AnonySys dynamic-partition planner knobs (the reference's defaults:
+    the fitted pgvector HNSW cost model)."""
+
+    storage_alpha: float = 1.5   # storage budget multiple of corpus size
+    target_recall: Optional[float] = None
+    topk: int = 10
+    recall_k: float = 1.0
+    recall_beta: float = 0.44240961
+    qps_a: float = 550.97
+    qps_b: float = 183157.0
+    join_time: float = 0.0
+    ef_offset: float = 0.0
+    n_ref: float = 0.0
+    gamma_n: float = 0.0
 
 
 @dataclass
@@ -34,6 +58,7 @@ class FrameworkConfig:
     seed: int = 0
     search: SearchConfig = field(default_factory=SearchConfig)
     index: IndexConfig = field(default_factory=IndexConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
 
 
 _configured = False

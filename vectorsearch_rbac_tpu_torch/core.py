@@ -54,11 +54,30 @@ class Corpus:
         return int(self.doc_ids.max()) + 1 if self.n else 0
 
     @cached_property
+    def avg_blocks_per_doc(self) -> float:
+        return self.n / max(1, self.num_docs)
+
+    @cached_property
+    def doc_row_index(self) -> np.ndarray:
+        """Row ids ordered by doc id (stable): document d owns
+        doc_row_index[offs[d]:offs[d + 1]]."""
+        return np.argsort(self.doc_ids, kind="stable")
+
+    @cached_property
     def doc_row_offsets(self) -> np.ndarray:
         """(num_docs + 1,) int64: document d owns offs[d + 1] - offs[d]
         rows."""
         counts = np.bincount(self.doc_ids, minlength=self.num_docs)
         return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+    def rows_for_docs(self, doc_ids: np.ndarray) -> np.ndarray:
+        """All row ids of the given documents, sorted."""
+        order, offs = self.doc_row_index, self.doc_row_offsets
+        parts = [order[offs[d]:offs[d + 1]]
+                 for d in np.asarray(doc_ids, dtype=np.int64)]
+        if not parts:
+            return np.empty(0, dtype=np.int64)
+        return np.sort(np.concatenate(parts))
 
     def vector_role_bits(self, world: RBACWorld) -> np.ndarray:
         """(N, W) uint32 role bitset of every row, from its document's."""

@@ -1,7 +1,9 @@
 // Fused RBAC-masked int8 scan with a packed group-minimum epilogue.
 //
 // Replaces the TPU kernel vectorsearch_rbac_tpu/ops/pallas_scan_int8.py
-// _make_kernel (launched by int8_masked_topk), the narrow d_pad <= 256 form.
+// _make_kernel (launched by int8_masked_topk), the narrow d_pad <= 256 form,
+// with and without its admit-dedup `mask_sub_block` slot form (also the lab
+// kernel scripts/r4_admit_lab.py scan_sb, in both of its slot layouts).
 //
 // Contract, bit for bit the TPU kernel's output: for query q and arena row r
 //   dots   = sum_d x8[r, d] * q8[q, d]                       (int32, exact)
@@ -24,6 +26,19 @@
 // The int8 tensor cores (wgmma) are not used yet; moving the dots there is
 // the next step for this kernel.
 //
+// The slot form (mask_sb > 0) reads the mask words of query q from row
+// slot(q) of a (Q / mask_sb, W) tensor instead of row q of a (Q, W) one:
+//   slot_tile == 0: slot = q / mask_sb            (contiguous slots)
+//   slot_tile  > 0: slot = (q / slot_tile) * nsb + q % nsb,
+//                   nsb = slot_tile / mask_sb      (interleaved slots: the
+//                   TPU kernel's tile-style pltpu.repeat inside each q_tile)
+// and its output is bit for bit that of the per-query form on the expanded
+// masks. In the slot form a warp whose queries share one or two slots (the
+// contiguous layout with mask_sb >= 16) mostly agrees on admissibility, so
+// each row is first voted on across the warp (__any_sync) and its dots are
+// skipped when no query of the warp may read it: such a row packs to
+// 0x7F000000 whatever its score, so the output does not change.
+//
 // Design: one thread per query keeps its int8 query row and its W mask words
 // in registers for the whole block. The block stages 128-row tiles of the
 // arena (rows, norms, bitsets) in shared memory, where all threads of a warp
@@ -43,16 +58,32 @@ constexpr int kTilesPerBlock = 8;   // tiles a block walks with one query load
 constexpr int kMaxWords = 8;        // role bitset words: up to 256 roles
 constexpr int32_t kMasked = 0x7F000000;
 
-template <int D16>  // d_pad / 16: 16-byte words per int8 row
+template <int D16>
+__device__ __forceinline__ int32_t row_dot(const int4* x, const int4* qv) {
+  int32_t dot = 0;
+#pragma unroll
+  for (int i = 0; i < D16; ++i) {
+    const int4 xv = x[i];
+    dot = __dp4a(xv.x, qv[i].x, dot);
+    dot = __dp4a(xv.y, qv[i].y, dot);
+    dot = __dp4a(xv.z, qv[i].z, dot);
+    dot = __dp4a(xv.w, qv[i].w, dot);
+  }
+  return dot;
+}
+
+// kSlots selects the slot form at compile time, so that the per-query form
+// keeps the instruction stream it had before the slot form existed.
+template <int D16, bool kSlots>  // D16 = d_pad / 16: 16-byte words per row
 __global__ void __launch_bounds__(kThreads)
 scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
                  const int8_t* __restrict__ x8,         // (Npad, d_pad)
                  const int32_t* __restrict__ norms,     // (Npad,)
                  const int32_t* __restrict__ row_bits,  // (Npad, W)
-                 const int32_t* __restrict__ q_bits,    // (Q, W)
+                 const int32_t* __restrict__ q_bits,    // (Q or Q / mask_sb, W)
                  int32_t* __restrict__ out,             // (Npad / group, Q)
                  int nq, int n_tiles, int w, int group, int l2,
-                 int score_shift) {
+                 int score_shift, int mask_sb, int slot_tile) {
   __shared__ int4 xs[kTileRows * D16];
   __shared__ int32_t ns[kTileRows];
   __shared__ int32_t bs[kTileRows * kMaxWords];
@@ -69,9 +100,14 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
     const int4* qrow = reinterpret_cast<const int4*>(q8) + (size_t)q * D16;
 #pragma unroll
     for (int i = 0; i < D16; ++i) qv[i] = qrow[i];
+    int row = q;  // the per-query form: row q of (Q, W)
+    if (kSlots) {
+      const int nsb = slot_tile / mask_sb;
+      row = slot_tile > 0 ? (q / slot_tile) * nsb + q % nsb : q / mask_sb;
+    }
 #pragma unroll
     for (int j = 0; j < kMaxWords; ++j)
-      if (j < w) qb[j] = q_bits[(size_t)q * w + j];
+      if (j < w) qb[j] = q_bits[(size_t)row * w + j];
   }
 
   const int lane_mask = group - 1;  // group is a power of two <= 128
@@ -88,30 +124,37 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
     for (int i = threadIdx.x; i < kTileRows * w; i += kThreads)
       bs[(i / w) * kMaxWords + i % w] = row_bits[row0 * w + i];
     __syncthreads();
-    if (!active) continue;
+    // the slot form votes each row across the warp, so every lane of the
+    // warp walks every tile (an inactive lane's words stay 0: it admits
+    // nothing and stores nothing)
+    if (!kSlots && !active) continue;
 
     int32_t best = kMasked;
 #pragma unroll 4
     for (int r = 0; r < kTileRows; ++r) {
-      int32_t dot = 0;
+      int32_t dot = 0, hit = 0;
+      if (kSlots) {
 #pragma unroll
-      for (int i = 0; i < D16; ++i) {
-        const int4 xv = xs[r * D16 + i];
-        dot = __dp4a(xv.x, qv[i].x, dot);
-        dot = __dp4a(xv.y, qv[i].y, dot);
-        dot = __dp4a(xv.z, qv[i].z, dot);
-        dot = __dp4a(xv.w, qv[i].w, dot);
+        for (int j = 0; j < kMaxWords; ++j)
+          hit |= bs[r * kMaxWords + j] & qb[j];
+        // warp-uniform: the whole warp takes the dots or skips them
+        if (__any_sync(0xffffffffu, hit != 0))
+          dot = row_dot<D16>(xs + r * D16, qv);
+      } else {
+        dot = row_dot<D16>(xs + r * D16, qv);
       }
       int32_t score = l2 ? ns[r] - 2 * dot : -dot;
       score >>= score_shift;
-      int32_t hit = 0;
+      if (!kSlots) {
 #pragma unroll
-      for (int j = 0; j < kMaxWords; ++j) hit |= bs[r * kMaxWords + j] & qb[j];
+        for (int j = 0; j < kMaxWords; ++j)
+          hit |= bs[r * kMaxWords + j] & qb[j];
+      }
       const int lane = r & lane_mask;  // row0 is a multiple of group
       const int32_t packed =
           hit ? (int32_t)(((uint32_t)score << 7) | (uint32_t)lane) : kMasked;
       best = lane == 0 ? packed : min(best, packed);
-      if (lane == lane_mask)
+      if (lane == lane_mask && (!kSlots || active))
         out[((row0 + r) / group) * (size_t)nq + q] = best;
     }
   }
@@ -120,41 +163,51 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
 template <int D16>
 void launch(const void* q8, const void* x8, const void* norms,
             const void* row_bits, const void* q_bits, void* out, int nq,
-            int npad, int w, int group, int l2, int score_shift,
-            cudaStream_t stream) {
+            int npad, int w, int group, int l2, int score_shift, int mask_sb,
+            int slot_tile, cudaStream_t stream) {
   const int n_tiles = npad / kTileRows;
   const dim3 grid((n_tiles + kTilesPerBlock - 1) / kTilesPerBlock,
                   (nq + kThreads - 1) / kThreads);
-  scan_int8_kernel<D16><<<grid, kThreads, 0, stream>>>(
+  auto kernel = mask_sb > 0 ? scan_int8_kernel<D16, true>
+                            : scan_int8_kernel<D16, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(q8), static_cast<const int8_t*>(x8),
       static_cast<const int32_t*>(norms), static_cast<const int32_t*>(row_bits),
       static_cast<const int32_t*>(q_bits), static_cast<int32_t*>(out), nq,
-      n_tiles, w, group, l2, score_shift);
+      n_tiles, w, group, l2, score_shift, mask_sb, slot_tile);
 }
 
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for shapes the kernel does not
-// take, else the launch's own status.
+// take, else the launch's own status. mask_sb 0 is the per-query form; > 0
+// the slot form (q_bits holds Q / mask_sb rows), contiguous with slot_tile
+// 0, interleaved within tiles of slot_tile queries otherwise.
 extern "C" int vsr_scan_int8(const void* q8, const void* x8, const void* norms,
                              const void* row_bits, const void* q_bits,
                              void* out, int nq, int npad, int d_pad, int w,
-                             int group, int l2, int score_shift,
-                             void* stream) {
+                             int group, int l2, int score_shift, int mask_sb,
+                             int slot_tile, void* stream) {
   const bool group_ok = group >= 1 && group <= kTileRows &&
                         (group & (group - 1)) == 0;
+  const bool slots_ok =
+      mask_sb == 0 ||
+      (mask_sb > 0 && nq % mask_sb == 0 &&
+       (slot_tile == 0 ||
+        (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
   if (nq < 1 || npad < kTileRows || npad % kTileRows != 0 || !group_ok ||
-      w < 1 || w > kMaxWords || score_shift < 0 || score_shift > 31)
+      w < 1 || w > kMaxWords || score_shift < 0 || score_shift > 31 ||
+      !slots_ok)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d_pad) {
     case 128:
       launch<8>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group, l2,
-                score_shift, s);
+                score_shift, mask_sb, slot_tile, s);
       break;
     case 256:
       launch<16>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group, l2,
-                 score_shift, s);
+                 score_shift, mask_sb, slot_tile, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,10 +1,13 @@
 """Flat exact index over the whole arena: the ground-truth oracle's engine.
 
 Counterpart of vectorsearch_rbac_tpu/index/flat.py `FlatIndex` in exact
-mode over the whole arena. Row subsets (physical partitions) belong to the
-partitioned strategies (ROADMAP slice 3), the approx mode to slice 4."""
+mode over the whole arena, and its `_pad_to_bucket` row-count rule, which
+the int8 index's partitions share. The exact index over row subsets and
+the approx mode are ROADMAP slice 4."""
 
 from __future__ import annotations
+
+import math
 
 from typing import Dict, Tuple
 
@@ -13,6 +16,15 @@ import torch
 
 from ..core import DeviceArena
 from ..ops.scan import masked_scan_topk
+
+
+def _pad_to_bucket(n: int, block_rows: int) -> int:
+    """Pad a row count to block_rows times a power-of-two number of blocks
+    (the reference's rule: a partition's padded size, and through it the
+    int8 index's group width, follow from it)."""
+    n_blocks = max(1, math.ceil(n / block_rows))
+    bucket = 1 << (n_blocks - 1).bit_length()
+    return bucket * block_rows
 
 
 class FlatIndex:

@@ -1,7 +1,8 @@
 """Int8 flat index: the quantized fused-scan serving path.
 
-Counterpart of vectorsearch_rbac_tpu/index/flat_int8.py `Int8FlatIndex`
-for the global (unpartitioned) index: int8 distances and the bitset
+Counterpart of vectorsearch_rbac_tpu/index/flat_int8.py `Int8FlatIndex`,
+over the whole arena (the RLS strategy) or over a subset of its rows (a
+partition of the partitioned strategies): int8 distances and the bitset
 permission check in one CUDA scan (ops/scan_int8.py; the wide kernel for
 rows wider than 256), the group-minima merge kernels (ops/merge.py), the
 float32 rerank tier where the int8 scores are not exact (ops/rerank.py),
@@ -15,16 +16,36 @@ rules that decide the result are the reference's: the group width from
 the padded row count, the rerank iff the corpus quantizes lossily or the
 metric is not l2 (ip/cosine queries quantize with their own scales), the
 k + 32 candidates a rerank starts from, the rerank mode's default, and the
-wire's id width from the arena's padded row count. Profiler spans mark the
-host's share of a pass (flat_int8.quantize_upload, .enqueue,
-.fetch_unpack) and, inside the enqueue, each batch's stages (.scan,
-.merge, .rerank, .wire); bench/profile.py reads them.
+wire's id width from the arena's padded row count.
 
-Not ported (ROADMAP.md): row subsets and the logical no-copy mode, the
-admit-dedup slot grouping, the resident user table behind the 2-byte uid
-wire, and the bf16/u8 wires. The reference's tile clamps for the wide
-kernel (block_rows, q_tile, d_chunk) are VMEM rules of the TPU and have no
-counterpart.
+A partition's rows are either gathered once into the index's own tensors,
+or (logical=True) kept as a row map and gathered from the shared arena at
+the start of every pass. Either way the row count pads to a power-of-two
+number of blocks (index/flat.py `_pad_to_bucket`), pad rows get zero
+bitset words, which no query admits, and the row map turns local ids into
+arena rows before any rerank. The reference's block_rows and q_tile
+clamps are kept for what they decide here: block_rows a partition's
+padded size, and through it the group width; q_tile admit-dedup's gate.
+
+Admit-dedup (mask_dedup, on by default as in the reference): where a pass
+holds few distinct masks, the host groups its queries by mask into slots
+of MASK_SB queries, pads each mask's last slot with its first query, and
+the scan reads one mask row per slot (the slot form of csrc/scan_int8.cu,
+in its contiguous layout: query j reads slot j // MASK_SB, so each
+half-warp shares one mask and a warp skips the rows none of its queries
+may read). The reference's gate decides when: narrow rows, a tile of at
+least 8 slots, at least one tile of queries, and a padded query count at
+most 1.25x the unpadded one. The result rows go back to the caller's
+order on the device, before they are copied to the host; `_last_dedup`
+says whether the last pass grouped.
+
+Profiler spans mark the host's share of a pass (flat_int8.dedup,
+.quantize_upload, .gather, .enqueue, .fetch_unpack) and, inside the
+enqueue, each batch's stages (.scan, .merge, .rerank, .wire);
+bench/profile.py reads them.
+
+Not ported (ROADMAP.md): the resident user table behind the 2-byte uid
+wire, and the bf16/u8 wires.
 """
 
 from __future__ import annotations
@@ -40,21 +61,70 @@ from ..ops.rerank import RERANK_MODES, rebuild_query, rerank_topk
 from ..ops.scan_int8 import (NARROW_MAX_D, int8_group_minima,
                              merge_group_minima, pack_results_device,
                              unpack_results_host)
+from .flat import _pad_to_bucket
 
 MAX_GROUP = 128      # rows per packed minimum: the 7-bit lane field
 RERANK_MARGIN = 32   # extra scan candidates the rerank starts from
+MASK_SB = 16         # admit-dedup slot width (the reference's)
+
+
+def dedup_slots(masks: np.ndarray, sb: int, bs: int):
+    """Admit-dedup's host grouping (the reference's flat_int8.py:583-616,
+    laid out contiguously): queries sorted by mask (lexicographically by
+    word, as np.unique orders rows, then by query) fill slots of sb
+    positions, a mask's last slot padded with that slot's first query.
+    Returns (src, valid): position p holds query src[p], a real result
+    where valid[p]; the padded count is a multiple of bs, the tail slots
+    repeat query 0 and are discarded. None where the padding would pass
+    1.25x the batches the queries fill unpadded (a fragmented mask
+    population stays per query). Vectorized: the reference's np.unique
+    over rows and per-slot loop took ~17 ms of host time per 8,192
+    queries, more than the slot form saves on the card."""
+    nq = masks.shape[0]
+    order = np.lexsort(masks.T[::-1])        # stable: ties by query
+    srt = masks[order]
+    new = np.ones(nq, bool)
+    new[1:] = (srt[1:] != srt[:-1]).any(axis=1)
+    starts = np.flatnonzero(new)             # each mask's first position
+    counts = np.diff(np.append(starts, nq))
+    n_slots = -(-counts // sb)
+    s_tot = int(n_slots.sum())
+    npq2 = -(-(s_tot * sb) // bs) * bs
+    if npq2 > max(bs, int(1.25 * (-(-nq // bs) * bs))):
+        return None
+    grp = np.cumsum(new) - 1                 # mask of each sorted position
+    slot0 = np.cumsum(n_slots) - n_slots     # each mask's first slot
+    rank = np.arange(nq) - starts[grp]
+    pos = (slot0[grp] + rank // sb) * sb + rank % sb
+    slot_grp = np.repeat(np.arange(len(starts)), n_slots)
+    first = starts[slot_grp] + (np.arange(s_tot) - slot0[slot_grp]) * sb
+    head = order[first]                      # each slot's first query
+    src = np.zeros(npq2, np.int64)
+    src[:s_tot * sb] = np.repeat(head, sb)
+    src[pos] = order
+    valid = np.zeros(npq2, bool)
+    valid[pos] = True
+    return src, valid
 
 
 class Int8FlatIndex:
     def __init__(
         self,
         arena: DeviceArena,
+        rows: Optional[np.ndarray] = None,   # arena row ids; None = whole
         query_batch: int = 8192,
+        q_tile: int = 2048,             # admit-dedup's tile (its gate)
+        block_rows: int = 4096,         # a partition pads to a power-of-two
+                                        # number of these
+        group: int = 128,               # widest group the row count allows
         wire: str = "f32",              # "ids" | "f32"
         rerank_mode: Optional[str] = None,  # one of ops.rerank.RERANK_MODES;
                                         # None: "residual4" (ip/cosine) or
                                         # "dequant" (l2) on wide rows,
                                         # "f16" on narrow ones
+        logical: bool = False,          # row subsets: gather from the
+                                        # shared arena per pass, no copy
+        mask_dedup: bool = True,        # admit-dedup (see the module note)
     ):
         q = arena.quant
         if q is None:
@@ -62,6 +132,12 @@ class Int8FlatIndex:
         if wire not in ("ids", "f32"):
             raise NotImplementedError(
                 f"wire {wire!r}: the bf16 and u8 wires are ROADMAP items")
+        if wire == "ids" and rows is not None:
+            # rank pseudo-distances cannot be merged across partitions
+            raise ValueError(
+                "wire='ids' returns rank pseudo-distances and cannot be used "
+                "on a partitioned Int8FlatIndex whose results get merged: "
+                "use 'f32' for partition tiers")
         self.metric = arena.metric
         d_pad = q.d_pad
         self.wide = d_pad > NARROW_MAX_D
@@ -87,13 +163,48 @@ class Int8FlatIndex:
         self._quant = q
         self.query_batch = query_batch
         self.wire = wire
-        self.n_rows = arena.n
-        # group-min width scales with the row count (reference rule): keep
-        # >= 8192 groups where the padded row count allows, since top-k
-        # loses ~C(k,2)*group/npad results to same-group collisions
-        fit = q.vectors_q.shape[0] // 8192
-        self.group = (min(MAX_GROUP, 1 << (fit.bit_length() - 1)) if fit >= 8
-                      else 8)
+        self.mask_dedup = mask_dedup
+        self._last_dedup = False
+
+        # the reference's tile clamps (flat_int8.py:351-379), kept for the
+        # padded partition size (block_rows) and the dedup gate (q_tile);
+        # r_pad is the width of the TPU's role one-hots, 128 per 4 words
+        self.q_tile = min(q_tile, query_batch)
+        self.block_rows = block_rows
+        unit = d_pad + 128 * -(-arena.role_bits.shape[1] // 4)
+        if self.wide:
+            self.block_rows = min(self.block_rows, 2048)
+            self.q_tile = min(self.q_tile, 512)
+            while (self.block_rows > 512
+                   and self.block_rows * self.q_tile * 4 > 4_500_000):
+                self.block_rows //= 2
+        else:
+            while (self.block_rows > 1024
+                   and self.block_rows * unit > 3_700_000):
+                self.block_rows //= 2
+            while self.q_tile > 256 and self.q_tile * unit > 940_000:
+                self.q_tile //= 2
+
+        self.logical = logical and rows is not None
+        if rows is None:
+            self.n_rows = arena.n
+            self._row_map = None
+            self._rows = (q.vectors_q, q.norms_q, arena.role_bits)
+            npad = q.vectors_q.shape[0]
+        else:
+            rows = np.asarray(rows, dtype=np.int64)
+            self.n_rows = len(rows)
+            npad = _pad_to_bucket(max(self.n_rows, 1), self.block_rows)
+            rmap = np.full(npad, -1, np.int32)
+            rmap[:self.n_rows] = rows
+            self._row_map = torch.from_numpy(rmap).to(arena.device)
+            self._rows = None if self.logical else self._gather()
+        # group-min width scales with the padded row count (reference
+        # rule): keep >= 8192 groups where it allows, since top-k loses
+        # ~C(k,2)*group/npad results to same-group collisions
+        fit = npad // 8192
+        self.group = (min(group, MAX_GROUP, 1 << (fit.bit_length() - 1))
+                      if fit >= 8 else 8)
         # results carry arena row ids: size the wire to the padded arena
         self._id_bits = max((arena.n_padded - 1).bit_length(), 1)
         # the rerank's corpus constant: l2 rebuilds q8 / scale + center,
@@ -106,6 +217,21 @@ class Int8FlatIndex:
         else:
             self._q_dequant = float(np.float32(q.scale))
             self._center = None
+
+    def _gather(self):
+        """The partition's (vectors, norms, bitsets), gathered from the
+        shared arena along the row map; pad rows are all zero, and zero
+        bitset words admit no query."""
+        q, bits = self._quant, self._arena.role_bits
+        safe = self._row_map.clamp_min(0)
+        vq = q.vectors_q.index_select(0, safe)
+        nq = q.norms_q.index_select(0, safe)
+        rb = bits.index_select(0, safe)
+        n = self.n_rows
+        vq[n:] = 0
+        nq[n:] = 0
+        rb[n:] = 0
+        return vq, nq, rb
 
     def _quantize_upload(self, qf: np.ndarray) -> Dict[str, torch.Tensor]:
         """The pass's per-query operands on the device, each uploaded once
@@ -138,31 +264,65 @@ class Int8FlatIndex:
                         k: int):
         """Enqueue every batch's scan, merge, rerank and wire pack without
         syncing; returns finalize() -> (dists (Q, k) float32, ids (Q, k)
-        int64). With the ids wire the dists are rank pseudo-distances
-        0..k-1."""
+        int64 arena rows). With the ids wire the dists are rank
+        pseudo-distances 0..k-1."""
         quant = self._quant
         arena = self._arena
         qf = np.asarray(queries, dtype=np.float32)
-        nq = qf.shape[0]
-        if nq == 0:
+        nq0 = qf.shape[0]
+        if nq0 == 0:
             return lambda: (np.empty((0, k), np.float32),
                             np.empty((0, k), np.int64))
+        masks = np.ascontiguousarray(query_masks, dtype=np.uint32)
+        # the reference's batch and tile for the dedup gate: a pass below
+        # one batch runs as one power-of-two batch of at least 32
+        bs = min(self.query_batch, max(1 << (nq0 - 1).bit_length(), 32))
+        q_tile = min(self.q_tile, bs)
+        sb = MASK_SB if (self.mask_dedup and not self.wide) else 0
+        plan = None
+        with record_function("flat_int8.dedup"):
+            if sb and q_tile % sb == 0 and q_tile // sb >= 8 \
+                    and bs % q_tile == 0 and nq0 >= q_tile:
+                plan = dedup_slots(masks, sb, bs)
+            if plan is not None:
+                src, valid = plan
+                masks = np.ascontiguousarray(masks[src[::sb]])  # one a slot
+        self._last_dedup = plan is not None
+        slot_sb = sb if plan is not None else 0
+        step = bs if plan is not None else self.query_batch
         with record_function("flat_int8.quantize_upload"):
+            # every per-query operand is row-local: quantize the caller's
+            # queries once, then lay the codes out in slot order on the
+            # device (the reference permutes first; the codes are the same)
             ops = self._quantize_upload(qf)
-            masks = np.ascontiguousarray(query_masks, dtype=np.uint32)
+            if plan is not None:
+                # every position's query, and every query's real position
+                # (the wire rows go back to the caller's order on the
+                # device; pad and tail rows are dropped); both uploaded
+                # here, before the batches are queued
+                where = np.empty(nq0, np.int64)
+                where[src[valid]] = np.flatnonzero(valid)
+                src_d, where_d = (torch.from_numpy(a).to(arena.device)
+                                  for a in (src, where))
+                ops = {name: t.index_select(0, src_d)
+                       for name, t in ops.items()}
             m_d = torch.from_numpy(masks.view(np.int32)).to(arena.device)
+        nq = next(iter(ops.values())).shape[0]
+        with record_function("flat_int8.gather"):
+            vq, nrm, bits = self._gather() if self.logical else self._rows
         kk = k + RERANK_MARGIN if self.rerank else k
         inv_l2 = 1.0 / quant.scale**2
         wires = []
         with record_function("flat_int8.enqueue"):
-            for s in range(0, nq, self.query_batch):
-                b = {name: t[s:s + self.query_batch]
-                     for name, t in ops.items()}
+            for s in range(0, nq, step):
+                b = {name: t[s:s + step] for name, t in ops.items()}
+                mb = (m_d[s // slot_sb:(s + step) // slot_sb] if slot_sb
+                      else m_d[s:s + step])
                 with record_function("flat_int8.scan"):
                     packed = int8_group_minima(
-                        b["q8"], quant.vectors_q, quant.norms_q,
-                        arena.role_bits, m_d[s:s + self.query_batch],
-                        self.group, self._kernel_metric, self.score_shift)
+                        b["q8"], vq, nrm, bits, mb, self.group,
+                        self._kernel_metric, self.score_shift,
+                        mask_sub_block=slot_sb)
                 with record_function("flat_int8.merge"):
                     qn = (None if "inv" in b else
                           (b["q8"].to(torch.int32) ** 2).sum(
@@ -171,6 +331,11 @@ class Int8FlatIndex:
                         packed, qn, b.get("inv", inv_l2), kk, self.group,
                         "kernel", self._kernel_metric, self.score_shift,
                         b.get("bias"))
+                if self._row_map is not None:
+                    # local -> arena rows BEFORE the rerank, which reads
+                    # the arena's full-precision mirror by arena row
+                    ii = torch.where(ii < 0, -1, self._row_map.index_select(
+                        0, ii.clamp_min(0).reshape(-1)).view(ii.shape))
                 if self.rerank:
                     with record_function("flat_int8.rerank"):
                         qr = rebuild_query(
@@ -186,8 +351,11 @@ class Int8FlatIndex:
 
         def finalize():
             with record_function("flat_int8.fetch_unpack"):
-                w = torch.cat(wires).cpu().numpy()
-                d, i = unpack_results_host(w, k, id_bits=self._id_bits,
+                w = torch.cat(wires)
+                if plan is not None:
+                    w = w.index_select(0, where_d)
+                d, i = unpack_results_host(w.cpu().numpy(), k,
+                                           id_bits=self._id_bits,
                                            dist=self.wire)
             return d.astype(np.float32), i.astype(np.int64)
 
@@ -197,4 +365,16 @@ class Int8FlatIndex:
         return self.search_deferred(queries, query_masks, k)()
 
     def storage_bytes(self) -> Dict[str, int]:
-        return {"vectors": 0, "index": 0}  # the shared arena, counted there
+        """The index's own device bytes (the shared arena is counted by the
+        searcher): a partition's gathered int8 rows ("vectors") and its
+        bitsets, norms and row map ("index"); the row map alone in the
+        logical mode."""
+        if self._row_map is None:
+            return {"vectors": 0, "index": 0}
+        rmap = self._row_map.numel() * self._row_map.element_size()
+        if self._rows is None:
+            return {"vectors": 0, "index": rmap}
+        vq, nrm, bits = self._rows
+        return {"vectors": vq.numel() * vq.element_size(),
+                "index": (nrm.numel() * nrm.element_size()
+                          + bits.numel() * bits.element_size() + rmap)}

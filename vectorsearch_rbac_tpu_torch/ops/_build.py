@@ -36,15 +36,18 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 # Launch counts, one per kernel: a wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that it went through them.
-LAUNCHES = {"scan_int8": 0, "scan_int8_wide": 0, "merge_extract": 0,
-            "merge_bitonic": 0}
+# "scan_int8" counts every launch of the narrow scan, "scan_int8_slots" the
+# launches of its admit-dedup slot form among them.
+LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
+            "merge_extract": 0, "merge_bitonic": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group, l2,
-    # score_shift, stream
-    "vsr_scan_int8": [_P] * 6 + [_I] * 7 + [_P],
-    "vsr_scan_int8_wide": [_P] * 6 + [_I] * 7 + [_P],   # same arguments
+    # score_shift, mask_sb, slot_tile, stream
+    "vsr_scan_int8": [_P] * 6 + [_I] * 9 + [_P],
+    # the same without mask_sb and slot_tile
+    "vsr_scan_int8_wide": [_P] * 6 + [_I] * 7 + [_P],
     # mins, out_y, out_m, nq, nsub, sub, t, stream
     "vsr_extract_pairs": [_P] * 3 + [_I] * 4 + [_P],
     # y, meta, out_y, out_m, nq, npc, keep, stream

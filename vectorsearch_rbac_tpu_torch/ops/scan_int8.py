@@ -14,8 +14,15 @@ view of the uint32 words, not from int8 role one-hots: the kernel ANDs
 W words per pair, which is the same predicate as the TPU kernel's one-hot
 matmul (core.bits_to_onehot8 is a bit-for-bit expansion).
 
-Left out against the reference (ROADMAP.md): the admit-dedup
-`mask_sub_block` form, the approx/cascade merges, and the bf16/u8 wires.
+The admit-dedup slot form of the narrow scan (`mask_sub_block`: one mask
+row per slot of `mask_sub_block` queries, ROADMAP queue 2's S2) takes
+query bits of shape (Q / mask_sub_block, W) in one of two layouts,
+`slot_of_query` says which slot each query reads. Its plain version
+expands the slots to per-query masks and calls the per-query plain
+version: the slot form's output is defined as that.
+
+Left out against the reference (ROADMAP.md): the wide kernel's slot form,
+the approx/cascade merges, and the bf16/u8 wires.
 """
 
 from __future__ import annotations
@@ -39,16 +46,43 @@ _CHUNK_ELEMS = 1 << 27   # plain version: elements per (rows, Q) temporary
 _EXACT_D = 768           # plain version: columns per float32 partial dot
 
 
+def _check_slots(nq: int, mask_sub_block: int, slot_tile: int) -> None:
+    sb, tile = mask_sub_block, slot_tile
+    if sb < 0 or tile < 0 or (tile and not sb):
+        raise ValueError(f"mask_sub_block {sb}, slot_tile {tile}")
+    if sb and (nq % sb or (tile and (tile % sb or nq % tile))):
+        raise ValueError(f"{nq} queries do not tile into slots of {sb}"
+                         + (f" within tiles of {tile}" if tile else ""))
+
+
+def slot_of_query(nq: int, mask_sub_block: int, slot_tile: int = 0,
+                  device=None) -> torch.Tensor:
+    """(nq,) int64: the row of the (nq / mask_sub_block, W) slot masks that
+    each query reads. slot_tile 0 is the contiguous layout (query j reads
+    slot j // mask_sub_block); otherwise the interleaved one of the TPU
+    kernel's tile-style repeat: within each tile of slot_tile queries,
+    query j reads slot j % nsb of the tile's nsb = slot_tile /
+    mask_sub_block (index/flat_int8.py's first_q rule, inverted)."""
+    _check_slots(nq, mask_sub_block, slot_tile)
+    q = torch.arange(nq, dtype=torch.int64, device=device)
+    if not slot_tile:
+        return q // mask_sub_block
+    nsb = slot_tile // mask_sub_block
+    return (q // slot_tile) * nsb + q % nsb
+
+
 def _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
-                     group):
+                     group, mask_sub_block=0, slot_tile=0):
     nq, d_pad = queries_q.shape
     npad = vectors_q.shape[0]
     if vectors_q.shape[1] != d_pad or norms_q.shape != (npad,):
         raise ValueError(f"shape mismatch: q {tuple(queries_q.shape)}, x "
                          f"{tuple(vectors_q.shape)}, norms "
                          f"{tuple(norms_q.shape)}")
+    _check_slots(nq, mask_sub_block, slot_tile)
+    rows = nq // mask_sub_block if mask_sub_block else nq
     if role_bits.shape[0] != npad or query_bits.shape != (
-            nq, role_bits.shape[1]):
+            rows, role_bits.shape[1]):
         raise ValueError(f"bitset shapes {tuple(role_bits.shape)} / "
                          f"{tuple(query_bits.shape)} do not match")
     if group not in (8, 16, 32, 64, 128) or npad % group:
@@ -58,9 +92,12 @@ def _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
 
 def int8_group_minima_plain(queries_q, vectors_q, norms_q, role_bits,
                             query_bits, group: int = 128, metric: str = "l2",
-                            score_shift: int = 0) -> torch.Tensor:
+                            score_shift: int = 0, mask_sub_block: int = 0,
+                            slot_tile: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the scan kernels: (n_groups, Q) int32 packed
     (score << 7 | lane) group minima, 0x7F000000 where no row is admissible.
+    With mask_sub_block the query bits are slot masks, expanded here to
+    one row per query (slot_of_query).
 
     The dots run as float32 matmuls (CUDA has no int8/int32 matmul), chunked
     over rows so (Q, Npad) never exists and over columns in slices of at
@@ -69,8 +106,11 @@ def int8_group_minima_plain(queries_q, vectors_q, norms_q, role_bits,
     768 < 2^24, and float32 holds every integer below 2^24. TF32 is switched
     off around it."""
     _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
-                     group)
+                     group, mask_sub_block, slot_tile)
     nq, d_pad = queries_q.shape
+    if mask_sub_block:
+        query_bits = query_bits.index_select(0, slot_of_query(
+            nq, mask_sub_block, slot_tile, query_bits.device))
     npad = vectors_q.shape[0]
     dev = queries_q.device
     qf = queries_q.to(torch.float32)
@@ -127,10 +167,17 @@ def _check_kernel_tensors(tensors, w: int) -> None:
 
 def int8_group_minima_wide(queries_q, vectors_q, norms_q, role_bits,
                            query_bits, group: int = 128, metric: str = "l2",
-                           score_shift: int = 0) -> torch.Tensor:
+                           score_shift: int = 0, mask_sub_block: int = 0,
+                           slot_tile: int = 0) -> torch.Tensor:
     """int8_group_minima for any d_pad that is a multiple of 128 (the
     reference's int8_masked_topk_wide). CPU tensors take the plain version;
-    CUDA tensors launch csrc/scan_int8_wide.cu."""
+    CUDA tensors launch csrc/scan_int8_wide.cu, which has no slot form yet
+    (ROADMAP queue 2)."""
+    if mask_sub_block:
+        raise NotImplementedError(
+            "the wide scan's mask_sub_block slot form is not ported "
+            "(ROADMAP queue 2); the index keeps admit-dedup off on wide rows, "
+            "as the reference does")
     if queries_q.device.type == "cpu":
         return int8_group_minima_wide_plain(
             queries_q, vectors_q, norms_q, role_bits, query_bits, group,
@@ -157,24 +204,28 @@ def int8_group_minima_wide(queries_q, vectors_q, norms_q, role_bits,
 
 def int8_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
                       group: int = 128, metric: str = "l2",
-                      score_shift: int = 0) -> torch.Tensor:
+                      score_shift: int = 0, mask_sub_block: int = 0,
+                      slot_tile: int = 0) -> torch.Tensor:
     """(n_groups, Q) int32 packed group minima.
 
     queries_q (Q, d_pad) int8, vectors_q (Npad, d_pad) int8, norms_q (Npad,)
-    int32, role_bits (Npad, W) int32, query_bits (Q, W) int32. Rows wider
-    than 256 go to int8_group_minima_wide (the reference's `wide` rule).
-    Otherwise CPU tensors take the plain version and CUDA tensors launch
-    csrc/scan_int8.cu."""
+    int32, role_bits (Npad, W) int32, query_bits (Q, W) int32 per-query
+    masks, or with mask_sub_block = sb > 0 (Q / sb, W) slot masks read as
+    slot_of_query(Q, sb, slot_tile) says. Rows wider than 256 go to
+    int8_group_minima_wide (the reference's `wide` rule). Otherwise CPU
+    tensors take the plain version and CUDA tensors launch
+    csrc/scan_int8.cu (the slot form counts under "scan_int8" and
+    "scan_int8_slots")."""
     if queries_q.shape[1] > NARROW_MAX_D:
         return int8_group_minima_wide(queries_q, vectors_q, norms_q,
                                       role_bits, query_bits, group, metric,
-                                      score_shift)
+                                      score_shift, mask_sub_block, slot_tile)
     if queries_q.device.type == "cpu":
         return int8_group_minima_plain(queries_q, vectors_q, norms_q,
                                        role_bits, query_bits, group, metric,
-                                       score_shift)
+                                       score_shift, mask_sub_block, slot_tile)
     _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
-                     group)
+                     group, mask_sub_block, slot_tile)
     nq, d_pad = queries_q.shape
     npad, w = vectors_q.shape[0], role_bits.shape[1]
     if d_pad not in (128, 256):
@@ -186,10 +237,12 @@ def int8_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
                       device=queries_q.device)
     err = _build.lib().vsr_scan_int8(
         *(t.data_ptr() for t in tensors), out.data_ptr(), nq, npad, d_pad, w,
-        group, int(metric == "l2"), score_shift,
+        group, int(metric == "l2"), score_shift, mask_sub_block, slot_tile,
         _build.stream_ptr(queries_q.device))
     _build.check(err, "vsr_scan_int8")
     _build.LAUNCHES["scan_int8"] += 1
+    if mask_sub_block:
+        _build.LAUNCHES["scan_int8_slots"] += 1
     return out
 
 
@@ -208,11 +261,15 @@ def int8_masked_topk(
     metric: str = "l2",         # the kernel metric: "l2" | "ip"
     score_shift: int = 0,
     query_bias=None,            # (Q,) float32 added to ip distances
+    mask_sub_block: int = 0,    # admit-dedup slot width (0: per-query masks)
+    slot_tile: int = 0,         # 0: contiguous slots; else interleaved
+                                # within tiles of slot_tile queries
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Return (dists (Q, k) float32 ascending, idx (Q, k) int32 arena rows;
     -1 / +inf on empty slots)."""
     packed = int8_group_minima(queries_q, vectors_q, norms_q, role_bits,
-                               query_bits, group, metric, score_shift)
+                               query_bits, group, metric, score_shift,
+                               mask_sub_block, slot_tile)
     return merge_group_minima(packed, query_norms, inv_scale_sq, k, group,
                               merge, metric, score_shift, query_bias)
 

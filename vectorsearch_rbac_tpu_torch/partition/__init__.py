@@ -1,11 +1,17 @@
 from .base import BuiltPartition, PartitionedSearcher, make_partition_index
-from .strategies import STRATEGIES, build_global_searcher, build_searcher
+from .strategies import (STRATEGIES, build_comb_searcher,
+                         build_global_searcher, build_role_searcher,
+                         build_searcher)
+from .tiled import TiledSearcher
 
 __all__ = [
     "BuiltPartition",
     "PartitionedSearcher",
+    "TiledSearcher",
     "make_partition_index",
     "build_global_searcher",
+    "build_role_searcher",
+    "build_comb_searcher",
     "build_searcher",
     "STRATEGIES",
 ]

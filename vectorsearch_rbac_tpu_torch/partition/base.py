@@ -1,45 +1,53 @@
-"""Partitioned search engine, for the single global partition.
+"""Partitioned search: partitions as data and a batched multi-tenant engine.
 
 Counterpart of vectorsearch_rbac_tpu/partition/base.py: the index factory
-and the PartitionedSearcher a strategy returns. The port has the global
-(RLS) layout only, where every query routes to the one partition over the
-whole arena; multi-partition routing, per-probe parameters and the
-cross-partition merge come with the partitioned strategies (ROADMAP
-slice 3).
+and the PartitionedSearcher a strategy returns. A strategy is partitions
+over the shared arena plus a router from user to partition ids; the engine
+groups a query batch by partition so that each index scans all of its
+queries at once, enqueues every partition's scans before the first sync
+(deferred dispatch), and merges a query's partitions on the host with
+row-id dedupe, once per tuple of partitions. The per-(user, partition)
+probe parameters and the graph batcher belong to the HNSW slice (ROADMAP
+slice 4).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from ..config import FrameworkConfig
 from ..core import DeviceArena
 from ..index.flat import FlatIndex
 from ..index.flat_int8 import Int8FlatIndex
+from ..ops.topk import merge_topk_host
 from ..rbac import query_masks_for
 
 
 def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
                          cfg: FrameworkConfig):
-    """Index factory over the whole arena (rows=None): "flat_approx" on a
-    quantized arena is the int8 fused scan, "flat" the exact f32 scan."""
-    if rows is not None:
-        raise NotImplementedError(
-            "indexes over row subsets (partitions) are ROADMAP slice 3")
+    """Index factory over the whole arena (rows=None) or a partition's
+    rows: "flat_approx" on a quantized arena is the int8 fused scan (the
+    configured wire on the global index; "f32" on partitions, whose
+    results are merged across partitions and must keep their distances),
+    "flat" over the whole arena the exact f32 scan."""
     kind = cfg.index.kind
     if kind == "flat_approx" and arena.quant is not None:
-        return Int8FlatIndex(arena, query_batch=cfg.search.batch_size,
-                             wire=cfg.search.wire_dist)
-    if kind == "flat":
+        return Int8FlatIndex(arena, rows, query_batch=cfg.search.batch_size,
+                             block_rows=min(cfg.search.block_rows, 8192),
+                             wire=cfg.search.wire_dist if rows is None
+                             else "f32")
+    if kind == "flat" and rows is None:
         return FlatIndex(arena, block_rows=cfg.search.block_rows,
                          query_batch=cfg.search.batch_size)
     raise NotImplementedError(
-        f"index kind {kind!r} (dtype {'int8' if arena.quant else 'float32'}) "
-        "is not ported: the f32 approx scan, IVF, HNSW and binary indexes "
-        "are ROADMAP slice 4")
+        f"index kind {kind!r} (dtype {'int8' if arena.quant else 'float32'}"
+        f"{', over a row subset' if rows is not None else ''}) is not "
+        "ported: the exact and f32 approx scans over partitions, IVF, HNSW "
+        "and binary indexes are ROADMAP slice 4")
 
 
 @dataclass
@@ -51,17 +59,20 @@ class BuiltPartition:
 
 
 class PartitionedSearcher:
-    """A strategy instance: here one partition that every query routes to
-    (the reference's user -> partitions router comes with slice 3)."""
+    """A strategy instance: partitions + a user -> partitions router.
+    router None (the global strategy) sends every query to the one
+    partition without a per-query routing loop."""
 
     def __init__(self, arena: DeviceArena,
-                 partitions: Dict[int, BuiltPartition], name: str):
-        if len(partitions) != 1:
-            raise NotImplementedError(
-                "multi-partition strategies are ROADMAP slice 3; the port "
-                "serves one global partition")
+                 partitions: Dict[int, BuiltPartition],
+                 router: Optional[Callable[[int], Sequence[int]]],
+                 name: str):
+        if router is None and len(partitions) != 1:
+            raise ValueError("only a one-partition searcher may go without "
+                             "a router")
         self.arena = arena
         self.partitions = partitions
+        self.router = router
         self.name = name
 
     def search_batch(self, queries: np.ndarray, user_ids: np.ndarray,
@@ -73,12 +84,41 @@ class PartitionedSearcher:
     def search_batch_deferred(self, queries: np.ndarray,
                               user_ids: np.ndarray, user_masks: np.ndarray,
                               k: int):
-        """Enqueue a pass and return finalize() -> (dists, ids). Every query
-        routes to the one global partition."""
-        (part,) = self.partitions.values()
-        qmasks = query_masks_for(user_masks, np.asarray(user_ids))
-        return part.index.search_deferred(
-            np.asarray(queries, dtype=np.float32), qmasks, k)
+        """Enqueue a pass and return finalize() -> (dists, ids). Without a
+        router the one partition takes every query and its index's
+        finalize is returned as is; otherwise every touched partition's
+        scans are enqueued here and finalize() drains them and merges."""
+        queries = np.asarray(queries, dtype=np.float32)
+        user_ids = np.asarray(user_ids)
+        qmasks = query_masks_for(user_masks, user_ids)
+        if self.router is None:
+            (part,) = self.partitions.values()
+            return part.index.search_deferred(queries, qmasks, k)
+
+        nq = queries.shape[0]
+        pid_to_queries: Dict[int, List[int]] = {}
+        per_query_pids: List[Sequence[int]] = []
+        with record_function("partitioned.route"):
+            for qi in range(nq):
+                pids = self.router(int(user_ids[qi]))
+                per_query_pids.append(pids)
+                for pid in pids:
+                    pid_to_queries.setdefault(pid, []).append(qi)
+        deferred = {}
+        with record_function("partitioned.enqueue"):
+            for pid, qidx in pid_to_queries.items():
+                deferred[pid] = self.partitions[pid].index.search_deferred(
+                    queries[qidx], qmasks[qidx], k)
+
+        def finalize():
+            part_results = {}
+            for pid, fin in deferred.items():
+                d, i = fin()
+                pos = {qi: j for j, qi in enumerate(pid_to_queries[pid])}
+                part_results[pid] = (d, i, pos)
+            return _merge_partitions(part_results, per_query_pids, nq, k)
+
+        return finalize
 
     def storage_report(self) -> Dict[str, float]:
         """MB accounting: the shared arena plus per-partition structures."""
@@ -99,3 +139,34 @@ class PartitionedSearcher:
             "total_mb": (arena_vec + arena_aux + part_vec + part_idx) / mb,
             "num_partitions": len(self.partitions),
         }
+
+
+def _merge_partitions(part_results, per_query_pids, nq: int, k: int):
+    """Per-query merge across partitions with row-id dedupe: a query of one
+    partition copies its rows; queries of several group by their tuple of
+    partitions (the queries of one comb route alike), so the merge runs
+    once per tuple over stacked rows."""
+    out_d = np.full((nq, k), np.inf)
+    out_i = np.full((nq, k), -1, dtype=np.int64)
+    with record_function("partitioned.merge"):
+        single_by_pid: Dict[int, List[int]] = {}
+        multi_by_pids: Dict[tuple, List[int]] = {}
+        for qi, pids in enumerate(per_query_pids):
+            if len(pids) == 1:
+                single_by_pid.setdefault(pids[0], []).append(qi)
+            elif pids:
+                multi_by_pids.setdefault(tuple(pids), []).append(qi)
+        for pid, qis in single_by_pid.items():
+            d, i, pos = part_results[pid]
+            rows = [pos[qi] for qi in qis]
+            out_d[qis] = d[rows]
+            out_i[qis] = i[rows]
+        for pids, qis in multi_by_pids.items():
+            ds, is_ = [], []
+            for pid in pids:
+                d, i, pos = part_results[pid]
+                rows = [pos[qi] for qi in qis]
+                ds.append(d[rows])
+                is_.append(i[rows])
+            out_d[qis], out_i[qis] = merge_topk_host(ds, is_, k)
+    return out_d, out_i

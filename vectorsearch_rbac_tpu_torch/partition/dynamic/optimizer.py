@@ -1,0 +1,440 @@
+"""AnonySys dynamic-partition planner: greedy storage-budgeted splitting.
+
+A copy of vectorsearch_rbac_tpu/partition/dynamic/optimizer.py (host-only
+Python), so that the port plans where the JAX package is absent;
+tests/test_torch_host.py holds it equal to the reference.
+
+Re-implements the semantics of the reference's core optimizer
+(controller/dynamic_partition/hnsw/AnonySys_dynamic_partition.py:425-667
+split_comb_roles) over the framework's array-based world model:
+
+State:
+- `assignment`: pid -> set of doc indices materialized in that partition;
+- `trackers`: comb -> {pid -> set of roles served from that partition}.
+
+Loop: find the largest partition hosting more than one *fully resident*
+role-combination; for each candidate comb propose moving its documents to a
+fresh partition; score the move by (relative query-time change) /
+(relative storage growth) under the fitted cost models; apply the best
+(most negative) move from a heap. Two phases:
+
+- stage 1 ("single-role mode"): only single-role combs split; tracker
+  updates forcibly retarget every affected comb's roles to the new
+  partition (reference :270-309 update_comb_role_tracker_stage1);
+- stage 2 ("combination mode", entered when stage 1 has no improving
+  candidate, reference :611-613): any comb may split, and each affected
+  comb re-selects its optimal covering subset of candidate partitions by
+  exhaustive enumeration (reference :312-422 update_comb_role_tracker_stage2).
+
+The split loop stops when total materialized docs would exceed
+alpha * total docs (reference :440) or no improving move exists.
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+from dataclasses import dataclass, field
+from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence, Set, Tuple
+
+from ...models.cost import (CostModelParams, model_ef_for_recall,
+                            model_partition_time)
+from ...rbac import Comb
+from ...config import get_logger
+
+logger = get_logger("dynamic.optimizer")
+
+Trackers = Dict[Comb, Dict[int, Set[int]]]
+
+
+@dataclass
+class PlannerInputs:
+    role_to_docs: Mapping[int, FrozenSet[int]]   # role -> doc indices
+    combs: Sequence[Comb]                        # distinct user role combinations
+    comb_weights: Mapping[Comb, float]           # workload weights per comb
+    single_role_weights: Mapping[int, float]     # workload weights per role
+    params: CostModelParams
+    alpha: float = 1.5                           # storage budget multiple
+    topk: int = 10
+    target_recall: Optional[float] = None
+    avg_blocks_per_doc: float = 1.0
+
+    def comb_docs(self, comb: Comb) -> Set[int]:
+        docs: Set[int] = set()
+        for r in comb:
+            docs.update(self.role_to_docs.get(r, ()))
+        return docs
+
+
+@dataclass
+class PartitionPlan:
+    assignment: Dict[int, Set[int]]
+    trackers: Trackers
+    split_log: List[Tuple[float, Comb, int]] = field(default_factory=list)
+
+    @property
+    def loads(self) -> Dict[int, int]:
+        return {pid: len(docs) for pid, docs in self.assignment.items()}
+
+    def comb_to_partitions(self) -> Dict[Comb, Set[int]]:
+        """The CombRolePartitions mapping (reference
+        load_result_to_database.py:294)."""
+        return {comb: set(parts.keys()) for comb, parts in self.trackers.items()}
+
+
+def plan_from_reference(plan) -> PartitionPlan:
+    """The port's PartitionPlan from any plan with `.assignment`,
+    `.trackers` and `.split_log` (the JAX package's included), copied so
+    that neither side's later edits reach the other: the state a searcher
+    is built from carries across, as core.arena_from_reference carries an
+    arena."""
+    return PartitionPlan(
+        assignment={int(pid): set(docs)
+                    for pid, docs in plan.assignment.items()},
+        trackers={tuple(comb): {int(pid): set(roles)
+                                for pid, roles in parts.items()}
+                  for comb, parts in plan.trackers.items()},
+        split_log=list(plan.split_log))
+
+
+# --------------------------------------------------------------------- cost
+
+
+def _weight(comb: Comb, weights: Mapping, single: Mapping) -> float:
+    """Comb weight with single-role fallback (reference
+    AnonySys_dynamic_partition.py:156-158: a zero comb-weight falls back to
+    the first role's single-role weight)."""
+    w = weights.get(comb, 0.0) if weights else 1.0
+    if w == 0:
+        w = single.get(comb[0], 1.0) if comb else 0.0
+    return w
+
+
+def compute_sel_whole(
+    trackers: Trackers,
+    assignment: Mapping[int, Set[int]],
+    inputs: PlannerInputs,
+    combs_to_update: Sequence[Comb],
+    weights: Mapping,
+) -> float:
+    """Weighted average per-comb selectivity over tracked partitions
+    (reference :169-211 compute_sel_whole: per comb, mean over its
+    partitions of |comb docs ∩ partition| / |partition|)."""
+    total_w_sel = 0.0
+    total_w = 0.0
+    for comb in combs_to_update:
+        parts = trackers.get(comb, {})
+        docs = inputs.comb_docs(comb)
+        sels = []
+        for pid in parts:
+            pdocs = assignment.get(pid, set())
+            if pdocs:
+                sels.append(len(docs & pdocs) / len(pdocs))
+        avg_sel = sum(sels) / len(sels) if sels else 0.0
+        w = _weight(comb, weights, inputs.single_role_weights)
+        total_w_sel += avg_sel * w
+        total_w += w
+    return total_w_sel / total_w if total_w > 0 else 0.0
+
+
+def compute_query_time(
+    trackers: Trackers,
+    assignment: Mapping[int, Set[int]],
+    sel_whole: float,
+    inputs: PlannerInputs,
+    combs_to_update: Sequence[Comb],
+    weights: Mapping,
+) -> float:
+    """Weighted total query time (reference :114-166 compute_query_time):
+    a single ef is derived from the aggregate selectivity via the inverted
+    recall model, then each comb pays sum over its partitions of
+    weight * log(n) * (a*ef + b)."""
+    p = inputs.params
+    ef = model_ef_for_recall(p, inputs.target_recall, inputs.topk,
+                             max(sel_whole, 1e-6))
+    total = 0.0
+    for comb in combs_to_update:
+        w = _weight(comb, weights, inputs.single_role_weights)
+        for pid in trackers.get(comb, {}):
+            n = len(assignment.get(pid, ()))
+            if n > 0:
+                total += w * model_partition_time(
+                    p, n * inputs.avg_blocks_per_doc + 1e-9, ef)
+    return total
+
+
+# ----------------------------------------------------------- tracker updates
+
+
+def update_tracker_stage1(
+    comb: Comb, target_pid: int, trackers: Trackers, source_pid: int
+) -> None:
+    """Move every role of `comb` that any affected comb served from
+    `source_pid` to `target_pid` (reference :270-309)."""
+    roles = set(comb)
+    for other, parts in trackers.items():
+        if not roles.intersection(other):
+            continue
+        new_parts: Dict[int, Set[int]] = {}
+        moved: Set[int] = set()
+        for pid, prole in parts.items():
+            if pid != source_pid:
+                new_parts[pid] = prole
+                continue
+            to_move = prole & roles
+            if to_move:
+                moved |= to_move
+                rest = prole - to_move
+                if rest:
+                    new_parts[pid] = rest
+            else:
+                new_parts[pid] = prole
+        if moved:
+            new_parts.setdefault(target_pid, set()).update(moved)
+        trackers[other] = new_parts
+
+
+def update_tracker_stage2(
+    comb: Comb,
+    target_pid: int,
+    trackers: Trackers,
+    assignment: Mapping[int, Set[int]],
+    inputs: PlannerInputs,
+    max_subset_candidates: int = 16,
+) -> None:
+    """Re-select the optimal covering partition subset for every affected
+    comb (reference :312-422): enumerate subsets of (previous partitions +
+    target), keep full-coverage ones, score by the query-time model with
+    the subset's average selectivity, then assign each role to the smallest
+    fully-covering partition of the winner (or all partitions if none)."""
+    p = inputs.params
+    roles_in_comb = set(comb)
+    affected = [c for c in trackers if roles_in_comb.intersection(c)]
+    if comb not in affected and comb in trackers:
+        affected.append(comb)
+
+    for a_comb in affected:
+        a_docs = inputs.comb_docs(a_comb)
+        original = set(trackers[a_comb].keys())
+        if original == {target_pid}:
+            continue
+        candidates = sorted(original | {target_pid})
+        if len(candidates) > max_subset_candidates:
+            # bound the exhaustive search; keep the largest-overlap ones
+            candidates = sorted(
+                candidates,
+                key=lambda pid: -len(a_docs & assignment.get(pid, set())),
+            )[:max_subset_candidates]
+
+        best_subset = None
+        best_time = float("inf")
+        for r in range(1, len(candidates) + 1):
+            for subset in itertools.combinations(candidates, r):
+                covered: Set[int] = set()
+                for pid in subset:
+                    covered |= assignment.get(pid, set())
+                if not a_docs.issubset(covered):
+                    continue
+                total_sel = 0.0
+                for pid in subset:
+                    pdocs = assignment[pid]
+                    total_sel += len(a_docs & pdocs) / len(pdocs)
+                avg_sel = total_sel / len(subset)
+                ef = model_ef_for_recall(p, None, inputs.topk,
+                                         max(avg_sel, 1e-6))
+                # sum of per-partition probe times (for the reference
+                # family this equals log(prod sizes) * (a*ef + b))
+                qt = sum(model_partition_time(p, len(assignment[pid]), ef)
+                         for pid in subset)
+                if qt < best_time:
+                    best_time = qt
+                    best_subset = subset
+
+        if best_subset is None:
+            logger.warning("no covering partition subset for comb %s", a_comb)
+            continue
+
+        new_parts: Dict[int, Set[int]] = {pid: set() for pid in best_subset}
+        for role in a_comb:
+            rdocs = inputs.role_to_docs.get(role, frozenset())
+            covering = [pid for pid in best_subset
+                        if rdocs <= assignment[pid]]
+            if covering:
+                pick = min(covering, key=lambda pid: len(assignment[pid]))
+                new_parts[pick].add(role)
+            else:
+                for pid in best_subset:
+                    new_parts[pid].add(role)
+        trackers[a_comb] = {pid: rs for pid, rs in new_parts.items() if rs}
+
+
+# ----------------------------------------------------------------- planner
+
+
+def _role_trackers_view(trackers: Trackers) -> Trackers:
+    """Single-role sub-view of the comb trackers (reference :470-474)."""
+    view: Trackers = {}
+    for comb, parts in trackers.items():
+        if len(comb) == 1:
+            view[comb] = {pid: set(rs) for pid, rs in parts.items()}
+    return view
+
+
+def _fully_resident_combs(trackers: Trackers, pid: int) -> Set[Comb]:
+    """Combs whose every role is served from `pid` (reference :446-449)."""
+    return {
+        comb for comb, parts in trackers.items()
+        if pid in parts and parts[pid] == set(comb)
+    }
+
+
+def _pick_split_partition(
+    assignment: Mapping[int, Set[int]], trackers: Trackers
+) -> Tuple[Optional[int], Set[Comb]]:
+    """Largest partition hosting >1 fully-resident comb."""
+    for pid in sorted(assignment, key=lambda p: len(assignment[p]), reverse=True):
+        combs = _fully_resident_combs(trackers, pid)
+        if len(combs) > 1:
+            return pid, combs
+    return None, set()
+
+
+def _shrink_source(
+    assignment: Dict[int, Set[int]],
+    trackers: Trackers,
+    source_pid: int,
+    inputs: PlannerInputs,
+) -> None:
+    """After a move, keep in the source partition only documents still
+    needed by roles that remain there (reference :548-561, :644-657)."""
+    remaining_roles: Set[int] = set()
+    for parts in trackers.values():
+        if source_pid in parts:
+            remaining_roles |= parts[source_pid]
+    needed: Set[int] = set()
+    for role in remaining_roles:
+        needed |= inputs.role_to_docs.get(role, frozenset())
+    assignment[source_pid] &= needed
+
+
+def split_comb_roles(
+    inputs: PlannerInputs,
+    combination_mode: bool = False,
+    max_splits: int = 10000,
+) -> PartitionPlan:
+    # every comb and every single role is a split candidate (reference
+    # :761-785 expands role_combinations with all single roles)
+    candidate_combs: Set[Comb] = set(tuple(c) for c in inputs.combs)
+    for comb in list(candidate_combs):
+        for r in comb:
+            candidate_combs.add((r,))
+
+    all_docs: Set[int] = set()
+    for docs in inputs.role_to_docs.values():
+        all_docs |= docs
+    assignment: Dict[int, Set[int]] = {0: set(all_docs)}
+    total_docs = len(all_docs)
+    budget = inputs.alpha * total_docs
+
+    trackers: Trackers = {comb: {0: set(comb)} for comb in candidate_combs}
+    plan = PartitionPlan(assignment=assignment, trackers=trackers)
+
+    def total_load() -> int:
+        return sum(len(d) for d in assignment.values())
+
+    splits = 0
+    while total_load() <= budget and splits < max_splits:
+        source_pid, source_combs = _pick_split_partition(assignment, trackers)
+        if source_pid is None:
+            logger.info("no splittable partition; stopping at %d partitions",
+                        len(assignment))
+            break
+
+        involved_combs = [c for c, parts in trackers.items() if source_pid in parts]
+        role_view = _role_trackers_view(trackers)
+        involved_roles = [c for c in role_view if source_pid in role_view[c]]
+
+        sel_comb_before = compute_sel_whole(trackers, assignment, inputs,
+                                            involved_combs, inputs.comb_weights)
+        qt_comb_before = compute_query_time(trackers, assignment, sel_comb_before,
+                                            inputs, involved_combs, inputs.comb_weights)
+        sel_role_before = compute_sel_whole(role_view, assignment, inputs,
+                                            involved_roles, inputs.single_role_weights)
+        qt_role_before = compute_query_time(role_view, assignment, sel_role_before,
+                                            inputs, involved_roles, inputs.single_role_weights)
+        if qt_comb_before <= 0 or qt_role_before <= 0:
+            break
+
+        target_pid = max(assignment.keys()) + 1
+        heap: List[Tuple[float, float, float, Comb, int]] = []
+
+        for comb in sorted(source_combs):
+            if not combination_mode and len(comb) > 1:
+                continue  # stage 1 splits single roles only (reference :513)
+
+            tmp_assign = {pid: set(d) for pid, d in assignment.items()}
+            tmp_track = {c: {pid: set(rs) for pid, rs in parts.items()}
+                         for c, parts in trackers.items()}
+            prev_storage = sum(len(d) for d in tmp_assign.values())
+
+            tmp_assign.setdefault(target_pid, set()).update(inputs.comb_docs(comb))
+            if combination_mode:
+                update_tracker_stage2(comb, target_pid, tmp_track, tmp_assign, inputs)
+            else:
+                update_tracker_stage1(comb, target_pid, tmp_track, source_pid)
+            _shrink_source(tmp_assign, tmp_track, source_pid, inputs)
+
+            new_storage = sum(len(d) for d in tmp_assign.values())
+            storage_growth = ((new_storage - prev_storage) / prev_storage
+                              if prev_storage else 0.0)
+
+            tmp_role_view = _role_trackers_view(tmp_track)
+            sel_c = compute_sel_whole(tmp_track, tmp_assign, inputs,
+                                      involved_combs, inputs.comb_weights)
+            qt_c = compute_query_time(tmp_track, tmp_assign, sel_c, inputs,
+                                      involved_combs, inputs.comb_weights)
+            sel_r = compute_sel_whole(tmp_role_view, tmp_assign, inputs,
+                                      involved_roles, inputs.single_role_weights)
+            qt_r = compute_query_time(tmp_role_view, tmp_assign, sel_r, inputs,
+                                      involved_roles, inputs.single_role_weights)
+
+            d_comb = (qt_c - qt_comb_before) / qt_comb_before
+            d_role = (qt_r - qt_role_before) / qt_role_before
+            eps = 1e-10
+            storage_flag = -100.0 if storage_growth < 0 else 1.0
+
+            if combination_mode:
+                combined = storage_flag * d_comb / (storage_growth + eps)
+                if d_comb < 0:
+                    heapq.heappush(heap, (combined, d_role, d_comb, comb, target_pid))
+            else:
+                combined = storage_flag * (d_role + d_comb) / (storage_growth + eps)
+                # stage 1 admits a split that helps single-role queries even
+                # if comb-level time mildly regresses (reference :607)
+                if d_role < 0 and d_comb < 10:
+                    heapq.heappush(heap, (combined, d_role, d_comb, comb, target_pid))
+
+        if not heap:
+            if not combination_mode:
+                combination_mode = True
+                logger.info("stage 1 exhausted -> combination mode "
+                            "(%d partitions)", len(assignment))
+                continue
+            logger.info("no improving split; stopping at %d partitions",
+                        len(assignment))
+            break
+
+        combined, d_role, d_comb, best_comb, tpid = heapq.heappop(heap)
+        new_docs = inputs.comb_docs(best_comb)
+        assignment.setdefault(tpid, set()).update(new_docs)
+        if combination_mode:
+            update_tracker_stage2(best_comb, tpid, trackers, assignment, inputs)
+        else:
+            update_tracker_stage1(best_comb, tpid, trackers, source_pid)
+        _shrink_source(assignment, trackers, source_pid, inputs)
+        plan.split_log.append((combined, best_comb, tpid))
+        splits += 1
+        logger.debug("split %s -> partition %d (delta=%.4f, load=%d/%d)",
+                     best_comb, tpid, combined, total_load(), int(budget))
+
+    return plan

@@ -1,17 +1,31 @@
-"""Strategies: the global scan (RLS).
+"""Strategies: the global scan (RLS), per-role partitions (ROLE),
+combination-role partitions (USER), and the registry.
 
-Counterpart of vectorsearch_rbac_tpu/partition/strategies.py for the RLS
-strategy: one index over the whole arena, the permission check fused into
-the scan. ROLE, USER, AnonySys and QDTree are ROADMAP slice 3."""
+Counterpart of vectorsearch_rbac_tpu/partition/strategies.py:
+
+- RLS: one index over the whole arena, the permission check fused into
+  the scan;
+- ROLE: a partition per role holding that role's documents; a user's
+  query fans out over their roles and merges;
+- USER (comb): a partition per distinct role combination; a query hits
+  exactly one partition.
+
+AnonySys (`dynamic`) lives in partition/dynamic/. On an int8 l2 arena
+ROLE, USER and AnonySys serve through the TiledSearcher; their ip/cosine
+counterpart (the reference's PackedSearcher) and QDTree are ROADMAP
+slice 3 items still to port, and raise NotImplementedError.
+"""
 
 from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
 
 from ..config import FrameworkConfig
 from ..core import Corpus, DeviceArena
 from ..rbac import RBACWorld
 from .base import BuiltPartition, PartitionedSearcher, make_partition_index
-
-_NOT_PORTED = ("role", "user", "dynamic", "anonysys", "qdtree")
 
 
 def build_global_searcher(corpus: Corpus, world: RBACWorld,
@@ -21,19 +35,98 @@ def build_global_searcher(corpus: Corpus, world: RBACWorld,
     part = BuiltPartition(pid=0, rows=None,
                           index=make_partition_index(arena, None, cfg),
                           label="global")
-    return PartitionedSearcher(arena, {0: part}, name="rls")
+    return PartitionedSearcher(arena, {0: part}, router=None, name="rls")
 
 
-STRATEGIES = {"rls": build_global_searcher}
+def packed_searcher(arena: DeviceArena, partition_rows, router, name: str,
+                    cfg: FrameworkConfig, **kwargs):
+    """The packed layout of a partitioned strategy: the TiledSearcher on an
+    int8 l2 arena; the reference's PackedSearcher elsewhere, not ported."""
+    if arena.quant is not None and arena.metric == "l2":
+        from .tiled import TiledSearcher
+        return TiledSearcher(arena, partition_rows, router, name=name,
+                             scan_group=cfg.search.scan_group, **kwargs)
+    raise NotImplementedError(
+        f"strategy {name!r} on a {arena.metric} "
+        f"{'int8' if arena.quant is not None else 'float32'} arena needs "
+        "the PackedSearcher (ip/cosine and float32 partitions), ROADMAP "
+        "slice 3, queue 1 item 8: not ported")
+
+
+def unpacked_searcher(arena: DeviceArena, partition_rows, router,
+                      name: str, cfg: FrameworkConfig) -> PartitionedSearcher:
+    """One index per partition (the packed=False layout)."""
+    partitions = {
+        pid: BuiltPartition(pid=pid, rows=rows,
+                            index=make_partition_index(arena, rows, cfg),
+                            label=f"{name}_{pid}")
+        for pid, rows in partition_rows.items()
+    }
+    return PartitionedSearcher(arena, partitions, router, name=name)
+
+
+def build_role_searcher(corpus: Corpus, world: RBACWorld, arena: DeviceArena,
+                        cfg: FrameworkConfig, packed: bool = True):
+    """ROLE prefilter: a physical partition per role."""
+    partition_rows: Dict[int, np.ndarray] = {}
+    for role, docs in sorted(world.role_to_docs.items()):
+        rows = corpus.rows_for_docs(np.fromiter(docs, dtype=np.int64,
+                                                count=len(docs)))
+        if len(rows):
+            partition_rows[role] = rows
+    user_to_roles = world.user_to_roles
+
+    def router(uid: int):
+        return tuple(r for r in user_to_roles.get(uid, ())
+                     if r in partition_rows)
+
+    if packed and cfg.index.kind in ("flat", "flat_approx"):
+        return packed_searcher(arena, partition_rows, router, "role", cfg)
+    return unpacked_searcher(arena, partition_rows, router, "role", cfg)
+
+
+def build_comb_searcher(corpus: Corpus, world: RBACWorld, arena: DeviceArena,
+                        cfg: FrameworkConfig, packed: bool = True):
+    """USER prefilter: a physical partition per distinct role combination."""
+    partition_rows: Dict[int, np.ndarray] = {}
+    comb_to_pid: Dict[tuple, int] = {}
+    for pid, comb in enumerate(world.combs):
+        docs = world.comb_docs(comb)
+        rows = corpus.rows_for_docs(np.fromiter(docs, dtype=np.int64,
+                                                count=len(docs)))
+        if len(rows) == 0:
+            continue
+        comb_to_pid[comb] = pid
+        partition_rows[pid] = rows
+    user_to_roles = world.user_to_roles
+
+    def router(uid: int):
+        pid = comb_to_pid.get(tuple(user_to_roles.get(uid, ())))
+        return (pid,) if pid is not None else ()
+
+    if packed and cfg.index.kind in ("flat", "flat_approx"):
+        return packed_searcher(arena, partition_rows, router, "user", cfg)
+    return unpacked_searcher(arena, partition_rows, router, "user", cfg)
+
+
+STRATEGIES = {
+    "rls": build_global_searcher,
+    "role": build_role_searcher,
+    "user": build_comb_searcher,
+}
 
 
 def build_searcher(name: str, corpus: Corpus, world: RBACWorld,
-                   arena: DeviceArena, cfg: FrameworkConfig,
-                   **kwargs) -> PartitionedSearcher:
-    """Build a strategy by name."""
+                   arena: DeviceArena, cfg: FrameworkConfig, **kwargs):
+    """Build a strategy by name; dynamic (AnonySys) takes the planner's
+    kwargs (plan, inputs, comb_weights, single_role_weights, packed)."""
     if name in STRATEGIES:
         return STRATEGIES[name](corpus, world, arena, cfg)
-    if name in _NOT_PORTED:
+    if name in ("dynamic", "anonysys"):
+        from .dynamic import build_dynamic_searcher
+        return build_dynamic_searcher(corpus, world, arena, cfg, **kwargs)
+    if name == "qdtree":
         raise NotImplementedError(
-            f"strategy {name!r} is ROADMAP slice 3; the port has 'rls'")
+            "strategy 'qdtree' is ROADMAP slice 3 (queue 1 item 9: "
+            "partition/qdtree.py), not ported yet")
     raise ValueError(f"unknown strategy {name}")

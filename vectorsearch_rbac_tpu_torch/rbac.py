@@ -1,16 +1,18 @@
-"""The RBAC world and the tree generator of the main path.
+"""The RBAC world and the tree generator.
 
-A copy of the parts of vectorsearch_rbac_tpu/rbac/ that the RLS main path
-uses (world.py `RBACWorld`, `query_masks_for`; bitset.py `pack_role_sets`;
-generators/tree.py `TreeRBACGenerator`), so that the port runs where the
-JAX package is absent. Same seed, same world: tests/test_torch_host.py
-holds every array and mapping equal to the reference's. The other
-generators, online role insertion and deletion, and the selectivity
-reports come with the slices that use them (ROADMAP.md).
+A copy of the parts of vectorsearch_rbac_tpu/rbac/ that the ported paths
+use (world.py `RBACWorld` with its combination and selectivity helpers,
+`query_masks_for`; bitset.py `pack_role_sets`; generators/tree.py
+`TreeRBACGenerator`), so that the port runs where the JAX package is
+absent. Same seed, same world: tests/test_torch_host.py holds every array
+and mapping equal to the reference's. The other generators and online
+role insertion and deletion come with the slices that use them
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Dict, FrozenSet, List, Mapping, Sequence, Tuple
@@ -106,11 +108,50 @@ class RBACWorld:
         """Distinct user role-combinations, sorted."""
         return sorted({tuple(r) for r in self.user_to_roles.values() if r})
 
-    def user_docs(self, user_id: int) -> FrozenSet[int]:
+    @cached_property
+    def comb_user_counts(self) -> Dict[Comb, int]:
+        counts: Dict[Comb, int] = defaultdict(int)
+        for roles in self.user_to_roles.values():
+            if roles:
+                counts[tuple(roles)] += 1
+        return dict(counts)
+
+    @cached_property
+    def comb_weights(self) -> Dict[Comb, float]:
+        """comb -> fraction of users holding exactly this combination."""
+        total = sum(self.comb_user_counts.values())
+        return {c: n / total for c, n in self.comb_user_counts.items()}
+
+    def comb_docs(self, comb: Comb) -> FrozenSet[int]:
         docs: set = set()
-        for r in self.user_to_roles[user_id]:
+        for r in comb:
             docs.update(self.role_to_docs.get(r, ()))
         return frozenset(docs)
+
+    def user_docs(self, user_id: int) -> FrozenSet[int]:
+        return self.comb_docs(self.user_to_roles[user_id])
+
+    def role_selectivity(self, role_id: int) -> float:
+        """|docs(role)| / |docs|."""
+        return len(self.role_to_docs.get(role_id, ())) / max(1, self.num_docs)
+
+    def user_selectivity(self, user_id: int) -> float:
+        """|union of the user's roles' docs| / |docs|."""
+        return len(self.user_docs(user_id)) / max(1, self.num_docs)
+
+    def average_role_selectivity(self) -> float:
+        sels = [self.role_selectivity(r) for r in range(self.num_roles)]
+        return float(np.mean(sels)) if sels else 0.0
+
+    def average_user_selectivity(self) -> float:
+        sels = [self.user_selectivity(u) for u in self.user_to_roles]
+        return float(np.mean(sels)) if sels else 0.0
+
+    def storage_ratio(self) -> float:
+        """Sum over roles of |docs(role)| / |docs|: the duplication factor
+        of a per-role physical layout."""
+        return (sum(len(d) for d in self.role_to_docs.values())
+                / max(1, self.num_docs))
 
 
 def split_into_chunks(rng: np.random.Generator, n_items: int,
