@@ -20,6 +20,12 @@ without a CUDA device or without the port's package beside it. Phases:
    masks fill 128 slots of 16, in the contiguous layout the index uses and
    the interleaved one of the TPU kernel, bit-identical; beside them the
    per-query form's time on the same masks;
+3d. the graph step's two kernels against their plain versions at the
+   hybrid path's geometry: 4096 queries (the graph batcher's chunk) with
+   M0 32 candidates each, mapped through a 40 x 65,536 row-map slab onto
+   the 1M arena's packed rows (scores bit-identical on the SIFT-like
+   queries), and the step's merges at ef 64, kk 18 (bit-identical); beside
+   the score kernel, index_select's time for the same row gather;
 4. the SIFT path at full size: a 1M x 128 SIFT-like corpus (seed 0) with
    bench.py's tree RBAC world (100 roles, 10k users), 8192 queries drawn
    from the corpus's held-out pool as bench.py draws them, top-100, L2,
@@ -35,6 +41,15 @@ without a CUDA device or without the port's package beside it. Phases:
    form and the merge kernels must have launched, and admit-dedup must
    have grouped a big-tier pass; then admit-dedup on and off in turns on
    the AnonySys path;
+4d. the hybrid AnonySys executor on the same corpus and arena, on 4c's
+   plan (alpha 2.0): HNSW graphs on the partitions whose combs keep
+   selectivity >= 0.5, the int8 scan on the remainder, over the first 4096
+   queries, top-10, batch 1024, against the exact top-10 oracle, with
+   recall, QPS, batch-1 latency, graph and flat partitions, the graph
+   build seconds by builder, storage, and the device time of the graph
+   step against the flat remainder from one traced pass; the graph score
+   and merge kernels, the narrow scan and the merge kernels must all have
+   launched;
 3b. the wide scan against its plain version at the 768-d path's geometry
    (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
    metric, score shift 3, group 128), bit-identical, then the merge
@@ -55,7 +70,14 @@ Neither jax nor the JAX package (vectorsearch_rbac_tpu) is imported; the
 run fails if either was loaded.
 
 Its last lines are one JSON object of per-kernel results, the card's
-nvidia-smi line, and {"ok": true, "device": {...}}.
+nvidia-smi line, and {"ok": true, "device": {...}}. Each kernel's entry
+has its launches on the paths (each path's counts, read just after it),
+its time and its plain version's, the least time the card could take for
+the same work (`bound_ms`: the larger of the bytes it must move over the
+HBM rate and its operations over the peak rate for their type, from the
+H100 SXM data sheet, computed from this run's inputs), which of the two
+bounds it, and the time of one PyTorch call computing the same function
+where there is one (`library_ms`, else null; the port never calls it).
 """
 
 import gc
@@ -80,6 +102,16 @@ SLOT_GROUP = 32       # the big tier's group width (phase 3c's geometry)
 PART_QUERIES = 4096   # the strategy compare's workload (4c)
 PART_TOPK = 10
 PART_ALPHA = 2.0      # AnonySys storage budget (scripts/strategy_compare_1m)
+GRAPH_Q = 4096        # the graph batcher's query chunk (phase 3d)
+GRAPH_M0 = 32         # 2 * hnsw_m: candidates of one graph step
+GRAPH_EF = 64         # the hybrid probes' ef (pow2 of max(40, 2 * 10))
+GRAPH_KK = 18         # top-10 + the 8-row dedupe margin
+GRAPH_SLAB = (40, 65536)   # graph partitions x padded rows at 1M, alpha 2
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, dense int8
+# tensor-core ops/s, float32 ops/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1.979e15
+F32_OPS_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -111,6 +143,30 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
 
 
+def bound_ms(nbytes: float, ops: float, peak_ops: float):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors: one passed twice is read once."""
+    distinct = {id(t): t for t in tensors}.values()
+    return sum(t.numel() * t.element_size() for t in distinct)
+
+
+def scan_bound(q8, x8, norms, bits, qbits, out, admitted_pairs=None):
+    """K1/K2's bound: every input read once, the minima written once, and
+    2 * d_pad int8 operations for each (query, row) pair whose dots the
+    function needs (all pairs, or the admitted ones for the slot form)."""
+    pairs = (q8.shape[0] * x8.shape[0] if admitted_pairs is None
+             else admitted_pairs)
+    return bound_ms(nbytes(q8, x8, norms, bits, qbits, out),
+                    2.0 * x8.shape[1] * pairs, INT8_OPS_S)
+
+
 def digest(*arrays) -> str:
     """Short content hash of numpy arrays (dtype, shape and bytes)."""
     import numpy as np
@@ -136,7 +192,9 @@ def report(title, rows) -> None:
 
 def check_merge(packed, k, nsub=32, t=16):
     """The merge kernels against their plain versions on packed minima:
-    (ok, max_abs_err, kernel ms, plain ms) per stage, and the inputs."""
+    (ok, max_abs_err, kernel ms, plain ms) per stage, the keep width, and
+    per stage (bound ms, bound_by, library ms): torch.topk over the minima,
+    the one call that computes the pair's function."""
     import torch
 
     from vectorsearch_rbac_tpu_torch.ops import merge, scan_int8
@@ -162,7 +220,13 @@ def check_merge(packed, k, nsub=32, t=16):
             cuda_ms(lambda: merge.bitonic_pairs(y, meta, keep), 10),
             cuda_ms(lambda: merge.bitonic_pairs_plain(y, meta, keep), 3)),
     }
-    return out, keep
+    topk_ms = cuda_ms(lambda: torch.topk(packed, k, dim=0, largest=False),
+                      10)
+    extra = {"merge_extract": (*bound_ms(nbytes(packed, y, meta), 0, 1),
+                               topk_ms),
+             "merge_bitonic": (*bound_ms(nbytes(y, meta, ys, gs), 0, 1),
+                               topk_ms)}
+    return out, keep, extra
 
 
 def drive_path(name, searcher, corpus, world, workload, truth, arena,
@@ -295,6 +359,17 @@ def check_slot_form(arena, workload, world, device, smi):
         *args, per_query, **kw_q), 10)
     plain_ms = cuda_ms(lambda: scan_int8.int8_group_minima_plain(
         *args, slot_bits, slot_tile=0, **kw), 3)
+    # the dots this run needs: each slot's SLOT_SB queries on the rows its
+    # mask admits
+    admitted = {}
+    for m in np.unique(slots.view(np.int32), axis=0):
+        hit = (arena.role_bits & t(m)[None, :]).ne(0).any(dim=1)
+        admitted[m.tobytes()] = int(hit.sum())
+    pairs = SLOT_SB * sum(admitted[m.tobytes()]
+                          for m in slots.view(np.int32))
+    out_rows = arena.n_padded // SLOT_GROUP
+    bound = scan_bound(args[0], *args[1:], slot_bits, torch.empty(
+        (out_rows, BATCH), dtype=torch.int32, device="meta"), pairs)
     say(f"slot form vs plain at Q={BATCH} x {arena.n_padded} rows, "
         f"{len(distinct)} distinct masks in {BATCH // SLOT_SB} slots of "
         f"{SLOT_SB}, group {SLOT_GROUP} ({smi}); tolerance 0: contiguous "
@@ -304,7 +379,168 @@ def check_slot_form(arena, workload, world, device, smi):
         f"per-query form on the same masks {ms['per-query']:.3f} ms")
     if not all(rows.values()):
         fail(f"the slot form disagrees with its plain version: {rows}")
-    return True, max(errs), ms["contiguous"], plain_ms
+    return (True, max(errs), ms["contiguous"], plain_ms), (*bound, None)
+
+
+def check_graph_step(arena, workload, world, device, smi):
+    """Phase 3d: the graph step's kernels against their plain versions at
+    the hybrid path's geometry. Returns {kernel: (ok, max_abs_err, ms,
+    plain ms)} and {kernel: (bound ms, bound_by, library ms)}."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.core import (build_packed_graph_rows,
+                                                  packed_query_operands)
+    from vectorsearch_rbac_tpu_torch.ops import graph_step
+
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    nq, m0, (n_part, n_class) = GRAPH_Q, GRAPH_M0, GRAPH_SLAB
+    packed = build_packed_graph_rows(arena)
+    qv = workload.vectors[:nq]
+    qf = np.zeros((nq, arena.quant.d_pad), np.float32)
+    qf[:, :qv.shape[1]] = qv
+    dqs, qcd = packed_query_operands(arena, qv)
+    qmask = np.ascontiguousarray(
+        world.user_masks[workload.user_ids[:nq]]).view(np.int32)
+    row_map = rng.integers(0, arena.n, (n_part, n_class)).astype(np.int32)
+    pids = rng.integers(0, n_part, nq).astype(np.int32)
+    ids = rng.integers(0, n_class, (nq, m0)).astype(np.int32)
+    ids[rng.random((nq, m0)) < 0.25] = -1     # neighbours dropped as seen
+    sargs = (t(ids), packed, t(qf), t(qmask), t(qcd), dqs, t(row_map),
+             t(pids))
+    sc, ok = graph_step.graph_score_packed(*sargs)
+    sc_p, ok_p = graph_step.graph_score_packed_plain(*sargs)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(sc_p)
+    score_err = float((sc - sc_p)[fin].abs().max()) if fin.any() else 0.0
+    rows = graph_step.candidate_rows(*sargs[:1], sargs[6], sargs[7])
+    gather_rows = rows[rows >= 0]     # the valid candidates' arena rows
+    valid = int(gather_rows.numel())
+    # ids, the row map entries and packed rows of the valid candidates,
+    # the query operands; scores and flags out; 2 d_pad float32 ops each
+    s_bytes = (nbytes(sargs[0], sargs[2], sargs[3], sargs[4], sargs[7], sc,
+                      ok) + valid * (4 + packed.shape[1]))
+    out = {"graph_score": (
+        torch.equal(sc, sc_p) and torch.equal(ok, ok_p), score_err,
+        cuda_ms(lambda: graph_step.graph_score_packed(*sargs), 20),
+        cuda_ms(lambda: graph_step.graph_score_packed_plain(*sargs), 5))}
+    extra = {"graph_score": (
+        *bound_ms(s_bytes, 2.0 * arena.quant.d_pad * valid, F32_OPS_S),
+        cuda_ms(lambda: torch.index_select(packed, 0, gather_rows), 20))}
+
+    def sorted_vals(w, empty):
+        v = np.sort(rng.integers(0, 400_000, (nq, w)).astype(np.float32), 1)
+        v[:, w - int(w * empty):] = np.inf
+        return v
+
+    beam_d = sorted_vals(GRAPH_EF, 0.3)
+    beam_d[:, 0] = np.inf                     # the popped slot
+    margs = (t(beam_d), t(rng.integers(0, n_class, (nq, GRAPH_EF)).astype(
+        np.int32)), sc, sargs[0], t(sorted_vals(GRAPH_EF, 0.0)),
+        t(sorted_vals(GRAPH_KK, 0.2)), t(rng.integers(0, n_class, (
+            nq, GRAPH_KK)).astype(np.int32)),
+        torch.where(ok, sc, float("inf")), sargs[0])
+    got = graph_step.graph_merge_step(*margs)
+    want = graph_step.graph_merge_step_plain(*margs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    out["graph_merge"] = (
+        same, max(max_abs_err(g, w) if g.dtype == torch.int32 else float(
+            (g - w)[torch.isfinite(w)].abs().max()) for g, w in zip(got,
+                                                                    want)),
+        cuda_ms(lambda: graph_step.graph_merge_step(*margs), 20),
+        cuda_ms(lambda: graph_step.graph_merge_step_plain(*margs), 5))
+    extra["graph_merge"] = (*bound_ms(nbytes(*margs, *got), 0, 1), None)
+    report(f"graph step kernels vs plain at Q={nq}, M0 {m0}, ef {GRAPH_EF},"
+           f" kk {GRAPH_KK}, {n_part} x {n_class} row-map slab over "
+           f"{arena.n_padded} packed rows of {packed.shape[1]} B ({smi}); "
+           "tolerance 0 (SIFT-like integer data):", out)
+    say(f"  graph_score: {valid} valid candidates, index_select of the "
+        f"same rows {extra['graph_score'][2]:.3f} ms; bounds ms "
+        f"{ {k: round(v[0], 6) for k, v in extra.items()} }")
+    del packed
+    return out, extra
+
+
+def drive_hybrid(plan, corpus, world, arena, workload, truth, smi):
+    """Phase 4d: the hybrid AnonySys executor through build_searcher and
+    run_benchmark on 4c's plan, launch counts set to 0 just before and
+    read just after; then one traced pass for the device split. Returns
+    the launch counts."""
+    import collections
+
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench import (run_benchmark,
+                                                   serving_config)
+    from vectorsearch_rbac_tpu_torch.bench.profile import profile_pass
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+    from vectorsearch_rbac_tpu_torch.ops import _build
+    from vectorsearch_rbac_tpu_torch.partition import build_searcher
+
+    cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, topk=PART_TOPK,
+                         strategy="dynamic")
+    cfg.optimizer.storage_alpha = PART_ALPHA
+    cfg.optimizer.topk = PART_TOPK
+    cfg.index.kind = "hybrid"
+    t0 = time.perf_counter()
+    searcher = build_searcher("dynamic", corpus, world, arena, cfg,
+                              plan=plan, packed=False)
+    build_s = time.perf_counter() - t0
+    graphs = [p.index for p in searcher.partitions.values()
+              if isinstance(p.index, HNSWIndex)]
+    by_builder = collections.defaultdict(lambda: [0, 0.0, 0])
+    for ix in graphs:
+        row = by_builder[ix.builder]
+        row[0] += 1
+        row[1] += ix.build_time_s
+        row[2] = max(row[2], ix.n_rows)
+    _build.reset_launches()
+    res = run_benchmark(searcher, corpus, world, workload, None, k=PART_TOPK,
+                        warmup_runs=1, timed_batches=32, timed_passes=5,
+                        recall_sample=None, truth=truth)
+    _, ids = searcher.search_batch(workload.vectors, workload.user_ids,
+                                   world.user_masks, PART_TOPK)
+    launches = dict(_build.LAUNCHES)
+    name = "hybrid AnonySys (1M x 128, l2, batch 1024)"
+    check_readable(name, ids, workload.user_ids, PART_TOPK, corpus, world,
+                   arena)
+
+    def one_pass():
+        searcher.search_batch(workload.vectors, workload.user_ids,
+                              world.user_masks, PART_TOPK)
+        torch.cuda.synchronize()
+
+    wall, spans, kernels, busy = profile_pass(one_pass)
+    graph = spans.get("partitioned.graph", (0.0, 0.0))[1]
+    flat = sum(spans.get(k, (0.0, 0.0))[1]
+               for k in ("partitioned.enqueue", "flat_int8.fetch_unpack"))
+    step = {k: round(spans.get(f"graph.{k}", (0.0, 0.0))[1], 3)
+            for k in ("step", "dedup", "score", "merge", "drain")}
+    rep = res.storage
+    say(f"{name} ({smi}): recall@{PART_TOPK} {res.avg_recall}, {res.qps} "
+        f"QPS over {workload.num_queries} queries (pass walls ms "
+        f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 p50 "
+        f"{res.p50_ms} ms p95 {res.p95_ms} ms; {len(graphs)} graph and "
+        f"{len(searcher.partitions) - len(graphs)} flat partitions, "
+        f"{rep['total_mb']:.1f} MB; build {build_s:.2f} s (graphs "
+        f"{searcher.graph_build_s:.2f} s wall; by builder [count, summed s, "
+        f"largest rows] {dict(by_builder)}); traced pass {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms: graph step {graph:.3f} ms "
+        f"{step}, flat remainder {flat:.3f} ms; launches {launches}")
+    for ms, count, key in kernels[:12]:
+        say(f"  device {ms:10.3f} ms {count:6d}x  {key[:80]}")
+    if res.avg_recall < RECALL_FLOOR:
+        fail(f"{name}: recall {res.avg_recall:.4f} < {RECALL_FLOOR}")
+    idle = [k for k in ("graph_score", "graph_merge", "merge_extract",
+                        "merge_bitonic") if launches[k] == 0]
+    if launches["scan_int8"] == 0:
+        idle.append("scan_int8")
+    if idle:
+        fail(f"{name}: the path never launched {idle}")
+    del searcher
+    return launches
 
 
 def drive_partitioned(name, searcher, build_s, corpus, world, workload,
@@ -415,6 +651,7 @@ def main() -> None:
     cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, batch=BATCH,
                          topk=TOPK)
     result = {}          # kernel -> (ok, max_abs_err, ms, plain_ms)
+    extra = {}           # kernel -> (bound ms, bound_by, library ms)
 
     def oracle_truth(corpus, world, workload, metric, part_workload=None):
         """Exact top-TOPK of the workload (and top-PART_TOPK of
@@ -474,9 +711,11 @@ def main() -> None:
         torch.equal(packed, packed_plain), max_abs_err(packed, packed_plain),
         cuda_ms(lambda: scan_int8.int8_group_minima(*scan_args), 10),
         cuda_ms(lambda: scan_int8.int8_group_minima_plain(*scan_args), 3))
+    extra["scan_int8"] = (*scan_bound(*scan_args[:5], packed), None)
     del packed_plain
-    merges, keep = check_merge(packed, TOPK)
+    merges, keep, merge_extra = check_merge(packed, TOPK)
     result.update(merges)
+    extra.update(merge_extra)
     report(f"kernel vs plain at Q={BATCH} x {arena.n_padded} rows x d_pad "
            f"128, group {GROUP}, nsub 32, t 16, keep {keep} ({smi}); "
            "tolerance 0: values bit-identical, merge positions identical "
@@ -484,8 +723,13 @@ def main() -> None:
            {k: result[k] for k in ("scan_int8", *merges)})
     del packed
     torch.cuda.empty_cache()
-    result["scan_int8_slots"] = check_slot_form(arena, workload, world,
-                                                device, smi)
+    result["scan_int8_slots"], extra["scan_int8_slots"] = check_slot_form(
+        arena, workload, world, device, smi)
+    torch.cuda.empty_cache()
+    graph_rows, graph_extra = check_graph_step(arena, workload, world,
+                                               device, smi)
+    result.update(graph_rows)
+    extra.update(graph_extra)
     torch.cuda.empty_cache()
 
     part_workload = QueryWorkload(
@@ -512,6 +756,7 @@ def main() -> None:
     # ---- phase 4c: the partitioned strategies on the same corpus and arena
     launches_part = {k: 0 for k in launches_sift}
     grouped = False
+    plan = None
     for name in ("role", "user", "dynamic"):
         pcfg = serving_config(seed=0, block_rows=BLOCK_ROWS, topk=PART_TOPK,
                               strategy=name)
@@ -528,6 +773,7 @@ def main() -> None:
         for k in launches_part:
             launches_part[k] += launches[k]
         if name == "dynamic":
+            plan = searcher.plan
             ab_dedup("AnonySys", list(searcher._big.values()),
                      lambda: searcher.search_batch(
                          part_workload.vectors, part_workload.user_ids,
@@ -541,6 +787,13 @@ def main() -> None:
         fail(f"the partitioned strategies never launched {idle}")
     if not grouped:
         fail("admit-dedup grouped no big-tier pass of the partitioned path")
+    say(f"4d workload hash {digest(part_workload.vectors, part_workload.user_ids)}"
+        f", truth hash {digest(part_truth)} (4c's)")
+    launches_hybrid = drive_hybrid(plan, corpus, world, arena, part_workload,
+                                   part_truth, smi)
+    del plan
+    gc.collect()
+    torch.cuda.empty_cache()
     # free the SIFT arrays before the 768-d corpus (3 GB of float32)
     del corpus, world, workload, arena, truth, part_truth, scan_args
     gc.collect()
@@ -577,8 +830,9 @@ def main() -> None:
         cuda_ms(lambda: scan_int8.int8_group_minima_wide(*wide_args), 10),
         cuda_ms(lambda: scan_int8.int8_group_minima_wide_plain(*wide_args),
                 3))
+    extra["scan_int8_wide"] = (*scan_bound(*wide_args[:5], packed), None)
     del packed_plain
-    merges_kk, keep = check_merge(packed, kk)
+    merges_kk, keep, _ = check_merge(packed, kk)
     report(f"kernel vs plain at Q={BATCH} x {arena.n_padded} rows x d_pad "
            f"{arena.quant.d_pad}, ip, shift {shift}, group {GROUP}; merge at "
            f"kk {kk}, keep {keep} ({smi}); tolerance 0 as above:",
@@ -599,7 +853,7 @@ def main() -> None:
         "768-d (1M x 768, cosine)", searcher, corpus, world, workload, truth,
         arena, ("scan_int8_wide", "merge_extract", "merge_bitonic"), smi)
     launches = {k: launches_sift[k] + launches_part[k] + launches_wide[k]
-                for k in launches_sift}
+                + launches_hybrid[k] for k in launches_sift}
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "vectorsearch_rbac_tpu")]
@@ -619,11 +873,17 @@ def main() -> None:
                           "vectorsearch_rbac_tpu/ops/pallas_merge.py:55"),
         "merge_bitonic": ("vectorsearch_rbac_tpu_torch/csrc/merge.cu",
                           "vectorsearch_rbac_tpu/ops/pallas_merge.py:79"),
+        "graph_merge": ("vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",
+                        "scripts/pallas_merge_probe.py:107"),
+        "graph_score": ("vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",
+                        "scripts/r5_graph_fused_probe.py:233"),
     }
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": result[name][1],
-         "ms": result[name][2], "plain_ms": result[name][3]}
+         "ms": result[name][2], "plain_ms": result[name][3],
+         "bound_ms": extra[name][0], "bound_by": extra[name][1],
+         "library_ms": extra[name][2]}
         for name, (src, rep) in sources.items()]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -258,3 +258,173 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     y = torch.zeros((4096, 8), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         merge.bitonic_pairs(y, y, 8)
+
+
+def _score_inputs(rng, dev, nq, c, npad, d, w, integer, multi):
+    """Packed rows [int8 code | W bitset words | f32 norm] and queries: on
+    integer data (SIFT-like) or on float data; ids with -1 pads, mapped
+    through a (P, n_class) slab with per-query slots or a flat row map."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_step  # noqa: F401
+
+    d_pad = -(-d // 128) * 128
+    code = np.zeros((npad, d_pad), np.int8)
+    code[:, :d] = rng.integers(-128, 128, (npad, d))
+    bits = rng.integers(0, 2**32, (npad, w), dtype=np.uint64).astype(
+        np.uint32)
+    bits[rng.random((npad, w)) < 0.7] = 0
+    norm = rng.random(npad).astype(np.float32) * 1e6
+    packed = np.concatenate([code, bits.view(np.int8).reshape(npad, -1),
+                             norm.view(np.int8).reshape(npad, 4)], axis=1)
+    qf = np.zeros((nq, d_pad), np.float32)
+    qf[:, :d] = (rng.integers(0, 256, (nq, d)) if integer
+                 else rng.standard_normal((nq, d)) * 50)
+    qmask = rng.integers(0, 2**32, (nq, w), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    qcd = rng.integers(-5000, 5000, nq).astype(np.float32)
+    n_class = 512
+    ids = rng.integers(-1, n_class, (nq, c)).astype(np.int32)
+    ids[0] = -1                                  # a query with no candidate
+    if multi:
+        row_map = rng.integers(0, npad, (3, n_class)).astype(np.int32)
+        pids = rng.integers(0, 3, nq).astype(np.int32)
+    else:
+        row_map = rng.integers(0, npad, n_class).astype(np.int32)
+        pids = None
+    t = lambda a: None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a)).to(dev)
+    return (t(ids), t(packed), t(qf), t(qmask), t(qcd), 1.0 if integer
+            else 0.37, t(row_map), t(pids))
+
+
+@pytest.mark.parametrize("nq,c,d,w,integer,multi", [
+    (1, 32, 128, 4, True, True),
+    (300, 32, 128, 4, True, True),
+    (77, 19, 128, 1, True, False),       # C not a power of two
+    (64, 1024, 128, 4, True, True),      # the 2-hop harvest's M0^2
+    (50, 32, 200, 8, True, False),       # d_pad 256
+    (130, 32, 768, 2, False, True),      # float data: the tolerance
+])
+def test_graph_score_kernel_against_plain(dev, nq, c, d, w, integer, multi):
+    """KS7: bit-identical on integer data; on float data within the
+    stated tolerance. -1 ids give +inf / False."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_step
+
+    args = _score_inputs(np.random.default_rng(nq + c), dev, nq, c, 4096, d,
+                         w, integer, multi)
+    before = _build.LAUNCHES["graph_score"]
+    s, ok = graph_step.graph_score_packed(*args)
+    assert _build.LAUNCHES["graph_score"] == before + 1
+    s_p, ok_p = graph_step.graph_score_packed_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p)
+    assert torch.isinf(s[0]).all() and not ok[0].any()
+    if integer:
+        assert torch.equal(s, s_p)
+    else:
+        ids, packed, qf, qmask, qcd, dqs, row_map, pids = args
+        rows = graph_step.candidate_rows(ids, row_map, pids).clamp_min(0)
+        d_pad = qf.shape[1]
+        absdot = torch.einsum("qd,qcd->qc", qf.abs(),
+                              packed[rows.long(), :d_pad].float().abs())
+        tol = (2 * dqs * (2 * d_pad * 2.0**-24) * absdot
+               + 2.0**-20 * s_p.abs())
+        fin = torch.isfinite(s_p)
+        assert torch.equal(fin, torch.isfinite(s))
+        assert ((s - s_p).abs()[fin] <= tol[fin]).all()
+
+
+@pytest.mark.parametrize("nq,ef,c,kk,cr,fill", [
+    (1, 64, 32, 18, 32, "ties"),
+    (4096, 64, 32, 18, 32, "ties"),
+    (300, 64, 32, 18, 50, "ties"),       # the harvest width M0 + kk
+    (77, 24, 13, 7, 20, "ties"),         # C not a power of two
+    (130, 64, 32, 18, 32, "empty"),      # every candidate -1 / +inf
+    (130, 64, 32, 18, 32, "equal"),      # every value equal: position order
+])
+def test_graph_merge_kernel_against_plain(dev, nq, ef, c, kk, cr, fill):
+    """KS6: the three merges bit-identical to the plain stable sort, ids
+    included, under ties, all-empty candidates and all-equal values."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_step
+
+    rng = np.random.default_rng(nq + cr)
+
+    def vals(w):
+        if fill == "equal":
+            return np.full((nq, w), 3.0, np.float32)
+        v = rng.integers(0, 6, (nq, w)).astype(np.float32)
+        v[rng.random((nq, w)) < 0.3] = np.inf
+        return v
+
+    ids = lambda w: rng.integers(-1, 1 << 16, (nq, w)).astype(np.int32)
+    beam_d = np.sort(vals(ef), axis=1)
+    beam_d[:, 0] = np.inf                        # the popped slot
+    nd, nb, cand_d, cand_i = vals(c), ids(c), vals(cr), ids(cr)
+    if fill == "empty":
+        nd[:], nb[:], cand_d[:], cand_i[:] = np.inf, -1, np.inf, -1
+    ins = [beam_d, ids(ef), nd, nb, np.sort(vals(ef), axis=1),
+           np.sort(vals(kk), axis=1), ids(kk), cand_d, cand_i]
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in ins]
+    before = _build.LAUNCHES["graph_merge"]
+    got = graph_step.graph_merge_step(*t)
+    assert _build.LAUNCHES["graph_merge"] == before + 1
+    want = graph_step.graph_merge_step_plain(*t)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+def test_graph_wrappers_refuse_a_device_mix(dev):
+    from vectorsearch_rbac_tpu_torch.ops import graph_step
+
+    args = list(_score_inputs(np.random.default_rng(3), dev, 8, 32, 1024,
+                              128, 4, True, True))
+    args[4] = args[4].cpu()
+    with pytest.raises(ValueError, match="several devices"):
+        graph_step.graph_score_packed(*args)
+    z = torch.zeros((4, 8), device=dev)
+    i = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="several devices"):
+        graph_step.graph_merge_step(z, i, z, i, z, z, i, z.cpu(), i)
+    with pytest.raises(ValueError):
+        graph_step.graph_merge_step(z, i, z, i, z, z, i, z, i.long())
+
+
+def test_hybrid_searcher_cuda_equals_cpu(dev):
+    """Hybrid AnonySys at 20,000 rows on one plan, on the card and on the
+    CPU: identical distances and ids (lossless int8, exact float32 dots,
+    the graph step's kernels bit-identical to their plain versions); on
+    the card the graph kernels and the flat scan launched. The device kNN
+    builder gives the CPU's graph on the card too."""
+    from vectorsearch_rbac_tpu_torch import build_device_arena, build_searcher
+    from vectorsearch_rbac_tpu_torch.bench import make_scenario, serving_config
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+
+    corpus, w, wl = make_scenario(n=20000, num_queries=512, topk=10)
+    cfg = serving_config(block_rows=16384, topk=10, strategy="dynamic")
+    cfg.optimizer.storage_alpha = 2.0
+    plan = None
+    got, graphs = {}, {}
+    for d in (dev, torch.device("cpu")):
+        arena = build_device_arena(corpus, w, device=d, block_rows=16384,
+                                   dtype="int8")
+        if plan is None:
+            plan = build_searcher("dynamic", corpus, w, arena, cfg).plan
+        cfg.index.kind = "hybrid"
+        s = build_searcher("dynamic", corpus, w, arena, cfg, plan=plan,
+                           packed=False)
+        cfg.index.kind = "flat_approx"
+        _build.reset_launches()
+        got[d.type] = s.search_batch(wl.vectors, wl.user_ids, w.user_masks,
+                                     10)
+        if d.type == "cuda":
+            fired = {k: v for k, v in _build.LAUNCHES.items() if v}
+            assert {"graph_score", "graph_merge", "scan_int8"} <= set(
+                fired), fired
+        graphs[d.type] = HNSWIndex(arena, np.arange(3000, 6000), m=8,
+                                   builder="tpu").graph_state()
+    np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
+    np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
+    assert (got["cpu"][1] >= 0).mean() > 0.9
+    for key in ("neighbors", "entry"):
+        np.testing.assert_array_equal(graphs["cuda"][key],
+                                      graphs["cpu"][key])

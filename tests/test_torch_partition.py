@@ -324,6 +324,13 @@ def test_unported_strategies_and_metrics_raise(mine):
     _, cfg = _cfgs()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_searcher("qdtree", mc, mw, ma, cfg)
-    cfg.index.kind = "hnsw"
+    cfg.index.kind = "ivf"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_searcher("dynamic", mc, mw, ma, cfg)
+    # HNSW serves only under AnonySys's graph executor: the other
+    # strategies refuse it before building any graph
+    for kind in ("hnsw", "hybrid"):
+        cfg.index.kind = kind
+        for name in ("rls", "role", "user"):
+            with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+                build_searcher(name, mc, mw, ma, cfg)

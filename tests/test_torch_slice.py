@@ -287,6 +287,7 @@ arena = build_device_arena(corpus, w, device="cpu", block_rows=16384,
 cfg = serving_config(block_rows=16384, topk=5, strategy="dynamic")
 cfg.optimizer.storage_alpha = 2.0
 s = build_searcher("dynamic", corpus, w, arena, cfg)
+s_plan = s.plan
 assert len(s.plan.assignment) > 1, s.plan.assignment
 _, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
 assert ids.shape == (8, 5) and (ids >= 0).all(), ids
@@ -295,6 +296,14 @@ s = TiledSearcher(arena, {0: np.arange(6000)}, lambda uid: (0,), "big",
 assert list(s._big) == [0]
 _, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
 assert ids.shape == (8, 5) and ids.max() < 6000, ids
+# the hybrid executor: HNSW graphs (native build, graph batcher, the graph
+# step) beside the int8 scan on the remainder
+cfg.index.kind = "hybrid"
+s = build_searcher("dynamic", corpus, w, arena, cfg, plan=s_plan,
+                   packed=False)
+assert len(s.graph_batcher.pids) > 1, s.graph_batcher.pids
+_, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
+assert ids.shape == (8, 5) and (ids >= 0).all(), ids
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = [m for m in sys.modules if m.split(".")[0] == "vectorsearch_rbac_tpu"]
 assert not ref, ref
@@ -304,7 +313,8 @@ print("JAX_FREE_OK")
 
 def test_port_never_imports_jax():
     """Import + build + search (the SIFT-like L2 path, the 768-d cosine
-    path, and the AnonySys planner with the chunk engine and a big tier),
+    path, the AnonySys planner with the chunk engine and a big tier, and
+    its hybrid executor with HNSW graphs),
     through the entry points chip_smoke.py uses, in a fresh
     interpreter (this one has jax loaded by tests/conftest.py): neither jax
     nor the reference package loads."""

@@ -9,7 +9,8 @@ The port serves --index flat_approx --dtype int8 with --strategy rls over
 --dataset sift1m or cohere and --metric l2, ip or cosine, and --strategy
 role, user or dynamic (AnonySys, the planner at cfg.optimizer's defaults)
 over l2; any other combination is refused (qdtree and the ip/cosine
-partitions are ROADMAP slice 3 items). It needs a CUDA device and exits
+partitions are ROADMAP slice 3 items; --index hnsw needs graphs above
+200,000 rows, hence IVF, ROADMAP queue 1 item 10). It needs a CUDA device and exits
 non-zero without one.
 
 Scenario: by default a SIFT1M-shaped corpus (1M x 128-d, 100 blocks/doc);
@@ -33,6 +34,12 @@ PORTED = {"strategy": ("rls", "role", "user", "dynamic"),
           "index": ("flat_approx",), "dtype": ("int8",),
           "dataset": ("sift1m", "cohere"), "metric": ("l2", "ip", "cosine")}
 _ROADMAP = {"qdtree": "QDTree is ROADMAP slice 3 (queue 1 item 9)",
+            "hnsw": "an HNSW graph over every partition needs one over the "
+                    "alpha remainder's 660,000 rows, and graphs above "
+                    "200,000 rows need the IVF-assisted kNN, ROADMAP queue 1 "
+                    "item 10; the hybrid executor (graphs where selectivity "
+                    "holds, the int8 scan on the remainder) runs in "
+                    "chip_smoke.py and bench.profile --index hybrid",
             "partitions": "ip/cosine partitions need the PackedSearcher, "
                           "ROADMAP slice 3 (queue 1 item 8)"}
 
@@ -71,7 +78,9 @@ def parse_args(argv=None):
     off = {f: getattr(args, f) for f, v in PORTED.items()
            if getattr(args, f) not in v}
     if off:
-        why = _ROADMAP["qdtree"] if off.get("strategy") == "qdtree" else ""
+        why = "; ".join(_ROADMAP[v] for v in (off.get("strategy"),
+                                               off.get("index"))
+                        if v in _ROADMAP)
         ap.error(f"not ported: {off}; the port serves "
                  + " ".join(f"--{f} {'|'.join(v)}" for f, v in PORTED.items())
                  + (f" ({why})" if why else ""))

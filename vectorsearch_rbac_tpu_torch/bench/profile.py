@@ -2,7 +2,8 @@
 
     python -m vectorsearch_rbac_tpu_torch.bench.profile [--n N] [--queries Q]
         [--dataset sift1m|cohere] [--metric l2|ip|cosine]
-        [--strategy rls|role|user|dynamic] [--topk K] [--batch B]
+        [--strategy rls|role|user|dynamic] [--index flat_approx|hybrid]
+        [--alpha A] [--topk K] [--batch B]
 
 Builds bench's world for the dataset and metric (tree RBAC with 100 roles
 and 10k users, int8 arena) and the strategy at bench's serving
@@ -20,7 +21,15 @@ which run one after another on the one stream). The spans split a pass:
 - role, user, dynamic: tiled.route (host), tiled.big_enqueue (the big
   tier's scans and merges, flat_int8.* inside), tiled.chunk_scan (the
   chunk engine), tiled.big_fetch and tiled.merge (the host's fan-out
-  merge).
+  merge);
+- dynamic --index hybrid (the hybrid executor: HNSW graphs where the
+  combs' selectivity holds, the int8 scan on the remainder):
+  partitioned.route, partitioned.enqueue (the flat partitions' scans,
+  flat_int8.* inside), partitioned.graph (the graph batcher: per step
+  graph.step, inside it graph.dedup (pop, neighbour gather, dedup against
+  beam and history), graph.score (the packed-row score kernel) and
+  graph.merge (the merge kernel); graph.drain the host's id mapping) and
+  partitioned.merge.
 
 Needs a CUDA device.
 """
@@ -29,7 +38,7 @@ import argparse
 import sys
 import time
 
-SPAN_PREFIXES = ("flat_int8.", "tiled.", "partitioned.")
+SPAN_PREFIXES = ("flat_int8.", "tiled.", "partitioned.", "graph.")
 
 
 def profile_pass(one_pass):
@@ -96,7 +105,15 @@ def main(argv=None) -> int:
                     choices=["l2", "ip", "cosine"])
     ap.add_argument("--strategy", default="rls",
                     choices=["rls", "role", "user", "dynamic"])
+    ap.add_argument("--index", default="flat_approx",
+                    choices=["flat_approx", "hybrid"],
+                    help="hybrid: the dynamic strategy's hybrid executor")
+    ap.add_argument("--alpha", type=float, default=0.0,
+                    help="AnonySys storage budget (0 = the config's 1.5)")
     args = ap.parse_args(argv)
+    if args.index == "hybrid" and (args.strategy, args.metric) != (
+            "dynamic", "l2"):
+        ap.error("--index hybrid is the dynamic strategy's executor, on l2")
 
     import torch
 
@@ -115,13 +132,24 @@ def main(argv=None) -> int:
         dataset=args.dataset)
     cfg = serving_config(seed=args.seed, batch=args.batch, topk=args.topk,
                          strategy=args.strategy)
+    cfg.index.kind = args.index
+    if args.alpha:
+        cfg.optimizer.storage_alpha = args.alpha
     arena = build_device_arena(corpus, world, device=device,
                                block_rows=cfg.search.block_rows, dtype="int8",
                                metric=args.metric)
     t0 = time.perf_counter()
-    searcher = build_searcher(args.strategy, corpus, world, arena, cfg)
+    searcher = build_searcher(args.strategy, corpus, world, arena, cfg,
+                              **({"packed": False} if args.index == "hybrid"
+                                 else {}))
     build_s = time.perf_counter() - t0
-    if args.strategy == "rls":
+    if args.index == "hybrid":
+        rep = searcher.storage_report()
+        n_graph = len(searcher.graph_batcher.pids)
+        shape = (f"{n_graph} graph + {rep['num_partitions'] - n_graph} flat "
+                 f"partitions, {rep['total_mb']:.1f} MB, build "
+                 f"{build_s:.2f} s (graphs {searcher.graph_build_s:.2f} s)")
+    elif args.strategy == "rls":
         index = searcher.partitions[0].index
         shape = (f"group {index.group}, rerank "
                  f"{index.rerank_mode if index.rerank else None}")
@@ -154,8 +182,16 @@ def main(argv=None) -> int:
           f"the untraced pass {max(0.0, 1 - busy_ms / untraced_ms):.3f}")
     for key, (host, dev) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
         print(f"  span {key:26s} host {host:10.3f} ms, device {dev:10.3f} ms")
-    if args.strategy != "rls":
-        dev = {k: v[1] for k, v in spans.items()}
+    dev = {k: v[1] for k, v in spans.items()}
+    if args.index == "hybrid":
+        flat = (dev.get("partitioned.enqueue", 0.0)
+                + dev.get("flat_int8.fetch_unpack", 0.0))
+        print(f"  device: graph step {dev.get('partitioned.graph', 0.0):.3f}"
+              f" ms (score {dev.get('graph.score', 0.0):.3f}, merge "
+              f"{dev.get('graph.merge', 0.0):.3f}, dedup "
+              f"{dev.get('graph.dedup', 0.0):.3f}), flat remainder "
+              f"{flat:.3f} ms")
+    elif args.strategy != "rls":
         chunk = dev.get("tiled.chunk_scan", 0.0)
         big = dev.get("tiled.big_enqueue", 0.0) + dev.get("tiled.big_fetch",
                                                           0.0)

@@ -3,8 +3,9 @@
 The fields of vectorsearch_rbac_tpu/utils/config.py `FrameworkConfig` that
 the ported paths read, with the reference's defaults and the same nesting
 (`cfg.search.*`, `cfg.index.*`, `cfg.optimizer.*`), so that a reference
-config object works here too. The other knobs (HNSW, IVF, binary) come
-with the slices that read them.
+config object works here too. The other knobs (ACORN, IVF, binary) come
+with the slices that read them. The reference's `index.hnsw_logical` is
+not here: the port's HNSW graphs always serve from the shared arena.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 @dataclass
 class SearchConfig:
     topk: int = 10
+    ef_search: int = 40          # HNSW beam width (pgvector hnsw.ef_search)
     batch_size: int = 256        # queries per device dispatch
     block_rows: int = 16384      # arena rows per scan block
     dtype: str = "float32"       # arena dtype: "float32" | "int8"
@@ -29,7 +31,13 @@ class SearchConfig:
 
 @dataclass
 class IndexConfig:
-    kind: str = "flat"           # "flat" | "flat_approx"
+    kind: str = "flat"           # "flat" | "flat_approx" | "hnsw" | "hybrid"
+    hnsw_m: int = 16
+    hnsw_ef_construction: int = 64
+    # hybrid (dynamic partitions): a partition serves from an HNSW graph
+    # only when every comb routed to it keeps within-partition selectivity
+    # >= this threshold; mixed partitions take the int8 flat scan
+    hybrid_sel_threshold: float = 0.5
     big_logical: bool = False    # tiled big tier: gather the partition's
                                  # rows from the shared arena per pass
                                  # instead of keeping a contiguous copy

@@ -263,6 +263,9 @@ class DeviceArena:
     # "l2" squared L2, "ip" negative inner product, "cosine" 1 - cos: the
     # rows are L2-normalized at ingest, so cosine scores on the ip path
     metric: str = "l2"
+    # (Npad, d) float32 host mirror of the full-precision rows (cosine rows
+    # normalized): the HNSW builders read it, as the reference's do
+    host_vectors: Optional[np.ndarray] = None
 
     @property
     def n_padded(self) -> int:
@@ -305,7 +308,7 @@ def _assemble(vecs, norms, bits, n, doc_ids, block_ids, quant_parts,
         norms=_put(norms, device),
         role_bits=_bits_tensor(bits, device),
         n=int(n), doc_ids=doc_ids, block_ids=block_ids, host_bits=bits,
-        quant=quant, metric=metric)
+        quant=quant, metric=metric, host_vectors=vecs)
 
 
 def build_device_arena(corpus: Corpus, world: RBACWorld, *, device,
@@ -333,6 +336,48 @@ def build_device_arena(corpus: Corpus, world: RBACWorld, *, device,
     quant_parts = quantize_corpus(vecs[:n], npad) if dtype == "int8" else None
     return _assemble(vecs, norms, bits, n, corpus.doc_ids, corpus.block_ids,
                      quant_parts, metric, device)
+
+
+def build_packed_graph_rows(arena: DeviceArena) -> torch.Tensor:
+    """(Npad, d_pad + 4W + 4) int8 device table for the packed-row graph
+    step (ops/graph_search.py packed mode): [int8 code | W uint32 bitset
+    words | f32 squared norm of the dequantized row], 148 bytes at SIFT
+    shape. One row gather brings a candidate's vector, permissions and
+    norm.
+
+    The reference's row (core.py build_packed_graph_rows) carries the
+    128-lane int8 role one-hot its TPU kernel multiplies, 260 bytes; this
+    row carries the bitset words K1 already ANDs, for the same predicate.
+    The norm is the reference's: the float32 sum over the dequantized row
+    (vq / scale + center), computed on the host in row chunks (row-local,
+    so the same float32 values), zero on pad rows."""
+    q = arena.quant
+    if q is None:
+        raise ValueError("packed graph rows need the int8 quantized arena")
+    vq = q.vectors_q.cpu().numpy()
+    d = len(q.center)
+    nrm = np.zeros(vq.shape[0], np.float32)
+    for r0 in range(0, arena.n, _QUANT_ROWS):
+        r1 = min(r0 + _QUANT_ROWS, arena.n)
+        v = vq[r0:r1, :d].astype(np.float32) / q.scale + q.center[None, :]
+        nrm[r0:r1] = (v * v).sum(1, dtype=np.float32)
+    bits = arena.role_bits.contiguous().view(torch.int8)
+    return torch.cat([q.vectors_q, bits,
+                      _put(nrm.view(np.int8).reshape(-1, 4), arena.device)],
+                     dim=1).contiguous()
+
+
+def packed_query_operands(arena: DeviceArena, queries: np.ndarray
+                          ) -> Tuple[float, np.ndarray]:
+    """Per-query operands for packed-row graph scoring: (dq_scale,
+    q_center_dot (Q,) float32) with dots = (q . vq) * dq_scale + q . center
+    (the reference's packed_query_operands)."""
+    q = arena.quant
+    qf = np.asarray(queries, dtype=np.float32)
+    if arena.metric == "cosine":
+        qf = qf / np.maximum(
+            np.linalg.norm(qf, axis=1, keepdims=True), 1e-30)
+    return 1.0 / q.scale, (qf @ q.center).astype(np.float32)
 
 
 def arena_from_reference(ref, device) -> DeviceArena:

@@ -1,0 +1,300 @@
+"""HNSW index: native graph construction and batched graph search on the card.
+
+Counterpart of vectorsearch_rbac_tpu/index/hnsw.py `HNSWIndex`, in the
+reference's logical mode only: the graph addresses the partition's rows,
+and vectors live once, in the shared arena, read through the row map (the
+graph and the row map are the index's only storage; the reference's
+per-partition copy is not carried over). Two builders, picked by row count
+as the
+reference picks them ("auto"):
+
+- "classic" (up to 50,000 rows): the native Malkov-Yashunin construction
+  (native/hnsw_builder.cpp vsr_hnsw_build);
+- "tpu" (up to 200,000 rows; the reference's name for its device-assisted
+  builder): the exact kNN graph from blockwise float32 matmuls on the
+  device (TF32 off), each row's k + 1 nearest taken in (distance, index)
+  order as lax.top_k takes them, random long-range edges, the native
+  alpha-RNG prune (vsr_rng_prune), then one search-based refinement pass
+  (`_vamana_refine`) over the device beam search. Above 200,000 rows the
+  reference switches to an IVF-assisted kNN (ops/kmeans.py,
+  ops/ivf_scan.py), which is ROADMAP queue 1 item 10: the port raises
+  there.
+
+A failed native build raises (native/__init__.py): the reference's
+pure-Python stand-in for a missing compiler is not carried over.
+
+Search: the iterative rescan (pgvector's hnsw.iterative_scan analog) with
+per-query entries, or the fixed-budget beam, through
+ops/graph_search.py; packed-row scoring where the arena carries a lossless
+int8 mirror.
+The ACORN builder and filtered traversal, insert, delete and refine are
+ROADMAP items (queue 1 items 11 and 13) and are not here.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import native
+from ..config import get_logger
+from ..core import DeviceArena, build_packed_graph_rows, packed_query_operands
+from ..ops.graph_search import graph_beam_search, graph_beam_search_iterative
+from ..ops.scan import exact_f32_matmul
+from ..ops.topk import merge_topk_host
+
+logger = get_logger("index.hnsw")
+
+CLASSIC_MAX_ROWS = 50_000   # "auto" builds larger graphs with the kNN builder
+KNN_MAX_ROWS = 200_000      # the exact kNN's limit (the reference's :366)
+
+
+def _device_knn_graph(vec: np.ndarray, k: int, device,
+                      block: int = 4096) -> np.ndarray:
+    """(n, k + 1) int32: each row's k + 1 nearest rows (itself first) by
+    squared L2 from blockwise float32 matmuls, ties to the lower index (the
+    reference's lax.top_k order). The (k + 1)-th smallest score bounds the
+    candidates; those are then put in (score, index) order exactly."""
+    n = vec.shape[0]
+    v = torch.from_numpy(np.ascontiguousarray(vec)).to(device)
+    norms = (v * v).sum(dim=1)
+    ar = torch.arange(n, device=device)
+    out = np.empty((n, k + 1), dtype=np.int32)
+    with exact_f32_matmul():
+        for s in range(0, n, block):
+            sc = norms[None, :] - 2.0 * (v[s:s + block] @ v.T)
+            thr = torch.topk(sc, k + 1, dim=1, largest=False).values.amax(
+                dim=1, keepdim=True)
+            keep = sc <= thr
+            width = int(keep.sum(dim=1).max())
+            pos = torch.topk(torch.where(keep, ar, n), width, dim=1,
+                             largest=False).values          # ascending index
+            val = torch.where(pos < n, sc.gather(1, pos.clamp_max(n - 1)),
+                              float("inf"))
+            order = torch.sort(val, dim=1, stable=True).indices[:, :k + 1]
+            out[s:s + block] = pos.gather(1, order).cpu().numpy()
+    return out
+
+
+def _vamana_refine(vec: np.ndarray, nbr: np.ndarray, entry: int, m: int,
+                   alpha: float, device, knn: Optional[np.ndarray] = None,
+                   ef: int = 48, batch: int = 4096,
+                   passes: int = 1) -> np.ndarray:
+    """The search-based refinement pass (DiskANN's second phase, the
+    reference's :146): every node's beam search on the current graph from
+    the entry gives candidates along the search path, and the native prune
+    re-selects its edges from them, its current edges and its kNN list."""
+    n, d = vec.shape
+    norms = np.einsum("nd,nd->n", vec, vec).astype(np.float32)
+    k_cand = min(ef, 32)
+    for _ in range(passes):
+        dv = torch.from_numpy(np.ascontiguousarray(vec)).to(device)
+        dn = torch.from_numpy(norms).to(device)
+        db = torch.ones((n, 1), dtype=torch.int32, device=device)
+        dg = torch.from_numpy(np.ascontiguousarray(nbr)).to(device)
+        found = np.full((n, k_cand), -1, dtype=np.int32)
+        for s in range(0, n, batch):
+            e = min(s + batch, n)
+            masks = torch.ones((e - s, 1), dtype=torch.int32, device=device)
+            _, ids = graph_beam_search(dv[s:e], dv, dn, db, dg, masks,
+                                       int(entry), k_cand, ef)
+            found[s:e] = ids.cpu().numpy()
+        parts = [found, nbr] + ([knn] if knn is not None else [])
+        cands = np.concatenate(parts, axis=1).astype(np.int32)
+        nbr = native.rng_prune(vec, cands, m=m, alpha=alpha)
+    return nbr
+
+
+def _bits_i32(bits: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(bits, dtype=np.uint32)
+                            .view(np.int32)).to(device)
+
+
+class HNSWIndex:
+    def __init__(self, arena: DeviceArena, rows: Optional[np.ndarray] = None,
+                 m: int = 16, ef_construction: int = 64, ef_search: int = 40,
+                 query_batch: int = 256, builder: str = "auto",
+                 knn_k: int = 32, alpha: float = 1.2, seed: int = 0,
+                 graph_state: Optional[dict] = None):
+        """graph_state: a graph_state() dict (this index's or the JAX
+        index's: neighbours and entry) to serve instead of building. The
+        iterative search scores packed rows where the arena's int8 mirror
+        is lossless."""
+        if arena.metric != "l2":
+            raise NotImplementedError(
+                f"HNSW over a {arena.metric} arena: the port's graph step "
+                "scores l2 only (ROADMAP queue 1 item 11)")
+        self.m = m
+        self.ef_search = ef_search
+        self.query_batch = query_batch
+        self.metric = arena.metric
+        dev = arena.device
+        self.use_packed = bool(arena.quant is not None
+                               and arena.quant.lossless)
+        self._arena = arena
+        self._packed = None
+        self._entry_sample = None
+
+        host_vec = (arena.host_vectors if arena.host_vectors is not None
+                    else arena.vectors.float().cpu().numpy())
+        rows = (np.arange(arena.n, dtype=np.int64) if rows is None
+                else np.asarray(rows, dtype=np.int64))
+        self.n_rows = n = len(rows)
+        vec = np.ascontiguousarray(host_vec[rows], dtype=np.float32)
+
+        if builder == "auto":
+            builder = "tpu" if n > CLASSIC_MAX_ROWS else "classic"
+        self.builder = "state" if graph_state is not None else builder
+        t0 = time.perf_counter()
+        if graph_state is not None:
+            nbr = np.asarray(graph_state["neighbors"], dtype=np.int32)
+            entry = int(np.asarray(graph_state["entry"]).reshape(-1)[0])
+            if nbr.shape[0] != n:
+                raise ValueError(f"graph state of {nbr.shape[0]} rows does "
+                                 f"not match the {n}-row set")
+        elif builder == "classic":
+            nbr, _, entry, _ = native.hnsw_build(
+                vec, m=m, ef_construction=ef_construction, seed=seed)
+        elif builder == "tpu":
+            if n > KNN_MAX_ROWS:
+                raise NotImplementedError(
+                    f"an HNSW graph over {n} rows needs the IVF-assisted kNN "
+                    f"above {KNN_MAX_ROWS} rows (ops/kmeans.py, "
+                    "ops/ivf_scan.py): ROADMAP queue 1 item 10, not ported")
+            knn = _device_knn_graph(vec, knn_k, dev)
+            rng = np.random.default_rng(seed)
+            rand_edges = rng.integers(0, n, size=(n, 16), dtype=np.int64)
+            cand0 = np.concatenate([knn[:, 1:], rand_edges.astype(np.int32)],
+                                   axis=1)
+            nbr = native.rng_prune(vec, cand0, m=m, alpha=alpha)
+            mean = vec.mean(axis=0, keepdims=True)
+            entry = int(np.argmin(((vec - mean) ** 2).sum(axis=1)))
+            nbr = _vamana_refine(vec, nbr, entry, m=m, alpha=alpha,
+                                 device=dev, knn=knn[:, 1:])
+        elif builder == "acorn":
+            raise NotImplementedError(
+                "the ACORN-gamma builder (dense layer-0 lists) is ROADMAP "
+                "queue 1 item 11, not ported")
+        else:
+            raise ValueError(f"unknown builder {builder}")
+        self.build_time_s = time.perf_counter() - t0
+        self.entry = int(entry)
+        m0 = nbr.shape[1]
+
+        # pad to a power-of-two bucket (the reference's rule; the graph
+        # batcher stacks graphs of one padded size into a slab)
+        npad = max(1024, 1 << (max(n, 1) - 1).bit_length())
+        pad = npad - n
+        self._hgraph = np.concatenate([nbr, np.full((pad, m0), -1, np.int32)])
+        self._hrmap = np.concatenate([rows, np.full(pad, -1)]).astype(np.int32)
+        self._graph = torch.from_numpy(self._hgraph).to(dev)
+        self._row_map = torch.from_numpy(self._hrmap).to(dev)
+        logger.info("HNSW built (%s): %d rows, M0=%d (avg deg %.1f), %.2fs",
+                    self.builder, n, m0, float((nbr >= 0).sum(1).mean())
+                    if n else 0.0, self.build_time_s)
+
+    def graph_state(self) -> dict:
+        """The graph to persist or hand over: neighbours and entry."""
+        return {"neighbors": self._hgraph[:self.n_rows],
+                "entry": np.asarray([self.entry], dtype=np.int32)}
+
+    def _sampled_entries(self, q: np.ndarray, sample: int = 1024,
+                         seed: int = 0) -> np.ndarray:
+        """Per-query entry: the nearest node of a fixed random sample, from
+        one matmul (the reference's stand-in for the upper layers)."""
+        dev = self._graph.device
+        if self._entry_sample is None:
+            rng = np.random.default_rng(seed)
+            pool = np.arange(self.n_rows, dtype=np.int32)
+            ids = np.sort(pool if len(pool) <= sample else
+                          rng.choice(pool, sample, replace=False)
+                          .astype(np.int32))
+            self._entry_sample = (ids, torch.from_numpy(
+                np.ascontiguousarray(self._hrmap[ids])).to(dev).long())
+        ids, trows = self._entry_sample
+        arena = self._arena
+        x = arena.vectors[trows].float()
+        with exact_f32_matmul():
+            s = arena.norms[trows][None, :] - 2.0 * (
+                torch.from_numpy(np.ascontiguousarray(q)).to(dev) @ x.T)
+        return ids[s.argmin(dim=1).cpu().numpy()]
+
+    def search(self, queries: np.ndarray, query_masks: np.ndarray, k: int,
+               ef_search: Optional[int] = None,
+               filtered_traversal: bool = False, iterative: bool = False,
+               entries: Optional[np.ndarray] = None,
+               entry_local: Optional[int] = None,
+               max_steps: Optional[int] = None, harvest_2hop: bool = False,
+               sampled_entry: bool = False
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """(dists (Q, k), arena row ids (Q, k)), the reference's search:
+        the fixed-budget beam, or the iterative rescan (iterative=True, or
+        sampled_entry) from per-query entries, entry_local or the graph's
+        entry; a small k + 8 margin is fetched and deduplicated on the
+        host."""
+        if filtered_traversal:
+            raise NotImplementedError(
+                "the ACORN filtered traversal is ROADMAP queue 1 item 11, "
+                "not ported")
+        dev = self._graph.device
+        ef = max(ef_search or self.ef_search, k + 1)
+        q = np.asarray(queries, dtype=np.float32)
+        mm = np.ascontiguousarray(query_masks, dtype=np.uint32)
+        nq = q.shape[0]
+        if sampled_entry:
+            iterative = True
+            if entries is None:
+                entries = self._sampled_entries(q)
+        kk = min(k + 8, ef)
+        packed_kw = {}
+        if iterative and self.use_packed:
+            if self._packed is None:
+                self._packed = build_packed_graph_rows(self._arena)
+            dqs, qcd = packed_query_operands(self._arena, q)
+        a = self._arena
+        bs = min(self.query_batch,
+                 max(64, 1 << (max(nq, 1) - 1).bit_length()))
+        out_d = np.empty((nq, k), dtype=np.float32)
+        out_i = np.empty((nq, k), dtype=np.int64)
+        for s in range(0, nq, bs):
+            e = min(s + bs, nq)
+            qb = np.zeros((bs, q.shape[1]), np.float32)
+            mb = np.zeros((bs, mm.shape[1]), np.uint32)
+            qb[:e - s], mb[:e - s] = q[s:e], mm[s:e]
+            qb_t = torch.from_numpy(qb).to(dev)
+            mb_t = _bits_i32(mb, dev)
+            if iterative:
+                ent = np.full(bs, self.entry if entry_local is None
+                              else int(entry_local), np.int32)
+                if entries is not None:
+                    ent[:e - s] = np.asarray(entries[s:e], dtype=np.int32)
+                if self.use_packed:
+                    qcd_b = np.zeros(bs, np.float32)
+                    qcd_b[:e - s] = qcd[s:e]
+                    packed_kw = dict(packed_rows=self._packed,
+                                     dq_scale=float(dqs),
+                                     q_center_dot=torch.from_numpy(qcd_b)
+                                     .to(dev))
+                d, i = graph_beam_search_iterative(
+                    qb_t, a.vectors, a.norms, a.role_bits,
+                    self._graph, mb_t, torch.from_numpy(ent).to(dev), kk, ef,
+                    max_steps or 4 * ef, harvest_2hop, row_map=self._row_map,
+                    metric=self.metric, **packed_kw)
+            else:
+                d, i = graph_beam_search(
+                    qb_t, a.vectors, a.norms, a.role_bits, self._graph,
+                    mb_t, self.entry, kk, ef, row_map=self._row_map,
+                    metric=self.metric)
+            d = d.cpu().numpy()[:e - s].astype(np.float64)
+            i = i.cpu().numpy()[:e - s].astype(np.int64)
+            i = np.where(i >= 0, self._hrmap[np.maximum(i, 0)], -1)
+            out_d[s:e], out_i[s:e] = merge_topk_host([d], [i], k)
+        return out_d, out_i
+
+    def storage_bytes(self) -> Dict[str, int]:
+        """The index's own device bytes: the graph and the row map."""
+        npad, m0 = self._graph.shape
+        return {"vectors": 0, "index": int(npad * (m0 * 4 + 4))}

@@ -1,0 +1,135 @@
+"""ctypes bindings for the native HNSW builder (native/hnsw_builder.cpp).
+
+Counterpart of vectorsearch_rbac_tpu/native/__init__.py for the two entry
+points the port's HNSW index calls: `hnsw_build` (the classic builder) and
+`rng_prune` (the alpha-RNG prune of the kNN builder). The library is built
+at first use with g++ and the reference's Makefile flags into
+`<checkout>/build/native/` (git-ignored), under a name that carries a hash
+of the source, the flags and the host CPU, so an edited source, or a
+checkout copied to another machine, never loads a stale build. A failed
+build raises: there is no silent pure-Python fallback.
+
+The ctypes calls release the GIL, so independent builds (one per
+partition, each seeded) may run in a thread pool; each call allocates its
+own state and the outputs do not depend on the threads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+SOURCE = Path(__file__).resolve().parent / "hnsw_builder.cpp"
+# <checkout>/build/native: listed in .gitignore
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall"]
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def _cpu_fingerprint() -> bytes:
+    """The host CPU's model and feature flags: -march=native code built on
+    one machine may not run on another that shares the checkout."""
+    try:
+        text = Path("/proc/cpuinfo").read_text()
+    except OSError:
+        return os.uname().machine.encode()
+    keep = [ln for ln in text.splitlines()
+            if ln.startswith(("model name", "flags", "Features"))]
+    return "\n".join(sorted(set(keep))).encode()
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXXFLAGS).encode()
+                       + _cpu_fingerprint())
+    return BUILD_DIR / f"libvsrbac_native_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the builder unless the hashed library exists; raises with
+    the compiler's output if g++ fails or is missing."""
+    so = library_path()
+    if so.is_file():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cxx = os.environ.get("CXX", "g++")
+    try:
+        out = subprocess.run([cxx, *CXXFLAGS, "-shared", "-o", str(tmp),
+                              str(SOURCE)], capture_output=True, text=True,
+                             timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"native HNSW builder: cannot run {cxx}: {e}")
+    if out.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"native HNSW builder: {cxx} failed "
+                           f"({out.returncode}):\n{out.stdout}{out.stderr}")
+    os.replace(tmp, so)   # atomic: a concurrent loader never sees half a file
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The builder library, built on first use (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            f32p = ctypes.POINTER(ctypes.c_float)
+            handle.vsr_hnsw_build.restype = ctypes.c_int
+            handle.vsr_hnsw_build.argtypes = [
+                f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_uint64, i32p, i32p, i32p]
+            handle.vsr_rng_prune.restype = ctypes.c_int
+            handle.vsr_rng_prune.argtypes = [
+                f32p, ctypes.c_int64, ctypes.c_int, i32p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, i32p]
+            _lib = handle
+    return _lib
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _i32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def hnsw_build(vectors: np.ndarray, m: int = 16, ef_construction: int = 64,
+               seed: int = 0) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Build an HNSW graph. Returns (neighbors0 (n, 2m) int32, levels (n,),
+    entry_point, max_level)."""
+    vec = np.ascontiguousarray(vectors, dtype=np.float32)
+    n, d = vec.shape
+    nbr = np.full((n, 2 * m), -1, dtype=np.int32)
+    levels = np.zeros(n, dtype=np.int32)
+    entry = np.zeros(1, dtype=np.int32)
+    max_level = lib().vsr_hnsw_build(_f32p(vec), n, d, m, ef_construction,
+                                     seed, _i32p(nbr), _i32p(levels),
+                                     _i32p(entry))
+    if max_level < 0:
+        raise RuntimeError("vsr_hnsw_build failed")
+    return nbr, levels, int(entry[0]), int(max_level)
+
+
+def rng_prune(vectors: np.ndarray, knn: np.ndarray, m: int = 16,
+              alpha: float = 1.2) -> np.ndarray:
+    """Prune a kNN candidate graph into a navigable (n, 2m) adjacency."""
+    vec = np.ascontiguousarray(vectors, dtype=np.float32)
+    knn = np.ascontiguousarray(knn, dtype=np.int32)
+    n, d = vec.shape
+    out = np.full((n, 2 * m), -1, dtype=np.int32)
+    rc = lib().vsr_rng_prune(_f32p(vec), n, d, _i32p(knn), knn.shape[1], m,
+                             ctypes.c_float(alpha), _i32p(out))
+    if rc != 0:
+        raise RuntimeError("vsr_rng_prune failed")
+    return out

@@ -1,10 +1,12 @@
-"""Device ops: the exact oracle scan, the fused int8 scans, the merge and
-the float32 rerank.
+"""Device ops: the exact oracle scan, the fused int8 scans, the merge, the
+float32 rerank, and the HNSW graph search with its step's kernels.
 
 The CUDA kernels behind them (csrc/) are built and loaded on first use by
 `_build`; importing these modules needs neither nvcc nor a GPU."""
 
 from ._build import LAUNCHES, reset_launches
+from .graph_search import graph_beam_search, graph_beam_search_iterative
+from .graph_step import graph_merge_step, graph_score_packed
 from .merge import merge_supported, merge_topk
 from .scan import masked_scan_topk
 from .rerank import rebuild_query, rerank_topk
@@ -13,7 +15,9 @@ from .scan_int8 import (int8_group_minima, int8_group_minima_wide,
                         unpack_results_host)
 
 __all__ = [
-    "LAUNCHES", "reset_launches", "merge_supported", "merge_topk",
+    "LAUNCHES", "reset_launches", "graph_beam_search",
+    "graph_beam_search_iterative", "graph_merge_step", "graph_score_packed",
+    "merge_supported", "merge_topk",
     "masked_scan_topk", "rebuild_query", "rerank_topk",
     "int8_group_minima", "int8_group_minima_wide", "int8_masked_topk",
     "pack_results_device", "unpack_results_host",

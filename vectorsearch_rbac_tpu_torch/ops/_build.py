@@ -39,10 +39,18 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # "scan_int8" counts every launch of the narrow scan, "scan_int8_slots" the
 # launches of its admit-dedup slot form among them.
 LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
-            "merge_extract": 0, "merge_bitonic": 0}
+            "merge_extract": 0, "merge_bitonic": 0, "graph_score": 0,
+            "graph_merge": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    # ids, row_map, pids, n_class, packed, unit_bytes, qf, qmask, qcd,
+    # dq_scale, out_s, out_ok, nq, c, d_pad, w, stream
+    "vsr_graph_score_packed": [_P] * 3 + [_I, _P, _I] + [_P] * 3 + [_F]
+    + [_P] * 2 + [_I] * 4 + [_P],
+    # beam_d, beam_i, nd, nb, w_d, res_d, res_i, cand_d, cand_i, the five
+    # outputs, nq, ef, c, kk, cr, stream
+    "vsr_graph_merge_step": [_P] * 14 + [_I] * 5 + [_P],
     # q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group, l2,
     # score_shift, mask_sb, slot_tile, stream
     "vsr_scan_int8": [_P] * 6 + [_I] * 9 + [_P],

@@ -1,4 +1,5 @@
 from .base import BuiltPartition, PartitionedSearcher, make_partition_index
+from .graph_batch import GraphProbeBatcher
 from .strategies import (STRATEGIES, build_comb_searcher,
                          build_global_searcher, build_role_searcher,
                          build_searcher)
@@ -6,6 +7,7 @@ from .tiled import TiledSearcher
 
 __all__ = [
     "BuiltPartition",
+    "GraphProbeBatcher",
     "PartitionedSearcher",
     "TiledSearcher",
     "make_partition_index",

@@ -6,9 +6,12 @@ over the shared arena plus a router from user to partition ids; the engine
 groups a query batch by partition so that each index scans all of its
 queries at once, enqueues every partition's scans before the first sync
 (deferred dispatch), and merges a query's partitions on the host with
-row-id dedupe, once per tuple of partitions. The per-(user, partition)
-probe parameters and the graph batcher belong to the HNSW slice (ROADMAP
-slice 4).
+row-id dedupe, once per tuple of partitions. A strategy may expose
+`probe_params(uid, pid)` (per-(user, partition) search kwargs: the hybrid
+and HNSW AnonySys executors' iterative-rescan budgets and entries), whose
+queries then sub-group by those kwargs, and a `graph_batcher`
+(partition/graph_batch.py) that serves the probe groups of its logical HNSW
+partitions in slab dispatches.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
     rows: "flat_approx" on a quantized arena is the int8 fused scan (the
     configured wire on the global index; "f32" on partitions, whose
     results are merged across partitions and must keep their distances),
-    "flat" over the whole arena the exact f32 scan."""
+    "flat" over the whole arena the exact f32 scan. HNSW partitions are
+    built by the AnonySys graph executor (partition/dynamic/materialize.py)
+    and refused here, before any build."""
     kind = cfg.index.kind
     if kind == "flat_approx" and arena.quant is not None:
         return Int8FlatIndex(arena, rows, query_batch=cfg.search.batch_size,
@@ -43,11 +48,18 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
     if kind == "flat" and rows is None:
         return FlatIndex(arena, block_rows=cfg.search.block_rows,
                          query_batch=cfg.search.batch_size)
+    if kind in ("hnsw", "hybrid"):
+        # an HNSW partition needs the probe parameters and the graph batcher
+        # that only the dynamic strategy's graph executor sets up
+        raise NotImplementedError(
+            f"index kind {kind!r} serves only under the AnonySys strategy "
+            "(build_searcher('dynamic', ..., packed=False)); HNSW for RLS, "
+            "ROLE and USER is ROADMAP queue 1 item 11: not ported")
     raise NotImplementedError(
         f"index kind {kind!r} (dtype {'int8' if arena.quant else 'float32'}"
         f"{', over a row subset' if rows is not None else ''}) is not "
-        "ported: the exact and f32 approx scans over partitions, IVF, HNSW "
-        "and binary indexes are ROADMAP slice 4")
+        "ported: the exact and f32 approx scans over partitions, IVF and "
+        "binary indexes are ROADMAP slice 4 (queue 1 items 10 and 12)")
 
 
 @dataclass
@@ -104,14 +116,51 @@ class PartitionedSearcher:
                 per_query_pids.append(pids)
                 for pid in pids:
                     pid_to_queries.setdefault(pid, []).append(qi)
-        deferred = {}
+        probe_params = getattr(self, "probe_params", None)
+        batcher = getattr(self, "graph_batcher", None)
+        deferred, part_results, graph_jobs = {}, {}, []
         with record_function("partitioned.enqueue"):
             for pid, qidx in pid_to_queries.items():
-                deferred[pid] = self.partitions[pid].index.search_deferred(
-                    queries[qidx], qmasks[qidx], k)
+                part = self.partitions[pid]
+                # probe kwargs sub-group the partition's queries; None for a
+                # (user, partition) pair means a plain scan (the hybrid's
+                # flat partitions)
+                by_kw = None
+                if probe_params is not None:
+                    by_kw = {}
+                    for qi in qidx:
+                        kw = probe_params(int(user_ids[qi]), pid)
+                        key = None if kw is None else tuple(sorted(kw.items()))
+                        by_kw.setdefault(key, []).append(qi)
+                    if set(by_kw) == {None}:
+                        by_kw = None
+                if by_kw is None:
+                    deferred[pid] = part.index.search_deferred(
+                        queries[qidx], qmasks[qidx], k)
+                    continue
+                pos = {qi: j for j, qi in enumerate(qidx)}
+                d = np.full((len(qidx), k), np.inf, dtype=np.float32)
+                i = np.full((len(qidx), k), -1, dtype=np.int64)
+                part_results[pid] = (d, i, pos)
+                for kw_items, qsub in by_kw.items():
+                    kw = dict(kw_items) if kw_items else {}
+                    if batcher is not None and pid in batcher.pids:
+                        graph_jobs.append((pid, qsub, kw))
+                        continue
+                    dd, ii = part.index.search(queries[qsub], qmasks[qsub],
+                                               k, **kw)
+                    rows = [pos[qi] for qi in qsub]
+                    d[rows], i[rows] = dd, ii
+        if graph_jobs:
+            with record_function("partitioned.graph"):
+                for (pid, qsub, _), (dd, ii) in zip(
+                        graph_jobs,
+                        batcher.run(queries, qmasks, graph_jobs, k)):
+                    d, i, pos = part_results[pid]
+                    rows = [pos[qi] for qi in qsub]
+                    d[rows], i[rows] = dd, ii
 
         def finalize():
-            part_results = {}
             for pid, fin in deferred.items():
                 d, i = fin()
                 pos = {qi: j for j, qi in enumerate(pid_to_queries[pid])}

@@ -6,14 +6,27 @@ coverage check), then the plan's partitions over the shared arena with the
 comb -> partitions router. Every partition scan checks permissions in the
 fused scan, so a partition that also holds rows a comb may not read needs
 nothing more. On an int8 l2 arena the packed layout is the TiledSearcher;
-packed=False builds one Int8FlatIndex per partition. The HNSW and hybrid
-executors are ROADMAP slice 4, the incremental plan update
-(apply_plan_update) slice 5.
+packed=False builds one Int8FlatIndex per partition.
+
+Index kind "hybrid" (the reference's hybrid executor) serves a partition
+from a logical HNSW graph when every comb routed to it keeps
+within-partition selectivity >= cfg.index.hybrid_sel_threshold, and from
+the int8 flat scan otherwise (the mixed alpha-budget remainder); "hnsw"
+serves every partition from a graph. Both are the unpacked layout, with
+per-(comb, partition) probe parameters (iterative-rescan budget, ef,
+2-hop harvest, the admissible entry nearest the comb's centroid) and the
+GraphProbeBatcher over the graph partitions. The graphs are built in a
+thread pool (each build is seeded and independent, and the native builder
+releases the GIL), so they equal a one-thread build. The incremental plan
+update (apply_plan_update) is ROADMAP slice 5.
 """
 
 from __future__ import annotations
 
+import copy
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
@@ -22,6 +35,7 @@ from ...config import FrameworkConfig, get_logger
 from ...core import Corpus, DeviceArena
 from ...models.cost import CostModelParams
 from ...rbac import Comb, RBACWorld
+from ..base import BuiltPartition, PartitionedSearcher, make_partition_index
 from ..strategies import packed_searcher, unpacked_searcher
 from .optimizer import PartitionPlan, PlannerInputs, split_comb_roles
 from .refine import rebalance_heavy_partition
@@ -113,10 +127,6 @@ def build_dynamic_searcher(
     """Build the AnonySys searcher; plans first if no plan is given (a plan
     from the JAX package comes in through plan_from_reference). The
     searcher keeps its plan as `.plan`."""
-    if cfg.index.kind in ("hnsw", "hybrid"):
-        raise NotImplementedError(
-            f"dynamic partitions with index kind {cfg.index.kind!r}: the "
-            "HNSW and hybrid executors are ROADMAP slice 4, not ported")
     if plan is None:
         if inputs is None:
             inputs = planner_inputs(corpus, world, cfg, comb_weights,
@@ -147,11 +157,133 @@ def build_dynamic_searcher(
             acc.extend(comb_to_pids.get((r,), ()))
         return tuple(sorted(set(acc)))
 
-    if packed and cfg.index.kind in ("flat", "flat_approx"):
-        searcher = packed_searcher(arena, partition_rows, router, "dynamic",
-                                   cfg, big_logical=cfg.index.big_logical)
-    else:
-        searcher = unpacked_searcher(arena, partition_rows, router,
-                                     "dynamic", cfg)
+    if cfg.index.kind not in ("hnsw", "hybrid"):
+        if packed and cfg.index.kind in ("flat", "flat_approx"):
+            searcher = packed_searcher(arena, partition_rows, router,
+                                       "dynamic", cfg,
+                                       big_logical=cfg.index.big_logical)
+        else:
+            searcher = unpacked_searcher(arena, partition_rows, router,
+                                         "dynamic", cfg)
+        searcher.plan = plan
+        return searcher
+    return _graph_searcher(corpus, world, arena, cfg, plan, partition_rows,
+                           router)
+
+
+def hybrid_graph_pids(world: RBACWorld, plan: PartitionPlan,
+                      partition_rows: Dict[int, np.ndarray],
+                      threshold: float) -> Set[int]:
+    """The partitions the hybrid executor serves from graphs: those where
+    every comb routed to them keeps within-partition selectivity (its
+    documents in the partition over the partition's documents) >=
+    threshold."""
+    sel_min = {pid: 1.0 for pid in partition_rows}
+    for comb, parts in plan.trackers.items():
+        cdocs: Set[int] = set()
+        for r in comb:
+            cdocs.update(world.role_to_docs.get(r, ()))
+        for pid in parts:
+            pdocs = plan.assignment.get(pid, set())
+            if pid in sel_min and pdocs:
+                sel_min[pid] = min(sel_min[pid],
+                                   len(cdocs & pdocs) / len(pdocs))
+    return {pid for pid, s in sel_min.items() if s >= threshold}
+
+
+def _graph_searcher(corpus, world, arena, cfg, plan, partition_rows, router):
+    """The hybrid and HNSW executors (the reference's :175-327, one device):
+    per-partition indexes, probe parameters and the graph batcher."""
+    from ...index.hnsw import HNSWIndex
+    from ..graph_batch import GraphProbeBatcher
+
+    if getattr(cfg.index, "hnsw_m_beta", 0):
+        raise NotImplementedError(
+            "hnsw_m_beta > 0 asks for the ACORN-gamma builder, ROADMAP "
+            "queue 1 item 11: not ported")
+    hybrid = cfg.index.kind == "hybrid"
+    cfg_flat = copy.deepcopy(cfg)
+    cfg_flat.index.kind = "flat_approx"
+    graph_pids = (hybrid_graph_pids(world, plan, partition_rows,
+                                    cfg.index.hybrid_sel_threshold)
+                  if hybrid else set(partition_rows))
+    if hybrid:
+        logger.info("hybrid dynamic: %d/%d partitions serve graphs (min "
+                    "comb sel >= %.2f)", len(graph_pids),
+                    len(partition_rows), cfg.index.hybrid_sel_threshold)
+
+    t0 = time.perf_counter()
+    workers = max(1, min(len(graph_pids), os.cpu_count() or 1))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        built = dict(zip(sorted(graph_pids), pool.map(
+            lambda pid: HNSWIndex(
+                arena, partition_rows[pid], m=cfg.index.hnsw_m,
+                ef_construction=cfg.index.hnsw_ef_construction,
+                ef_search=cfg.search.ef_search,
+                query_batch=cfg.search.batch_size),
+            sorted(graph_pids))))
+    graph_build_s = time.perf_counter() - t0
+    partitions = {
+        pid: BuiltPartition(
+            pid=pid, rows=rows,
+            index=(built[pid] if pid in built
+                   else make_partition_index(arena, rows, cfg_flat)),
+            label=f"dynamic_{pid}")
+        for pid, rows in partition_rows.items()}
+    searcher = PartitionedSearcher(arena, partitions, router, name="dynamic")
     searcher.plan = plan
+    searcher.graph_build_s = graph_build_s
+    searcher.probe_params = _probe_params(corpus, world, cfg, plan,
+                                          partition_rows, graph_pids)
+    gparts = {pid: p.index for pid, p in partitions.items()
+              if isinstance(p.index, HNSWIndex)}
+    if gparts:
+        searcher.graph_batcher = GraphProbeBatcher(arena, gparts)
     return searcher
+
+
+def _probe_params(corpus, world, cfg, plan, partition_rows, graph_pids):
+    """probe_params(uid, pid) -> the iterative search's kwargs for a graph
+    partition, None for a flat one (the reference's :248-306): ef from
+    cfg.search.ef_search, a step budget ~ 4 k / selectivity (power-of-two
+    buckets, at most 4096), the 2-hop harvest below selectivity 0.15, and
+    the entry at the comb's admissible row nearest their centroid."""
+    base_ef = max(cfg.search.ef_search, 16)
+    topk = max(cfg.optimizer.topk, 10)
+    cache: Dict[tuple, dict] = {}
+    user_to_roles = world.user_to_roles
+
+    def _pow2(x: float) -> int:
+        return 1 << int(np.ceil(np.log2(max(x, 1))))
+
+    def probe_params(uid: int, pid: int) -> Optional[dict]:
+        if pid not in graph_pids:
+            return None
+        comb = tuple(user_to_roles.get(uid, ()))
+        kw = cache.get((comb, pid))
+        if kw is None:
+            pdocs = plan.assignment.get(pid, set())
+            cdocs: Set[int] = set()
+            for r in comb:
+                cdocs.update(world.role_to_docs.get(r, ()))
+            adocs = cdocs & pdocs
+            sel = len(adocs) / max(len(pdocs), 1)
+            kw = {"iterative": True,
+                  "ef_search": min(_pow2(max(base_ef, 2 * topk)), 512),
+                  "max_steps": int(min(_pow2(4 * topk / max(sel, 0.01)),
+                                       4096)),
+                  "harvest_2hop": sel < 0.15}
+            rows = partition_rows.get(pid)
+            if rows is not None and adocs:
+                adm = np.isin(corpus.doc_ids[rows], np.fromiter(
+                    adocs, dtype=np.int64, count=len(adocs)))
+                local = np.nonzero(adm)[0]
+                if len(local):
+                    sub = corpus.vectors[rows[local]]
+                    mean = sub.mean(axis=0, keepdims=True)
+                    kw["entry_local"] = int(
+                        local[np.argmin(((sub - mean) ** 2).sum(axis=1))])
+            cache[(comb, pid)] = kw
+        return kw
+
+    return probe_params
