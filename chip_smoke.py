@@ -20,6 +20,16 @@ without a CUDA device or without the port's package beside it. Phases:
    masks fill 128 slots of 16, in the contiguous layout the index uses and
    the interleaved one of the TPU kernel, bit-identical; beside them the
    per-query form's time on the same masks;
+3e. the kernel lab's path (bench/lab.py's entry points) on phase 3's
+   operands: K1's trim and floor epilogues, extract_merge and
+   extract_merge_v2 on phase 3's 2048 x 8192-group minima, the y-form
+   extraction (sub 128, t 8 and 16) and both y-form sorts (keep 128), with
+   the counts set to 0 just before and read just after; then each of these
+   kernels against its plain version, bit-identical, beside its bound and
+   torch.topk's time on each merge kernel's own input (and over the whole
+   minima, the y-form merge's yardstick); its wide half (K2's slot form,
+   100 masks in slots of 16, both layouts, on phase 3b's operands) runs
+   after phase 3b;
 3d. the graph step's two kernels against their plain versions at the
    hybrid path's geometry: 4096 queries (the graph batcher's chunk) with
    M0 32 candidates each, mapped through a 40 x 65,536 row-map slab onto
@@ -31,7 +41,10 @@ without a CUDA device or without the port's package beside it. Phases:
    from the corpus's held-out pool as bench.py draws them, top-100, L2,
    through build_searcher("rls") and run_benchmark against the exact
    float32 oracle; then admit-dedup on and off in turns on that path
-   (pass walls, identical results);
+   (pass walls, identical results); then one pass each on the mask-row
+   wire, and on the uid wire (the path's own) with the ids, f32, bf16 and
+   u8 result wires: the same ids, the distances within each wire's
+   precision of the f32 wire's;
 4c. the partitioned strategies on the same corpus and arena: ROLE, USER
    and AnonySys (dynamic, storage alpha 2.0, the port's own planner), each
    over the first 4096 queries, top-10, batch 1024, against the exact
@@ -57,7 +70,7 @@ without a CUDA device or without the port's package beside it. Phases:
 4b. the 768-d path at full size: the cohere-like 1M x 768 corpus (seed 0),
    the same world, 8192 queries, top-100, cosine, residual4 rerank,
    through build_searcher("rls") and run_benchmark against the exact
-   cosine oracle.
+   cosine oracle, and the wire passes of phase 4.
 On each path recall must reach 0.95, every returned row must be readable
 by its user, and each kernel of the path must have launched while it ran
 (the counts are set to 0 just before it; "scan_int8" counts every launch
@@ -380,6 +393,218 @@ def check_slot_form(arena, workload, world, device, smi):
     if not all(rows.values()):
         fail(f"the slot form disagrees with its plain version: {rows}")
     return (True, max(errs), ms["contiguous"], plain_ms), (*bound, None)
+
+
+def check_lab_path(scan_args, packed, packed_plain, smi):
+    """Phase 3e: the kernel lab's path on phase 3's operands and minima,
+    the counts set to 0 just before and read just after; then its kernels
+    against their plain versions. Returns (launches, {kernel: (ok,
+    max_abs_err, ms, plain ms)}, {kernel: (bound ms, bound_by, library
+    ms)})."""
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops import (_build, lab_merge, lab_scan,
+                                                 scan_int8)
+
+    q8, x8, norms, bits, qbits, group, metric, shift = scan_args
+    rows = (q8, x8, norms, bits, qbits)
+    qn = (q8.to(torch.int32) ** 2).sum(dim=1, dtype=torch.int32)
+    full = (q8, qn, x8, norms, bits, qbits, 1.0, TOPK)
+    lab_kw = dict(group=group, metric=metric, score_shift=shift)
+    _build.reset_launches()
+    lab_scan.int8_masked_topk_lab(*full, variant="trim", **lab_kw)
+    lab_scan.int8_masked_topk_lab(*full, merge="none", variant="floor",
+                                  **lab_kw)
+    for t in (16, 8):
+        lab_merge.extract_merge(packed, TOPK, 128, t)
+    lab_merge.extract_merge_v2(packed, TOPK, 128, 8, 128)
+    lab_merge.bitonic_sort_keep(lab_merge.subgroup_extract(packed, 128, 16),
+                                128)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    lab_kernels = ("scan_int8_trim", "scan_int8_floor", "merge_y_extract",
+                   "merge_y_sort", "merge_y_pairs")
+    idle = [k for k in lab_kernels if launches[k] == 0]
+    if idle:
+        fail(f"the kernel lab's path never launched {idle}")
+
+    out, extra = {}, {}
+    out_meta = torch.empty(packed.shape, dtype=torch.int32, device="meta")
+    plains = {"trim": lambda: scan_int8.int8_group_minima_plain(*rows,
+                                                                **lab_kw),
+              "floor": lambda: lab_scan.floor_minima_plain(*rows, group)}
+    for variant, plain_fn in plains.items():
+        fn = lambda v=variant: lab_scan.lab_group_minima(*rows, variant=v,
+                                                         **lab_kw)
+        got = fn()
+        # trim's plain version is K1's: phase 3 computed it already
+        plain = packed_plain if variant == "trim" else plain_fn()
+        torch.cuda.synchronize()
+        out[f"scan_int8_{variant}"] = (
+            torch.equal(got, plain), max_abs_err(got, plain), cuda_ms(fn, 10),
+            cuda_ms(plain_fn, 3))
+        extra[f"scan_int8_{variant}"] = (*scan_bound(*rows, out_meta), None)
+        del got, plain
+    topk_ms = cuda_ms(lambda: torch.topk(packed, TOPK, dim=0, largest=False),
+                      10)
+    names = ("merge_y_extract", "merge_y_sort", "merge_y_pairs")
+    same, errs = dict.fromkeys(names, True), dict.fromkeys(names, 0)
+    for t in (16, 8):
+        y = lab_merge.subgroup_extract(packed, 128, t)
+        ys = lab_merge.bitonic_sort_keep(y, 128)
+        yp, gp = lab_merge.bitonic_pairs_keep(y, 128, t, 128)
+        pairs = {"merge_y_extract": [(y, lab_merge.subgroup_extract_plain(
+                     packed, 128, t))],
+                 "merge_y_sort": [(ys, lab_merge.bitonic_sort_keep_plain(
+                     y, 128))],
+                 "merge_y_pairs": list(zip((yp, gp), lab_merge.
+                                           bitonic_pairs_keep_plain(
+                                               y, 128, t, 128)))}
+        torch.cuda.synchronize()
+        for name, checks in pairs.items():
+            same[name] &= all(torch.equal(a, b) for a, b in checks)
+            errs[name] = max(errs[name], *(max_abs_err(a, b)
+                                           for a, b in checks))
+    # timed at extract_merge_v2's shape: t 8, 512 survivors, keep 128
+    timed = {
+        "merge_y_extract": (
+            lambda: lab_merge.subgroup_extract(packed, 128, 8),
+            lambda: lab_merge.subgroup_extract_plain(packed, 128, 8)),
+        "merge_y_sort": (lambda: lab_merge.bitonic_sort_keep(y, 128),
+                         lambda: lab_merge.bitonic_sort_keep_plain(y, 128)),
+        "merge_y_pairs": (
+            lambda: lab_merge.bitonic_pairs_keep(y, 128, 8, 128),
+            lambda: lab_merge.bitonic_pairs_keep_plain(y, 128, 8, 128)),
+    }
+    for name, (fn, plain_fn) in timed.items():
+        out[name] = (same[name], errs[name], cuda_ms(fn, 10),
+                     cuda_ms(plain_fn, 3))
+    # library calls on each kernel's own input: S4's is the 8 smallest of
+    # each subgroup of 128 (values and positions); S5's the 128 smallest of
+    # the survivors, sorted (the pairs form's gids follow from the indices)
+    sub_ms = cuda_ms(lambda: torch.topk(
+        packed.view(-1, 128, packed.shape[1]), 8, dim=1, largest=False), 10)
+    keep_ms = cuda_ms(lambda: torch.topk(y, 128, dim=0, largest=False), 10)
+    extra["merge_y_extract"] = (*bound_ms(nbytes(packed, y), 0, 1), sub_ms)
+    extra["merge_y_sort"] = (*bound_ms(nbytes(y, ys), 0, 1), keep_ms)
+    extra["merge_y_pairs"] = (*bound_ms(nbytes(y, yp, gp), 0, 1), keep_ms)
+    report(f"kernel lab vs plain at Q={q8.shape[0]} x {x8.shape[0]} rows "
+           f"(trim, floor: group {group}) and on the {packed.shape[0]} x "
+           f"{packed.shape[1]} minima (y-form: sub 128, t 8 and 16, keep "
+           f"128; timed at t 8) ({smi}); tolerance 0:", out)
+    say(f"  bounds ms { {k: round(v[0], 6) for k, v in extra.items()} }; "
+        f"torch.topk per subgroup {sub_ms:.3f} ms, over the survivors "
+        f"{keep_ms:.3f} ms, over the whole minima (the y-form merge's "
+        f"yardstick) {topk_ms:.3f} ms; lab path launches "
+        f"{ {k: launches[k] for k in lab_kernels} }")
+    return launches, out, extra
+
+
+def check_wide_slots(wide_args, arena, world, device, k, smi):
+    """Phase 3e, wide half: K2's slot form on phase 3b's operands, 2048
+    queries whose 100 distinct masks fill 128 slots of 16. The lab path
+    first (bench/lab.py wide-admit: the scan and the merge kernels at k,
+    interleaved in tiles of 512 as the reference's wide index tiles, the
+    counts set to 0 just before and read just after), then the kernel
+    against its plain version in both layouts, bit-identical. Returns
+    (launches, (ok, max_abs_err, ms, plain ms), (bound ms, bound_by,
+    library ms))."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops import _build, scan_int8
+
+    q8, x8, norms, bits, _, group, metric, shift = wide_args
+    distinct = np.unique(world.user_masks, axis=0)
+    slots = distinct[np.arange(BATCH // SLOT_SB) % len(distinct)]
+    slot_bits = torch.from_numpy(np.ascontiguousarray(slots).view(
+        np.int32)).to(device)
+    rows = (q8, x8, norms, bits, slot_bits)
+    kw = dict(group=group, metric=metric, score_shift=shift,
+              mask_sub_block=SLOT_SB)
+    tile = 512
+    _build.reset_launches()
+    scan_int8.int8_masked_topk(
+        q8, None, x8, norms, bits, slot_bits,
+        torch.ones(BATCH, device=device), k, group=group, merge="kernel",
+        metric=metric, score_shift=shift, mask_sub_block=SLOT_SB,
+        slot_tile=tile)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if launches["scan_int8_wide_slots"] == 0:
+        fail("the wide-admit path never launched the wide slot form")
+    same, err, ms = {}, 0, {}
+    for layout, t in (("contiguous", 0), ("interleaved", tile)):
+        got = scan_int8.int8_group_minima_wide(*rows, slot_tile=t, **kw)
+        want = scan_int8.int8_group_minima_wide_plain(*rows, slot_tile=t,
+                                                      **kw)
+        torch.cuda.synchronize()
+        same[layout] = torch.equal(got, want)
+        err = max(err, max_abs_err(got, want))
+        ms[layout] = cuda_ms(lambda t=t: scan_int8.int8_group_minima_wide(
+            *rows, slot_tile=t, **kw), 10)
+        del got, want
+    plain_ms = cuda_ms(lambda: scan_int8.int8_group_minima_wide_plain(
+        *rows, slot_tile=tile, **kw), 3)
+    out_meta = torch.empty((x8.shape[0] // group, BATCH), dtype=torch.int32,
+                           device="meta")
+    bound = scan_bound(*rows, out_meta)
+    say(f"wide slot form vs plain at Q={BATCH} x {x8.shape[0]} rows x d_pad "
+        f"{x8.shape[1]}, {len(distinct)} distinct masks in "
+        f"{BATCH // SLOT_SB} slots of {SLOT_SB}, group {group} ({smi}); "
+        f"tolerance 0: contiguous identical={same['contiguous']} "
+        f"{ms['contiguous']:.3f} ms, interleaved (tiles of {tile}) "
+        f"identical={same['interleaved']} {ms['interleaved']:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}); lab path "
+        f"launches {launches['scan_int8_wide_slots']}")
+    if not all(same.values()):
+        fail(f"the wide slot form disagrees with its plain version: {same}")
+    return launches, (True, err, ms["interleaved"], plain_ms), (*bound, None)
+
+
+def check_wires(name, searcher, workload, world, smi) -> None:
+    """One pass on the mask-row wire and one on the uid wire (the path's
+    own: a resident user table, 2-byte user ids) with each result wire:
+    the ids must be the ids wire's on every pass, the distances within
+    each wire's precision of the f32 wire's (bf16: 2^-8 of the value;
+    u8: half a code step of the row's span)."""
+    import numpy as np
+
+    index = searcher.partitions[0].index
+    q, users = workload.vectors, workload.user_ids
+    wire0 = index.wire
+    out = {}
+    try:
+        for wire in ("ids", "f32", "bf16", "u8"):
+            index.wire = wire
+            out[wire] = searcher.search_batch(q, users, world.user_masks,
+                                              TOPK)
+            if not index._last_uid_wire:
+                fail(f"{name}: the {wire} pass did not take the uid wire")
+        index.wire = "ids"
+        out["mask rows"] = index.search(q, world.user_masks[users], TOPK)
+        if index._last_uid_wire:
+            fail(f"{name}: the mask-row pass took the uid wire")
+    finally:
+        index.wire = wire0
+    ids = out["ids"][1]
+    same = {w: bool(np.array_equal(o[1], ids)) for w, o in out.items()}
+    d32 = out["f32"][0]
+    fin = np.isfinite(d32)
+    span = (np.where(fin, d32, -np.inf).max(1)
+            - np.where(fin, d32, np.inf).min(1))
+    step = np.where(np.isfinite(span), span, 0.0)[:, None] / 254.0
+    err = {"bf16": float(np.max(np.abs(out["bf16"][0] - d32)[fin]
+                                / np.maximum(np.abs(d32[fin]), 1e-30))),
+           "u8": float(np.max((np.abs(out["u8"][0] - d32)
+                               / np.maximum(step, 1e-30))[fin]))}
+    say(f"{name} wires ({smi}): ids equal to the ids wire's {same}; bf16 "
+        f"max relative error {err['bf16']:.3e} (bound 2^-8), u8 max error "
+        f"{err['u8']:.4f} code steps (bound 0.5)")
+    if not all(same.values()):
+        fail(f"{name}: a wire changed the ids: {same}")
+    if err["bf16"] > 2.0**-8 or err["u8"] > 0.5 * 1.0001 + 1e-3:
+        fail(f"{name}: a wire's distances are off: {err}")
 
 
 def check_graph_step(arena, workload, world, device, smi):
@@ -712,7 +937,6 @@ def main() -> None:
         cuda_ms(lambda: scan_int8.int8_group_minima(*scan_args), 10),
         cuda_ms(lambda: scan_int8.int8_group_minima_plain(*scan_args), 3))
     extra["scan_int8"] = (*scan_bound(*scan_args[:5], packed), None)
-    del packed_plain
     merges, keep, merge_extra = check_merge(packed, TOPK)
     result.update(merges)
     extra.update(merge_extra)
@@ -721,10 +945,14 @@ def main() -> None:
            "tolerance 0: values bit-identical, merge positions identical "
            "where the value is a candidate:",
            {k: result[k] for k in ("scan_int8", *merges)})
-    del packed
-    torch.cuda.empty_cache()
     result["scan_int8_slots"], extra["scan_int8_slots"] = check_slot_form(
         arena, workload, world, device, smi)
+    torch.cuda.empty_cache()
+    launches_lab, lab_rows, lab_extra = check_lab_path(scan_args, packed,
+                                                       packed_plain, smi)
+    result.update(lab_rows)
+    extra.update(lab_extra)
+    del packed, packed_plain
     torch.cuda.empty_cache()
     graph_rows, graph_extra = check_graph_step(arena, workload, world,
                                                device, smi)
@@ -749,6 +977,7 @@ def main() -> None:
              lambda: searcher.search_batch(workload.vectors,
                                            workload.user_ids,
                                            world.user_masks, TOPK), smi)
+    check_wires("SIFT", searcher, workload, world, smi)
     del searcher
     gc.collect()
     torch.cuda.empty_cache()
@@ -840,7 +1069,12 @@ def main() -> None:
     for k, (ok, err, _, _) in merges_kk.items():    # one row per kernel
         result[k] = (result[k][0] and ok, max(result[k][1], err),
                      *result[k][2:])
-    del packed, wide_args
+    del packed
+    torch.cuda.empty_cache()
+    launches_wide_lab, result["scan_int8_wide_slots"], \
+        extra["scan_int8_wide_slots"] = check_wide_slots(
+            wide_args, arena, world, device, TOPK, smi)
+    del wide_args
     torch.cuda.empty_cache()
 
     truth = oracle_truth(corpus, world, workload, "cosine")
@@ -852,8 +1086,10 @@ def main() -> None:
     launches_wide = drive_path(
         "768-d (1M x 768, cosine)", searcher, corpus, world, workload, truth,
         arena, ("scan_int8_wide", "merge_extract", "merge_bitonic"), smi)
-    launches = {k: launches_sift[k] + launches_part[k] + launches_wide[k]
-                + launches_hybrid[k] for k in launches_sift}
+    check_wires("768-d", searcher, workload, world, smi)
+    paths = (launches_sift, launches_part, launches_wide, launches_hybrid,
+             launches_lab, launches_wide_lab)
+    launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "vectorsearch_rbac_tpu")]
@@ -877,6 +1113,20 @@ def main() -> None:
                         "scripts/pallas_merge_probe.py:107"),
         "graph_score": ("vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",
                         "scripts/r5_graph_fused_probe.py:233"),
+        "scan_int8_wide_slots": (
+            "vectorsearch_rbac_tpu_torch/csrc/scan_int8_wide.cu",
+            "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:343 (the mask_sb "
+            "form of :295)"),
+        "scan_int8_trim": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
+                           "scripts/r4_kernel_variants.py:37"),
+        "scan_int8_floor": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
+                            "scripts/r4_kernel_variants.py:94"),
+        "merge_y_extract": ("vectorsearch_rbac_tpu_torch/csrc/merge.cu",
+                            "scripts/r4_extract_kernel.py:28"),
+        "merge_y_sort": ("vectorsearch_rbac_tpu_torch/csrc/merge.cu",
+                         "scripts/r4_bitonic_kernel.py:26"),
+        "merge_y_pairs": ("vectorsearch_rbac_tpu_torch/csrc/merge.cu",
+                          "scripts/r4_bitonic_kernel.py:55"),
     }
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -428,3 +428,126 @@ def test_hybrid_searcher_cuda_equals_cpu(dev):
     for key in ("neighbors", "entry"):
         np.testing.assert_array_equal(graphs["cuda"][key],
                                       graphs["cpu"][key])
+
+
+# ---- the kernel lab's kernels: K1's trim and floor epilogues (S1), K2's
+# slot form, the y-form extraction (S4) and bitonic sort (S5)
+
+@pytest.mark.parametrize("variant", ["trim", "floor"])
+@pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift", [
+    (1, 1024, 128, 4, 128, "l2", 0),
+    (37, 1152, 128, 1, 8, "ip", 0),
+    (257, 1280, 256, 8, 64, "l2", 3),
+    (2048, 8192, 128, 4, 128, "l2", 0),
+])
+def test_lab_scan_variants_bit_identical(dev, variant, nq, npad, d_pad, w,
+                                         group, metric, shift):
+    """Each epilogue variant against its plain version; trim's minima are
+    also K1's."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_scan
+
+    args = _scan_inputs(np.random.default_rng(nq + 7), dev, nq, npad, d_pad,
+                        w)
+    kw = dict(group=group, metric=metric, score_shift=shift)
+    before = dict(_build.LAUNCHES)
+    got = lab_scan.lab_group_minima(*args, variant=variant, **kw)
+    name = f"scan_int8_{variant}"
+    assert _build.LAUNCHES[name] == before[name] + 1
+    assert _build.LAUNCHES["scan_int8"] == before["scan_int8"]
+    want = lab_scan.lab_group_minima(*(a.cpu() for a in args),
+                                     variant=variant, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if variant == "trim":
+        assert torch.equal(got, scan_int8.int8_group_minima(*args, **kw))
+
+
+@pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift,sb,tile", [
+    (16, 1024, 384, 4, 128, "l2", 2, 16, 0),
+    (48, 1152, 384, 1, 8, "ip", 0, 16, 48),
+    (96, 2048, 768, 8, 32, "ip", 3, 16, 32),
+    (320, 1280, 512, 2, 64, "l2", 1, 8, 0),
+    (2048, 8192, 768, 4, 128, "ip", 3, 16, 512),
+])
+def test_wide_slot_form_bit_identical(dev, nq, npad, d_pad, w, group, metric,
+                                      shift, sb, tile):
+    """K2's slot form, contiguous (tile 0) and interleaved, against its
+    plain version and against the per-query form on the expanded masks;
+    slot 0 reads an empty mask."""
+    q8, x8, norms, rb, qb = _scan_inputs(np.random.default_rng(nq + sb), dev,
+                                         nq, npad, d_pad, w)
+    slots = qb[:nq // sb].contiguous()
+    kw = dict(group=group, metric=metric, score_shift=shift)
+    before = dict(_build.LAUNCHES)
+    got = scan_int8.int8_group_minima(q8, x8, norms, rb, slots,
+                                      mask_sub_block=sb, slot_tile=tile, **kw)
+    assert (_build.LAUNCHES["scan_int8_wide_slots"]
+            == before["scan_int8_wide_slots"] + 1)
+    want = scan_int8.int8_group_minima_wide_plain(
+        q8, x8, norms, rb, slots, mask_sub_block=sb, slot_tile=tile, **kw)
+    per_query = slots.index_select(0, scan_int8.slot_of_query(
+        nq, sb, tile, dev)).contiguous()
+    ctl = scan_int8.int8_group_minima(q8, x8, norms, rb, per_query, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, ctl)
+    assert (got[:, 0] == scan_int8.MASKED_I32).all()
+
+
+@pytest.mark.parametrize("ng,nq,sub,t", [(2048, 300, 128, 16),
+                                         (512, 40, 64, 8),
+                                         (8192, 129, 128, 8),
+                                         (256, 33, 8, 16)])
+def test_y_extract_kernel_identical(dev, ng, nq, sub, t):
+    """S4 against its plain version, on minima with ties, inadmissible
+    groups and an empty column (drained subgroups, and t > sub)."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_merge
+
+    p = torch.from_numpy(_packed_with_ties(np.random.default_rng(ng + t), ng,
+                                           nq)).to(dev)
+    before = _build.LAUNCHES["merge_y_extract"]
+    y = lab_merge.subgroup_extract(p, sub, t)
+    assert _build.LAUNCHES["merge_y_extract"] == before + 1
+    y_p = lab_merge.subgroup_extract_plain(p, sub, t)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_p)
+
+
+@pytest.mark.parametrize("npc,nq,keep,t,sub", [(64, 33, 16, 8, 128),
+                                               (512, 300, 104, 8, 128),
+                                               (1024, 129, 128, 16, 64),
+                                               (2048, 17, 2048, 16, 128)])
+def test_y_bitonic_kernel_identical(dev, npc, nq, keep, t, sub):
+    """Both S5 forms against their plain versions on y with many ties
+    across subgroups: the pairs form's group ids in the TPU network's
+    order."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_merge
+
+    rng = np.random.default_rng(npc + keep)
+    y = (rng.integers(0, 40, size=(npc, nq)) * 128
+         + rng.integers(0, sub, size=(npc, nq))).astype(np.int32)
+    y = torch.from_numpy(y).to(dev)
+    before = dict(_build.LAUNCHES)
+    ys = lab_merge.bitonic_sort_keep(y, keep)
+    yp, gp = lab_merge.bitonic_pairs_keep(y, keep, t, sub)
+    assert _build.LAUNCHES["merge_y_sort"] == before["merge_y_sort"] + 1
+    assert _build.LAUNCHES["merge_y_pairs"] == before["merge_y_pairs"] + 1
+    ys_p = lab_merge.bitonic_sort_keep_plain(y, keep)
+    yp_p, gp_p = lab_merge.bitonic_pairs_keep_plain(y, keep, t, sub)
+    torch.cuda.synchronize()
+    assert torch.equal(ys, ys_p) and torch.equal(yp, yp_p)
+    assert torch.equal(gp, gp_p) and torch.equal(ys, yp)
+
+
+def test_lab_merges_cuda_equal_cpu(dev):
+    """extract_merge and extract_merge_v2 on the card (S4, S5) equal the
+    same merges on the CPU (plain versions)."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_merge
+
+    p = _packed_with_ties(np.random.default_rng(3), 8192, 200)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        mins = torch.from_numpy(p).to(d)
+        got[d.type] = (lab_merge.extract_merge(mins, 100, 128, 16),
+                       lab_merge.extract_merge_v2(mins, 100, 128, 8, 128))
+    for (a, b), (c, e) in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a.cpu(), c) and torch.equal(b.cpu(), e)

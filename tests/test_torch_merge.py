@@ -98,8 +98,9 @@ def test_merge_gate():
 
 
 def test_gate_refusal_takes_exact_merge():
-    """A shape the gate refuses decodes through the exact merge: same
-    result as sorting every group minimum."""
+    """A shape the gate refuses decodes through the cascade, as the
+    reference's does; below 2048 groups the cascade is the exact merge:
+    the same result as sorting every group minimum."""
     from vectorsearch_rbac_tpu_torch.ops.scan_int8 import merge_group_minima
 
     rng = np.random.default_rng(5)

@@ -231,3 +231,76 @@ def test_slot_form_refuses_ragged_slots(slot_prob):
     with pytest.raises(ValueError, match="do not tile"):
         int8_group_minima(*args, t(slots.view(np.int32)), mask_sub_block=SB,
                           slot_tile=12)
+
+
+# ---- the cascade, approx and auto merges against _merge_group_minima
+
+def _minima(ng, nq, seed, distinct=False):
+    """(ng, nq) packed minima with many equal values (scores from a small
+    range, so ties between groups are common), or with none (distinct),
+    some inadmissible groups, and one query with nothing admissible."""
+    rng = np.random.default_rng(seed)
+    if distinct:
+        score = np.stack([rng.choice(1 << 22, ng, replace=False) - (1 << 21)
+                          for _ in range(nq)], axis=1)
+    else:
+        score = rng.integers(-3000, 3000, size=(ng, nq))
+    packed = (score * 128 + rng.integers(0, 4, size=(ng, nq))).astype(np.int32)
+    packed[rng.random((ng, nq)) < 0.2] = 0x7F000000
+    packed[:, 1] = 0x7F000000
+    return packed
+
+
+@pytest.mark.parametrize("ng,k,merge", [
+    (4096, 10, "cascade"), (4096, 100, "cascade"),   # t 8 and t 24
+    (1024, 10, "cascade"),                           # < 2048: exact
+    (4096, 10, "approx"), (256, 100, "approx"),      # < 4k: exact
+    (40960, 10, "auto"), (4096, 10, "auto"),         # approx / exact
+    (4096, 600, "kernel"),                           # gate refuses: cascade
+])
+def test_merges_match_reference(ng, k, merge):
+    """merge_group_minima against the reference's _merge_group_minima on
+    the same packed minima: ids and distances equal, ties to the lower
+    group as lax.top_k orders them. "kernel" on a shape the merge gate
+    refuses is the cascade, as the reference's "pallas" there.
+
+    The approx cases take minima without equal values: on the CPU
+    approx_min_k falls back to XLA's unstable sort, whose order of equal
+    keys is its own (the set it selects is the exact 2k, as here)."""
+    from vectorsearch_rbac_tpu.ops.pallas_scan_int8 import _merge_group_minima
+    from vectorsearch_rbac_tpu_torch.ops.scan_int8 import merge_group_minima
+
+    nq, group = 8, 16
+    approx = merge == "approx" or (merge == "auto" and ng > 32768)
+    packed = _minima(ng, nq, seed=ng + k, distinct=approx)
+    qn = np.random.default_rng(1).integers(0, 10**6, nq).astype(np.int32)
+    want_d, want_i = _merge_group_minima(
+        jnp.asarray(packed), jnp.asarray(qn), jnp.float32(0.25), k, group,
+        "pallas" if merge == "kernel" else merge, "l2", None, 0)
+    got_d, got_i = merge_group_minima(
+        torch.from_numpy(packed), torch.from_numpy(qn), 0.25, k, group, merge,
+        "l2")
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    assert (got_i.numpy()[1] == -1).all()
+
+
+def test_cascade_keeps_t_per_subgroup():
+    """The cascade keeps the t smallest of each subgroup of 128 groups: a
+    subgroup holding more than t of the true top-k loses the rest, which
+    the exact merge keeps."""
+    from vectorsearch_rbac_tpu_torch.ops.scan_int8 import merge_group_minima
+
+    ng, k = 2048, 10                        # t = max(10 // 4 + 4, 8) = 8
+    packed = np.full((ng, 1), 1000 * 128, np.int32)
+    packed[:12, 0] = np.arange(12) * 128    # 12 best, all in subgroup 0
+    args = (torch.from_numpy(packed), torch.zeros(1, dtype=torch.int32), 1.0,
+            k, 8)
+    _, exact = merge_group_minima(*args, "exact", "l2")
+    _, cascade = merge_group_minima(*args, "cascade", "l2")
+    assert exact[0, :10].tolist() == [g * 8 for g in range(10)]
+    assert cascade[0, :8].tolist() == [g * 8 for g in range(8)]
+    # the 9th best (group 8) is lost: next comes subgroup 1's first group
+    assert cascade[0, 8] == 128 * 8
+    with pytest.raises(ValueError, match="not one of"):
+        merge_group_minima(*args, "pallas", "l2")

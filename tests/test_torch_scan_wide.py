@@ -5,7 +5,8 @@ interpret mode on the CPU.
 On the CPU the port runs the kernel's plain PyTorch version, so these
 tests hold that version bit-identical to the TPU kernel's packed group
 minima at d_pad 384 (score shift 2) and 768 (shift 3), for both kernel
-metrics and the smallest and largest group. The JAX kernel sweeps d in
+metrics and the smallest and largest group, and its admit-dedup slot form
+in both layouts. The JAX kernel sweeps d in
 chunks of 128 or 256 here, so its accumulation across d-chunks is what
 the port's single sum is held to. Both sides get the same role bitsets:
 the port ANDs the (N, W) words, the JAX kernel multiplies their
@@ -27,7 +28,7 @@ from vectorsearch_rbac_tpu.ops.pallas_scan_int8 import (
     int8_masked_topk_wide as jax_wide)
 from vectorsearch_rbac_tpu_torch.ops.scan_int8 import (
     MASKED_I32, int8_group_minima, int8_group_minima_wide_plain,
-    int8_masked_topk)
+    int8_masked_topk, slot_of_query)
 
 N, R, Q, K = 1024, 128, 16, 10
 
@@ -154,3 +155,75 @@ def test_plain_version_exact_beyond_768_columns():
                                        score_shift=shift)
     np.testing.assert_array_equal(
         got.numpy(), _minima_int64(q8, x8, norms, rbits, qbits, group, shift))
+
+
+# ---- the wide scan's admit-dedup slot form (mask_sb), both slot layouts,
+# at tests/test_int8.py:679's geometry: 512 rows x 384, 64 queries, q_tile
+# 32, slots of 4, 5 distinct masks
+
+SN, SD, SQ, SQ_TILE, SSB = 512, 384, 64, 32, 4
+
+
+@pytest.fixture(scope="module")
+def wide_slot_prob():
+    rng = np.random.default_rng(29)
+    vecs = rng.integers(-127, 128, size=(SN, SD)).astype(np.int8)
+    norms = np.einsum("nd,nd->n", vecs.astype(np.int64),
+                      vecs.astype(np.int64)).astype(np.int32)
+    roles = rng.random((SN, R)) < 0.05
+    roles[:, 0] |= rng.random(SN) < 0.3
+    queries = rng.integers(-127, 128, size=(SQ, SD)).astype(np.int8)
+    pool = rng.random((5, R)) < 0.1
+    pool[:4, 0] = True
+    pool[4] = False                               # one mask sees nothing
+    pack = lambda b: np.packbits(b, axis=1, bitorder="little").view(np.uint32)
+    slots = pack(pool)[np.arange(SQ // SSB) % 5]
+    return vecs, norms, pack(roles), queries, slots
+
+
+def _jax_wide_minima(vecs, norms, rbits, queries, masks, metric, shift,
+                     **slot):
+    want, _ = jax_wide(
+        jnp.asarray(queries), jnp.zeros(SQ, jnp.int32), jnp.asarray(vecs),
+        jnp.asarray(norms), jnp.asarray(bits_to_onehot8(rbits, R, R)),
+        jnp.asarray(bits_to_onehot8(masks, R, R)), jnp.float32(1.0), 6,
+        q_tile=SQ_TILE, block_rows=256, group=8, merge="none",
+        interpret=True, metric=metric, score_shift=shift, **slot)
+    return np.asarray(want)
+
+
+@pytest.mark.parametrize("metric,shift", [("l2", 2), ("ip", 0)])
+def test_wide_slot_form_interleaved_matches_tpu_kernel(
+        raw_minima, wide_slot_prob, metric, shift):
+    """The interleaved layout is the TPU kernel's own (pltpu.repeat within
+    each q_tile): the plain slot form is bit-identical to
+    int8_masked_topk_wide(mask_sub_block=4) in interpret mode, fed the same
+    slot one-hots."""
+    vecs, norms, rbits, queries, slots = wide_slot_prob
+    want = _jax_wide_minima(vecs, norms, rbits, queries, slots, metric,
+                            shift, mask_sub_block=SSB)
+    t = torch.from_numpy
+    got = int8_group_minima(
+        t(queries), t(vecs), t(norms), t(rbits.view(np.int32)),
+        t(slots.view(np.int32)), group=8, metric=metric, score_shift=shift,
+        mask_sub_block=SSB, slot_tile=SQ_TILE)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("slot_tile", [0, SQ_TILE],
+                         ids=["contiguous", "interleaved"])
+def test_wide_slot_form_equals_expanded_masks(raw_minima, wide_slot_prob,
+                                              slot_tile):
+    """Either layout gives, bit for bit, the TPU kernel's per-query output
+    on the masks expanded from the slots (test_int8.py:679's parity)."""
+    vecs, norms, rbits, queries, slots = wide_slot_prob
+    per_query = slots[slot_of_query(SQ, SSB, slot_tile).numpy()]
+    want = _jax_wide_minima(vecs, norms, rbits, queries, per_query, "l2", 2)
+    t = torch.from_numpy
+    got = int8_group_minima(
+        t(queries), t(vecs), t(norms), t(rbits.view(np.int32)),
+        t(slots.view(np.int32)), group=8, metric="l2", score_shift=2,
+        mask_sub_block=SSB, slot_tile=slot_tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+    empty = np.flatnonzero(~per_query.any(axis=1))
+    assert len(empty) and (got.numpy()[:, empty] == MASKED_I32).all()

@@ -169,6 +169,39 @@ def test_rls_ids_match_reference(world, port_world):
     assert_same_up_to_ties(corpus, workload.vectors, got, want)
 
 
+@pytest.mark.parametrize("wire", ["u8", "bf16", "f32"])
+def test_rls_wires_match_reference(world, port_world, wire):
+    """The global path's result wires against the reference's on the same
+    arena: the distances come back bit for bit (the scan, the merge and
+    the decode are the reference's, and the wire is its byte format), the
+    ids as in test_rls_ids_match_reference. The port's pass takes the
+    2-byte uid wire with a resident user table, the reference's search_batch
+    mask rows."""
+    corpus, w, workload, cfg = world
+    ra = ref_arena(corpus, w, block_rows=BLOCK, dtype="int8")
+    cfg.search.wire_dist = wire
+    try:
+        ref = ref_searcher("rls", corpus, w, ra, cfg)
+        want_d, want_i = ref.search_batch(workload.vectors, workload.user_ids,
+                                          w.user_masks, K)
+    finally:
+        cfg.search.wire_dist = "ids"
+    p_corpus, p_w, p_workload, p_cfg = port_world
+    p_cfg.search.wire_dist = wire
+    try:
+        searcher = build_searcher("rls", p_corpus, p_w,
+                                  arena_from_reference(ra, "cpu"), p_cfg)
+    finally:
+        p_cfg.search.wire_dist = "ids"
+    index = searcher.partitions[0].index
+    got_d, got_i = searcher.search_batch(p_workload.vectors,
+                                         p_workload.user_ids, p_w.user_masks,
+                                         K)
+    assert index.wire == wire and index._last_uid_wire
+    np.testing.assert_array_equal(got_d, want_d)
+    assert_same_up_to_ties(corpus, workload.vectors, got_i, want_i)
+
+
 @pytest.mark.parametrize("metric,mode", [("cosine", "residual4"),
                                          ("l2", "dequant")])
 def test_cohere_rls_ids_match_reference(cohere_world, port_cohere_world,
@@ -304,6 +337,12 @@ s = build_searcher("dynamic", corpus, w, arena, cfg, plan=s_plan,
 assert len(s.graph_batcher.pids) > 1, s.graph_batcher.pids
 _, ids = s.search_batch(wl.vectors, wl.user_ids, w.user_masks, 5)
 assert ids.shape == (8, 5) and (ids >= 0).all(), ids
+# the kernel lab's entry point and modules, and its merges on the CPU
+import torch
+import vectorsearch_rbac_tpu_torch.bench.lab
+from vectorsearch_rbac_tpu_torch.ops import lab_merge, lab_scan
+mins = torch.randint(0, 1 << 29, (1024, 16), dtype=torch.int32)
+assert lab_merge.extract_merge_v2(mins, 10, 128, 8, 16)[0].shape == (16, 10)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 ref = [m for m in sys.modules if m.split(".")[0] == "vectorsearch_rbac_tpu"]
 assert not ref, ref
@@ -314,7 +353,7 @@ print("JAX_FREE_OK")
 def test_port_never_imports_jax():
     """Import + build + search (the SIFT-like L2 path, the 768-d cosine
     path, the AnonySys planner with the chunk engine and a big tier, and
-    its hybrid executor with HNSW graphs),
+    its hybrid executor with HNSW graphs; the kernel lab's modules),
     through the entry points chip_smoke.py uses, in a fresh
     interpreter (this one has jax loaded by tests/conftest.py): neither jax
     nor the reference package loads."""

@@ -69,9 +69,10 @@ def parse_args(argv=None):
                     help="serving query batch (0 = strategy default)")
     ap.add_argument("--wire", default="",
                     choices=["", "ids", "u8", "bf16", "f32"],
-                    help="result wire coding (default: 'ids' for rls, 'u8' "
-                         "otherwise, which partition tiers never read: they "
-                         "carry f32 distances)")
+                    help="the rls index's result wire: ids, u8, bf16 or f32 "
+                         "(default: 'ids' for rls; 'u8' otherwise, which "
+                         "partition tiers never read: they carry f32 "
+                         "distances)")
     ap.add_argument("--per-query", default="",
                     help="write per-query JSON records to this path")
     args = ap.parse_args(argv)

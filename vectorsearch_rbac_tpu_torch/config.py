@@ -26,7 +26,11 @@ class SearchConfig:
     dtype: str = "float32"       # arena dtype: "float32" | "int8"
     scan_group: int = 32         # tiled chunk engine: packed group-min
                                  # width (0 = exact per-chunk top-k)
-    wire_dist: str = "u8"        # result wire: the port has "ids" and "f32"
+    wire_dist: str = "u8"        # the global index's result wire: "u8" (a
+                                 # per-query affine byte), "bf16", "f32"
+                                 # (exact) or "ids" (no distances: callers
+                                 # get rank pseudo-distances); partition
+                                 # tiers always carry f32
 
 
 @dataclass

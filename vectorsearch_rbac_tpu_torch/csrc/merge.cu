@@ -46,6 +46,39 @@
 // shared memory; the column load reads one int32 per row, uncoalesced.
 // Design: one block per query column, the column in shared memory, one
 // thread per exchange.
+//
+// ---------------------------------------------------------------------------
+// The y-form lab merge (scripts/r4_extract_kernel.py, r4_bitonic_kernel.py):
+// the candidate's position in its subgroup rides in the low 7 bits of the
+// packed value instead of a meta word, so the survivors are one int32 each.
+//
+// y_extract_kernel replaces the TPU kernel r4_extract_kernel.py
+// _make_extract_kernel (subgroup_extract, S4). Contract: the minima are cut
+// into subgroups of sub <= 128 rows; for subgroup j and query q
+//   y[p]            = (mins[j*sub + p, q] & ~127) | p      (p < sub)
+//   out[j*t + r, q] = the r-th smallest y of the subgroup, INT32_MAX once
+//                     all sub are out.
+// The y of one subgroup are distinct (p is), so each round takes exactly the
+// smallest y above the last one. The lab kernel masks a hit with 2^30, which
+// sorts below the inadmissible 0x7F000000 | p: in a subgroup with fewer than
+// t admissible groups it emits 2^30 again and again, which decodes to
+// position 0 and duplicates a real candidate downstream. This kernel masks
+// with INT32_MAX, as the package's extraction kernel does
+// (vectorsearch_rbac_tpu/ops/pallas_merge.py:62-67); on every input where no
+// subgroup runs out of admissible groups within t rounds the two agree bit
+// for bit. Bound and design: as extract_pairs_kernel's, one value a round.
+//
+// bitonic_y_kernel replaces the TPU kernels r4_bitonic_kernel.py
+// _make_bitonic_kernel (bitonic_sort_keep) and _make_bitonic_pairs_kernel
+// (bitonic_pairs_keep), S5, chosen by the kPairs flag. Contract: the network
+// of bitonic_pairs_kernel above sorts each column of (npc, Q) y-values and
+// keeps the first `keep` rows; the pairs form carries
+//   gid[i] = (i / t) * sub + (y[i] & 127)
+// (the candidate's global group) along, computed from the row as it is
+// loaded, and swaps equal y the TPU network's way (le = a <= b; a descending
+// block puts hi first), so equal y of different subgroups keep the TPU's gid
+// order. The sort form carries nothing; its output is the sorted values,
+// whatever the order of equal ones. Bound and design: bitonic_pairs_kernel's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,6 +161,68 @@ __global__ void bitonic_pairs_kernel(const int32_t* __restrict__ y,     // (npc,
   }
 }
 
+__global__ void __launch_bounds__(kExtractThreads)
+y_extract_kernel(const int32_t* __restrict__ mins,  // (n_groups, Q)
+                 int32_t* __restrict__ out,         // (n_groups / sub * t, Q)
+                 int nq, int sub, int t) {
+  const int q = blockIdx.x * kExtractThreads + threadIdx.x;
+  const int j = blockIdx.y;
+  if (q >= nq) return;
+  const int32_t* col = mins + (size_t)j * sub * nq + q;
+  int32_t last = 0;
+  for (int r = 0; r < t; ++r) {
+    int32_t cur = kBig;
+    for (int p = 0; p < sub; ++p) {
+      const int32_t y = (col[(size_t)p * nq] & ~127) | p;
+      if ((r == 0 || y > last) && y < cur) cur = y;
+    }
+    out[((size_t)j * t + r) * nq + q] = cur;
+    last = cur;  // once cur is INT32_MAX no y is above it: INT32_MAX stays
+  }
+}
+
+template <bool kPairs>
+__global__ void bitonic_y_kernel(const int32_t* __restrict__ y,  // (npc, Q)
+                                 int32_t* __restrict__ out_y,    // (keep, Q)
+                                 int32_t* __restrict__ out_g,    // (keep, Q)
+                                 int nq, int npc, int keep, int t, int sub) {
+  extern __shared__ int32_t smem[];
+  int32_t* sy = smem;
+  int32_t* sg = smem + npc;  // the pairs form's gids
+  const int q = blockIdx.x;
+  for (int i = threadIdx.x; i < npc; i += blockDim.x) {
+    const int32_t v = y[(size_t)i * nq + q];
+    sy[i] = v;
+    if (kPairs) sg[i] = (i / t) * sub + (v & 127);
+  }
+  __syncthreads();
+  for (int size = 2; size <= npc; size <<= 1) {
+    for (int stride = size >> 1; stride >= 1; stride >>= 1) {
+      for (int p = threadIdx.x; p < npc / 2; p += blockDim.x) {
+        const int i = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
+        const int k = i + stride;
+        const int32_t a = sy[i], b = sy[k];
+        const bool le = a <= b;
+        const bool desc = (i & size) != 0;
+        const int32_t lo = le ? a : b, hi = le ? b : a;
+        sy[i] = desc ? hi : lo;
+        sy[k] = desc ? lo : hi;
+        if (kPairs) {
+          const int32_t ga = sg[i], gb = sg[k];
+          const int32_t glo = le ? ga : gb, ghi = le ? gb : ga;
+          sg[i] = desc ? ghi : glo;
+          sg[k] = desc ? glo : ghi;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < keep; i += blockDim.x) {
+    out_y[(size_t)i * nq + q] = sy[i];
+    if (kPairs) out_g[(size_t)i * nq + q] = sg[i];
+  }
+}
+
 }  // namespace
 
 extern "C" int vsr_extract_pairs(const void* mins, void* out_y, void* out_m,
@@ -157,5 +252,34 @@ extern "C" int vsr_bitonic_pairs(const void* y, const void* meta, void* out_y,
       static_cast<const int32_t*>(y), static_cast<const int32_t*>(meta),
       static_cast<int32_t*>(out_y), static_cast<int32_t*>(out_m), nq, npc,
       keep);
+  return (int)cudaGetLastError();
+}
+
+// out: (n_groups / sub * t, Q); sub <= 128 (the position has 7 bits).
+extern "C" int vsr_y_extract(const void* mins, void* out, int nq, int nsub,
+                             int sub, int t, void* stream) {
+  if (nq < 1 || nsub < 1 || nsub > 65535 || sub < 1 || sub > 128 || t < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((nq + kExtractThreads - 1) / kExtractThreads, nsub);
+  y_extract_kernel<<<grid, kExtractThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(mins), static_cast<int32_t*>(out), nq, sub,
+      t);
+  return (int)cudaGetLastError();
+}
+
+// pairs 0: the sort form (out_g unused, may be null); 1: the pairs form.
+extern "C" int vsr_bitonic_y(const void* y, void* out_y, void* out_g, int nq,
+                             int npc, int keep, int t, int sub, int pairs,
+                             void* stream) {
+  if (nq < 1 || npc < 2 || npc > 2048 || (npc & (npc - 1)) != 0 || keep < 1 ||
+      keep > npc || (pairs && (t < 1 || sub < 1 || sub > 128)))
+    return (int)cudaErrorInvalidValue;
+  const int threads = npc / 2 < 32 ? 32 : npc / 2;
+  const size_t smem = (pairs ? 2 : 1) * (size_t)npc * sizeof(int32_t);
+  auto kernel = pairs ? bitonic_y_kernel<true> : bitonic_y_kernel<false>;
+  kernel<<<nq, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(y), static_cast<int32_t*>(out_y),
+      static_cast<int32_t*>(out_g), nq, npc, keep, t, sub);
   return (int)cudaGetLastError();
 }

@@ -39,6 +39,21 @@
 // skipped when no query of the warp may read it: such a row packs to
 // 0x7F000000 whatever its score, so the output does not change.
 //
+// The lab's epilogue variants (also the lab kernel scripts/r4_kernel_variants.py
+// int8_masked_topk_lab, S1), selected by the kEpi template flag, per-query
+// masks only, as the lab's:
+//   kTrim:  the pack folded into the score arithmetic: l2 without a shift
+//           packs (norms[r] << 7) - (dots << 8) | lane, ip -dots << 7 | lane;
+//           with a shift the shift-then-pack chain above. Both are (score <<
+//           7) | lane in 32-bit arithmetic, so the output equals kPlain's bit
+//           for bit; the variant times the cheaper instruction chain.
+//   kFloor: a lower-bound probe, not a correct kernel: out[g, q] = min over
+//           the group of (dots + admit), where admit is the number of roles
+//           row and query share (the TPU's one-hot matmul count: the popcount
+//           of the AND summed over the W words). No pack, no lane, no mask.
+// The TPU lab's unroll and chunk knobs schedule Mosaic and size VMEM; they
+// have no counterpart here.
+//
 // Design: one thread per query keeps its int8 query row and its W mask words
 // in registers for the whole block. The block stages 128-row tiles of the
 // arena (rows, norms, bitsets) in shared memory, where all threads of a warp
@@ -57,6 +72,7 @@ constexpr int kThreads = 256;       // queries per block
 constexpr int kTilesPerBlock = 8;   // tiles a block walks with one query load
 constexpr int kMaxWords = 8;        // role bitset words: up to 256 roles
 constexpr int32_t kMasked = 0x7F000000;
+constexpr int kPlain = 0, kTrim = 1, kFloor = 2;  // epilogue variants (kEpi)
 
 template <int D16>
 __device__ __forceinline__ int32_t row_dot(const int4* x, const int4* qv) {
@@ -72,9 +88,10 @@ __device__ __forceinline__ int32_t row_dot(const int4* x, const int4* qv) {
   return dot;
 }
 
-// kSlots selects the slot form at compile time, so that the per-query form
-// keeps the instruction stream it had before the slot form existed.
-template <int D16, bool kSlots>  // D16 = d_pad / 16: 16-byte words per row
+// kSlots selects the slot form and kEpi the epilogue at compile time, so that
+// the per-query form keeps the instruction stream it had before either
+// existed (a run-time slot flag cost 12%).
+template <int D16, bool kSlots, int kEpi>  // D16 = d_pad / 16: words per row
 __global__ void __launch_bounds__(kThreads)
 scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
                  const int8_t* __restrict__ x8,         // (Npad, d_pad)
@@ -143,16 +160,31 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
       } else {
         dot = row_dot<D16>(xs + r * D16, qv);
       }
-      int32_t score = l2 ? ns[r] - 2 * dot : -dot;
-      score >>= score_shift;
-      if (!kSlots) {
+      const int lane = r & lane_mask;  // row0 is a multiple of group
+      int32_t packed;
+      if (kEpi == kFloor) {
+        int32_t count = 0;
 #pragma unroll
         for (int j = 0; j < kMaxWords; ++j)
-          hit |= bs[r * kMaxWords + j] & qb[j];
+          count += __popc(bs[r * kMaxWords + j] & qb[j]);
+        packed = dot + count;
+      } else {
+        uint32_t p;  // the score << 7, in unsigned arithmetic
+        if (kEpi == kTrim && score_shift == 0) {
+          p = l2 ? ((uint32_t)ns[r] << 7) - ((uint32_t)dot << 8)
+                 : (uint32_t)(-dot) << 7;
+        } else {
+          int32_t score = l2 ? ns[r] - 2 * dot : -dot;
+          score >>= score_shift;
+          p = (uint32_t)score << 7;
+        }
+        if (!kSlots) {
+#pragma unroll
+          for (int j = 0; j < kMaxWords; ++j)
+            hit |= bs[r * kMaxWords + j] & qb[j];
+        }
+        packed = hit ? (int32_t)(p | (uint32_t)lane) : kMasked;
       }
-      const int lane = r & lane_mask;  // row0 is a multiple of group
-      const int32_t packed =
-          hit ? (int32_t)(((uint32_t)score << 7) | (uint32_t)lane) : kMasked;
       best = lane == 0 ? packed : min(best, packed);
       if (lane == lane_mask && (!kSlots || active))
         out[((row0 + r) / group) * (size_t)nq + q] = best;
@@ -164,17 +196,50 @@ template <int D16>
 void launch(const void* q8, const void* x8, const void* norms,
             const void* row_bits, const void* q_bits, void* out, int nq,
             int npad, int w, int group, int l2, int score_shift, int mask_sb,
-            int slot_tile, cudaStream_t stream) {
+            int slot_tile, int variant, cudaStream_t stream) {
   const int n_tiles = npad / kTileRows;
   const dim3 grid((n_tiles + kTilesPerBlock - 1) / kTilesPerBlock,
                   (nq + kThreads - 1) / kThreads);
-  auto kernel = mask_sb > 0 ? scan_int8_kernel<D16, true>
-                            : scan_int8_kernel<D16, false>;
+  auto kernel = mask_sb > 0          ? scan_int8_kernel<D16, true, kPlain>
+                : variant == kTrim   ? scan_int8_kernel<D16, false, kTrim>
+                : variant == kFloor  ? scan_int8_kernel<D16, false, kFloor>
+                                     : scan_int8_kernel<D16, false, kPlain>;
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(q8), static_cast<const int8_t*>(x8),
       static_cast<const int32_t*>(norms), static_cast<const int32_t*>(row_bits),
       static_cast<const int32_t*>(q_bits), static_cast<int32_t*>(out), nq,
       n_tiles, w, group, l2, score_shift, mask_sb, slot_tile);
+}
+
+int scan(const void* q8, const void* x8, const void* norms,
+         const void* row_bits, const void* q_bits, void* out, int nq,
+         int npad, int d_pad, int w, int group, int l2, int score_shift,
+         int mask_sb, int slot_tile, int variant, void* stream) {
+  const bool group_ok = group >= 1 && group <= kTileRows &&
+                        (group & (group - 1)) == 0;
+  const bool slots_ok =
+      mask_sb == 0 ||
+      (mask_sb > 0 && variant == kPlain && nq % mask_sb == 0 &&
+       (slot_tile == 0 ||
+        (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
+  if (nq < 1 || npad < kTileRows || npad % kTileRows != 0 || !group_ok ||
+      w < 1 || w > kMaxWords || score_shift < 0 || score_shift > 31 ||
+      !slots_ok || variant < kPlain || variant > kFloor)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d_pad) {
+    case 128:
+      launch<8>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group, l2,
+                score_shift, mask_sb, slot_tile, variant, s);
+      break;
+    case 256:
+      launch<16>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group, l2,
+                 score_shift, mask_sb, slot_tile, variant, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -188,31 +253,19 @@ extern "C" int vsr_scan_int8(const void* q8, const void* x8, const void* norms,
                              void* out, int nq, int npad, int d_pad, int w,
                              int group, int l2, int score_shift, int mask_sb,
                              int slot_tile, void* stream) {
-  const bool group_ok = group >= 1 && group <= kTileRows &&
-                        (group & (group - 1)) == 0;
-  const bool slots_ok =
-      mask_sb == 0 ||
-      (mask_sb > 0 && nq % mask_sb == 0 &&
-       (slot_tile == 0 ||
-        (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
-  if (nq < 1 || npad < kTileRows || npad % kTileRows != 0 || !group_ok ||
-      w < 1 || w > kMaxWords || score_shift < 0 || score_shift > 31 ||
-      !slots_ok)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d_pad) {
-    case 128:
-      launch<8>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group, l2,
-                score_shift, mask_sb, slot_tile, s);
-      break;
-    case 256:
-      launch<16>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group, l2,
-                 score_shift, mask_sb, slot_tile, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return scan(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group,
+              l2, score_shift, mask_sb, slot_tile, kPlain, stream);
+}
+
+// The lab's epilogue variants on per-query masks: variant 1 trim, 2 floor.
+extern "C" int vsr_scan_int8_lab(const void* q8, const void* x8,
+                                 const void* norms, const void* row_bits,
+                                 const void* q_bits, void* out, int nq,
+                                 int npad, int d_pad, int w, int group, int l2,
+                                 int score_shift, int variant, void* stream) {
+  if (variant != kTrim && variant != kFloor) return (int)cudaErrorInvalidValue;
+  return scan(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group,
+              l2, score_shift, 0, 0, variant, stream);
 }
 
 extern "C" const char* vsr_error_string(int err) {

@@ -2,7 +2,8 @@
 // group-minimum epilogue.
 //
 // Replaces the TPU kernel vectorsearch_rbac_tpu/ops/pallas_scan_int8.py
-// _make_wide_kernel (launched by int8_masked_topk_wide), the 768-d path.
+// _make_wide_kernel (launched by int8_masked_topk_wide), the 768-d path,
+// with and without its admit-dedup `mask_sb` slot form.
 //
 // Contract, bit for bit the narrow kernel's (scan_int8.cu) at any d_pad that
 // is a multiple of 128: for query q and arena row r
@@ -27,6 +28,18 @@
 // index), so the arena is read from device memory about once per batch: at
 // a 2048-query batch that is ~2,000 dp4a per byte from device memory, far
 // above what the memory system would limit.
+//
+// The slot form (mask_sb > 0, the kSlots template flag) reads the mask words of
+// query q from row slot(q) of a (Q / mask_sb, W) tensor, in the narrow
+// kernel's two layouts (scan_int8.cu): contiguous (slot_tile 0, slot =
+// q / mask_sb) or interleaved within tiles of slot_tile queries (slot =
+// (q / slot_tile) * nsb + q % nsb, nsb = slot_tile / mask_sb: the TPU
+// kernel's pltpu.repeat). Only the block's load of its 64 queries' mask words
+// changes, so its output is bit for bit the per-query form's on the expanded
+// masks. On the TPU the slot form shrinks the admissibility matmul; here
+// admissibility is a W-word AND per pair and the form saves nothing but the
+// mask bytes (the reference keeps admit-dedup off on wide rows; the kernel
+// lab's wide-admit leg measures it).
 //
 // Design: a block computes a tile of 128 rows x 64 queries with 256 threads.
 // Thread (tr, tq) = (tid % 16, tid / 16) owns 8 contiguous rows tr*8 .. +7
@@ -61,15 +74,16 @@ static_assert(kRowSlots * kRowsPerThread == kRows, "row tiling");
 static_assert((kThreads / kRowSlots) * kQPerThread == kQueries,
               "query tiling");
 
+template <bool kSlots>
 __global__ void __launch_bounds__(kThreads, 2)
 scan_int8_wide_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
                       const int8_t* __restrict__ x8,         // (Npad, d_pad)
                       const int32_t* __restrict__ norms,     // (Npad,)
                       const int32_t* __restrict__ row_bits,  // (Npad, W)
-                      const int32_t* __restrict__ q_bits,    // (Q, W)
+                      const int32_t* __restrict__ q_bits,    // (Q or Q/sb, W)
                       int32_t* __restrict__ out,             // (Npad/group, Q)
                       int nq, int n_qtiles, int d_pad, int w, int group,
-                      int l2, int score_shift) {
+                      int l2, int score_shift, int mask_sb, int slot_tile) {
   __shared__ int4 xs[kRows * kChunk16];         // 16 KB, slot-swizzled
   __shared__ int4 qs[kQueries * kChunk16];      // 8 KB
   __shared__ int32_t ns[kRows];
@@ -92,8 +106,13 @@ scan_int8_wide_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
         m < w ? row_bits[(row0 + r) * w + m] : 0;
   }
   for (int i = tid; i < kQueries * kMaxWords; i += kThreads) {
-    const int ql = i / kMaxWords, m = i % kMaxWords;
-    qb[i] = (m < w && q0 + ql < nq) ? q_bits[(size_t)(q0 + ql) * w + m] : 0;
+    const int ql = i / kMaxWords, m = i % kMaxWords, q = q0 + ql;
+    int row = q;  // the per-query form: row q of (Q, W)
+    if (kSlots) {
+      const int nsb = slot_tile / mask_sb;
+      row = slot_tile > 0 ? (q / slot_tile) * nsb + q % nsb : q / mask_sb;
+    }
+    qb[i] = (m < w && q < nq) ? q_bits[(size_t)row * w + m] : 0;
   }
 
   int32_t acc[kRowsPerThread][kQPerThread];
@@ -184,26 +203,34 @@ scan_int8_wide_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for shapes the kernel does not
-// take, else the launch's own status.
+// take, else the launch's own status. mask_sb and slot_tile as in
+// vsr_scan_int8 (0: per-query masks).
 extern "C" int vsr_scan_int8_wide(const void* q8, const void* x8,
                                   const void* norms, const void* row_bits,
                                   const void* q_bits, void* out, int nq,
                                   int npad, int d_pad, int w, int group,
-                                  int l2, int score_shift, void* stream) {
+                                  int l2, int score_shift, int mask_sb,
+                                  int slot_tile, void* stream) {
   const bool group_ok = group >= kRowsPerThread && group <= kRows &&
                         (group & (group - 1)) == 0;
+  const bool slots_ok =
+      mask_sb == 0 ||
+      (mask_sb > 0 && nq % mask_sb == 0 &&
+       (slot_tile == 0 ||
+        (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
   if (nq < 1 || npad < kRows || npad % kRows != 0 || d_pad < 128 ||
       d_pad % 128 != 0 || !group_ok || w < 1 || w > kMaxWords ||
-      score_shift < 0 || score_shift > 31)
+      score_shift < 0 || score_shift > 31 || !slots_ok)
     return (int)cudaErrorInvalidValue;
   const long long n_qtiles = (nq + kQueries - 1) / kQueries;
   const long long blocks = n_qtiles * (npad / kRows);
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  scan_int8_wide_kernel<<<(unsigned)blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = mask_sb > 0 ? scan_int8_wide_kernel<true>
+                            : scan_int8_wide_kernel<false>;
+  kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q8), static_cast<const int8_t*>(x8),
       static_cast<const int32_t*>(norms), static_cast<const int32_t*>(row_bits),
       static_cast<const int32_t*>(q_bits), static_cast<int32_t*>(out), nq,
-      (int)n_qtiles, d_pad, w, group, l2, score_shift);
+      (int)n_qtiles, d_pad, w, group, l2, score_shift, mask_sb, slot_tile);
   return (int)cudaGetLastError();
 }

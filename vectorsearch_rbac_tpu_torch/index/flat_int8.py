@@ -39,17 +39,32 @@ most 1.25x the unpadded one. The result rows go back to the caller's
 order on the device, before they are copied to the host; `_last_dedup`
 says whether the last pass grouped.
 
+The result wire is any of the reference's four codings (ids, f32, bf16,
+u8; an odd k sends u8 on bf16, as the reference's does). The merge is the
+merge kernels' (the reference's default "pallas"); a shape their gate
+refuses takes the cascade, as the reference's does.
+
+The uid wire (`set_user_table`, then `search_deferred(..., user_ids=)`):
+the (num_users, W) mask table is resident on the device, a pass uploads
+one 2-byte user id a query (or a slot) in place of its 16-byte mask row,
+and the device gathers the rows from the table. The table is keyed by a
+digest of its content, so a revoked role replaces it at the next
+set_user_table (keyed by identity, an in-place revocation would keep
+serving the stale table: an RBAC leak). A table of more than 65,536 users
+is not kept (a u16 cannot address it), and a pass with a user id outside
+the table ships mask rows; both as the reference. Admit-dedup then groups
+by the host copy of the table's rows. `_last_uid_wire` says whether the
+last pass used the table.
+
 Profiler spans mark the host's share of a pass (flat_int8.dedup,
 .quantize_upload, .gather, .enqueue, .fetch_unpack) and, inside the
 enqueue, each batch's stages (.scan, .merge, .rerank, .wire);
 bench/profile.py reads them.
-
-Not ported (ROADMAP.md): the resident user table behind the 2-byte uid
-wire, and the bf16/u8 wires.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -58,7 +73,7 @@ from torch.profiler import record_function
 
 from ..core import DeviceArena
 from ..ops.rerank import RERANK_MODES, rebuild_query, rerank_topk
-from ..ops.scan_int8 import (NARROW_MAX_D, int8_group_minima,
+from ..ops.scan_int8 import (NARROW_MAX_D, WIRES, int8_group_minima,
                              merge_group_minima, pack_results_device,
                              unpack_results_host)
 from .flat import _pad_to_bucket
@@ -66,6 +81,7 @@ from .flat import _pad_to_bucket
 MAX_GROUP = 128      # rows per packed minimum: the 7-bit lane field
 RERANK_MARGIN = 32   # extra scan candidates the rerank starts from
 MASK_SB = 16         # admit-dedup slot width (the reference's)
+MAX_TABLE_USERS = 65536   # users a 2-byte uid addresses
 
 
 def dedup_slots(masks: np.ndarray, sb: int, bs: int):
@@ -117,7 +133,7 @@ class Int8FlatIndex:
         block_rows: int = 4096,         # a partition pads to a power-of-two
                                         # number of these
         group: int = 128,               # widest group the row count allows
-        wire: str = "f32",              # "ids" | "f32"
+        wire: str = "f32",              # "ids" | "f32" | "bf16" | "u8"
         rerank_mode: Optional[str] = None,  # one of ops.rerank.RERANK_MODES;
                                         # None: "residual4" (ip/cosine) or
                                         # "dequant" (l2) on wide rows,
@@ -129,15 +145,14 @@ class Int8FlatIndex:
         q = arena.quant
         if q is None:
             raise ValueError("Int8FlatIndex needs an int8-quantized arena")
-        if wire not in ("ids", "f32"):
-            raise NotImplementedError(
-                f"wire {wire!r}: the bf16 and u8 wires are ROADMAP items")
+        if wire not in WIRES:
+            raise ValueError(f"wire {wire!r} is not one of {WIRES}")
         if wire == "ids" and rows is not None:
             # rank pseudo-distances cannot be merged across partitions
             raise ValueError(
                 "wire='ids' returns rank pseudo-distances and cannot be used "
                 "on a partitioned Int8FlatIndex whose results get merged: "
-                "use 'f32' for partition tiers")
+                "use 'u8'/'bf16'/'f32' for partition tiers")
         self.metric = arena.metric
         d_pad = q.d_pad
         self.wide = d_pad > NARROW_MAX_D
@@ -165,6 +180,8 @@ class Int8FlatIndex:
         self.wire = wire
         self.mask_dedup = mask_dedup
         self._last_dedup = False
+        self._last_uid_wire = False
+        self._user_table = self._user_table_host = self._user_table_key = None
 
         # the reference's tile clamps (flat_int8.py:351-379), kept for the
         # padded partition size (block_rows) and the dedup gate (q_tile);
@@ -260,12 +277,35 @@ class Int8FlatIndex:
         return {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for name, a in host.items()}
 
-    def search_deferred(self, queries: np.ndarray, query_masks: np.ndarray,
-                        k: int):
+    def set_user_table(self, user_masks: np.ndarray) -> None:
+        """Keep the (num_users, W) uint32 mask table on the device, so that
+        search_deferred can take 2-byte user ids in place of mask rows.
+        Keyed by a digest of the table's content, not its identity: an
+        in-place revocation must replace the resident table. A table of
+        more than 65,536 users, or not 2-D, drops the resident one, and
+        passes ship mask rows."""
+        tbl = np.ascontiguousarray(np.asarray(user_masks, dtype=np.uint32))
+        if tbl.ndim != 2 or tbl.shape[0] > MAX_TABLE_USERS:
+            self._user_table = self._user_table_host = None
+            self._user_table_key = None
+            return
+        key = (tbl.shape,
+               hashlib.blake2b(tbl.tobytes(), digest_size=16).digest())
+        if self._user_table_key == key:
+            return
+        self._user_table = torch.from_numpy(tbl.view(np.int32)).to(
+            self._arena.device)
+        self._user_table_host = tbl   # admit-dedup groups by mask content
+        self._user_table_key = key
+
+    def search_deferred(self, queries: np.ndarray, query_masks, k: int,
+                        user_ids: Optional[np.ndarray] = None):
         """Enqueue every batch's scan, merge, rerank and wire pack without
         syncing; returns finalize() -> (dists (Q, k) float32, ids (Q, k)
         int64 arena rows). With the ids wire the dists are rank
-        pseudo-distances 0..k-1."""
+        pseudo-distances 0..k-1. With user_ids and a resident user table
+        covering them, the masks are the table's rows (query_masks may be
+        None); otherwise query_masks (Q, W) are shipped."""
         quant = self._quant
         arena = self._arena
         qf = np.asarray(queries, dtype=np.float32)
@@ -273,7 +313,19 @@ class Int8FlatIndex:
         if nq0 == 0:
             return lambda: (np.empty((0, k), np.float32),
                             np.empty((0, k), np.int64))
-        masks = np.ascontiguousarray(query_masks, dtype=np.uint32)
+        tbl = self._user_table_host
+        use_table = user_ids is not None and tbl is not None
+        if use_table:
+            uids = np.asarray(user_ids, dtype=np.int64)
+            use_table = bool(uids.min() >= 0 and uids.max() < len(tbl))
+        if use_table:
+            masks = tbl[uids]            # the host copy, for admit-dedup
+        elif query_masks is None:
+            raise ValueError("no mask rows, and no resident user table "
+                             "covering the user ids")
+        else:
+            masks = np.ascontiguousarray(query_masks, dtype=np.uint32)
+        self._last_uid_wire = use_table
         # the reference's batch and tile for the dedup gate: a pass below
         # one batch runs as one power-of-two batch of at least 32
         bs = min(self.query_batch, max(1 << (nq0 - 1).bit_length(), 32))
@@ -286,7 +338,10 @@ class Int8FlatIndex:
                 plan = dedup_slots(masks, sb, bs)
             if plan is not None:
                 src, valid = plan
-                masks = np.ascontiguousarray(masks[src[::sb]])  # one a slot
+                head = src[::sb]                          # one query a slot
+                masks = np.ascontiguousarray(masks[head])
+                if use_table:
+                    uids = uids[head]
         self._last_dedup = plan is not None
         slot_sb = sb if plan is not None else 0
         step = bs if plan is not None else self.query_batch
@@ -306,12 +361,21 @@ class Int8FlatIndex:
                                   for a in (src, where))
                 ops = {name: t.index_select(0, src_d)
                        for name, t in ops.items()}
-            m_d = torch.from_numpy(masks.view(np.int32)).to(arena.device)
+            if use_table:
+                # 2 bytes a query (a slot) up, as u16 bits in an int16;
+                # the mask rows come from the resident table
+                u16 = torch.from_numpy(uids.astype(np.uint16).view(np.int16))
+                uid_d = u16.to(arena.device).to(torch.int32) & 0xFFFF
+                m_d = self._user_table.index_select(0, uid_d)
+            else:
+                m_d = torch.from_numpy(masks.view(np.int32)).to(arena.device)
         nq = next(iter(ops.values())).shape[0]
         with record_function("flat_int8.gather"):
             vq, nrm, bits = self._gather() if self.logical else self._rows
         kk = k + RERANK_MARGIN if self.rerank else k
         inv_l2 = 1.0 / quant.scale**2
+        # u8 packs two results to a u16: an odd k goes on bf16 (reference)
+        wire = self.wire if self.wire != "u8" or k % 2 == 0 else "bf16"
         wires = []
         with record_function("flat_int8.enqueue"):
             for s in range(0, nq, step):
@@ -347,7 +411,7 @@ class Int8FlatIndex:
                                              arena.norms, k, self.metric)
                 with record_function("flat_int8.wire"):
                     wires.append(pack_results_device(
-                        dd, ii, id_bits=self._id_bits, dist=self.wire))
+                        dd, ii, id_bits=self._id_bits, dist=wire))
 
         def finalize():
             with record_function("flat_int8.fetch_unpack"):
@@ -355,8 +419,7 @@ class Int8FlatIndex:
                 if plan is not None:
                     w = w.index_select(0, where_d)
                 d, i = unpack_results_host(w.cpu().numpy(), k,
-                                           id_bits=self._id_bits,
-                                           dist=self.wire)
+                                           id_bits=self._id_bits, dist=wire)
             return d.astype(np.float32), i.astype(np.int64)
 
         return finalize

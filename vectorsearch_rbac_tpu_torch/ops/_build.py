@@ -37,10 +37,15 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # Launch counts, one per kernel: a wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that it went through them.
 # "scan_int8" counts every launch of the narrow scan, "scan_int8_slots" the
-# launches of its admit-dedup slot form among them.
+# launches of its admit-dedup slot form among them, and "scan_int8_wide" /
+# "scan_int8_wide_slots" the same for the wide scan. The kernel lab's
+# variants count on their own: the scan's trim and floor epilogues, the
+# y-form extraction and the y-form bitonic sort in its two forms.
 LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
-            "merge_extract": 0, "merge_bitonic": 0, "graph_score": 0,
-            "graph_merge": 0}
+            "scan_int8_wide_slots": 0, "merge_extract": 0,
+            "merge_bitonic": 0, "graph_score": 0, "graph_merge": 0,
+            "scan_int8_trim": 0, "scan_int8_floor": 0, "merge_y_extract": 0,
+            "merge_y_sort": 0, "merge_y_pairs": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -54,12 +59,19 @@ _SIGNATURES = {
     # q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group, l2,
     # score_shift, mask_sb, slot_tile, stream
     "vsr_scan_int8": [_P] * 6 + [_I] * 9 + [_P],
-    # the same without mask_sb and slot_tile
-    "vsr_scan_int8_wide": [_P] * 6 + [_I] * 7 + [_P],
+    # the same arguments
+    "vsr_scan_int8_wide": [_P] * 6 + [_I] * 9 + [_P],
+    # q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group, l2,
+    # score_shift, variant, stream
+    "vsr_scan_int8_lab": [_P] * 6 + [_I] * 8 + [_P],
     # mins, out_y, out_m, nq, nsub, sub, t, stream
     "vsr_extract_pairs": [_P] * 3 + [_I] * 4 + [_P],
     # y, meta, out_y, out_m, nq, npc, keep, stream
     "vsr_bitonic_pairs": [_P] * 4 + [_I] * 3 + [_P],
+    # mins, out, nq, nsub, sub, t, stream
+    "vsr_y_extract": [_P] * 2 + [_I] * 4 + [_P],
+    # y, out_y, out_g, nq, npc, keep, t, sub, pairs, stream
+    "vsr_bitonic_y": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,129 @@
+"""The kernel lab's scan variants: K1's epilogue, trimmed and stripped.
+
+Counterpart of scripts/r4_kernel_variants.py `int8_masked_topk_lab` (the
+lab kernel S1), which times two restructured epilogues of the narrow scan
+(ops/scan_int8.py int8_group_minima) on the same inputs:
+
+- "trim" folds the `<< 7` pack into the score arithmetic: l2 without a
+  score shift packs `(norms << 7) - (dots << 8) | lane`, ip `-dots << 7 |
+  lane`; with a shift it keeps the shift-then-pack chain. Its output is
+  K1's, bit for bit; only the instruction chain differs;
+- "floor" is a lower-bound probe, not a correct kernel: the min over each
+  group of (dots + admit), where admit is the number of roles the row and
+  the query share (the TPU lab's one-hot matmul count: the popcount of the
+  AND summed over the bitset words). No score, no pack, no mask. It splits
+  K1's time into the dots and the rest.
+
+Both run as template variants of csrc/scan_int8.cu (a run-time flag cost
+K1 12%), on per-query masks, as the lab's. The lab's `unroll` and `chunk`
+knobs schedule Mosaic's loop and size its VMEM chunk: they have no
+counterpart on this card and are not carried over. The plain versions are
+here beside the wrappers; CPU tensors take them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .scan import exact_f32_matmul
+from .scan_int8 import (NARROW_MAX_D, _check_kernel_tensors,
+                        _check_scan_args, exact_dots, int8_group_minima_plain,
+                        merge_group_minima)
+
+VARIANTS = {"trim": 1, "floor": 2}   # the kernel's epilogue codes
+_CHUNK_ELEMS = 1 << 26               # floor plain: elements per temporary
+
+
+def onehot_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(n, W) int32 bitsets -> (n, 32 W) float32 0/1 (bit b of word w is
+    column 32 w + b: core.bits_to_onehot8's order)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    return ((bits[:, :, None] >> shifts) & 1).reshape(bits.shape[0], -1).to(
+        torch.float32)
+
+
+def floor_minima_plain(queries_q, vectors_q, norms_q, role_bits, query_bits,
+                       group: int = 128) -> torch.Tensor:
+    """Plain version of the floor probe: (n_groups, Q) int32 min over each
+    group of dots + shared-role count. The count is a float32 matmul of
+    the role one-hots (exact: at most 256)."""
+    _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
+                     group)
+    nq = queries_q.shape[0]
+    npad = vectors_q.shape[0]
+    qf = queries_q.to(torch.float32)
+    qroles = onehot_bits(query_bits)
+    chunk = max(group, min(npad, (_CHUNK_ELEMS // max(nq, 1)) // group * group))
+    out = torch.empty((npad // group, nq), dtype=torch.int32,
+                      device=queries_q.device)
+    with exact_f32_matmul():
+        for r0 in range(0, npad, chunk):
+            r1 = min(r0 + chunk, npad)
+            count = (onehot_bits(role_bits[r0:r1]) @ qroles.T).to(torch.int32)
+            val = exact_dots(vectors_q[r0:r1], qf) + count
+            out[r0 // group:r1 // group] = val.view(-1, group, nq).amin(dim=1)
+    return out
+
+
+def lab_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
+                     group: int = 128, metric: str = "l2",
+                     score_shift: int = 0,
+                     variant: str = "trim") -> torch.Tensor:
+    """(n_groups, Q) int32 minima of the lab's epilogue `variant` ("trim":
+    K1's packed minima; "floor": the probe). Operands as
+    ops/scan_int8.int8_group_minima's with per-query masks, d_pad 128 or
+    256. CPU tensors take the plain versions (trim's is K1's); CUDA tensors
+    launch csrc/scan_int8.cu's variant (counted under "scan_int8_trim" /
+    "scan_int8_floor")."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} is not one of "
+                         f"{tuple(VARIANTS)}")
+    if queries_q.shape[1] > NARROW_MAX_D:
+        raise ValueError(f"d_pad {queries_q.shape[1]}: the lab variants are "
+                         "the narrow scan's (d_pad <= 256)")
+    if queries_q.device.type == "cpu":
+        if variant == "floor":
+            return floor_minima_plain(queries_q, vectors_q, norms_q,
+                                      role_bits, query_bits, group)
+        return int8_group_minima_plain(queries_q, vectors_q, norms_q,
+                                       role_bits, query_bits, group, metric,
+                                       score_shift)
+    _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
+                     group)
+    nq, d_pad = queries_q.shape
+    npad, w = vectors_q.shape[0], role_bits.shape[1]
+    if d_pad not in (128, 256):
+        raise ValueError(f"d_pad {d_pad}: the narrow scan takes d_pad 128 or "
+                         "256")
+    tensors = (queries_q, vectors_q, norms_q, role_bits, query_bits)
+    _check_kernel_tensors(tensors, w)
+    out = torch.empty((npad // group, nq), dtype=torch.int32,
+                      device=queries_q.device)
+    err = _build.lib().vsr_scan_int8_lab(
+        *(t.data_ptr() for t in tensors), out.data_ptr(), nq, npad, d_pad, w,
+        group, int(metric == "l2"), score_shift, VARIANTS[variant],
+        _build.stream_ptr(queries_q.device))
+    _build.check(err, "vsr_scan_int8_lab")
+    _build.LAUNCHES[f"scan_int8_{variant}"] += 1
+    return out
+
+
+def int8_masked_topk_lab(queries_q, query_norms, vectors_q, norms_q,
+                         role_bits, query_bits, inv_scale_sq, k: int,
+                         group: int = 128, merge: str = "cascade",
+                         metric: str = "l2", query_bias=None,
+                         score_shift: int = 0, variant: str = "trim"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lab's int8_masked_topk_lab: the variant's minima, then
+    merge_group_minima's `merge` (the lab's default is the cascade), or with
+    merge="none" the raw (n_groups, Q) minima twice, as the lab returns
+    them. Operands as ops/scan_int8.int8_masked_topk's."""
+    packed = lab_group_minima(queries_q, vectors_q, norms_q, role_bits,
+                              query_bits, group, metric, score_shift, variant)
+    if merge == "none":
+        return packed, packed
+    return merge_group_minima(packed, query_norms, inv_scale_sq, k, group,
+                              merge, metric, score_shift, query_bias)

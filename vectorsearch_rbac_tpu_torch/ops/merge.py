@@ -29,8 +29,9 @@ def merge_supported(n_groups: int, k: int, nsub: int = 32,
                     t: int = 16) -> bool:
     """Shape gate for the merge kernels, decided from shapes alone before
     any launch. It replaces the reference's merge_supported/_pick_q_tile,
-    whose VMEM budgets do not apply to this card. Callers take the exact
-    merge where it refuses.
+    whose VMEM budgets do not apply to this card. Callers take the cascade
+    where it refuses, as the reference's do (ops/scan_int8.py
+    merge_group_minima).
 
     - the subgroups must tile n_groups evenly;
     - the survivor pool nsub * t must be a power of two the bitonic kernel

@@ -21,8 +21,16 @@ query bits of shape (Q / mask_sub_block, W) in one of two layouts,
 expands the slots to per-query masks and calls the per-query plain
 version: the slot form's output is defined as that.
 
-Left out against the reference (ROADMAP.md): the wide kernel's slot form,
-the approx/cascade merges, and the bf16/u8 wires.
+The wide kernel takes the same slot form (its `mask_sb`), in both layouts;
+the index keeps admit-dedup off on wide rows, as the reference does, so
+only the kernel lab (bench/lab.py wide-admit) launches it.
+
+The merges after the scan (`merge_group_minima`) are the reference's
+_merge_group_minima: the merge kernels (ops/merge.py), the cascade and
+the exact merge, in plain PyTorch where the reference used XLA ops (its
+approx and auto select exactly here, so they are the exact merge). The
+result wire (`pack_results_device` / `unpack_results_host`) is
+the reference's byte for byte in its four codings: ids, f32, bf16, u8.
 """
 
 from __future__ import annotations
@@ -107,7 +115,7 @@ def int8_group_minima_plain(queries_q, vectors_q, norms_q, role_bits,
     off around it."""
     _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
                      group, mask_sub_block, slot_tile)
-    nq, d_pad = queries_q.shape
+    nq = queries_q.shape[0]
     if mask_sub_block:
         query_bits = query_bits.index_select(0, slot_of_query(
             nq, mask_sub_block, slot_tile, query_bits.device))
@@ -120,11 +128,7 @@ def int8_group_minima_plain(queries_q, vectors_q, norms_q, role_bits,
     with exact_f32_matmul():
         for r0 in range(0, npad, chunk):
             r1 = min(r0 + chunk, npad)
-            dots = None
-            for c0 in range(0, d_pad, _EXACT_D):
-                part = (vectors_q[r0:r1, c0:c0 + _EXACT_D].to(torch.float32)
-                        @ qf[:, c0:c0 + _EXACT_D].T).to(torch.int32)
-                dots = part if dots is None else dots + part
+            dots = exact_dots(vectors_q[r0:r1], qf)
             if metric == "l2":
                 score = norms_q[r0:r1, None] - 2 * dots
             else:
@@ -140,6 +144,19 @@ def int8_group_minima_plain(queries_q, vectors_q, norms_q, role_bits,
                 torch.full((), MASKED_I32, dtype=torch.int32, device=dev))
             out[r0 // group:r1 // group] = packed.amin(dim=1)
     return out
+
+
+def exact_dots(vectors_q: torch.Tensor, qf: torch.Tensor) -> torch.Tensor:
+    """(rows, Q) int32 dots of int8 rows with float32 copies of int8
+    queries, as float32 matmuls over column slices of at most 768 whose
+    int32 partials are summed (exact: see int8_group_minima_plain). Call
+    it inside exact_f32_matmul()."""
+    dots = None
+    for c0 in range(0, qf.shape[1], _EXACT_D):
+        part = (vectors_q[:, c0:c0 + _EXACT_D].to(torch.float32)
+                @ qf[:, c0:c0 + _EXACT_D].T).to(torch.int32)
+        dots = part if dots is None else dots + part
+    return dots
 
 
 # the plain version of the wide kernel (csrc/scan_int8_wide.cu) is the same
@@ -170,20 +187,16 @@ def int8_group_minima_wide(queries_q, vectors_q, norms_q, role_bits,
                            score_shift: int = 0, mask_sub_block: int = 0,
                            slot_tile: int = 0) -> torch.Tensor:
     """int8_group_minima for any d_pad that is a multiple of 128 (the
-    reference's int8_masked_topk_wide). CPU tensors take the plain version;
-    CUDA tensors launch csrc/scan_int8_wide.cu, which has no slot form yet
-    (ROADMAP queue 2)."""
-    if mask_sub_block:
-        raise NotImplementedError(
-            "the wide scan's mask_sub_block slot form is not ported "
-            "(ROADMAP queue 2); the index keeps admit-dedup off on wide rows, "
-            "as the reference does")
+    reference's int8_masked_topk_wide), with its slot form. CPU tensors
+    take the plain version; CUDA tensors launch csrc/scan_int8_wide.cu
+    (the slot form counts under "scan_int8_wide" and
+    "scan_int8_wide_slots")."""
     if queries_q.device.type == "cpu":
         return int8_group_minima_wide_plain(
             queries_q, vectors_q, norms_q, role_bits, query_bits, group,
-            metric, score_shift)
+            metric, score_shift, mask_sub_block, slot_tile)
     _check_scan_args(queries_q, vectors_q, norms_q, role_bits, query_bits,
-                     group)
+                     group, mask_sub_block, slot_tile)
     nq, d_pad = queries_q.shape
     npad, w = vectors_q.shape[0], role_bits.shape[1]
     if d_pad % 128:
@@ -195,10 +208,12 @@ def int8_group_minima_wide(queries_q, vectors_q, norms_q, role_bits,
                       device=queries_q.device)
     err = _build.lib().vsr_scan_int8_wide(
         *(t.data_ptr() for t in tensors), out.data_ptr(), nq, npad, d_pad, w,
-        group, int(metric == "l2"), score_shift,
+        group, int(metric == "l2"), score_shift, mask_sub_block, slot_tile,
         _build.stream_ptr(queries_q.device))
     _build.check(err, "vsr_scan_int8_wide")
     _build.LAUNCHES["scan_int8_wide"] += 1
+    if mask_sub_block:
+        _build.LAUNCHES["scan_int8_wide_slots"] += 1
     return out
 
 
@@ -256,8 +271,9 @@ def int8_masked_topk(
     inv_scale_sq,               # float 1 / scale^2, or (Q,) float32 per query
     k: int,
     group: int = 128,
-    merge: str = "kernel",      # "kernel" (merge.cu, the counterpart of the
-                                # reference's "pallas") | "exact"
+    merge: str = "kernel",      # one of MERGES: "kernel" (merge.cu, the
+                                # counterpart of the reference's "pallas"),
+                                # "cascade", "approx", "auto", "exact"
     metric: str = "l2",         # the kernel metric: "l2" | "ip"
     score_shift: int = 0,
     query_bias=None,            # (Q,) float32 added to ip distances
@@ -274,11 +290,50 @@ def int8_masked_topk(
                               merge, metric, score_shift, query_bias)
 
 
+def smallest_k(keys: torch.Tensor, k: int):
+    """(vals, pos) of the k smallest entries of each row of (Q, n) int32
+    keys, ascending, equal keys lower position first: lax.top_k's order on
+    the negated keys. A stable sort, not torch.topk, whose tie order is
+    unspecified."""
+    srt, order = torch.sort(keys, dim=1, stable=True)
+    return srt[:, :k], order[:, :k].to(torch.int32)
+
+
+def cascade_topk(mins: torch.Tensor, k: int, t: int, sub: int = 128):
+    """The reference's cascade over (Q, n_groups) minima: the t smallest of
+    each subgroup of `sub` groups, then the k smallest of those survivors
+    (pallas_scan_int8.py:235-252, the round-3 lab's cascade_topk). Misses a
+    true top-k entry only where more than t of them share a subgroup.
+    Returns ((Q, k) values, (Q, k) int32 group positions)."""
+    nq, ng = mins.shape
+    if ng % sub:
+        raise ValueError(f"{ng} groups do not split into subgroups of {sub}")
+    sv, sp = torch.sort(mins.reshape(nq, ng // sub, sub), dim=2, stable=True)
+    base = torch.arange(0, ng, sub, dtype=torch.int32,
+                        device=mins.device)[None, :, None]
+    cand_pos = (sp[:, :, :t].to(torch.int32) + base).reshape(nq, -1)
+    vals, sel = smallest_k(sv[:, :, :t].reshape(nq, -1), k)
+    return vals, cand_pos.gather(1, sel.long())
+
+
+MERGES = ("kernel", "cascade", "approx", "auto", "exact")
+
+
 def merge_group_minima(packed, query_norms, inv_scale_sq, k, group, merge,
                        metric, score_shift=0, query_bias=None):
     """(n_groups, Q) packed minima -> (dists (Q, k), idx (Q, k)): the
-    reference's _merge_group_minima for its "pallas" and "exact" branches.
-    Shapes the merge kernels' gate refuses take the exact merge.
+    reference's _merge_group_minima, merge by merge:
+
+    - "kernel": the merge kernels (ops/merge.py merge_topk); shapes their
+      gate refuses take the cascade, as the reference's "pallas" does;
+    - "cascade": cascade_topk with t = min(24, max(k // 4 + 4, 8)) over
+      subgroups of 128, from 2048 groups up; the exact merge below that;
+    - "exact": the k smallest of all groups;
+    - "approx" and "auto": the exact merge. The reference's approx takes
+      the k smallest of approx_min_k's 2k, and its auto picks approx above
+      32,768 groups; selected exactly, as JAX does on the CPU, the k
+      smallest of the 2k smallest are the k smallest.
+    Ties go to the lower position at every stage, as lax.top_k's do.
 
     The decode, as the reference's: l2 gives (score + ||q||^2) * inv,
     clamped at 0; ip gives score * inv. `inv_scale_sq` is one float (l2:
@@ -290,6 +345,8 @@ def merge_group_minima(packed, query_norms, inv_scale_sq, k, group, merge,
     if metric not in ("l2", "ip"):
         raise ValueError(f"kernel metric {metric!r}: the int8 scan scores l2 "
                          "or ip (cosine rides ip)")
+    if merge not in MERGES:
+        raise ValueError(f"merge {merge!r} is not one of {MERGES}")
     if torch.is_tensor(inv_scale_sq):
         if inv_scale_sq.shape != (nq,):
             raise ValueError(f"per-query inv {tuple(inv_scale_sq.shape)} for "
@@ -304,17 +361,13 @@ def merge_group_minima(packed, query_norms, inv_scale_sq, k, group, merge,
         raise ValueError(f"query_bias {tuple(query_bias.shape)} for {nq} "
                          "queries")
     if merge == "kernel" and not merge_supported(n_groups, k):
-        merge = "exact"
+        merge = "cascade"
     if merge == "kernel":
         vals, pos = merge_topk(packed, k)
-    elif merge == "exact":
-        # a stable sort puts the lower group first among equal values, as
-        # lax.top_k does
-        srt, order = torch.sort(packed.T, dim=1, stable=True)
-        vals, pos = srt[:, :k], order[:, :k].to(torch.int32)
+    elif merge == "cascade" and n_groups >= 2048:
+        vals, pos = cascade_topk(packed.T, k, min(24, max(k // 4 + 4, 8)))
     else:
-        raise NotImplementedError(
-            f"merge {merge!r}: the approx and cascade merges are not ported")
+        vals, pos = smallest_k(packed.T, k)
     idx = pos * group + (vals & LANE_MASK)
     score = vals >> 7                                    # arithmetic
     if score_shift:
@@ -347,19 +400,31 @@ def _as_u16_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 32768, x - 65536, x).to(torch.int16)
 
 
+WIRES = ("ids", "f32", "bf16", "u8")
+
+
 def pack_results_device(dists: torch.Tensor, idx: torch.Tensor,
                         id_bits: int = 24, dist: str = "f32") -> torch.Tensor:
     """(Q, k) f32 dists + (Q, k) int32 ids -> one 16-bit wire row per query,
-    byte for byte the reference's pack_results_device for the "ids" and
-    "f32" wires (the rows come back as int16; the host views them as
-    uint16). Empty slots travel as dist=+inf, id=0.
+    byte for byte the reference's pack_results_device (the rows come back
+    as int16; the host views them as uint16). Empty slots travel as
+    dist=+inf, id=0. The distance section by `dist`:
 
-    - "ids": a u16 valid-count header, then the id sections; the host
-      returns rank pseudo-distances 0..k-1;
-    - "f32": the distances as two u16 halves, then the id sections.
-    Ids travel as a u16 low half plus their high bits packed
+    - "ids": a u16 valid-count header; the host returns rank
+      pseudo-distances 0..k-1;
+    - "f32": the distances as two u16 halves;
+    - "bf16": the distances rounded to bfloat16, to nearest even;
+    - "u8": a per-query affine code over the row's own finite span: an f32
+      (dmin, range) header as four u16 (the two low halves, then the two
+      high ones), then one byte a result, two to a u16, the first in the
+      low byte: round((d - dmin) / range * 254) to nearest even, clipped
+      to [0, 254], 255 on an empty slot. It needs an even k (the index
+      sends an odd k on bf16, as the reference's does).
+    Then the ids: a u16 low half each, and their high bits packed
     16 // (id_bits - 16) to a u16."""
     q, k = idx.shape
+    if dist not in WIRES:
+        raise ValueError(f"wire {dist!r} is not one of {WIRES}")
     hi_bits, per, n_hi = _hi_pack_geometry(k, id_bits)
     empty = ~torch.isfinite(dists)
     idc = torch.where(empty, 0, idx.to(torch.int32))
@@ -368,9 +433,28 @@ def pack_results_device(dists: torch.Tensor, idx: torch.Tensor,
     elif dist == "f32":
         d32 = dists.contiguous().view(torch.int32)
         d16 = torch.cat([d32 & 0xFFFF, (d32 >> 16) & 0xFFFF], dim=1)
+    elif dist == "bf16":
+        # torch's float32 -> bfloat16 conversion rounds to nearest even
+        d16 = dists.to(torch.bfloat16).view(torch.int16).to(torch.int32) \
+            & 0xFFFF
     else:
-        raise NotImplementedError(
-            f"wire {dist!r}: the bf16 and u8 wires are ROADMAP items")
+        if k % 2:
+            raise ValueError(f"the u8 wire needs an even k, not {k}")
+        inf = torch.full((), torch.inf, dtype=dists.dtype,
+                         device=dists.device)
+        dmin = torch.where(empty, inf, dists).amin(dim=1)
+        dmax = torch.where(empty, -inf, dists).amax(dim=1)
+        dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
+        rng = torch.clamp_min(
+            torch.where(torch.isfinite(dmax), dmax, 0.0) - dmin, 1e-9)
+        # the reference's order of operations: subtract, divide, scale;
+        # torch.round rounds half to even, as jnp.round does
+        du = torch.clamp(torch.round((dists - dmin[:, None]) / rng[:, None]
+                                     * 254.0), 0, 254).to(torch.int32)
+        du = torch.where(empty, 255, du)
+        hdr = torch.stack([dmin, rng], dim=1).view(torch.int32)  # (Q, 2)
+        d16 = torch.cat([hdr & 0xFFFF, (hdr >> 16) & 0xFFFF,
+                         du[:, 0::2] | (du[:, 1::2] << 8)], dim=1)
     parts = [d16, idc & 0xFFFF]
     if hi_bits:
         hi = (idc >> 16) & ((1 << hi_bits) - 1)
@@ -386,8 +470,11 @@ def pack_results_device(dists: torch.Tensor, idx: torch.Tensor,
 
 
 def unpack_results_host(arr, k: int, id_bits: int = 24, dist: str = "f32"):
-    """Inverse of pack_results_device on the host (numpy), for the "ids"
-    and "f32" wires: the reference's unpack_results_host."""
+    """Inverse of pack_results_device on the host (numpy): the reference's
+    unpack_results_host. u8 distances come back as dmin + code / 254 *
+    range (within half a code step of the packed distance)."""
+    if dist not in WIRES:
+        raise ValueError(f"wire {dist!r} is not one of {WIRES}")
     hi_bits, per, n_hi = _hi_pack_geometry(k, id_bits)
     a = np.asarray(arr)
     if a.dtype == np.int16:
@@ -398,14 +485,27 @@ def unpack_results_host(arr, k: int, id_bits: int = 24, dist: str = "f32"):
         empty = rank >= count
         d = rank.astype(np.float32) * np.ones((a.shape[0], 1), np.float32)
         off = 1
-    elif dist == "f32":
+    elif dist == "bf16":
+        # bf16 -> f32: the bf16 bit pattern is the high half of the f32 one
+        d = (a[:, :k].astype(np.uint32) << 16).view(np.float32)
+        empty = ~np.isfinite(d)
+        off = k
+    elif dist == "u8":
+        hdr = (a[:, :2].astype(np.uint32)
+               | (a[:, 2:4].astype(np.uint32) << 16)).view(np.float32)
+        dmin, rng = hdr[:, 0], hdr[:, 1]
+        pd = a[:, 4:4 + k // 2]
+        du = np.empty((a.shape[0], k), np.uint16)
+        du[:, 0::2] = pd & 0xFF
+        du[:, 1::2] = pd >> 8
+        d = dmin[:, None] + du.astype(np.float32) / 254.0 * rng[:, None]
+        empty = du == 255
+        off = 4 + k // 2
+    else:
         d = (a[:, :k].astype(np.uint32)
              | (a[:, k:2 * k].astype(np.uint32) << 16)).view(np.float32)
         empty = ~np.isfinite(d)
         off = 2 * k
-    else:
-        raise NotImplementedError(
-            f"wire {dist!r}: the bf16 and u8 wires are ROADMAP items")
     idx = a[:, off:off + k].astype(np.int32)
     if hi_bits:
         packed_hi = a[:, off + k:off + k + n_hi]           # (Q, n_hi)

@@ -98,14 +98,23 @@ class PartitionedSearcher:
                               k: int):
         """Enqueue a pass and return finalize() -> (dists, ids). Without a
         router the one partition takes every query and its index's
-        finalize is returned as is; otherwise every touched partition's
-        scans are enqueued here and finalize() drains them and merges."""
+        finalize is returned as is: an index with a user table
+        (Int8FlatIndex) keeps `user_masks` resident and takes the 2-byte
+        user ids, as the reference's global path does; otherwise every
+        touched partition's scans are enqueued here and finalize() drains
+        them and merges."""
         queries = np.asarray(queries, dtype=np.float32)
         user_ids = np.asarray(user_ids)
-        qmasks = query_masks_for(user_masks, user_ids)
         if self.router is None:
             (part,) = self.partitions.values()
-            return part.index.search_deferred(queries, qmasks, k)
+            if hasattr(part.index, "set_user_table"):
+                part.index.set_user_table(user_masks)
+                if part.index._user_table is not None:
+                    return part.index.search_deferred(queries, None, k,
+                                                      user_ids=user_ids)
+            return part.index.search_deferred(
+                queries, query_masks_for(user_masks, user_ids), k)
+        qmasks = query_masks_for(user_masks, user_ids)
 
         nq = queries.shape[0]
         pid_to_queries: Dict[int, List[int]] = {}
