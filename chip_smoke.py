@@ -65,8 +65,10 @@ without a CUDA device or without the port's package beside it. Phases:
    launched;
 3b. the wide scan against its plain version at the 768-d path's geometry
    (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
-   metric, score shift 3, group 128), bit-identical, then the merge
-   kernels on its minima at kk = 100 + 32 (keep 136);
+   metric, score shift 3, group 128), bit-identical, beside a dots-only
+   yardstick (torch._int_mm over the same operands in 8 row chunks: the
+   int32 dots alone, written out), then the merge kernels on its minima at
+   kk = 100 + 32 (keep 136);
 4b. the 768-d path at full size: the cohere-like 1M x 768 corpus (seed 0),
    the same world, 8192 queries, top-100, cosine, residual4 rerank,
    through build_searcher("rls") and run_benchmark against the exact
@@ -1061,6 +1063,17 @@ def main() -> None:
                 3))
     extra["scan_int8_wide"] = (*scan_bound(*wide_args[:5], packed), None)
     del packed_plain
+
+    def dots_only():
+        step = wide_args[1].shape[0] // 8
+        for r0 in range(0, wide_args[1].shape[0], step):
+            torch._int_mm(wide_args[0], wide_args[1][r0:r0 + step].t())
+
+    say(f"dots only (torch._int_mm of the same int8 queries and rows, 8 "
+        f"chunks of {wide_args[1].shape[0] // 8} rows, int32 dots out; no "
+        f"epilogue, so not K2's function and not its library_ms) "
+        f"{cuda_ms(dots_only, 3):.3f} ms against K2's "
+        f"{result['scan_int8_wide'][2]:.3f} ms ({smi})")
     merges_kk, keep, _ = check_merge(packed, kk)
     report(f"kernel vs plain at Q={BATCH} x {arena.n_padded} rows x d_pad "
            f"{arena.quant.d_pad}, ip, shift {shift}, group {GROUP}; merge at "

@@ -72,6 +72,16 @@ def test_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group, metric,
     (130, 2048, 768, 2, 32, "ip", 3),
     (300, 1280, 768, 3, 64, "l2", 3),
     (2048, 8192, 768, 4, 128, "ip", 3),
+    # the tensor-core tile's corners: d_pad 384-768, every group width, W
+    # 1-8, query counts that fill no 128-query tile
+    (1, 256, 384, 1, 8, "l2", 0),
+    (37, 1152, 512, 2, 16, "ip", 1),
+    (65, 1024, 640, 3, 32, "l2", 3),
+    (130, 2048, 768, 5, 64, "ip", 3),
+    (2048, 4096, 768, 8, 128, "ip", 3),
+    (2048, 2048, 640, 6, 8, "l2", 7),
+    (129, 1024, 512, 3, 16, "l2", 9),      # shifts past 7: the kernel's
+    (40, 1024, 768, 6, 32, "ip", 12),      # other packing path
 ])
 def test_wide_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group,
                                         metric, shift):
@@ -86,6 +96,28 @@ def test_wide_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group,
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert (got[:, 0] == scan_int8.MASKED_I32).all()
+
+
+def test_wide_kernel_extreme_operands(dev):
+    """Every product at its extreme (-128 * -128 and -128 * 127): the
+    tensor cores' signed int8 and exact int32 sums, l2 at shift 0."""
+    nq, npad, d_pad = 70, 512, 768
+    x = np.full((npad, d_pad), -128, np.int8)
+    x[1::2] = 127
+    q = np.full((nq, d_pad), -128, np.int8)
+    q[::3, ::2] = 127
+    norms = np.einsum("nd,nd->n", x.astype(np.int64),
+                      x.astype(np.int64)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    bits = t(np.full((npad, 1), -1, np.int32))
+    args = (t(q), t(x), t(norms), bits, t(np.full((nq, 1), 1, np.int32)))
+    before = _build.LAUNCHES["scan_int8_wide"]
+    got = scan_int8.int8_group_minima_wide(*args, group=8, metric="l2")
+    assert _build.LAUNCHES["scan_int8_wide"] == before + 1
+    want = scan_int8.int8_group_minima_wide_plain(*args, group=8,
+                                                  metric="l2")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift,sb,tile", [
@@ -175,21 +207,60 @@ def _packed_with_ties(rng, ng, nq):
     p = rng.integers(1 << 10, (1 << 10) + 24, size=(ng, nq)).astype(np.int32)
     p = (p << 7) | rng.integers(0, 4, size=(ng, nq)).astype(np.int32)
     p[rng.random((ng, nq)) < 0.3] = scan_int8.MASKED_I32
-    p[:, 1] = scan_int8.MASKED_I32              # a column with nothing
+    p[:, 1:2] = scan_int8.MASKED_I32            # a column with nothing
     return p
 
 
-@pytest.mark.parametrize("ng,nq,nsub,t", [(2048, 300, 32, 16),
-                                          (512, 40, 8, 8),
-                                          (8192, 129, 32, 16)])
+@pytest.mark.parametrize("ng,nq,nsub,t", [
+    (2048, 300, 32, 16), (512, 40, 8, 8), (8192, 129, 32, 16),
+    # the 10M arena's sub 2464, and sub 70, not a multiple of K3's team of
+    # 8 lanes, at t 8, 16 and 32 and ragged query counts
+    (2 * 2464, 1, 2, 8), (4 * 2464, 33, 4, 16), (2 * 2464, 129, 2, 32),
+    (8 * 70, 129, 8, 8), (4 * 70, 1, 4, 16), (2 * 70, 33, 2, 32),
+])
 def test_extract_kernel_identical(dev, ng, nq, nsub, t):
     p = torch.from_numpy(_packed_with_ties(np.random.default_rng(ng), ng,
                                            nq)).to(dev)
+    before = _build.LAUNCHES["merge_extract"]
     y, meta = merge.extract_pairs(p, nsub, t)
+    assert _build.LAUNCHES["merge_extract"] == before + 1
     y_p, meta_p = merge.extract_pairs_plain(p, nsub, t)
     torch.cuda.synchronize()
     assert torch.equal(y, y_p)
     assert torch.equal(meta, meta_p)   # drained rounds included
+
+
+@pytest.mark.parametrize("case", ["cross-lane-ties", "drained", "refill"])
+def test_extract_kernel_lane_corners(dev, case):
+    """K3 where its lanes meet: equal values in neighbouring rows (rows of
+    different lanes) must extract once with the smallest meta; subgroups
+    with fewer distinct values than t drain before round t; at t 64 a
+    lane pops more than the 16 values it keeps and re-reads its rows."""
+    rng = np.random.default_rng(len(case))
+    nsub, sub, t, nq = {"cross-lane-ties": (4, 256, 16, 67),
+                        "drained": (8, 64, 32, 40),
+                        "refill": (2, 256, 64, 33)}[case]
+    if case == "cross-lane-ties":      # runs of 8 equal rows: one a lane
+        v = rng.integers(0, 1 << 20, size=(nsub * sub // 8, nq)) << 7
+        p = np.repeat(v, 8, axis=0).astype(np.int32)
+    elif case == "drained":            # 5 distinct values and the masked
+        p = (rng.integers(100, 105, size=(nsub * sub, nq)) << 7).astype(
+            np.int32)
+        p[rng.random(p.shape) < 0.5] = scan_int8.MASKED_I32
+        p[:, 3] = 2**31 - 1            # a column of the sentinel itself
+    else:                              # every row distinct, ascending in
+        p = (np.arange(nsub * sub)[:, None] * 1000 + rng.integers(      # lane 0
+            0, 1000, size=(nsub * sub, nq))).astype(np.int32)
+        p[::8] -= 1 << 24              # lane 0's rows hold the smallest 32
+    p = torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+    before = _build.LAUNCHES["merge_extract"]
+    y, meta = merge.extract_pairs(p, nsub, t)
+    assert _build.LAUNCHES["merge_extract"] == before + 1
+    y_p, meta_p = merge.extract_pairs_plain(p, nsub, t)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_p) and torch.equal(meta, meta_p)
+    if case == "drained":
+        assert (y_p.view(nsub, t, nq)[:, -1] == 2**31 - 1).all()
 
 
 @pytest.mark.parametrize("npc,nq,keep", [(64, 33, 16), (512, 300, 104),
@@ -468,6 +539,10 @@ def test_lab_scan_variants_bit_identical(dev, variant, nq, npad, d_pad, w,
     (96, 2048, 768, 8, 32, "ip", 3, 16, 32),
     (320, 1280, 512, 2, 64, "l2", 1, 8, 0),
     (2048, 8192, 768, 4, 128, "ip", 3, 16, 512),
+    (64, 1024, 384, 7, 128, "l2", 2, 16, 0),
+    (160, 1280, 640, 4, 16, "ip", 0, 16, 32),
+    (2048, 2048, 512, 8, 32, "l2", 1, 16, 512),
+    (48, 1152, 768, 1, 64, "ip", 3, 8, 48),
 ])
 def test_wide_slot_form_bit_identical(dev, nq, npad, d_pad, w, group, metric,
                                       shift, sb, tile):

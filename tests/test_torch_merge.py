@@ -86,6 +86,38 @@ def test_extract_is_distinct_minima(packed):
                 assert meta[j * t + r, q] == want
 
 
+@pytest.mark.parametrize("t,dup", [(16, False), (32, False), (32, True)],
+                         ids=["t16", "t32", "t32-ties"])
+def test_merge_matches_pallas_at_a_large_subgroup(t, dup):
+    """The 10M arena's subgroup width (sub 2464, here nsub 4) at t 16 and
+    32: the plain merge against the reference's in interpret mode, with k
+    the whole survivor pool, so every extracted value is compared. Column
+    5 drains after 3 groups, column 7 holds nothing."""
+    rng = np.random.default_rng(t + dup)
+    nsub, sub, nq = 4, 2464, 16
+    if dup:
+        p = (rng.integers(1 << 10, (1 << 10) + 40, size=(nsub * sub, nq))
+             .astype(np.int32) << 7) | rng.integers(0, 4, size=(nsub * sub,
+                                                                 nq)).astype(
+            np.int32)
+    else:
+        p = (rng.integers(-(1 << 22), 1 << 22, size=(nsub * sub, nq))
+             .astype(np.int32) << 7) | rng.integers(0, 128, size=(
+                 nsub * sub, nq)).astype(np.int32)
+    p[rng.random(p.shape) < 0.2] = MASKED
+    p[3:, 5] = MASKED
+    p[:, 7] = MASKED
+    k = nsub * t
+    want_v, want_p = pallas_merge_topk(jnp.asarray(p), k, nsub=nsub, t=t,
+                                       q_tile=nq, interpret=True)
+    got_v, got_p = merge_topk(torch.from_numpy(p), k, nsub=nsub, t=t)
+    want_v, want_p = np.asarray(want_v), np.asarray(want_p)
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    real = want_v < EMPTY
+    np.testing.assert_array_equal(got_p.numpy()[real], want_p[real])
+    assert (want_v[5, 3:] >= EMPTY).all() and (want_v[7] >= EMPTY).all()
+
+
 def test_merge_gate():
     assert merge_supported(8192, 100)          # the 1M main-path shape
     assert merge_supported(78848, 100)         # the 10M shape

@@ -21,12 +21,27 @@
 // a hit. Round r keeps only values strictly above round r-1's value, which is
 // exactly the set the TPU kernel leaves unmasked.
 //
-// What bounds it on an H100: memory traffic. Each thread reads its column's
-// sub values once per round, t times in all (16 x 32 MB per 2048-query batch
-// at 1M rows), mostly from L2.
-// Design: one thread per (subgroup, query); neighbouring threads read
-// neighbouring queries of one row, so every load is coalesced and no state
-// but (last value, running min, running meta) lives in registers.
+// What bounds it on an H100: the bytes of one read of the minima (0.0225 ms
+// for a 2048-query x 8192-group batch), if the read is spread over enough
+// threads to hide its latency. The first port gave each column one thread
+// that re-read its sub values in every one of the t rounds: 16 reads of
+// 67 MB through L2, a dependent chain of t * sub loads, and only 512 blocks
+// of 128 threads at 2048 queries (1.767 ms, 79x the bound).
+// Design: a team of kTeam lanes of one warp owns a (subgroup, query)
+// column; lane l reads rows l, l + kTeam, ... once, kBatch loads in flight,
+// and keeps in registers a sorted list of its kCap smallest DISTINCT values,
+// each with the smallest meta among its rows (a fixed compare-exchange
+// insertion: no dynamically indexed array, which ptxas would spill). Each
+// round is a team minimum of the list heads (warp shuffles); a second team
+// minimum over the lanes whose head equals it gives the meta, and those
+// lanes pop their head, so equal values held by different lanes extract
+// as one candidate. A lane that evicted values (more than kCap distinct)
+// and has popped its whole list re-reads its rows for the values above the
+// last extracted one; with t <= kCap that never happens. The drained
+// round's meta is the column's first row's: meta grows with the row.
+// Neighbouring teams own neighbouring queries, so a warp's load of one row
+// reads 32/kTeam consecutive int32 and the next warp the rest of the
+// sector, from L1.
 //
 // ---------------------------------------------------------------------------
 // bitonic_pairs_kernel replaces the TPU kernel
@@ -66,7 +81,9 @@
 // with INT32_MAX, as the package's extraction kernel does
 // (vectorsearch_rbac_tpu/ops/pallas_merge.py:62-67); on every input where no
 // subgroup runs out of admissible groups within t rounds the two agree bit
-// for bit. Bound and design: as extract_pairs_kernel's, one value a round.
+// for bit. Bound: as extract_pairs_kernel's. Design: the first port's of
+// extract_pairs_kernel, one thread a column that re-reads its sub values in
+// every round (no meta word; sub <= 128 keeps the re-reads short).
 //
 // bitonic_y_kernel replaces the TPU kernels r4_bitonic_kernel.py
 // _make_bitonic_kernel (bitonic_sort_keep) and _make_bitonic_pairs_kernel
@@ -86,39 +103,112 @@
 namespace {
 
 constexpr int32_t kBig = 0x7FFFFFFF;
-constexpr int kExtractThreads = 128;
+constexpr int kExtractThreads = 128;  // the y-form extraction's block
+constexpr int kTeam = 8;              // lanes per (subgroup, query) column
+constexpr int kCap = 16;              // distinct values a lane keeps
+constexpr int kBatch = 8;             // rows a lane loads before inserting
+constexpr int kTeamThreads = 256;
+constexpr int kTeamCols = kTeamThreads / kTeam;  // queries per block
 
-__global__ void __launch_bounds__(kExtractThreads)
+// Insert (x, mx) into the ascending list of distinct values (v, m): an
+// equal value keeps the smaller meta; a value larger than a full list's
+// last, or the one a full list evicts, sets `over`. x is never kBig.
+__device__ __forceinline__ void list_insert(int32_t (&v)[kCap],
+                                            int32_t (&m)[kCap], int32_t x,
+                                            int32_t mx, bool& over) {
+  if (x > v[kCap - 1]) {
+    over = true;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kCap; ++i) {
+    const bool eq = v[i] == x;
+    const bool lt = x < v[i];
+    const int32_t tv = v[i], tm = m[i];
+    m[i] = eq ? min(tm, mx) : (lt ? mx : tm);
+    v[i] = lt ? x : tv;
+    // after a merge the carried pair is (kBig, kBig): it merges into the
+    // empty slots without changing them and moves nothing
+    x = eq ? kBig : (lt ? tv : x);
+    mx = eq ? kBig : (lt ? tm : mx);
+  }
+  if (x != kBig) over = true;
+}
+
+// Read this lane's rows of the column and insert every value that is not
+// kBig and, unless `all`, lies above `floor`.
+__device__ __forceinline__ void list_scan(const int32_t* __restrict__ col,
+                                          int nq, int lane, int sub,
+                                          uint32_t base, bool all,
+                                          int32_t floor, int32_t (&v)[kCap],
+                                          int32_t (&m)[kCap], bool& over) {
+  for (int p0 = lane; p0 < sub; p0 += kTeam * kBatch) {
+    int32_t x[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int p = p0 + b * kTeam;
+      x[b] = p < sub ? __ldg(col + (size_t)p * nq) : kBig;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const uint32_t p = (uint32_t)(p0 + b * kTeam);
+      if (x[b] != kBig && (all || x[b] > floor))
+        list_insert(v, m, x[b],
+                    (int32_t)(((base + p) << 7) | ((uint32_t)x[b] & 127u)),
+                    over);
+    }
+  }
+}
+
+__device__ __forceinline__ int32_t team_min(int32_t x) {
+#pragma unroll
+  for (int off = kTeam / 2; off >= 1; off >>= 1)
+    x = min(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__global__ void __launch_bounds__(kTeamThreads)
 extract_pairs_kernel(const int32_t* __restrict__ mins,  // (n_groups, Q)
                      int32_t* __restrict__ out_y,       // (nsub * t, Q)
                      int32_t* __restrict__ out_m,       // (nsub * t, Q)
                      int nq, int sub, int t) {
-  const int q = blockIdx.x * kExtractThreads + threadIdx.x;
+  const int lane = threadIdx.x % kTeam;
+  const int q_raw = blockIdx.x * kTeamCols + threadIdx.x / kTeam;
+  // a ragged tail's teams run on the last query's column (every lane of
+  // the warp takes part in the shuffles) and store nothing
+  const bool live = q_raw < nq;
+  const int q = live ? q_raw : nq - 1;
   const int j = blockIdx.y;
-  if (q >= nq) return;
   const int32_t* col = mins + (size_t)j * sub * nq + q;
   const uint32_t base = (uint32_t)j * (uint32_t)sub;
+  int32_t v[kCap], m[kCap];
+#pragma unroll
+  for (int i = 0; i < kCap; ++i) v[i] = m[i] = kBig;
+  bool over = false;
+  list_scan(col, nq, lane, sub, base, true, 0, v, m, over);
+  const int32_t meta_all =
+      (int32_t)((base << 7) | ((uint32_t)__ldg(col) & 127u));
   int32_t last = 0;
-  uint32_t meta_all = kBig;  // min meta over all rows: the drained-round meta
   for (int r = 0; r < t; ++r) {
-    int32_t cur = kBig;
-    uint32_t meta = kBig;
-    for (int p = 0; p < sub; ++p) {
-      const int32_t v = col[(size_t)p * nq];
-      const uint32_t m = ((base + p) << 7) | ((uint32_t)v & 127u);
-      if (r == 0) meta_all = min(meta_all, m);
-      else if (v <= last) continue;  // extracted in an earlier round
-      if (v < cur) {
-        cur = v;
-        meta = m;
-      } else if (v == cur) {
-        meta = min(meta, m);
-      }
+    if (v[0] == kBig && over) {  // popped a full list: read past `last`
+      over = false;
+      list_scan(col, nq, lane, sub, base, false, last, v, m, over);
     }
+    const int32_t cur = team_min(v[0]);
+    const bool pop = v[0] == cur && cur != kBig;
+    int32_t meta = team_min(pop ? m[0] : kBig);
     if (cur == kBig) meta = meta_all;
-    const size_t o = ((size_t)j * t + r) * nq + q;
-    out_y[o] = cur;
-    out_m[o] = (int32_t)meta;
+#pragma unroll
+    for (int i = 0; i + 1 < kCap; ++i) {
+      v[i] = pop ? v[i + 1] : v[i];
+      m[i] = pop ? m[i + 1] : m[i];
+    }
+    if (pop) v[kCap - 1] = m[kCap - 1] = kBig;
+    if (live && lane == 0) {
+      const size_t o = ((size_t)j * t + r) * nq + q;
+      out_y[o] = cur;
+      out_m[o] = meta;
+    }
     last = cur;
   }
 }
@@ -231,8 +321,8 @@ extern "C" int vsr_extract_pairs(const void* mins, void* out_y, void* out_m,
   if (nq < 1 || nsub < 1 || nsub > 65535 || sub < 1 || t < 1 ||
       (long long)nsub * sub * 128 > kBig)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((nq + kExtractThreads - 1) / kExtractThreads, nsub);
-  extract_pairs_kernel<<<grid, kExtractThreads, 0,
+  const dim3 grid((nq + kTeamCols - 1) / kTeamCols, nsub);
+  extract_pairs_kernel<<<grid, kTeamThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(mins), static_cast<int32_t*>(out_y),
       static_cast<int32_t*>(out_m), nq, sub, t);

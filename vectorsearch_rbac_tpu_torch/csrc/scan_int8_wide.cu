@@ -1,5 +1,5 @@
 // Fused RBAC-masked int8 scan for wide rows (d_pad > 256), with the packed
-// group-minimum epilogue.
+// group-minimum epilogue; the dots run on the int8 tensor cores (wgmma).
 //
 // Replaces the TPU kernel vectorsearch_rbac_tpu/ops/pallas_scan_int8.py
 // _make_wide_kernel (launched by int8_masked_topk_wide), the 768-d path,
@@ -13,191 +13,394 @@
 //   packed = admit ? (score << 7) | (r % group) : 0x7F000000
 //   out[r / group, q] = min of packed over the group's rows
 // The TPU kernel puts d on a third grid axis and carries the partial dots in
-// a VMEM scratch from one grid step to the next. Blocks here run in no order
-// and share nothing, so the d sweep is a loop inside the block and the
-// partial dots stay in registers; the epilogue runs once, after the loop.
+// a VMEM scratch from one grid step to the next, computing them on its
+// matrix unit (an int8 dot_general into int32). Blocks here run in no order
+// and share nothing, so the d sweep is a loop inside the block; the
+// tensor cores' int32 accumulators stay in registers and the epilogue runs
+// once, after the loop. int8 products summed in int32 are exact (768 * 128
+// * 128 is far from 2^31), so the output is the plain version's bit for bit.
 //
-// Why not the narrow kernel: it keeps a thread's whole query row in
-// registers (int4 qv[d_pad / 16]); at 768-d that is 192 registers for the
-// query alone and ptxas spills.
-//
-// What bounds it on an H100: integer issue rate. Every (row, query) pair
-// costs d_pad / 4 __dp4a (192 at 768-d) plus ~W + 8 epilogue operations. A
-// block's 128 x 768 row tile (96 KB) is used by 64 queries and then by the
-// next query tiles while it sits in L2 (query tiles are the fast grid
-// index), so the arena is read from device memory about once per batch: at
-// a 2048-query batch that is ~2,000 dp4a per byte from device memory, far
-// above what the memory system would limit.
+// What bounds it on an H100: the int8 tensor cores, 2 * d_pad operations a
+// (query, row) pair (1.667 ms for 2048 queries x 1M rows x 768 at 1,979
+// TOP/s). The first port computed the dots with __dp4a on the CUDA cores,
+// 192 a pair at 768-d: 34.7 ms, near what dp4a can issue on this card.
+// Query tiles are the fast grid index, so the blocks of one row tile run
+// together and share it in L2, and the arena is read from device memory
+// about once a batch (768 MB, 0.23 ms). What keeps it above the bound: the
+// epilogue (~W + 4 integer operations a pair on the CUDA cores) runs after
+// a block's dots, not under them, and the two blocks of an SM, which start
+// together, do not hide it for each other; each row tile is also read
+// from L2 once per query tile. Persistent forms that let two warpgroups
+// take turns on the tensor cores (one's epilogue under the other's dots)
+// ran slower in this form; by my reading, not measured apart, one
+// warpgroup's stream of m64n128 products at a time does not fill the
+// tensor cores.
 //
 // The slot form (mask_sb > 0, the kSlots template flag) reads the mask words of
 // query q from row slot(q) of a (Q / mask_sb, W) tensor, in the narrow
 // kernel's two layouts (scan_int8.cu): contiguous (slot_tile 0, slot =
 // q / mask_sb) or interleaved within tiles of slot_tile queries (slot =
 // (q / slot_tile) * nsb + q % nsb, nsb = slot_tile / mask_sb: the TPU
-// kernel's pltpu.repeat). Only the block's load of its 64 queries' mask words
-// changes, so its output is bit for bit the per-query form's on the expanded
-// masks. On the TPU the slot form shrinks the admissibility matmul; here
-// admissibility is a W-word AND per pair and the form saves nothing but the
-// mask bytes (the reference keeps admit-dedup off on wide rows; the kernel
-// lab's wide-admit leg measures it).
+// kernel's pltpu.repeat). Only the threads' load of their queries' mask
+// words changes, so its output is bit for bit the per-query form's on the
+// expanded masks. On the TPU the slot form shrinks the admissibility
+// matmul; here admissibility is a W-word AND per pair and the form saves
+// nothing but the mask bytes (the reference keeps admit-dedup off on wide
+// rows; the kernel lab's wide-admit leg measures it).
 //
-// Design: a block computes a tile of 128 rows x 64 queries with 256 threads.
-// Thread (tr, tq) = (tid % 16, tid / 16) owns 8 contiguous rows tr*8 .. +7
-// and 4 queries tq + 16 j, a register tile of 32 int32 dots. The block
-// stages 128-byte d-chunks of the row tile and of the query tile in shared
-// memory; per 16-byte step a thread reads 8 row words and 4 query words
-// (12 loads for 128 __dp4a). Row words are stored with an XOR swizzle of the
-// 16-byte slot by (row / 8) % 8, so the 8 threads of a quarter warp, which
-// read rows 8 apart, hit 8 different bank groups; the query words are read
-// by only two threads' worth of addresses per warp (broadcast). In the
-// epilogue a thread reduces its 8 rows, then the group minimum crosses the
-// group / 8 threads that share a group, with warp shuffles (they are
-// neighbouring lanes). Groups of 8 .. 128 rows all reduce inside their own
-// rows. Ragged query tiles load zero queries and store nothing.
+// Design: a block computes a tile of 128 queries x 128 rows with two
+// warpgroups; warpgroup g owns queries 64 g .. 64 g + 63 and issues
+// wgmma.mma_async m64n128k32 s32.s8.s8, queries on the M side and rows on
+// the N side, both operands K-major from shared memory (as q8 (Q, d_pad)
+// and x8 (Npad, d_pad) lie), four instructions per 128-byte d-chunk. One
+// thread keeps the chunks in flight with TMA (cp.async.bulk.tensor, one
+// 128-byte x 128-row box of each operand a stage, in the 128-byte swizzle
+// wgmma reads; query rows past nq arrive as zeros) into a ring of kStages
+// stages: full[s] counts the bytes in, empty[s] the warpgroups done with
+// the stage. Each warpgroup keeps one chunk's wgmma in flight while it
+// waits for the one before, so the tensor cores see no barrier between
+// chunks. The row tile's words (two planes of 4 words a row: a quad's 4
+// rows sit 16 bytes apart, in 4 bank groups) and norms come by cp.async
+// under the dots. A thread's accumulators hold 2 queries (lane / 4 and
+// lane / 4 + 8 of its warp's 16) x 32 rows (2 adjacent rows in each 8-row
+// slice), so a group of 8 .. 128 rows reduces over the thread's own
+// columns and then across the 4 lanes of its quad with two shuffles: no
+// shared memory. The epilogue keeps its 2 queries' words in registers and
+// reads the second plane only where W > 4. Two blocks fit an SM (~104 KB
+// of shared memory, 114 registers, no spills).
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled
+                   // comes from the runtime's entry-point query (no -lcuda)
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 128;           // rows per block tile
-constexpr int kQueries = 64;         // queries per block tile
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 8;    // contiguous rows tr*8 .. tr*8+7
-constexpr int kQPerThread = 4;       // queries tq + 16 j
-constexpr int kRowSlots = 16;        // threads along the row axis
-constexpr int kChunk16 = 8;          // 16-byte words per row per d-chunk
-constexpr int kMaxWords = 8;         // role bitset words: up to 256 roles
+constexpr int kRows = 128;       // arena rows per tile: the wgmma N
+constexpr int kQueries = 128;    // queries per tile: 2 x the wgmma M
+constexpr int kThreads = 256;    // two warpgroups
+constexpr int kChunk = 128;      // d bytes per stage: one swizzled line
+constexpr int kStages = 3;
+constexpr int kMaxWords = 8;     // role bitset words: up to 256 roles
 constexpr int32_t kMasked = 0x7F000000;
+constexpr int kTileBytes = kRows * kChunk;   // 16 KB, also kQueries * kChunk
+constexpr int kStageBytes = 2 * kTileBytes;  // the query tile, then the rows
+// the row tile's words, as two planes of (kRows, 4) words, and its norms
+constexpr int kRowDataBytes = 2 * kRows * 16 + kRows * 4;
+constexpr int kSmemBytes = 1024  // slack to align the ring to 1024 bytes
+                           + kStages * kStageBytes + kRowDataBytes
+                           + 2 * kStages * 8;  // full and empty mbarriers
 
-static_assert(kRowSlots * kRowsPerThread == kRows, "row tiling");
-static_assert((kThreads / kRowSlots) * kQPerThread == kQueries,
-              "query tiling");
+static_assert(kQueries * kChunk == kTileBytes, "tile bytes");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// arrive, and expect `bytes` more from the copies that complete on `bar`
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// one 128-byte x 128-row box of a K-major int8 matrix into shared memory,
+// in the 128-byte swizzle; rows past the matrix arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// K-major operand in the 128-byte swizzle: 8-row atoms of 1024 bytes, one
+// atom after another (stride byte offset 1024; the leading byte offset is
+// not read for this layout), layout type 1 (SWIZZLE_128B) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+__device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 queries x 128 rows, int32) += A (64 x 32 int8) . B (128 x 32 int8)^T
+__device__ __forceinline__ void wgmma_m64n128k32(int32_t (&d)[64],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// The epilogue of one tile: score, shift, admissibility, pack, group
+// minimum, store. Thread (warp, lane) of a warpgroup holds queries qa and
+// qa + 8 and, in slice n8 of 8 rows, rows 8 n8 + 2 (lane % 4) + {0, 1}:
+// acc[4 n8 + 2 i + j]. kWords is 4 (W <= 4: the second plane of row words
+// is not read) or 8. The packed score (v >> s) << 7, v = norms - 2 dots or
+// -dots, is v << (7 - s) with its low 7 bits cleared when s <= 7 (one
+// multiply-add a pair, exact in 32-bit wrapping arithmetic) and
+// (v >> (s - 7)) with them cleared when s > 7 (kDown).
+template <int kWords, bool kDown>
+__device__ __forceinline__ void tile_epilogue(
+    const int32_t (&acc)[64], const int32_t (&qw)[2][kMaxWords],
+    const int4* __restrict__ planes, const int32_t* __restrict__ ns,
+    int32_t* __restrict__ out, size_t row0, int qa, int nq, int group, int l2,
+    int score_shift) {
+  const int lane = threadIdx.x % 32;
+  const int lane_mask = group - 1;  // group is a power of two in [8, 128]
+  const int span = group / 8;       // 8-row slices per group: 1 .. 16
+  const int up = kDown ? 0 : 7 - score_shift;
+  const int down = kDown ? score_shift - 7 : 0;
+  const uint32_t mul = (uint32_t)(l2 ? -2 : -1) << up;
+  int32_t best[2] = {kMasked, kMasked};
+#pragma unroll
+  for (int n8 = 0; n8 < kRows / 8; ++n8) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n8 * 8 + (lane % 4) * 2 + j;
+      const int4 b0 = planes[n];
+      const int4 b1 = kWords > 4 ? planes[kRows + n] : make_int4(0, 0, 0, 0);
+      const uint32_t base = l2 ? (uint32_t)ns[n] << up : 0u;
+      const uint32_t rank = (uint32_t)(n & lane_mask);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        int32_t hit = (b0.x & qw[i][0]) | (b0.y & qw[i][1]) |
+                      (b0.z & qw[i][2]) | (b0.w & qw[i][3]);
+        if (kWords > 4)
+          hit |= (b1.x & qw[i][4]) | (b1.y & qw[i][5]) | (b1.z & qw[i][6]) |
+                 (b1.w & qw[i][7]);
+        uint32_t v = (uint32_t)acc[4 * n8 + 2 * i + j] * mul + base;
+        if (kDown) v = (uint32_t)((int32_t)v >> down);
+        const int32_t packed = (int32_t)((v & ~127u) | rank);
+        if (hit) best[i] = min(best[i], packed);
+      }
+    }
+    if (((n8 + 1) & (span - 1)) == 0) {  // slice n8 closes a group
+      const size_t g = (row0 + n8 * 8) / group;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        best[i] = min(best[i], __shfl_xor_sync(0xffffffffu, best[i], 1));
+        best[i] = min(best[i], __shfl_xor_sync(0xffffffffu, best[i], 2));
+        const int q = qa + 8 * i;
+        if (lane % 4 == 0 && q < nq) out[g * (size_t)nq + q] = best[i];
+        best[i] = kMasked;
+      }
+    }
+  }
+}
 
 template <bool kSlots>
 __global__ void __launch_bounds__(kThreads, 2)
-scan_int8_wide_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
-                      const int8_t* __restrict__ x8,         // (Npad, d_pad)
+scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
+                      const __grid_constant__ CUtensorMap x_map,  // x8
                       const int32_t* __restrict__ norms,     // (Npad,)
                       const int32_t* __restrict__ row_bits,  // (Npad, W)
                       const int32_t* __restrict__ q_bits,    // (Q or Q/sb, W)
                       int32_t* __restrict__ out,             // (Npad/group, Q)
                       int nq, int n_qtiles, int d_pad, int w, int group,
                       int l2, int score_shift, int mask_sb, int slot_tile) {
-  __shared__ int4 xs[kRows * kChunk16];         // 16 KB, slot-swizzled
-  __shared__ int4 qs[kQueries * kChunk16];      // 8 KB
-  __shared__ int32_t ns[kRows];
-  __shared__ int32_t rb[kRows * kMaxWords];     // word-swizzled like xs
-  __shared__ int32_t qb[kQueries * kMaxWords];
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t ring = smem_addr(smem);  // 1024-aligned: swizzle atoms
+  uint8_t* row_data = smem + kStages * kStageBytes;
+  // full[s]: stage s's two boxes landed; empty[s]: both warpgroups' wgmma
+  // finished reading it
+  const uint32_t bars = smem_addr(row_data + kRowDataBytes);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
 
   const int tid = threadIdx.x;
-  const int tr = tid % kRowSlots;
-  const int tq = tid / kRowSlots;
-  const int swz = tr & 7;  // == (row / 8) % 8 for each of the thread's rows
-  // query tiles vary fastest, so consecutive blocks reuse a row tile from L2
+  const int wg = tid / 128;
+  // query tiles vary fastest, so consecutive blocks share a row tile in L2
   const int q0 = (blockIdx.x % n_qtiles) * kQueries;
   const size_t row0 = (size_t)(blockIdx.x / n_qtiles) * kRows;
-  const int d16 = d_pad / 16;
+  const int nk = d_pad / kChunk;
 
-  for (int i = tid; i < kRows; i += kThreads) ns[i] = norms[row0 + i];
+  // stage d-chunk c of the query tile and of the row tile into stage s
+  auto load_chunk = [&](int c, int s) {
+    const uint32_t a_s = ring + s * kStageBytes;
+    mbar_expect(full(s), kStageBytes);
+    tma_load(a_s, &q_map, c * kChunk, q0, full(s));
+    tma_load(a_s + kTileBytes, &x_map, c * kChunk, (int)row0, full(s));
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kStages && s < nk; ++s) load_chunk(s, s);
+  }
+  // the row tile's words (zero past w) and norms, waited for before the
+  // epilogue
   for (int i = tid; i < kRows * kMaxWords; i += kThreads) {
     const int r = i / kMaxWords, m = i % kMaxWords;
-    rb[r * kMaxWords + (m ^ ((r >> 3) & 7))] =
-        m < w ? row_bits[(row0 + r) * w + m] : 0;
+    cp_async4(smem_addr(row_data + (m / 4) * kRows * 16 + r * 16 + m % 4 * 4),
+              row_bits + (row0 + r) * w + (m < w ? m : 0), m < w ? 4 : 0);
   }
-  for (int i = tid; i < kQueries * kMaxWords; i += kThreads) {
-    const int ql = i / kMaxWords, m = i % kMaxWords, q = q0 + ql;
+  for (int i = tid; i < kRows; i += kThreads)
+    cp_async4(smem_addr(row_data + 2 * kRows * 16 + i * 4), norms + row0 + i,
+              4);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  __syncthreads();  // the barriers are initialised
+
+  int32_t acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int c = 0; c < nk; ++c) {
+    const int s = c % kStages;
+    mbar_wait(full(s), (c / kStages) & 1);
+    const uint32_t a_s = ring + s * kStageBytes + wg * 64 * 128;
+    const uint32_t b_s = ring + s * kStageBytes + kTileBytes;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < kChunk / 32; ++k)
+      wgmma_m64n128k32(acc, sw128_desc(a_s + 32 * k),
+                       sw128_desc(b_s + 32 * k));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // chunk c stays in flight; chunk c - 1's reads are done
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+    if (c == 0) continue;
+    const int sp = (c - 1) % kStages;
+    if (tid % 128 == 0) mbar_arrive(empty(sp));
+    const int n = c - 1 + kStages;  // the chunk that refills stage sp
+    if (tid == 0 && n < nk) {
+      mbar_wait(empty(sp), ((c - 1) / kStages) & 1);
+      load_chunk(n, sp);
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+
+  const int qa =
+      q0 + wg * 64 + ((tid % 128) / 32) * 16 + (tid % 32) / 4;
+  int32_t qw[2][kMaxWords];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = qa + 8 * i;
     int row = q;  // the per-query form: row q of (Q, W)
     if (kSlots) {
       const int nsb = slot_tile / mask_sb;
       row = slot_tile > 0 ? (q / slot_tile) * nsb + q % nsb : q / mask_sb;
     }
-    qb[i] = (m < w && q < nq) ? q_bits[(size_t)row * w + m] : 0;
-  }
-
-  int32_t acc[kRowsPerThread][kQPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < kQPerThread; ++j) acc[i][j] = 0;
-
-  const int4* xg = reinterpret_cast<const int4*>(x8) + row0 * d16;
-  const int4* qg = reinterpret_cast<const int4*>(q8);
-  for (int c = 0; c < d16; c += kChunk16) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = tid; i < kRows * kChunk16; i += kThreads) {
-      const int r = i / kChunk16, k = i % kChunk16;
-      xs[r * kChunk16 + (k ^ ((r >> 3) & 7))] = xg[(size_t)r * d16 + c + k];
-    }
-    for (int i = tid; i < kQueries * kChunk16; i += kThreads) {
-      const int ql = i / kChunk16, k = i % kChunk16;
-      qs[i] = q0 + ql < nq ? qg[(size_t)(q0 + ql) * d16 + c + k]
-                           : make_int4(0, 0, 0, 0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kChunk16; ++k) {
-      int4 a[kRowsPerThread], b[kQPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        a[i] = xs[(tr * kRowsPerThread + i) * kChunk16 + (k ^ swz)];
-#pragma unroll
-      for (int j = 0; j < kQPerThread; ++j)
-        b[j] = qs[(tq + kRowSlots * j) * kChunk16 + k];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kQPerThread; ++j) {
-          acc[i][j] = __dp4a(a[i].x, b[j].x, acc[i][j]);
-          acc[i][j] = __dp4a(a[i].y, b[j].y, acc[i][j]);
-          acc[i][j] = __dp4a(a[i].z, b[j].z, acc[i][j]);
-          acc[i][j] = __dp4a(a[i].w, b[j].w, acc[i][j]);
-        }
-    }
-  }
-
-  // epilogue: score, shift, admissibility, pack, group minimum
-  int32_t qw[kQPerThread][kMaxWords];
-#pragma unroll
-  for (int j = 0; j < kQPerThread; ++j)
 #pragma unroll
     for (int m = 0; m < kMaxWords; ++m)
-      qw[j][m] = qb[(tq + kRowSlots * j) * kMaxWords + m];
-  int32_t best[kQPerThread];
-#pragma unroll
-  for (int j = 0; j < kQPerThread; ++j) best[j] = kMasked;
-  const int lane_mask = group - 1;  // group is a power of two in [8, 128]
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = tr * kRowsPerThread + i;
-    int32_t rw[kMaxWords];
-#pragma unroll
-    for (int m = 0; m < kMaxWords; ++m)
-      rw[m] = m < w ? rb[r * kMaxWords + (m ^ swz)] : 0;
-    const int32_t nr = l2 ? ns[r] : 0;
-#pragma unroll
-    for (int j = 0; j < kQPerThread; ++j) {
-      int32_t hit = 0;
-#pragma unroll
-      for (int m = 0; m < kMaxWords; ++m) hit |= rw[m] & qw[j][m];
-      int32_t score = l2 ? nr - 2 * acc[i][j] : -acc[i][j];
-      score >>= score_shift;
-      // the unsigned shift: a left shift of a negative int is undefined
-      const int32_t packed =
-          hit ? (int32_t)(((uint32_t)score << 7) | (uint32_t)(r & lane_mask))
-              : kMasked;
-      best[j] = min(best[j], packed);
-    }
+      qw[i][m] = (m < w && q < nq) ? q_bits[(size_t)row * w + m] : 0;
   }
-  const int span = group / kRowsPerThread;  // threads per group: 1 .. 16
-#pragma unroll
-  for (int j = 0; j < kQPerThread; ++j) {
-    for (int off = 1; off < span; off <<= 1)
-      best[j] = min(best[j], __shfl_xor_sync(0xffffffffu, best[j], off));
-    const int q = q0 + tq + kRowSlots * j;
-    if ((tr & (span - 1)) == 0 && q < nq)
-      out[((row0 + tr * kRowsPerThread) / group) * (size_t)nq + q] = best[j];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // every thread's row words and norms landed
+  const int4* planes = reinterpret_cast<const int4*>(row_data);
+  const int32_t* ns =
+      reinterpret_cast<const int32_t*>(row_data + 2 * kRows * 16);
+  const bool down = score_shift > 7;
+  if (w <= 4 && !down)
+    tile_epilogue<4, false>(acc, qw, planes, ns, out, row0, qa, nq, group, l2,
+                            score_shift);
+  else if (w <= 4)
+    tile_epilogue<4, true>(acc, qw, planes, ns, out, row0, qa, nq, group, l2,
+                           score_shift);
+  else if (!down)
+    tile_epilogue<8, false>(acc, qw, planes, ns, out, row0, qa, nq, group, l2,
+                            score_shift);
+  else
+    tile_epilogue<8, true>(acc, qw, planes, ns, out, row0, qa, nq, group, l2,
+                           score_shift);
+}
+
+// The tensor map of a (rows, d_pad) int8 matrix, read in 128-byte x 128-row
+// boxes in the 128-byte swizzle.
+cudaError_t box_map(CUtensorMap* map, const void* base, int rows, int d_pad) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  const cuuint64_t dims[2] = {(cuuint64_t)d_pad, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d_pad};
+  const cuuint32_t box[2] = {kChunk, 128};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -211,25 +414,33 @@ extern "C" int vsr_scan_int8_wide(const void* q8, const void* x8,
                                   int npad, int d_pad, int w, int group,
                                   int l2, int score_shift, int mask_sb,
                                   int slot_tile, void* stream) {
-  const bool group_ok = group >= kRowsPerThread && group <= kRows &&
-                        (group & (group - 1)) == 0;
+  const bool group_ok =
+      group >= 8 && group <= kRows && (group & (group - 1)) == 0;
   const bool slots_ok =
       mask_sb == 0 ||
       (mask_sb > 0 && nq % mask_sb == 0 &&
        (slot_tile == 0 ||
         (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
-  if (nq < 1 || npad < kRows || npad % kRows != 0 || d_pad < 128 ||
-      d_pad % 128 != 0 || !group_ok || w < 1 || w > kMaxWords ||
+  if (nq < 1 || npad < kRows || npad % kRows != 0 || d_pad < kChunk ||
+      d_pad % kChunk != 0 || !group_ok || w < 1 || w > kMaxWords ||
       score_shift < 0 || score_shift > 31 || !slots_ok)
     return (int)cudaErrorInvalidValue;
   const long long n_qtiles = (nq + kQueries - 1) / kQueries;
   const long long blocks = n_qtiles * (npad / kRows);
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap q_map, x_map;
+  cudaError_t err = box_map(&q_map, q8, nq, d_pad);
+  if (err == cudaSuccess) err = box_map(&x_map, x8, npad, d_pad);
   auto kernel = mask_sb > 0 ? scan_int8_wide_kernel<true>
                             : scan_int8_wide_kernel<false>;
-  kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(x8),
-      static_cast<const int32_t*>(norms), static_cast<const int32_t*>(row_bits),
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kThreads, kSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      q_map, x_map, static_cast<const int32_t*>(norms),
+      static_cast<const int32_t*>(row_bits),
       static_cast<const int32_t*>(q_bits), static_cast<int32_t*>(out), nq,
       (int)n_qtiles, d_pad, w, group, l2, score_shift, mask_sb, slot_tile);
   return (int)cudaGetLastError();
