@@ -14,14 +14,24 @@ without a CUDA device or without the port's package beside it. Phases:
    versions at the SIFT path's geometry (a 2048-query batch against the
    1M-row arena, group 128, k 100): the scan must be bit-identical; the
    merge stages must give identical values and identical positions on the
-   non-empty slots. Times come from CUDA events;
+   non-empty slots. Times come from CUDA events. Beside the scan, its
+   yardsticks: the wide scan (K2) launched on the same d_pad-128 operands
+   (bit-identical to the same plain minima), a dots-only torch._int_mm
+   over the same operands in 8 row chunks (not the scan's function, so not
+   its library_ms), the first port's dp4a scan (the lab control of 3e),
+   and the epilogue's integer-operation floor: its operations a pair,
+   counted by hand from the kernel's source, times the pairs, over the
+   card's INT32 issue rate;
 3c. the narrow scan's admit-dedup slot form against its plain version at
    the same geometry with group 32: a 2048-query batch whose 100 distinct
    masks fill 128 slots of 16, in the contiguous layout the index uses and
    the interleaved one of the TPU kernel, bit-identical; beside them the
-   per-query form's time on the same masks;
+   per-query form's time on the same masks, and the slot form's epilogue
+   floor over the admitted pairs;
 3e. the kernel lab's path (bench/lab.py's entry points) on phase 3's
-   operands: K1's trim and floor epilogues, extract_merge and
+   operands: the narrow scan's split schedule and one-hot admissibility,
+   the dp4a scan's plain (the control), trim and floor epilogues,
+   extract_merge and
    extract_merge_v2 on phase 3's 2048 x 8192-group minima, the y-form
    extraction (sub 128, t 8 and 16) and both y-form sorts (keep 128), with
    the counts set to 0 just before and read just after; then each of these
@@ -35,7 +45,9 @@ without a CUDA device or without the port's package beside it. Phases:
    M0 32 candidates each, mapped through a 40 x 65,536 row-map slab onto
    the 1M arena's packed rows (scores bit-identical on the SIFT-like
    queries), and the step's merges at ef 64, kk 18 (bit-identical); beside
-   the score kernel, index_select's time for the same row gather;
+   the score kernel, index_select's time for the same row gather, printed
+   as a gather-only yardstick (the kernel also scores the rows, so it is
+   not the kernel's library_ms);
 4. the SIFT path at full size: a 1M x 128 SIFT-like corpus (seed 0) with
    bench.py's tree RBAC world (100 roles, 10k users), 8192 queries drawn
    from the corpus's held-out pool as bench.py draws them, top-100, L2,
@@ -127,6 +139,16 @@ GRAPH_SLAB = (40, 65536)   # graph partitions x padded rows at 1M, alpha 2
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1.979e15
 F32_OPS_S = 67e12
+# 32-bit integer operations a second on the CUDA cores: 64 an SM a clock
+# (the CUDA C++ programming guide's throughput table, compute capability
+# 9.0) x 132 SMs x the 1,980 MHz boost clock (the data sheet)
+INT32_OPS_S = 64 * 132 * 1.98e9
+# K1's epilogue, integer operations a (query, row) pair, by hand from
+# csrc/scan_int8.cu at score shift 0: per-query masks W AND/ORs (the admit
+# test), one multiply-add (score and pack) and one predicated minimum; the
+# warp-slot path one multiply-add and one minimum on an admitted pair
+K1_EPI_OPS = lambda w: w + 2
+S2_EPI_OPS = 2
 
 
 def fail(msg: str) -> None:
@@ -152,6 +174,16 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def dots_only(q8, x8, chunks: int = 8) -> None:
+    """The scans' dots alone: torch._int_mm of the int8 queries and rows in
+    row chunks, int32 dots out (a yardstick: no epilogue)."""
+    import torch
+
+    step = x8.shape[0] // chunks
+    for r0 in range(0, x8.shape[0], step):
+        torch._int_mm(q8, x8[r0:r0 + step].t())
 
 
 def max_abs_err(a, b) -> int:
@@ -385,13 +417,18 @@ def check_slot_form(arena, workload, world, device, smi):
     out_rows = arena.n_padded // SLOT_GROUP
     bound = scan_bound(args[0], *args[1:], slot_bits, torch.empty(
         (out_rows, BATCH), dtype=torch.int32, device="meta"), pairs)
+    floor = S2_EPI_OPS * pairs / INT32_OPS_S * 1e3
     say(f"slot form vs plain at Q={BATCH} x {arena.n_padded} rows, "
         f"{len(distinct)} distinct masks in {BATCH // SLOT_SB} slots of "
         f"{SLOT_SB}, group {SLOT_GROUP} ({smi}); tolerance 0: contiguous "
         f"identical={rows['contiguous']} {ms['contiguous']:.3f} ms, "
         f"interleaved identical={rows['interleaved']} "
         f"{ms['interleaved']:.3f} ms, plain {plain_ms:.3f} ms; the "
-        f"per-query form on the same masks {ms['per-query']:.3f} ms")
+        f"per-query form on the same masks {ms['per-query']:.3f} ms "
+        f"(interleaved / per-query {ms['interleaved'] / ms['per-query']:.3f})"
+        f"; bound {bound[0]:.6f} ms ({bound[1]}); epilogue floor "
+        f"{floor:.6f} ms ({S2_EPI_OPS} integer operations on each of the "
+        f"{pairs} admitted pairs at {INT32_OPS_S:.4g} a second)")
     if not all(rows.values()):
         fail(f"the slot form disagrees with its plain version: {rows}")
     return (True, max(errs), ms["contiguous"], plain_ms), (*bound, None)
@@ -414,6 +451,9 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     full = (q8, qn, x8, norms, bits, qbits, 1.0, TOPK)
     lab_kw = dict(group=group, metric=metric, score_shift=shift)
     _build.reset_launches()
+    for variant in ("split", "onehot", "dp4a"):
+        lab_scan.int8_masked_topk_lab(*full, merge="none", variant=variant,
+                                      **lab_kw)
     lab_scan.int8_masked_topk_lab(*full, variant="trim", **lab_kw)
     lab_scan.int8_masked_topk_lab(*full, merge="none", variant="floor",
                                   **lab_kw)
@@ -424,7 +464,8 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
                                 128)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    lab_kernels = ("scan_int8_trim", "scan_int8_floor", "merge_y_extract",
+    lab_kernels = ("scan_int8_split", "scan_int8_onehot", "scan_int8_dp4a",
+                   "scan_int8_trim", "scan_int8_floor", "merge_y_extract",
                    "merge_y_sort", "merge_y_pairs")
     idle = [k for k in lab_kernels if launches[k] == 0]
     if idle:
@@ -432,15 +473,16 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
 
     out, extra = {}, {}
     out_meta = torch.empty(packed.shape, dtype=torch.int32, device="meta")
-    plains = {"trim": lambda: scan_int8.int8_group_minima_plain(*rows,
-                                                                **lab_kw),
+    k1_plain = lambda: scan_int8.int8_group_minima_plain(*rows, **lab_kw)
+    plains = {"split": k1_plain, "onehot": k1_plain, "dp4a": k1_plain,
+              "trim": k1_plain,
               "floor": lambda: lab_scan.floor_minima_plain(*rows, group)}
     for variant, plain_fn in plains.items():
         fn = lambda v=variant: lab_scan.lab_group_minima(*rows, variant=v,
                                                          **lab_kw)
         got = fn()
-        # trim's plain version is K1's: phase 3 computed it already
-        plain = packed_plain if variant == "trim" else plain_fn()
+        # all but floor's plain version is K1's: phase 3 computed it
+        plain = packed_plain if variant != "floor" else plain_fn()
         torch.cuda.synchronize()
         out[f"scan_int8_{variant}"] = (
             torch.equal(got, plain), max_abs_err(got, plain), cuda_ms(fn, 10),
@@ -491,7 +533,8 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     extra["merge_y_sort"] = (*bound_ms(nbytes(y, ys), 0, 1), keep_ms)
     extra["merge_y_pairs"] = (*bound_ms(nbytes(y, yp, gp), 0, 1), keep_ms)
     report(f"kernel lab vs plain at Q={q8.shape[0]} x {x8.shape[0]} rows "
-           f"(trim, floor: group {group}) and on the {packed.shape[0]} x "
+           f"(split, onehot, dp4a, trim, floor: group {group}) and on the "
+           f"{packed.shape[0]} x "
            f"{packed.shape[1]} minima (y-form: sub 128, t 8 and 16, keep "
            f"128; timed at t 8) ({smi}); tolerance 0:", out)
     say(f"  bounds ms { {k: round(v[0], 6) for k, v in extra.items()} }; "
@@ -652,9 +695,13 @@ def check_graph_step(arena, workload, world, device, smi):
         torch.equal(sc, sc_p) and torch.equal(ok, ok_p), score_err,
         cuda_ms(lambda: graph_step.graph_score_packed(*sargs), 20),
         cuda_ms(lambda: graph_step.graph_score_packed_plain(*sargs), 5))}
+    # index_select gathers the same rows but does not score them: a
+    # yardstick for a part of the kernel's function, not its library call
+    gather_ms = cuda_ms(lambda: torch.index_select(packed, 0, gather_rows),
+                        20)
     extra = {"graph_score": (
         *bound_ms(s_bytes, 2.0 * arena.quant.d_pad * valid, F32_OPS_S),
-        cuda_ms(lambda: torch.index_select(packed, 0, gather_rows), 20))}
+        None)}
 
     def sorted_vals(w, empty):
         v = np.sort(rng.integers(0, 400_000, (nq, w)).astype(np.float32), 1)
@@ -683,8 +730,9 @@ def check_graph_step(arena, workload, world, device, smi):
            f" kk {GRAPH_KK}, {n_part} x {n_class} row-map slab over "
            f"{arena.n_padded} packed rows of {packed.shape[1]} B ({smi}); "
            "tolerance 0 (SIFT-like integer data):", out)
-    say(f"  graph_score: {valid} valid candidates, index_select of the "
-        f"same rows {extra['graph_score'][2]:.3f} ms; bounds ms "
+    say(f"  graph_score: {valid} valid candidates; gather only "
+        f"(index_select of the same rows, unscored, so not the kernel's "
+        f"library_ms) {gather_ms:.3f} ms; bounds ms "
         f"{ {k: round(v[0], 6) for k, v in extra.items()} }")
     del packed
     return out, extra
@@ -939,6 +987,16 @@ def main() -> None:
         cuda_ms(lambda: scan_int8.int8_group_minima(*scan_args), 10),
         cuda_ms(lambda: scan_int8.int8_group_minima_plain(*scan_args), 3))
     extra["scan_int8"] = (*scan_bound(*scan_args[:5], packed), None)
+    # K1's yardsticks on the same operands: K2 at d_pad 128, and the int32
+    # dots alone
+    k2 = scan_int8.int8_group_minima_wide(*scan_args)
+    torch.cuda.synchronize()
+    k2_same = torch.equal(k2, packed_plain)
+    del k2
+    k2_ms = cuda_ms(lambda: scan_int8.int8_group_minima_wide(*scan_args), 10)
+    dots_ms = cuda_ms(lambda: dots_only(scan_args[0], scan_args[1]), 3)
+    if not k2_same:
+        fail("K2 at d_pad 128 disagrees with K1's plain minima")
     merges, keep, merge_extra = check_merge(packed, TOPK)
     result.update(merges)
     extra.update(merge_extra)
@@ -954,6 +1012,20 @@ def main() -> None:
                                                        packed_plain, smi)
     result.update(lab_rows)
     extra.update(lab_extra)
+    n_words = scan_args[3].shape[1]
+    pairs = BATCH * arena.n_padded
+    say(f"K1 yardsticks at Q={BATCH} x {arena.n_padded} rows x d_pad 128, "
+        f"W {n_words}, group {GROUP} ({smi}): K1 "
+        f"{result['scan_int8'][2]:.3f} ms; "
+        f"K2 on the same operands {k2_ms:.3f} ms (identical to K1's plain "
+        f"minima {k2_same}); dots only (torch._int_mm, 8 row chunks, int32 "
+        f"dots out; not K1's function, so not its library_ms) {dots_ms:.3f}"
+        f" ms; the first port's dp4a K1 {result['scan_int8_dp4a'][2]:.3f} "
+        f"ms; bound {extra['scan_int8'][0]:.6f} ms ({extra['scan_int8'][1]})"
+        f"; epilogue floor "
+        f"{K1_EPI_OPS(n_words) * pairs / INT32_OPS_S * 1e3:.6f} ms "
+        f"({K1_EPI_OPS(n_words)} integer operations a pair x {pairs} pairs at "
+        f"{INT32_OPS_S:.4g} a second)")
     del packed, packed_plain
     torch.cuda.empty_cache()
     graph_rows, graph_extra = check_graph_step(arena, workload, world,
@@ -1064,15 +1136,11 @@ def main() -> None:
     extra["scan_int8_wide"] = (*scan_bound(*wide_args[:5], packed), None)
     del packed_plain
 
-    def dots_only():
-        step = wide_args[1].shape[0] // 8
-        for r0 in range(0, wide_args[1].shape[0], step):
-            torch._int_mm(wide_args[0], wide_args[1][r0:r0 + step].t())
-
     say(f"dots only (torch._int_mm of the same int8 queries and rows, 8 "
         f"chunks of {wide_args[1].shape[0] // 8} rows, int32 dots out; no "
         f"epilogue, so not K2's function and not its library_ms) "
-        f"{cuda_ms(dots_only, 3):.3f} ms against K2's "
+        f"{cuda_ms(lambda: dots_only(wide_args[0], wide_args[1]), 3):.3f} "
+        f"ms against K2's "
         f"{result['scan_int8_wide'][2]:.3f} ms ({smi})")
     merges_kk, keep, _ = check_merge(packed, kk)
     report(f"kernel vs plain at Q={BATCH} x {arena.n_padded} rows x d_pad "
@@ -1130,6 +1198,18 @@ def main() -> None:
             "vectorsearch_rbac_tpu_torch/csrc/scan_int8_wide.cu",
             "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:343 (the mask_sb "
             "form of :295)"),
+        "scan_int8_split": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
+                            "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:40 "
+                            "(the tensor-core K1's other schedule, a lab "
+                            "form)"),
+        "scan_int8_onehot": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
+                             "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:"
+                             "40 (its one-hot admissibility matmul, a lab "
+                             "form)"),
+        "scan_int8_dp4a": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
+                           "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:40 "
+                           "(the first port's dp4a design, the lab's "
+                           "control)"),
         "scan_int8_trim": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
                            "scripts/r4_kernel_variants.py:37"),
         "scan_int8_floor": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",

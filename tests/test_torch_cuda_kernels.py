@@ -49,6 +49,17 @@ def _scan_inputs(rng, dev, nq, npad, d_pad, w):
     (300, 2048, 128, 8, 32, "ip", 0),
     (257, 1280, 256, 2, 64, "l2", 3),
     (2048, 8192, 128, 4, 128, "l2", 0),
+    # the tensor-core tile's corners: query counts that fill no 64- or
+    # 256-query tile, W 1-8, every group, d_pad 256, shifts 0, 3 and 9
+    # (the packing past 7), runs of row tiles that wrap the ring (1 query:
+    # one run per SM of 7-8 tiles; 2047: 16 runs of 12-13) or end unevenly
+    (1, 128000, 128, 3, 16, "ip", 9),
+    (37, 1152, 256, 5, 8, "l2", 3),
+    (65, 4736, 128, 6, 64, "l2", 9),
+    (65, 2048, 128, 1, 32, "l2", 3),
+    (129, 140800, 256, 7, 32, "ip", 0),
+    (2047, 25600, 128, 2, 128, "l2", 3),
+    (2047, 4736, 256, 8, 16, "ip", 9),
 ])
 def test_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group, metric,
                                    shift):
@@ -82,13 +93,20 @@ def test_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group, metric,
     (2048, 2048, 640, 6, 8, "l2", 7),
     (129, 1024, 512, 3, 16, "l2", 9),      # shifts past 7: the kernel's
     (40, 1024, 768, 6, 32, "ip", 12),      # other packing path
+    # d_pad 128 and 256, where the narrow kernel serves and K2 is its
+    # yardstick (chip_smoke.py phase 3)
+    (1, 1024, 128, 4, 128, "l2", 0),
+    (300, 2048, 256, 8, 32, "ip", 1),
+    (2047, 4096, 128, 3, 8, "l2", 9),
 ])
 def test_wide_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group,
                                         metric, shift):
     args = _scan_inputs(np.random.default_rng(nq), dev, nq, npad, d_pad, w)
     before = dict(_build.LAUNCHES)
-    got = scan_int8.int8_group_minima(*args, group=group, metric=metric,
-                                      score_shift=shift)
+    # rows of 256 or less route to the narrow kernel: K2 is called by name
+    scan = (scan_int8.int8_group_minima if d_pad > scan_int8.NARROW_MAX_D
+            else scan_int8.int8_group_minima_wide)
+    got = scan(*args, group=group, metric=metric, score_shift=shift)
     assert _build.LAUNCHES["scan_int8_wide"] == before["scan_int8_wide"] + 1
     assert _build.LAUNCHES["scan_int8"] == before["scan_int8"]
     want = scan_int8.int8_group_minima_wide_plain(
@@ -96,6 +114,30 @@ def test_wide_scan_kernel_bit_identical(dev, nq, npad, d_pad, w, group,
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert (got[:, 0] == scan_int8.MASKED_I32).all()
+
+
+@pytest.mark.parametrize("d_pad,group", [(128, 8), (256, 32)])
+def test_scan_kernel_extreme_operands(dev, d_pad, group):
+    """K1 with every product at its extreme (-128 * -128 and -128 * 127):
+    the tensor cores' signed int8 and exact int32 sums, l2 at shift 0,
+    where the packed scores come closest to the int32 range."""
+    nq, npad = 70, 512
+    x = np.full((npad, d_pad), -128, np.int8)
+    x[1::2] = 127
+    q = np.full((nq, d_pad), -128, np.int8)
+    q[::3, ::2] = 127
+    norms = np.einsum("nd,nd->n", x.astype(np.int64),
+                      x.astype(np.int64)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    bits = t(np.full((npad, 1), -1, np.int32))
+    args = (t(q), t(x), t(norms), bits, t(np.full((nq, 1), 1, np.int32)))
+    before = _build.LAUNCHES["scan_int8"]
+    got = scan_int8.int8_group_minima(*args, group=group, metric="l2")
+    assert _build.LAUNCHES["scan_int8"] == before + 1
+    want = scan_int8.int8_group_minima_plain(*args, group=group,
+                                             metric="l2")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_wide_kernel_extreme_operands(dev):
@@ -127,6 +169,16 @@ def test_wide_kernel_extreme_operands(dev):
     (272, 1280, 256, 2, 64, "l2", 3, 8, 0),
     (320, 8192, 128, 4, 16, "l2", 0, 16, 64),
     (2048, 8192, 128, 4, 32, "l2", 0, 16, 2048),
+    # mask_sb 8, 16 and 32 in both layouts (the contiguous layout with
+    # mask_sb a multiple of 16 takes the warp-uniform admit path), d_pad
+    # 256, shifts 3 and 9, W 1-8, rings that wrap
+    (64, 1152, 128, 2, 8, "l2", 3, 8, 0),
+    (256, 4736, 128, 5, 16, "ip", 9, 32, 0),
+    (512, 25600, 256, 3, 128, "l2", 0, 32, 0),
+    (96, 2048, 256, 6, 64, "l2", 3, 32, 96),
+    (2048, 25600, 128, 7, 32, "l2", 0, 16, 0),
+    (2048, 4736, 128, 1, 16, "ip", 3, 8, 512),
+    (32, 128000, 128, 8, 8, "l2", 9, 16, 0),
 ])
 def test_slot_form_bit_identical(dev, nq, npad, d_pad, w, group, metric,
                                  shift, sb, tile):
@@ -150,6 +202,48 @@ def test_slot_form_bit_identical(dev, nq, npad, d_pad, w, group, metric,
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(got, ctl)
     assert (got[:, 0] == scan_int8.MASKED_I32).all()
+
+
+@pytest.mark.parametrize("sb,tile", [(16, 0), (8, 0), (32, 0), (16, 256),
+                                     (8, 64), (32, 512)])
+def test_slot_form_skips_what_no_slot_admits(dev, sb, tile):
+    """Row tiles that a slot admits no row of, and tiles that no slot of a
+    block (nor of the batch) admits: rows of tile t carry role t % 4, 10%
+    of them outside role 0's tiles also role 5; slot s masks role s % 3 +
+    1 and, one slot in five, role 5. Role 0's tiles are admitted by nobody, each slot misses
+    two tiles of every four, and role 5 leaves mixed 8-row slices. The
+    slot form and the per-query form on the expanded masks must equal
+    the plain version."""
+    rng = np.random.default_rng(sb + tile)
+    nq, npad, d_pad, w = 512, 128 * 12, 128, 1
+    x8 = rng.integers(-128, 128, size=(npad, d_pad)).astype(np.int8)
+    q8 = rng.integers(-128, 128, size=(nq, d_pad)).astype(np.int8)
+    norms = np.einsum("nd,nd->n", x8.astype(np.int64),
+                      x8.astype(np.int64)).astype(np.int32)
+    tile_role = np.arange(npad) // 128 % 4
+    rbits = (1 << tile_role).astype(np.int32)
+    rbits[(rng.random(npad) < 0.1) & (tile_role != 0)] |= 1 << 5
+    slot = np.arange(nq // sb)
+    sbits = (1 << (slot % 3 + 1)).astype(np.int32)
+    sbits[slot % 5 == 0] |= 1 << 5
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = (t(q8), t(x8), t(norms), t(rbits[:, None]))
+    slots = t(sbits[:, None])
+    kw = dict(group=32, metric="l2", score_shift=0)
+    before = _build.LAUNCHES["scan_int8_slots"]
+    got = scan_int8.int8_group_minima(*args, slots, mask_sub_block=sb,
+                                      slot_tile=tile, **kw)
+    assert _build.LAUNCHES["scan_int8_slots"] == before + 1
+    want = scan_int8.int8_group_minima_plain(*args, slots, mask_sub_block=sb,
+                                             slot_tile=tile, **kw)
+    per_query = slots.index_select(0, scan_int8.slot_of_query(
+        nq, sb, tile, dev)).contiguous()
+    ctl = scan_int8.int8_group_minima(*args, per_query, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(ctl, want)
+    masked = scan_int8.MASKED_I32
+    assert (got[0:4] == masked).all()          # tile 0: role 0, nobody
+    assert (got[4:8] != masked).any()          # tile 1: some slots
 
 
 def test_tiled_searcher_cuda_equals_cpu(dev):
@@ -504,19 +598,23 @@ def test_hybrid_searcher_cuda_equals_cpu(dev):
 # ---- the kernel lab's kernels: K1's trim and floor epilogues (S1), K2's
 # slot form, the y-form extraction (S4) and bitonic sort (S5)
 
-@pytest.mark.parametrize("variant", ["trim", "floor"])
+@pytest.mark.parametrize("variant", ["dp4a", "trim", "floor", "split",
+                                     "onehot"])
 @pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift", [
     (1, 1024, 128, 4, 128, "l2", 0),
     (37, 1152, 128, 1, 8, "ip", 0),
     (257, 1280, 256, 8, 64, "l2", 3),
     (2048, 8192, 128, 4, 128, "l2", 0),
+    (65, 4736, 256, 3, 32, "ip", 9),
 ])
 def test_lab_scan_variants_bit_identical(dev, variant, nq, npad, d_pad, w,
                                          group, metric, shift):
-    """Each epilogue variant against its plain version; trim's minima are
-    also K1's."""
+    """Each variant of the dp4a kernel against its plain version; the
+    dp4a control's and trim's minima are also K1's."""
     from vectorsearch_rbac_tpu_torch.ops import lab_scan
 
+    if variant == "onehot" and w > 4:
+        w = 4                        # the one-hot form's 128 roles
     args = _scan_inputs(np.random.default_rng(nq + 7), dev, nq, npad, d_pad,
                         w)
     kw = dict(group=group, metric=metric, score_shift=shift)
@@ -529,7 +627,7 @@ def test_lab_scan_variants_bit_identical(dev, variant, nq, npad, d_pad, w,
                                      variant=variant, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
-    if variant == "trim":
+    if variant != "floor":
         assert torch.equal(got, scan_int8.int8_group_minima(*args, **kw))
 
 

@@ -5,11 +5,14 @@
 LEG is one of:
 
 - kernel: K1's epilogue split (scripts/r4_kernel_lab.py): 8192 queries x the
-  1M SIFT-like int8 arena, top-100, group 128. The control (K1, its raw
-  minima and K1 + the cascade merge), the trim epilogue (the same minima,
-  checked bit for bit, and its cascade ids against the control's) and the
-  floor probe (the dots and the shared-role count only). The floor's time
-  over the control's says what share of K1 the epilogue takes.
+  1M SIFT-like int8 arena, top-100, group 128. The control (K1 on the
+  tensor cores, its raw minima and K1 + the cascade merge), K1 on its
+  other schedule (split) and with one-hot admissibility (onehot), then
+  the first port's dp4a K1 (each the same minima, checked bit for bit),
+  the trim epilogue on that design (the same minima, and its cascade ids
+  against the control's) and the floor probe (the dots and the shared-role count
+  only, by dp4a). The floor's time over the dp4a kernel's says what share
+  of that design the epilogue takes.
 - merge: the y-form merge against the package's (scripts/r4_merge_lab4.py,
   r4_merge_lab5.py): 8192 x 8192 packed minima from numpy's
   default_rng(0) as the lab makes them, top-100. The cascade at t = 12
@@ -150,7 +153,7 @@ class Lab:
         control = int8_group_minima(*rows, group=128)
         _, ctl_ids = int8_masked_topk(*full, group=128, merge="cascade")
         out = {"control": control}
-        for variant in ("trim", "floor"):
+        for variant in ("split", "onehot", "dp4a", "trim", "floor"):
             out[variant], _ = int8_masked_topk_lab(*full, group=128,
                                                    merge="none",
                                                    variant=variant)
@@ -161,6 +164,9 @@ class Lab:
                                self.reps),
             "control+cascade": cuda_ms(lambda: int8_masked_topk(
                 *full, group=128, merge="cascade"), self.reps),
+            **{v: cuda_ms(lambda v=v: int8_masked_topk_lab(
+                *full, group=128, merge="none", variant=v), self.reps)
+               for v in ("split", "onehot", "dp4a")},
             "trim": cuda_ms(lambda: int8_masked_topk_lab(
                 *full, group=128, merge="none", variant="trim"), self.reps),
             "trim+cascade": cuda_ms(lambda: int8_masked_topk_lab(
@@ -171,6 +177,8 @@ class Lab:
         checks = {
             "control": "the control",
             "control+cascade": "the control",
+            **{v: {"minima_identical": torch.equal(out[v], control)}
+               for v in ("split", "onehot", "dp4a")},
             "trim": {"minima_identical": torch.equal(out["trim"], control)},
             "trim+cascade": {"ids_match": float(
                 (trim_ids == ctl_ids).float().mean())},
@@ -179,8 +187,9 @@ class Lab:
         for name, t in ms.items():
             self.emit("kernel", name, ms=t, check=checks[name], shape=shape)
         self.emit("kernel", "epilogue_share", value=(
-            ms["control"] - ms["floor"]) / ms["control"],
-            check="(control - floor) / control, raw minima", shape=shape)
+            ms["dp4a"] - ms["floor"]) / ms["dp4a"],
+            check="(dp4a - floor) / dp4a, raw minima: the dp4a design's "
+            "epilogue share", shape=shape)
 
     def merge(self) -> None:
         from ..ops import lab_merge

@@ -1,4 +1,5 @@
-// Fused RBAC-masked int8 scan with a packed group-minimum epilogue.
+// Fused RBAC-masked int8 scan with a packed group-minimum epilogue, for rows
+// of d_pad 128 or 256; the dots run on the int8 tensor cores (wgmma).
 //
 // Replaces the TPU kernel vectorsearch_rbac_tpu/ops/pallas_scan_int8.py
 // _make_kernel (launched by int8_masked_topk), the narrow d_pad <= 256 form,
@@ -13,18 +14,9 @@
 //   out[r / group, q] = min of packed over the group's rows
 // The TPU kernel tests admissibility as an int8 matmul of role one-hots
 // (roles8 . onehot8 > 0). core.bits_to_onehot8 expands the same bitsets bit
-// for bit, so the W-word AND here is the same predicate at W = 4 operations
-// per pair instead of a 128-deep dot. The shift is done on the unsigned
-// value: a left shift of a negative int is undefined in C++17, and L2 scores
-// before the query norm is added are often negative.
-//
-// What bounds it on an H100: integer issue rate. Every (row, query) pair
-// costs d_pad / 4 __dp4a plus ~W + 8 epilogue operations, while a row's
-// d_pad + 4 + 4W bytes are shared by every query of a tile: at a 2048-query
-// batch that is thousands of operations per byte read from device memory,
-// so the arena stream is far from the limit and the dp4a pipe is the limit.
-// The int8 tensor cores (wgmma) are not used yet; moving the dots there is
-// the next step for this kernel.
+// for bit, so the W-word AND here is the same predicate. Shifts and packs are
+// done on unsigned values: a left shift of a negative int is undefined in
+// C++17, and L2 scores before the query norm is added are often negative.
 //
 // The slot form (mask_sb > 0) reads the mask words of query q from row
 // slot(q) of a (Q / mask_sb, W) tensor instead of row q of a (Q, W) one:
@@ -33,15 +25,66 @@
 //                   nsb = slot_tile / mask_sb      (interleaved slots: the
 //                   TPU kernel's tile-style pltpu.repeat inside each q_tile)
 // and its output is bit for bit that of the per-query form on the expanded
-// masks. In the slot form a warp whose queries share one or two slots (the
-// contiguous layout with mask_sb >= 16) mostly agrees on admissibility, so
-// each row is first voted on across the warp (__any_sync) and its dots are
-// skipped when no query of the warp may read it: such a row packs to
-// 0x7F000000 whatever its score, so the output does not change.
+// masks.
 //
-// The lab's epilogue variants (also the lab kernel scripts/r4_kernel_variants.py
-// int8_masked_topk_lab, S1), selected by the kEpi template flag, per-query
-// masks only, as the lab's:
+// What bounds it on an H100. The dots are 2 * d_pad int8 operations a
+// (query, row) pair, 0.28 ms for 2048 queries x 1M rows x 128 on the tensor
+// cores; the first port ran them as d_pad / 4 __dp4a a pair on the CUDA
+// cores (7.1 ms, near what dp4a can issue). What is left on the CUDA cores
+// is the epilogue: per pair W AND/ORs for the admit test, one multiply-add
+// that scores and packs (the row's norm, pre-shifted, and its rank in the
+// group are one per-row base), and one predicated minimum: W + 2 integer
+// operations, 6 at W = 4, 0.77 ms at the card's 64 integer lanes an SM.
+// The design keeps everything else off that path.
+//
+// Design (scan_tc_kernel): a block holds 192 queries, three consumer
+// warpgroups of 64, and walks a run of 128-row tiles; the blocks are one
+// wave (q-tiles x runs <= the SMs, one block an SM), the q-tiles of a run
+// side by side, so that they read each row tile from L2 together. The
+// query tile comes once by TMA (128-byte swizzle, rows past nq as zeros).
+// One producer warp fills a ring of row-tile stages (6 at d_pad 128, 4 at
+// 256): the int8 rows by TMA; the tile's words and norms,
+// staged by cp.async one tile ahead, rewritten as two zero-padded planes
+// of 4 words a row, a base a row (norms[r] << (7 - shift) for l2, plus
+// r % group where the shift is 0, so that one multiply-add gives the
+// packed score), and one flag a consumer warpgroup: whether the tile's
+// roles meet the union of its queries' masks, so that a warpgroup skips
+// the dots and the epilogue of a tile it cannot read and writes its
+// minima as 0x7F000000. A consumer warpgroup issues wgmma.mma_async
+// m64n128k32 s32.s8.s8, queries on the M side and rows on the N side,
+// both K-major from shared memory, waits for it and runs the epilogue on
+// its accumulators; the warpgroups drift apart on the ring, so one's
+// epilogue runs under another's dots. A thread holds queries lane / 4 and
+// lane / 4 + 8 of its warp's 16 and, in each 8-row slice, 2 adjacent
+// rows: the group minimum is taken over its own columns and finished with
+// two quad shuffles (no shared memory). 13 warps put at most 4 on an SM
+// sub-partition: 128 registers a thread and no spills (a fourth consumer
+// warpgroup would leave 96 and spill; setmaxnreg cannot move registers
+// from the producer warp to the consumers, since it moves only what warps
+// of the block gave back). A second producer warp taking alternate tiles
+// was no faster: the producer is not what holds the kernel (PERF.md).
+//
+// Admissibility off the per-pair path (kWarpSlot): in the contiguous slot
+// layout with mask_sb a multiple of 16 -- the index's layout, mask_sb 16 --
+// a warp's 16 queries are one slot, so admission is the same for the whole
+// warp for each row. The warp takes the tile's 128 admit bits once (a lane
+// tests a row of each 32, W words, then a ballot), skips each 8-row slice
+// none of whose rows is admitted, and gates each of its two columns of a
+// slice on one bit: per admitted pair one multiply-add and one minimum.
+// Other slot layouts read their queries' slot rows in the per-query path.
+//
+// The kernel lab (vsr_scan_int8_lab) also runs two other forms of it on
+// per-query masks: kSplit, each tile's dots as two 64-row halves with each
+// half's epilogue under the next half's dots (slower than the warpgroups'
+// drift: PERF.md), and kOneHot, admissibility as the TPU kernel computes it,
+// the count of shared roles from a second wgmma over role one-hots (W <= 4)
+// expanded in shared memory, in place of the W-word AND a pair.
+//
+// The dp4a kernel (scan_int8_kernel below) is the first port's design, kept
+// for the kernel lab only (vsr_scan_int8_lab): its plain epilogue as a
+// control, and the lab's epilogue variants (also the lab kernel
+// scripts/r4_kernel_variants.py int8_masked_topk_lab, S1), selected by the
+// kEpi template flag, per-query masks only, as the lab's:
 //   kTrim:  the pack folded into the score arithmetic: l2 without a shift
 //           packs (norms[r] << 7) - (dots << 8) | lane, ip -dots << 7 | lane;
 //           with a shift the shift-then-pack chain above. Both are (score <<
@@ -52,26 +95,712 @@
 //           row and query share (the TPU's one-hot matmul count: the popcount
 //           of the AND summed over the W words). No pack, no lane, no mask.
 // The TPU lab's unroll and chunk knobs schedule Mosaic and size VMEM; they
-// have no counterpart here.
-//
-// Design: one thread per query keeps its int8 query row and its W mask words
-// in registers for the whole block. The block stages 128-row tiles of the
-// arena (rows, norms, bitsets) in shared memory, where all threads of a warp
-// read the same word at once (a broadcast, no bank conflict), and walks
-// kTilesPerBlock tiles so the query registers are loaded once per 1024 rows.
-// The group minimum is a running minimum in a register, stored once per
-// group as a coalesced row of the (n_groups, Q) output.
+// have no counterpart here. Its design: one thread per query keeps its int8
+// query row and its W mask words in registers, the block stages 128-row
+// tiles in shared memory (broadcast reads) and walks kTilesPerBlock of them;
+// the group minimum is a running minimum in a register.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tma_wgmma.cuh"
 
 namespace {
 
-constexpr int kTileRows = 128;      // rows staged in shared memory at a time
-constexpr int kThreads = 256;       // queries per block
-constexpr int kTilesPerBlock = 8;   // tiles a block walks with one query load
-constexpr int kMaxWords = 8;        // role bitset words: up to 256 roles
+constexpr int kMaxWords = 8;  // role bitset words: up to 256 roles
 constexpr int32_t kMasked = 0x7F000000;
+
+// ------------------------------------------------- the tensor-core kernel
+
+constexpr int kRows = 128;  // rows per tile: the wgmma N
+// Consumer warpgroups of 64 queries. With the producer warp they are 13
+// warps, at most 4 on each of the SM's sub-partitions, which have 16,384
+// registers each: 128 a thread. A fourth would leave 96, and spill.
+constexpr int kConsumers = 3;
+constexpr int kQueries = 64 * kConsumers;   // queries per block
+constexpr int kProducer = 4 * kConsumers;   // the producer's warp
+constexpr int kTcThreads = 32 * (kProducer + 1);
+// The main path's schedule (see consume); the lab times the other one.
+constexpr bool kSplitDefault = false;
+// a stage's row data: two planes of (kRows, 4) words, the bases, the flags
+constexpr int kPlaneBytes = 2 * kRows * 16;
+constexpr int kAuxBytes = kPlaneBytes + kRows * 4 + 16;
+// the producer's staging of one tile's raw words and norms (two buffers)
+constexpr int kStagingBytes = kRows * (kMaxWords + 1) * 4;
+
+// kOneHot (the lab's one-hot admissibility, W <= 4): the query tile's and
+// each stage's role one-hots, 128 roles a row, as a second wgmma operand.
+template <int D, bool kOneHot = false>
+struct Ring {
+  static constexpr int kChunks = D / 128;  // 128-byte d-chunks
+  static constexpr int kStages =
+      kOneHot ? (D == 128 ? 4 : 2) : (D == 128 ? 6 : 4);
+  static constexpr int kQBytes = kQueries * D;
+  static constexpr int kQHotBytes = kOneHot ? kQueries * 128 : 0;
+  static constexpr int kRowBytes = kRows * D;
+  static constexpr int kHotBytes = kOneHot ? kRows * 128 : 0;
+  static constexpr int kSmem =
+      1024  // slack to align to 1024 bytes
+      + kQBytes + kQHotBytes +
+      kStages * (kRowBytes + kHotBytes + kAuxBytes) + 2 * kStagingBytes +
+      (kOneHot ? 256 * 8 : 0)      // the byte -> 8 one-hot bytes table
+      + (2 * kStages + 1) * 8;     // mbarriers
+};
+
+struct ScanArgs {
+  const int32_t* norms;     // (Npad,)
+  const int32_t* row_bits;  // (Npad, W)
+  const int32_t* q_bits;    // (Q or Q / mask_sb, W)
+  int32_t* out;             // (Npad / group, Q)
+  int nq, n_tiles, n_qtiles, runs, w, group, l2, score_shift, mask_sb,
+      slot_tile;
+  int aligned16;  // row_bits and norms start on 16 bytes: 16-byte copies
+};
+
+// Where a block's shared memory lies.
+template <int D, bool kOneHot = false>
+struct Smem {
+  using R = Ring<D, kOneHot>;
+  uint32_t qtile;  // the query tile (1024-aligned: swizzle atoms)
+  uint32_t qhot;   // kOneHot: the query tile's role one-hots
+  uint32_t rows;   // the ring's row tiles
+  uint32_t hot;    // kOneHot: the ring's row one-hots
+  uint8_t* qhot_p;  // the same two regions, as generic pointers
+  uint8_t* hot_p;
+  uint8_t* aux;    // the ring's row data
+  uint8_t* staging;
+  uint2* spread;   // kOneHot: byte b -> 8 bytes, byte k = bit k of b
+  uint32_t bars;
+  __device__ Smem(uint8_t* smem_raw) {
+    const uint32_t raw = smem_addr(smem_raw);
+    uint8_t* p = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+    qtile = smem_addr(p);
+    qhot = qtile + R::kQBytes;
+    rows = qhot + R::kQHotBytes;
+    hot = rows + R::kStages * R::kRowBytes;
+    qhot_p = p + R::kQBytes;
+    hot_p = p + (hot - qtile);
+    aux = p + R::kQBytes + R::kQHotBytes +
+          R::kStages * (R::kRowBytes + R::kHotBytes);
+    staging = aux + R::kStages * kAuxBytes;
+    spread = reinterpret_cast<uint2*>(staging + 2 * kStagingBytes);
+    bars = smem_addr(spread + (kOneHot ? 256 : 0));
+  }
+  // full[s]: stage s's rows landed and its row data is written (the
+  // producer's 32 lanes and its byte count); empty[s]: the 16 consumer
+  // warps are done with it; qfull: the query tile landed
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const {
+    return bars + 8 * (R::kStages + s);
+  }
+  __device__ uint32_t qfull() const { return bars + 16 * R::kStages; }
+  __device__ const int4* planes(int s) const {
+    return reinterpret_cast<const int4*>(aux + s * kAuxBytes);
+  }
+  __device__ const int32_t* base(int s) const {
+    return reinterpret_cast<const int32_t*>(aux + s * kAuxBytes +
+                                            kPlaneBytes);
+  }
+  __device__ uint32_t* flags(int s) const {
+    return reinterpret_cast<uint32_t*>(aux + s * kAuxBytes + kPlaneBytes +
+                                       kRows * 4);
+  }
+};
+
+// The row of q_bits that query q reads.
+__device__ __forceinline__ int mask_row(const ScanArgs& a, int q) {
+  if (a.mask_sb == 0) return q;
+  if (a.slot_tile == 0) return q / a.mask_sb;
+  const int nsb = a.slot_tile / a.mask_sb;
+  return (q / a.slot_tile) * nsb + q % nsb;
+}
+
+// Row r of a one-hot operand (128 role bytes, 1 where the role is set) in
+// the 128-byte swizzle: 16-byte chunk c of the row lands at chunk c ^ (r % 8)
+// of its line.
+template <int D, bool kOneHot>
+__device__ __forceinline__ void hot_row(uint8_t* dst, int r,
+                                        const int32_t* words,
+                                        const Smem<D, kOneHot>& sm) {
+  uint8_t* line = dst + (r >> 3) * 1024 + (r & 7) * 128;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const uint32_t w = (uint32_t)words[c >> 1] >> (16 * (c & 1));
+    const uint2 lo = sm.spread[w & 0xFF], hi = sm.spread[(w >> 8) & 0xFF];
+    *reinterpret_cast<int4*>(line + ((c ^ (r & 7)) << 4)) =
+        make_int4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+// The producer warp: the query tile once, then for each row tile of the
+// block's run its stage of the ring: the rows by TMA; the words, staged by
+// cp.async one tile ahead (before the wait for the stage), as planes; the
+// bases; and one flag a consumer warpgroup: whether the tile's roles meet
+// the union of its queries' masks (any_r (row_r & U) != 0 is (OR_r row_r) &
+// U != 0).
+template <int D, int kWords, bool kPack0, bool kOneHot>
+__device__ __forceinline__ void produce(const CUtensorMap* q_map,
+                                        const CUtensorMap* x_map,
+                                        const ScanArgs& a,
+                                        const Smem<D, kOneHot>& sm, int q0,
+                                        int t_begin, int t_end) {
+  using R = Ring<D, kOneHot>;
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    mbar_expect(sm.qfull(), R::kQBytes);
+#pragma unroll
+    for (int c = 0; c < R::kChunks; ++c)
+      tma_load(sm.qtile + c * kQueries * 128, q_map, c * 128, q0, sm.qfull());
+  }
+  // lane g < kConsumers keeps the union of warpgroup g's masks
+  uint32_t uni[kWords];
+#pragma unroll
+  for (int m = 0; m < kWords; ++m) uni[m] = 0;
+#pragma unroll 1
+  for (int g = 0; g < kConsumers; ++g)
+#pragma unroll
+    for (int m = 0; m < kWords; ++m) {
+      uint32_t u = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = q0 + 64 * g + 32 * h + lane;
+        if (q < a.nq && m < a.w)
+          u |= (uint32_t)a.q_bits[(size_t)mask_row(a, q) * a.w + m];
+      }
+      u = __reduce_or_sync(0xffffffffu, u);
+      if (lane == g) uni[m] = u;
+    }
+  // staging buffer b: the tile's raw words (kRows x W), then its norms
+  auto stage_in = [&](int tile, int b) {
+    if (tile < t_end) {
+      const uint32_t dst = smem_addr(sm.staging + b * kStagingBytes);
+      const int32_t* words = a.row_bits + (size_t)tile * kRows * a.w;
+      const int32_t* norms = a.norms + (size_t)tile * kRows;
+      if (a.aligned16) {  // kRows * W words: W 16-byte pieces a lane
+        for (int e = lane; e < kRows * a.w / 4; e += 32)
+          cp_async16(dst + 16 * e, words + 4 * e);
+        cp_async16(dst + 4 * kRows * kMaxWords + 16 * lane, norms + 4 * lane);
+      } else {
+        for (int e = lane; e < kRows * a.w; e += 32)
+          cp_async4(dst + 4 * e, words + e, 4);
+#pragma unroll
+        for (int k = 0; k < kRows / 32; ++k)
+          cp_async4(dst + 4 * (kRows * kMaxWords + lane + 32 * k),
+                    norms + lane + 32 * k, 4);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  const int gm = a.group - 1;
+  const int up = a.score_shift <= 7 ? 7 - a.score_shift : 0;
+  stage_in(t_begin, 0);
+#pragma unroll 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin, s = i % R::kStages;
+    stage_in(t + 1, (i + 1) & 1);
+    if (i >= R::kStages) mbar_wait(sm.empty(s), ((i / R::kStages) + 1) & 1);
+    if (lane == 0) {
+      mbar_expect(sm.full(s), R::kRowBytes);
+#pragma unroll
+      for (int c = 0; c < R::kChunks; ++c)
+        tma_load(sm.rows + s * R::kRowBytes + c * kRows * 128, x_map,
+                 c * 128, t * kRows, sm.full(s));
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncwarp();  // every lane's staged words are in
+    const int32_t* stg =
+        reinterpret_cast<const int32_t*>(sm.staging + (i & 1) * kStagingBytes);
+    int4* planes = const_cast<int4*>(sm.planes(s));
+    int32_t* base = const_cast<int32_t*>(sm.base(s));
+    uint32_t any[kWords];
+#pragma unroll
+    for (int m = 0; m < kWords; ++m) any[m] = 0;
+#pragma unroll
+    for (int k = 0; k < kRows / 32; ++k) {
+      const int r = lane + 32 * k;
+      int32_t wd[kWords];
+#pragma unroll
+      for (int m = 0; m < kWords; ++m) {
+        wd[m] = m < a.w ? stg[r * a.w + m] : 0;
+        any[m] |= (uint32_t)wd[m];
+      }
+      planes[r] = make_int4(wd[0], wd[1], wd[2], wd[3]);
+      if (kWords > 4)
+        planes[kRows + r] = make_int4(wd[4 % kWords], wd[5 % kWords],
+                                      wd[6 % kWords], wd[7 % kWords]);
+      const uint32_t nr = (uint32_t)stg[kRows * kMaxWords + r];
+      base[r] = (int32_t)(kPack0 ? (a.l2 ? nr << 7 : 0u) + (uint32_t)(r & gm)
+                                 : (a.l2 ? nr << up : 0u));
+      if constexpr (kOneHot) hot_row(sm.hot_p + s * R::kHotBytes, r, wd, sm);
+    }
+    uint32_t hit = 0;
+#pragma unroll
+    for (int m = 0; m < kWords; ++m)
+      hit |= __reduce_or_sync(0xffffffffu, any[m]) & uni[m];
+    const uint32_t flags = __ballot_sync(0xffffffffu, hit != 0) &
+                           ((1u << kConsumers) - 1);
+    if (lane == 0) *sm.flags(s) = flags;
+    // the one-hots are read by wgmma, through the async proxy
+    if constexpr (kOneHot)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(sm.full(s));
+    __syncwarp();  // staging buffer i & 1 is read: it may be refilled
+  }
+}
+
+// The min of best and v where hit is nonzero: one predicated instruction.
+__device__ __forceinline__ void min_if(int32_t& best, int32_t hit,
+                                       int32_t v) {
+  asm("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p min.s32 %0, %0, %2;\n}"
+      : "+r"(best)
+      : "r"(hit), "r"(v));
+}
+
+// The packed score of one accumulator: v = dots * mul + base is the packed
+// key itself where the shift is 0 (kPack0); otherwise it is the score
+// shifted up by 7 - shift (down by `down` past 7), whose low 7 bits give way
+// to the row's rank in its group.
+template <bool kPack0>
+__device__ __forceinline__ int32_t pack(int32_t dots, uint32_t mul,
+                                        uint32_t base, int down,
+                                        uint32_t rank) {
+  uint32_t v = (uint32_t)dots * mul + base;
+  if (!kPack0) v = ((uint32_t)((int32_t)v >> down) & ~127u) | rank;
+  return (int32_t)v;
+}
+
+// A consumer thread's running state: the packed minima of its two queries
+// (qa, qa + 8) in the open group, and where the next group's go.
+struct Epi {
+  int32_t best[2];
+  int32_t* out;  // &out[g, qa] of the open group
+  size_t nq;
+  bool store[2];  // lane % 4 == 0 and the query exists
+  int gm, span;   // group - 1; 8-row slices a group
+  uint32_t mul;
+  int down;
+};
+
+__device__ __forceinline__ void close_group(Epi& e) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    e.best[i] = min(e.best[i], __shfl_xor_sync(0xffffffffu, e.best[i], 1));
+    e.best[i] = min(e.best[i], __shfl_xor_sync(0xffffffffu, e.best[i], 2));
+    if (e.store[i]) e.out[8 * i] = e.best[i];
+    e.best[i] = kMasked;
+  }
+  e.out += e.nq;
+}
+
+// The per-query epilogue of one 64-row half of a tile: acc[4 n + 2 i + j]
+// holds query qa + 8 i and row 64 kHalf + 8 n + 2 (lane % 4) + j.
+// kWords is 4 (W <= 4: the second plane is not read) or 8.
+template <int kHalf, int kWords, bool kPack0>
+__device__ __forceinline__ void half_pairs(const int32_t (&acc)[32],
+                                           const int32_t (&qw)[2][kWords],
+                                           const int4* __restrict__ planes,
+                                           const int32_t* __restrict__ base,
+                                           Epi& e) {
+  const int cl = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int n8 = 8 * kHalf + n;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = 8 * n8 + cl + j;
+      const int4 b0 = planes[r];
+      const int4 b1 = kWords > 4 ? planes[kRows + r] : make_int4(0, 0, 0, 0);
+      const uint32_t bs = (uint32_t)base[r];
+      const uint32_t rank = kPack0 ? 0u : (uint32_t)(r & e.gm);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        int32_t hit = (b0.x & qw[i][0]) | (b0.y & qw[i][1]) |
+                      (b0.z & qw[i][2]) | (b0.w & qw[i][3]);
+        if (kWords > 4)
+          hit |= (b1.x & qw[i][4]) | (b1.y & qw[i][5]) | (b1.z & qw[i][6]) |
+                 (b1.w & qw[i][7]);
+        min_if(e.best[i], hit,
+               pack<kPack0>(acc[4 * n + 2 * i + j], e.mul, bs, e.down, rank));
+      }
+    }
+    if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
+  }
+}
+
+// The warp slot's admit bits of one half: adm[k] bit l says whether the
+// slot admits row 64 kHalf + 32 k + l (the same in every lane).
+template <int kHalf>
+__device__ __forceinline__ void half_admit(uint32_t (&adm)[2],
+                                           const uint32_t (&sw)[kMaxWords],
+                                           const int4* __restrict__ planes) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int r = 64 * kHalf + 32 * k + lane;
+    const int4 b0 = planes[r], b1 = planes[kRows + r];
+    const uint32_t hit = (b0.x & sw[0]) | (b0.y & sw[1]) | (b0.z & sw[2]) |
+                         (b0.w & sw[3]) | (b1.x & sw[4]) | (b1.y & sw[5]) |
+                         (b1.z & sw[6]) | (b1.w & sw[7]);
+    adm[k] = __ballot_sync(0xffffffffu, hit != 0);
+  }
+}
+
+// The warp-slot epilogue of one half: an 8-row slice none of whose rows
+// the slot admits is skipped by the whole warp; a thread's two rows of a
+// slice are gated by one admit bit each, no test a pair.
+template <int kHalf, bool kPack0>
+__device__ __forceinline__ void half_slot(const int32_t (&acc)[32],
+                                          const uint32_t (&adm)[2],
+                                          const int32_t* __restrict__ base,
+                                          Epi& e) {
+  const int cl = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int n8 = 8 * kHalf + n;
+    const uint32_t slice = (adm[n / 4] >> (8 * (n % 4))) & 0xFFu;
+    if (slice != 0) {  // warp-uniform
+      const uint32_t mine = slice >> cl;  // bits 0, 1: this thread's rows
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 8 * n8 + cl + j;
+        if ((mine >> j) & 1u) {
+          const uint32_t bs = (uint32_t)base[r];
+          const uint32_t rank = kPack0 ? 0u : (uint32_t)(r & e.gm);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            e.best[i] = min(e.best[i], pack<kPack0>(acc[4 * n + 2 * i + j],
+                                                    e.mul, bs, e.down, rank));
+        }
+      }
+    }
+    if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
+  }
+}
+
+// One half's epilogue, in the path the template selects.
+template <int kHalf, int kWords, bool kPack0, bool kWarpSlot>
+__device__ __forceinline__ void half_epilogue(const int32_t (&acc)[32],
+                                              const int32_t (&qw)[2][kWords],
+                                              const uint32_t (&sw)[kMaxWords],
+                                              const int4* planes,
+                                              const int32_t* base, Epi& e) {
+  if (kWarpSlot) {
+    uint32_t adm[2];
+    half_admit<kHalf>(adm, sw, planes);
+    half_slot<kHalf, kPack0>(acc, adm, base, e);
+  } else {
+    half_pairs<kHalf, kWords, kPack0>(acc, qw, planes, base, e);
+  }
+}
+
+// The dots of one row tile (kHalf < 0: both halves as one m64n128 product
+// into lo and hi; else the half's m64n64 product into lo), committed as
+// one wgmma group.
+template <int D, int kHalf>
+__device__ __forceinline__ void issue_dots(int32_t (&lo)[32],
+                                           int32_t (&hi)[32], uint32_t a_wg,
+                                           uint32_t b_s) {
+  fence_acc(lo);
+  if constexpr (kHalf < 0) fence_acc(hi);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int c = 0; c < Ring<D>::kChunks; ++c)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint64_t da = sw128_desc(a_wg + c * kQueries * 128 + 32 * k);
+      const int acc = (c | k) != 0;
+      if constexpr (kHalf < 0)
+        wgmma_m64n128k32(lo, hi, da,
+                         sw128_desc(b_s + c * kRows * 128 + 32 * k), acc);
+      else
+        wgmma_m64n64k32(lo, da,
+                        sw128_desc(b_s + c * kRows * 128 + kHalf * 64 * 128 +
+                                   32 * k),
+                        acc);
+    }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// The shared-role counts of one 64-row half: the query tile's role one-hots
+// (a_hot) times the stage's (b_hot), K = 128 roles, as one wgmma group.
+template <int kHalf>
+__device__ __forceinline__ void issue_counts(int32_t (&cnt)[32],
+                                             uint32_t a_hot, uint32_t b_hot) {
+  fence_acc(cnt);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wgmma_m64n64k32(cnt, sw128_desc(a_hot + 32 * k),
+                    sw128_desc(b_hot + kHalf * 64 * 128 + 32 * k), k != 0);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// The one-hot epilogue of one half: cnt holds the number of roles a
+// (query, row) pair shares, the TPU kernel's admissibility count; the pair
+// is admitted where it is nonzero.
+template <int kHalf, bool kPack0>
+__device__ __forceinline__ void half_onehot(const int32_t (&acc)[32],
+                                            const int32_t (&cnt)[32],
+                                            const int32_t* __restrict__ base,
+                                            Epi& e) {
+  const int cl = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int n8 = 8 * kHalf + n;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = 8 * n8 + cl + j;
+      const uint32_t bs = (uint32_t)base[r];
+      const uint32_t rank = kPack0 ? 0u : (uint32_t)(r & e.gm);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        min_if(e.best[i], cnt[4 * n + 2 * i + j],
+               pack<kPack0>(acc[4 * n + 2 * i + j], e.mul, bs, e.down, rank));
+    }
+    if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A consumer warpgroup: 64 queries against every row tile of the run.
+// kSplit issues a tile's dots as two 64-row halves and runs each half's
+// epilogue under the next half's dots (the previous tile's second half
+// under this tile's first); otherwise one m64n128 product a tile, waited
+// for before its epilogue, and the warpgroups' drift overlaps one's
+// epilogue with another's dots.
+template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kSplit,
+          bool kOneHot>
+__device__ __forceinline__ void consume(const ScanArgs& a,
+                                        const Smem<D, kOneHot>& sm, int q0,
+                                        int t_begin, int t_end) {
+  using R = Ring<D, kOneHot>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int qw0 = q0 + 64 * wg + 16 * (warp % 4);  // the warp's first query
+  const int qa = qw0 + lane / 4;                   // and qa + 8
+  const int lg = __ffs(a.group) - 1;
+  Epi e;
+  e.best[0] = e.best[1] = kMasked;
+  e.out = a.out;
+  e.nq = (size_t)a.nq;
+  e.store[0] = lane % 4 == 0 && qa < a.nq;
+  e.store[1] = lane % 4 == 0 && qa + 8 < a.nq;
+  e.gm = a.group - 1;
+  e.span = a.group / 8;
+  const bool down = a.score_shift > 7;
+  e.mul = (uint32_t)(a.l2 ? -2 : -1) << (down ? 0 : 7 - a.score_shift);
+  e.down = down ? a.score_shift - 7 : 0;
+  int32_t qw[2][kWords];   // the per-query path: both queries' words
+  uint32_t sw[kMaxWords];  // the warp-slot path: the slot's words
+#pragma unroll
+  for (int m = 0; m < kMaxWords; ++m)
+    sw[m] = (kWarpSlot && m < a.w && qw0 < a.nq)
+                ? (uint32_t)a.q_bits[(size_t)(qw0 / a.mask_sb) * a.w + m]
+                : 0u;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = qa + 8 * i;
+#pragma unroll
+    for (int m = 0; m < kWords; ++m)
+      qw[i][m] = (!kWarpSlot && m < a.w && q < a.nq)
+                     ? a.q_bits[(size_t)mask_row(a, q) * a.w + m]
+                     : 0;
+  }
+  if constexpr (kOneHot) {  // the warpgroup's 64 query rows of one-hots
+    const int tw = threadIdx.x % 128, row = tw / 2, q = q0 + 64 * wg + row;
+    int32_t words[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      words[m] = m < a.w && q < a.nq ? a.q_bits[(size_t)q * a.w + m] : 0;
+    if (tw % 2 == 0) hot_row(sm.qhot_p + wg * 64 * 128, row, words, sm);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+  mbar_wait(sm.qfull(), 0);
+  const uint32_t a_wg = sm.qtile + wg * 64 * 128;
+  int32_t lo[32], hi[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) lo[i] = hi[i] = 0;
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.empty(s));
+  };
+  auto open_tile = [&](int t) {
+    e.out = a.out + ((size_t)t * kRows >> lg) * e.nq + qa;
+  };
+  auto masked_tile = [&](int t) {  // no query of the warpgroup admits a row
+    open_tile(t);
+#pragma unroll 1
+    for (int g = 0; g < (kRows >> lg); ++g) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (e.store[i]) e.out[8 * i] = kMasked;
+      e.out += e.nq;
+    }
+  };
+  // kSplit: the previous tile's stage and whether its second half runs
+  int s_prev = 0;
+  bool run_prev = false;
+#pragma unroll 1
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin, s = i % R::kStages;
+    mbar_wait(sm.full(s), (i / R::kStages) & 1);
+    const bool run = (*sm.flags(s) >> wg) & 1u;  // warpgroup-uniform
+    const uint32_t b_s = sm.rows + s * R::kRowBytes;
+    if constexpr (kOneHot) {  // per half: the dots and the counts, then
+      if (run) {              // the epilogue
+        const uint32_t a_hot = sm.qhot + wg * 64 * 128;
+        const uint32_t b_hot = sm.hot + s * R::kHotBytes;
+        open_tile(t);
+        issue_dots<D, 0>(lo, hi, a_wg, b_s);
+        issue_counts<0>(hi, a_hot, b_hot);
+        wgmma_wait<0>();
+        fence_acc(lo);
+        fence_acc(hi);
+        half_onehot<0, kPack0>(lo, hi, sm.base(s), e);
+        issue_dots<D, 1>(lo, hi, a_wg, b_s);
+        issue_counts<1>(hi, a_hot, b_hot);
+        wgmma_wait<0>();
+        fence_acc(lo);
+        fence_acc(hi);
+        half_onehot<1, kPack0>(lo, hi, sm.base(s), e);
+      } else {
+        masked_tile(t);
+      }
+      release(s);
+    } else if (kSplit) {
+      // every product is issued and waited for on every path, so that no
+      // wgmma wait sits in a data-dependent branch (ptxas would serialize
+      // them); a tile no query admits skips its epilogues only
+      issue_dots<D, 0>(lo, hi, a_wg, b_s);
+      if (i > 0) {
+        wgmma_wait<1>();
+        fence_acc(hi);
+        if (run_prev)
+          half_epilogue<1, kWords, kPack0, kWarpSlot>(
+              hi, qw, sw, sm.planes(s_prev), sm.base(s_prev), e);
+        release(s_prev);
+      }
+      issue_dots<D, 1>(hi, lo, a_wg, b_s);
+      wgmma_wait<1>();
+      fence_acc(lo);
+      if (run) {
+        open_tile(t);
+        half_epilogue<0, kWords, kPack0, kWarpSlot>(lo, qw, sw, sm.planes(s),
+                                                    sm.base(s), e);
+      } else {
+        masked_tile(t);
+      }
+      run_prev = run;
+      s_prev = s;
+    } else {
+      if (run) {
+        issue_dots<D, -1>(lo, hi, a_wg, b_s);
+        wgmma_wait<0>();
+        fence_acc(lo);
+        fence_acc(hi);
+        open_tile(t);
+        half_epilogue<0, kWords, kPack0, kWarpSlot>(lo, qw, sw, sm.planes(s),
+                                                    sm.base(s), e);
+        half_epilogue<1, kWords, kPack0, kWarpSlot>(hi, qw, sw, sm.planes(s),
+                                                    sm.base(s), e);
+      } else {
+        masked_tile(t);
+      }
+      release(s);
+    }
+  }
+  if (kSplit && !kOneHot && t_end > t_begin) {
+    wgmma_wait<0>();
+    fence_acc(hi);
+    if (run_prev)
+      half_epilogue<1, kWords, kPack0, kWarpSlot>(
+          hi, qw, sw, sm.planes(s_prev), sm.base(s_prev), e);
+    release(s_prev);
+  }
+}
+
+template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kSplit,
+          bool kOneHot>
+__global__ void __launch_bounds__(kTcThreads, 1)
+scan_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q8 (Q, D)
+               const __grid_constant__ CUtensorMap x_map,  // x8 (Npad, D)
+               const ScanArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D, kOneHot> sm(smem_raw);
+  const int q0 = (blockIdx.x % a.n_qtiles) * kQueries;
+  const int run = blockIdx.x / a.n_qtiles;
+  const int t_begin = (int)((long long)run * a.n_tiles / a.runs);
+  const int t_end = (int)((long long)(run + 1) * a.n_tiles / a.runs);
+  if constexpr (kOneHot)
+    for (int b = threadIdx.x; b < 256; b += kTcThreads) {
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        lo |= (uint32_t)((b >> k) & 1) << (8 * k);
+        hi |= (uint32_t)((b >> (k + 4)) & 1) << (8 * k);
+      }
+      sm.spread[b] = make_uint2(lo, hi);
+    }
+  if (threadIdx.x == 32 * kProducer) {
+    for (int s = 0; s < Ring<D, kOneHot>::kStages; ++s) {
+      mbar_init(sm.full(s), 33);
+      mbar_init(sm.empty(s), 4 * kConsumers);
+    }
+    mbar_init(sm.qfull(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x / 32 == kProducer)
+    produce<D, kWords, kPack0, kOneHot>(&q_map, &x_map, a, sm, q0, t_begin,
+                                        t_end);
+  else
+    consume<D, kWords, kPack0, kWarpSlot, kSplit, kOneHot>(a, sm, q0, t_begin,
+                                                           t_end);
+}
+
+template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kSplit,
+          bool kOneHot = false>
+cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
+                      const ScanArgs& a, int blocks, cudaStream_t stream) {
+  auto kernel = scan_tc_kernel<D, kWords, kPack0, kWarpSlot, kSplit, kOneHot>;
+  constexpr int smem = Ring<D, kOneHot>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kTcThreads, smem, stream>>>(q_map, x_map, a);
+  return cudaGetLastError();
+}
+
+// kSlots false: per-query masks only (the lab's other schedule).
+template <int D, bool kSplit, bool kSlots>
+cudaError_t dispatch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
+                        const ScanArgs& a, int blocks, cudaStream_t stream) {
+  const bool pack0 = a.score_shift == 0;
+  if constexpr (kSlots) {
+    if (a.mask_sb > 0 && a.slot_tile == 0 && a.mask_sb % 16 == 0)
+      return pack0 ? launch_tc<D, 8, true, true, kSplit>(q_map, x_map, a,
+                                                         blocks, stream)
+                   : launch_tc<D, 8, false, true, kSplit>(q_map, x_map, a,
+                                                          blocks, stream);
+  }
+  if (a.w <= 4)
+    return pack0 ? launch_tc<D, 4, true, false, kSplit>(q_map, x_map, a,
+                                                        blocks, stream)
+                 : launch_tc<D, 4, false, false, kSplit>(q_map, x_map, a,
+                                                         blocks, stream);
+  return pack0 ? launch_tc<D, 8, true, false, kSplit>(q_map, x_map, a, blocks,
+                                                      stream)
+               : launch_tc<D, 8, false, false, kSplit>(q_map, x_map, a,
+                                                       blocks, stream);
+}
+
+// ------------------------------------------------- the dp4a kernel (lab)
+
+constexpr int kTileRows = 128;     // rows staged in shared memory at a time
+constexpr int kThreads = 256;      // queries per block
+constexpr int kTilesPerBlock = 8;  // tiles a block walks with one query load
 constexpr int kPlain = 0, kTrim = 1, kFloor = 2;  // epilogue variants (kEpi)
 
 template <int D16>
@@ -88,19 +817,17 @@ __device__ __forceinline__ int32_t row_dot(const int4* x, const int4* qv) {
   return dot;
 }
 
-// kSlots selects the slot form and kEpi the epilogue at compile time, so that
-// the per-query form keeps the instruction stream it had before either
-// existed (a run-time slot flag cost 12%).
-template <int D16, bool kSlots, int kEpi>  // D16 = d_pad / 16: words per row
+// kEpi selects the epilogue at compile time (a run-time flag cost 12%).
+template <int D16, int kEpi>  // D16 = d_pad / 16: words per row
 __global__ void __launch_bounds__(kThreads)
 scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
                  const int8_t* __restrict__ x8,         // (Npad, d_pad)
                  const int32_t* __restrict__ norms,     // (Npad,)
                  const int32_t* __restrict__ row_bits,  // (Npad, W)
-                 const int32_t* __restrict__ q_bits,    // (Q or Q / mask_sb, W)
+                 const int32_t* __restrict__ q_bits,    // (Q, W)
                  int32_t* __restrict__ out,             // (Npad / group, Q)
                  int nq, int n_tiles, int w, int group, int l2,
-                 int score_shift, int mask_sb, int slot_tile) {
+                 int score_shift) {
   __shared__ int4 xs[kTileRows * D16];
   __shared__ int32_t ns[kTileRows];
   __shared__ int32_t bs[kTileRows * kMaxWords];
@@ -117,14 +844,9 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
     const int4* qrow = reinterpret_cast<const int4*>(q8) + (size_t)q * D16;
 #pragma unroll
     for (int i = 0; i < D16; ++i) qv[i] = qrow[i];
-    int row = q;  // the per-query form: row q of (Q, W)
-    if (kSlots) {
-      const int nsb = slot_tile / mask_sb;
-      row = slot_tile > 0 ? (q / slot_tile) * nsb + q % nsb : q / mask_sb;
-    }
 #pragma unroll
     for (int j = 0; j < kMaxWords; ++j)
-      if (j < w) qb[j] = q_bits[(size_t)row * w + j];
+      if (j < w) qb[j] = q_bits[(size_t)q * w + j];
   }
 
   const int lane_mask = group - 1;  // group is a power of two <= 128
@@ -141,25 +863,12 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
     for (int i = threadIdx.x; i < kTileRows * w; i += kThreads)
       bs[(i / w) * kMaxWords + i % w] = row_bits[row0 * w + i];
     __syncthreads();
-    // the slot form votes each row across the warp, so every lane of the
-    // warp walks every tile (an inactive lane's words stay 0: it admits
-    // nothing and stores nothing)
-    if (!kSlots && !active) continue;
+    if (!active) continue;
 
     int32_t best = kMasked;
 #pragma unroll 4
     for (int r = 0; r < kTileRows; ++r) {
-      int32_t dot = 0, hit = 0;
-      if (kSlots) {
-#pragma unroll
-        for (int j = 0; j < kMaxWords; ++j)
-          hit |= bs[r * kMaxWords + j] & qb[j];
-        // warp-uniform: the whole warp takes the dots or skips them
-        if (__any_sync(0xffffffffu, hit != 0))
-          dot = row_dot<D16>(xs + r * D16, qv);
-      } else {
-        dot = row_dot<D16>(xs + r * D16, qv);
-      }
+      const int32_t dot = row_dot<D16>(xs + r * D16, qv);
       const int lane = r & lane_mask;  // row0 is a multiple of group
       int32_t packed;
       if (kEpi == kFloor) {
@@ -178,68 +887,120 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
           score >>= score_shift;
           p = (uint32_t)score << 7;
         }
-        if (!kSlots) {
+        int32_t hit = 0;
 #pragma unroll
-          for (int j = 0; j < kMaxWords; ++j)
-            hit |= bs[r * kMaxWords + j] & qb[j];
-        }
+        for (int j = 0; j < kMaxWords; ++j)
+          hit |= bs[r * kMaxWords + j] & qb[j];
         packed = hit ? (int32_t)(p | (uint32_t)lane) : kMasked;
       }
       best = lane == 0 ? packed : min(best, packed);
-      if (lane == lane_mask && (!kSlots || active))
-        out[((row0 + r) / group) * (size_t)nq + q] = best;
+      if (lane == lane_mask) out[((row0 + r) / group) * (size_t)nq + q] = best;
     }
   }
 }
 
 template <int D16>
-void launch(const void* q8, const void* x8, const void* norms,
-            const void* row_bits, const void* q_bits, void* out, int nq,
-            int npad, int w, int group, int l2, int score_shift, int mask_sb,
-            int slot_tile, int variant, cudaStream_t stream) {
+void launch_dp4a(const void* q8, const void* x8, const void* norms,
+                 const void* row_bits, const void* q_bits, void* out, int nq,
+                 int npad, int w, int group, int l2, int score_shift,
+                 int variant, cudaStream_t stream) {
   const int n_tiles = npad / kTileRows;
   const dim3 grid((n_tiles + kTilesPerBlock - 1) / kTilesPerBlock,
                   (nq + kThreads - 1) / kThreads);
-  auto kernel = mask_sb > 0          ? scan_int8_kernel<D16, true, kPlain>
-                : variant == kTrim   ? scan_int8_kernel<D16, false, kTrim>
-                : variant == kFloor  ? scan_int8_kernel<D16, false, kFloor>
-                                     : scan_int8_kernel<D16, false, kPlain>;
+  auto kernel = variant == kTrim    ? scan_int8_kernel<D16, kTrim>
+                : variant == kFloor ? scan_int8_kernel<D16, kFloor>
+                                    : scan_int8_kernel<D16, kPlain>;
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(q8), static_cast<const int8_t*>(x8),
       static_cast<const int32_t*>(norms), static_cast<const int32_t*>(row_bits),
       static_cast<const int32_t*>(q_bits), static_cast<int32_t*>(out), nq,
-      n_tiles, w, group, l2, score_shift, mask_sb, slot_tile);
+      n_tiles, w, group, l2, score_shift);
 }
 
-int scan(const void* q8, const void* x8, const void* norms,
-         const void* row_bits, const void* q_bits, void* out, int nq,
-         int npad, int d_pad, int w, int group, int l2, int score_shift,
-         int mask_sb, int slot_tile, int variant, void* stream) {
-  const bool group_ok = group >= 1 && group <= kTileRows &&
-                        (group & (group - 1)) == 0;
+bool shapes_ok(int nq, int npad, int d_pad, int w, int group,
+               int score_shift, int mask_sb, int slot_tile) {
+  const bool group_ok =
+      group >= 8 && group <= kRows && (group & (group - 1)) == 0;
   const bool slots_ok =
       mask_sb == 0 ||
-      (mask_sb > 0 && variant == kPlain && nq % mask_sb == 0 &&
+      (mask_sb > 0 && nq % mask_sb == 0 &&
        (slot_tile == 0 ||
         (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
-  if (nq < 1 || npad < kTileRows || npad % kTileRows != 0 || !group_ok ||
-      w < 1 || w > kMaxWords || score_shift < 0 || score_shift > 31 ||
-      !slots_ok || variant < kPlain || variant > kFloor)
+  return nq >= 1 && npad >= kRows && npad % kRows == 0 &&
+         (d_pad == 128 || d_pad == 256) && group_ok && w >= 1 &&
+         w <= kMaxWords && score_shift >= 0 && score_shift <= 31 && slots_ok;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 1;
+  return n;
+}
+
+// The tensor-core kernel's forms: the main path's, and the lab's (per-query
+// masks only) other schedule and one-hot admissibility (W <= 4).
+constexpr int kFormMain = 0, kFormOther = 1, kFormOneHot = 2;
+
+int scan_tc(const void* q8, const void* x8, const void* norms,
+            const void* row_bits, const void* q_bits, void* out, int nq,
+            int npad, int d_pad, int w, int group, int l2, int score_shift,
+            int mask_sb, int slot_tile, int form, void* stream) {
+  if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, mask_sb,
+                 slot_tile) ||
+      (form != kFormMain && mask_sb != 0) || (form == kFormOneHot && w > 4))
     return (int)cudaErrorInvalidValue;
+  ScanArgs a;
+  a.norms = static_cast<const int32_t*>(norms);
+  a.row_bits = static_cast<const int32_t*>(row_bits);
+  a.q_bits = static_cast<const int32_t*>(q_bits);
+  a.out = static_cast<int32_t*>(out);
+  a.nq = nq;
+  a.n_tiles = npad / kRows;
+  a.n_qtiles = (nq + kQueries - 1) / kQueries;
+  // one wave: the q-tiles of a run side by side, as many runs as fill the
+  // SMs (one block an SM)
+  a.runs = sm_count() / a.n_qtiles;
+  if (a.runs < 1) a.runs = 1;
+  if (a.runs > a.n_tiles) a.runs = a.n_tiles;
+  a.w = w;
+  a.group = group;
+  a.l2 = l2;
+  a.score_shift = score_shift;
+  a.mask_sb = mask_sb;
+  a.slot_tile = slot_tile;
+  a.aligned16 = ((uintptr_t)row_bits | (uintptr_t)norms) % 16 == 0;
+  const long long blocks = (long long)a.n_qtiles * a.runs;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap q_map, x_map;
+  cudaError_t err = box_map(&q_map, q8, nq, d_pad, kQueries);
+  if (err == cudaSuccess) err = box_map(&x_map, x8, npad, d_pad, kRows);
+  if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d_pad) {
-    case 128:
-      launch<8>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group, l2,
-                score_shift, mask_sb, slot_tile, variant, s);
-      break;
-    case 256:
-      launch<16>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group, l2,
-                 score_shift, mask_sb, slot_tile, variant, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const int nb = (int)blocks;
+  const bool pack0 = score_shift == 0;
+  if (form == kFormOneHot)
+    err = d_pad == 128
+              ? (pack0 ? launch_tc<128, 4, true, false, false, true>(
+                             q_map, x_map, a, nb, s)
+                       : launch_tc<128, 4, false, false, false, true>(
+                             q_map, x_map, a, nb, s))
+              : (pack0 ? launch_tc<256, 4, true, false, false, true>(
+                             q_map, x_map, a, nb, s)
+                       : launch_tc<256, 4, false, false, false, true>(
+                             q_map, x_map, a, nb, s));
+  else if (form == kFormOther)
+    err = d_pad == 128
+              ? dispatch_tc<128, !kSplitDefault, false>(q_map, x_map, a, nb, s)
+              : dispatch_tc<256, !kSplitDefault, false>(q_map, x_map, a, nb,
+                                                        s);
+  else
+    err = d_pad == 128
+              ? dispatch_tc<128, kSplitDefault, true>(q_map, x_map, a, nb, s)
+              : dispatch_tc<256, kSplitDefault, true>(q_map, x_map, a, nb, s);
+  return (int)err;
 }
 
 }  // namespace
@@ -253,19 +1014,35 @@ extern "C" int vsr_scan_int8(const void* q8, const void* x8, const void* norms,
                              void* out, int nq, int npad, int d_pad, int w,
                              int group, int l2, int score_shift, int mask_sb,
                              int slot_tile, void* stream) {
-  return scan(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group,
-              l2, score_shift, mask_sb, slot_tile, kPlain, stream);
+  return scan_tc(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w,
+                 group, l2, score_shift, mask_sb, slot_tile, kFormMain, stream);
 }
 
-// The lab's epilogue variants on per-query masks: variant 1 trim, 2 floor.
+// The kernel lab's scans on per-query masks: variants 0-2 the dp4a kernel
+// (0 its plain epilogue, the first port's K1; 1 trim; 2 floor); 3 the
+// tensor-core kernel on the schedule the main path does not take; 4 the
+// tensor-core kernel with admissibility as the TPU kernel computes it, a
+// count of shared roles from a second wgmma over role one-hots (W <= 4).
 extern "C" int vsr_scan_int8_lab(const void* q8, const void* x8,
                                  const void* norms, const void* row_bits,
                                  const void* q_bits, void* out, int nq,
                                  int npad, int d_pad, int w, int group, int l2,
                                  int score_shift, int variant, void* stream) {
-  if (variant != kTrim && variant != kFloor) return (int)cudaErrorInvalidValue;
-  return scan(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group,
-              l2, score_shift, 0, 0, variant, stream);
+  if (variant == 3 || variant == 4)
+    return scan_tc(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w,
+                   group, l2, score_shift, 0, 0,
+                   variant == 3 ? kFormOther : kFormOneHot, stream);
+  if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, 0, 0) ||
+      variant < kPlain || variant > kFloor)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d_pad == 128)
+    launch_dp4a<8>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group,
+                   l2, score_shift, variant, s);
+  else
+    launch_dp4a<16>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group,
+                    l2, score_shift, variant, s);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* vsr_error_string(int err) {

@@ -69,11 +69,7 @@
 // reads the second plane only where W > 4. Two blocks fit an SM (~104 KB
 // of shared memory, 114 registers, no spills).
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled
-                   // comes from the runtime's entry-point query (no -lcuda)
-#include <cuda_runtime.h>
-#include <cudaTypedefs.h>
-#include <stdint.h>
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -93,106 +89,6 @@ constexpr int kSmemBytes = 1024  // slack to align the ring to 1024 bytes
                            + 2 * kStages * 8;  // full and empty mbarriers
 
 static_assert(kQueries * kChunk == kTileBytes, "tile bytes");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// arrive, and expect `bytes` more from the copies that complete on `bar`
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// one 128-byte x 128-row box of a K-major int8 matrix into shared memory,
-// in the 128-byte swizzle; rows past the matrix arrive as zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int col, int row, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
-      : "memory");
-}
-
-// K-major operand in the 128-byte swizzle: 8-row atoms of 1024 bytes, one
-// atom after another (stride byte offset 1024; the leading byte offset is
-// not read for this layout), layout type 1 (SWIZZLE_128B) in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma.
-__device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d (64 queries x 128 rows, int32) += A (64 x 32 int8) . B (128 x 32 int8)^T
-__device__ __forceinline__ void wgmma_m64n128k32(int32_t (&d)[64],
-                                                 uint64_t desc_a,
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
 
 // The epilogue of one tile: score, shift, admissibility, pack, group
 // minimum, store. Thread (warp, lane) of a warpgroup holds queries qa and
@@ -372,37 +268,6 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
                            score_shift);
 }
 
-// The tensor map of a (rows, d_pad) int8 matrix, read in 128-byte x 128-row
-// boxes in the 128-byte swizzle.
-cudaError_t box_map(CUtensorMap* map, const void* base, int rows, int d_pad) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)d_pad, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d_pad};
-  const cuuint32_t box[2] = {kChunk, 128};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for shapes the kernel does not
@@ -429,8 +294,8 @@ extern "C" int vsr_scan_int8_wide(const void* q8, const void* x8,
   const long long blocks = n_qtiles * (npad / kRows);
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   CUtensorMap q_map, x_map;
-  cudaError_t err = box_map(&q_map, q8, nq, d_pad);
-  if (err == cudaSuccess) err = box_map(&x_map, x8, npad, d_pad);
+  cudaError_t err = box_map(&q_map, q8, nq, d_pad, kQueries);
+  if (err == cudaSuccess) err = box_map(&x_map, x8, npad, d_pad, kRows);
   auto kernel = mask_sb > 0 ? scan_int8_wide_kernel<true>
                             : scan_int8_wide_kernel<false>;
   if (err == cudaSuccess)

@@ -3,9 +3,9 @@
 Every `*.cu` file under the package's `csrc/` compiles, one nvcc process
 per source and all of them at once, into an object for `sm_90a` (Hopper);
 the objects link into ONE shared library with a plain C interface. The
-library's
-name carries a hash of the sources, so an edited kernel never loads a
-stale build and an unchanged one builds once per checkout. The build runs
+library's name carries a hash of the sources and of the headers they
+include (`csrc/*.cuh`), so an edited kernel or header never loads a stale
+build and an unchanged one builds once per checkout. The build runs
 at first use, never at import: the CPU-only test environment imports every
 module and has no nvcc.
 
@@ -39,13 +39,15 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # "scan_int8" counts every launch of the narrow scan, "scan_int8_slots" the
 # launches of its admit-dedup slot form among them, and "scan_int8_wide" /
 # "scan_int8_wide_slots" the same for the wide scan. The kernel lab's
-# variants count on their own: the scan's trim and floor epilogues, the
-# y-form extraction and the y-form bitonic sort in its two forms.
+# variants count on their own: the dp4a scan's plain, trim and floor
+# epilogues, the narrow scan's split schedule and one-hot form, the y-form
+# extraction and the y-form bitonic sort in its two forms.
 LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
             "scan_int8_wide_slots": 0, "merge_extract": 0,
             "merge_bitonic": 0, "graph_score": 0, "graph_merge": 0,
-            "scan_int8_trim": 0, "scan_int8_floor": 0, "merge_y_extract": 0,
-            "merge_y_sort": 0, "merge_y_pairs": 0}
+            "scan_int8_dp4a": 0, "scan_int8_trim": 0, "scan_int8_floor": 0,
+            "scan_int8_split": 0, "scan_int8_onehot": 0,
+            "merge_y_extract": 0, "merge_y_sort": 0, "merge_y_pairs": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -86,6 +88,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -101,7 +107,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in (*_sources(), *_headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvsrbac_kernels_{h.hexdigest()[:16]}.so"

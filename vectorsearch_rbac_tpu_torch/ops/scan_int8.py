@@ -1,18 +1,19 @@
 """Fused int8 RBAC-masked scan, its decode, and the result wire.
 
 Counterpart of vectorsearch_rbac_tpu/ops/pallas_scan_int8.py. The scan
-itself is two hand-written CUDA kernels: csrc/scan_int8.cu for d_pad <= 256
-and csrc/scan_int8_wide.cu for wider rows (see the notes there), chosen by
-d_pad as the reference chooses between int8_masked_topk and
-int8_masked_topk_wide. `int8_group_minima_plain` is the plain PyTorch
+itself is two hand-written CUDA kernels, both with their dots on the int8
+tensor cores: csrc/scan_int8.cu for d_pad <= 256 and csrc/scan_int8_wide.cu
+for wider rows (see the notes there), chosen by d_pad as the reference
+chooses between int8_masked_topk and int8_masked_topk_wide. `int8_group_minima_plain` is the plain PyTorch
 version of both (`int8_group_minima_wide_plain` names it for the wide
 kernel), used for CPU tensors and as the reference the kernels are checked
 against on the card.
 
 Admissibility is read from the (N, W) role bitsets directly, as an int32
 view of the uint32 words, not from int8 role one-hots: the kernel ANDs
-W words per pair, which is the same predicate as the TPU kernel's one-hot
-matmul (core.bits_to_onehot8 is a bit-for-bit expansion).
+W words per pair (in the index's slot layout once per row and warp),
+which is the same predicate as the TPU kernel's one-hot matmul
+(core.bits_to_onehot8 is a bit-for-bit expansion).
 
 The admit-dedup slot form of the narrow scan (`mask_sub_block`: one mask
 row per slot of `mask_sub_block` queries, ROADMAP queue 2's S2) takes
