@@ -29,11 +29,10 @@ without a CUDA device or without the port's package beside it. Phases:
    per-query form's time on the same masks, and the slot form's epilogue
    floor over the admitted pairs;
 3e. the kernel lab's path (bench/lab.py's entry points) on phase 3's
-   operands: the narrow scan's split schedule and one-hot admissibility,
-   the dp4a scan's plain (the control), trim and floor epilogues,
-   extract_merge and
-   extract_merge_v2 on phase 3's 2048 x 8192-group minima, the y-form
-   extraction (sub 128, t 8 and 16) and both y-form sorts (keep 128), with
+   operands: the dp4a scan's plain (the control), trim and floor
+   epilogues, extract_merge and extract_merge_v2 on phase 3's 2048 x
+   8192-group minima, the y-form extraction (sub 128, t 8 and 16) and
+   both y-form sorts (keep 128), with
    the counts set to 0 just before and read just after; then each of these
    kernels against its plain version, bit-identical, beside its bound and
    torch.topk's time on each merge kernel's own input (and over the whole
@@ -451,9 +450,8 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     full = (q8, qn, x8, norms, bits, qbits, 1.0, TOPK)
     lab_kw = dict(group=group, metric=metric, score_shift=shift)
     _build.reset_launches()
-    for variant in ("split", "onehot", "dp4a"):
-        lab_scan.int8_masked_topk_lab(*full, merge="none", variant=variant,
-                                      **lab_kw)
+    lab_scan.int8_masked_topk_lab(*full, merge="none", variant="dp4a",
+                                  **lab_kw)
     lab_scan.int8_masked_topk_lab(*full, variant="trim", **lab_kw)
     lab_scan.int8_masked_topk_lab(*full, merge="none", variant="floor",
                                   **lab_kw)
@@ -464,9 +462,8 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
                                 128)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    lab_kernels = ("scan_int8_split", "scan_int8_onehot", "scan_int8_dp4a",
-                   "scan_int8_trim", "scan_int8_floor", "merge_y_extract",
-                   "merge_y_sort", "merge_y_pairs")
+    lab_kernels = ("scan_int8_dp4a", "scan_int8_trim", "scan_int8_floor",
+                   "merge_y_extract", "merge_y_sort", "merge_y_pairs")
     idle = [k for k in lab_kernels if launches[k] == 0]
     if idle:
         fail(f"the kernel lab's path never launched {idle}")
@@ -474,8 +471,7 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     out, extra = {}, {}
     out_meta = torch.empty(packed.shape, dtype=torch.int32, device="meta")
     k1_plain = lambda: scan_int8.int8_group_minima_plain(*rows, **lab_kw)
-    plains = {"split": k1_plain, "onehot": k1_plain, "dp4a": k1_plain,
-              "trim": k1_plain,
+    plains = {"dp4a": k1_plain, "trim": k1_plain,
               "floor": lambda: lab_scan.floor_minima_plain(*rows, group)}
     for variant, plain_fn in plains.items():
         fn = lambda v=variant: lab_scan.lab_group_minima(*rows, variant=v,
@@ -533,7 +529,7 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     extra["merge_y_sort"] = (*bound_ms(nbytes(y, ys), 0, 1), keep_ms)
     extra["merge_y_pairs"] = (*bound_ms(nbytes(y, yp, gp), 0, 1), keep_ms)
     report(f"kernel lab vs plain at Q={q8.shape[0]} x {x8.shape[0]} rows "
-           f"(split, onehot, dp4a, trim, floor: group {group}) and on the "
+           f"(dp4a, trim, floor: group {group}) and on the "
            f"{packed.shape[0]} x "
            f"{packed.shape[1]} minima (y-form: sub 128, t 8 and 16, keep "
            f"128; timed at t 8) ({smi}); tolerance 0:", out)
@@ -1198,14 +1194,6 @@ def main() -> None:
             "vectorsearch_rbac_tpu_torch/csrc/scan_int8_wide.cu",
             "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:343 (the mask_sb "
             "form of :295)"),
-        "scan_int8_split": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
-                            "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:40 "
-                            "(the tensor-core K1's other schedule, a lab "
-                            "form)"),
-        "scan_int8_onehot": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
-                             "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:"
-                             "40 (its one-hot admissibility matmul, a lab "
-                             "form)"),
         "scan_int8_dp4a": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
                            "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:40 "
                            "(the first port's dp4a design, the lab's "

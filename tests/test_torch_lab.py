@@ -108,10 +108,9 @@ def test_trim_merges_like_k1(scan_prob):
 
 @pytest.mark.parametrize("metric,shift", [("l2", 0), ("ip", 3)])
 def test_dp4a_variant_is_k1_plain(scan_prob, metric, shift):
-    """The lab's dp4a K1 (the control of trim and floor) and the
-    tensor-core K1's split schedule and one-hot form have K1's plain
-    minima as their CPU path and counters of their own; an unknown
-    variant is refused."""
+    """The lab's dp4a K1 (the control of trim and floor) has K1's plain
+    minima as its CPU path and a counter of its own; an unknown variant is
+    refused."""
     from vectorsearch_rbac_tpu_torch.ops import _build
     from vectorsearch_rbac_tpu_torch.ops.scan_int8 import (
         int8_group_minima_plain)
@@ -124,11 +123,7 @@ def test_dp4a_variant_is_k1_plain(scan_prob, metric, shift):
     got = lab_scan.lab_group_minima(*rows, variant="dp4a", **kw)
     assert torch.equal(got, int8_group_minima_plain(*rows, **kw))
     assert lab_scan.VARIANTS["dp4a"] == 0
-    assert set(lab_scan.VARIANTS) == {"dp4a", "trim", "floor", "split",
-                                      "onehot"}
-    for v in ("split", "onehot"):   # the tensor-core forms: K1's too
-        assert torch.equal(lab_scan.lab_group_minima(*rows, variant=v, **kw),
-                           got)
+    assert set(lab_scan.VARIANTS) == {"dp4a", "trim", "floor"}
     assert all(f"scan_int8_{v}" in _build.LAUNCHES for v in lab_scan.VARIANTS)
     with pytest.raises(ValueError, match="not one of"):
         lab_scan.lab_group_minima(*rows, variant="plain", **kw)

@@ -6,9 +6,8 @@ LEG is one of:
 
 - kernel: K1's epilogue split (scripts/r4_kernel_lab.py): 8192 queries x the
   1M SIFT-like int8 arena, top-100, group 128. The control (K1 on the
-  tensor cores, its raw minima and K1 + the cascade merge), K1 on its
-  other schedule (split) and with one-hot admissibility (onehot), then
-  the first port's dp4a K1 (each the same minima, checked bit for bit),
+  tensor cores, its raw minima and K1 + the cascade merge), the first
+  port's dp4a K1 (the same minima, checked bit for bit),
   the trim epilogue on that design (the same minima, and its cascade ids
   against the control's) and the floor probe (the dots and the shared-role count
   only, by dp4a). The floor's time over the dp4a kernel's says what share
@@ -153,7 +152,7 @@ class Lab:
         control = int8_group_minima(*rows, group=128)
         _, ctl_ids = int8_masked_topk(*full, group=128, merge="cascade")
         out = {"control": control}
-        for variant in ("split", "onehot", "dp4a", "trim", "floor"):
+        for variant in ("dp4a", "trim", "floor"):
             out[variant], _ = int8_masked_topk_lab(*full, group=128,
                                                    merge="none",
                                                    variant=variant)
@@ -164,9 +163,8 @@ class Lab:
                                self.reps),
             "control+cascade": cuda_ms(lambda: int8_masked_topk(
                 *full, group=128, merge="cascade"), self.reps),
-            **{v: cuda_ms(lambda v=v: int8_masked_topk_lab(
-                *full, group=128, merge="none", variant=v), self.reps)
-               for v in ("split", "onehot", "dp4a")},
+            "dp4a": cuda_ms(lambda: int8_masked_topk_lab(
+                *full, group=128, merge="none", variant="dp4a"), self.reps),
             "trim": cuda_ms(lambda: int8_masked_topk_lab(
                 *full, group=128, merge="none", variant="trim"), self.reps),
             "trim+cascade": cuda_ms(lambda: int8_masked_topk_lab(
@@ -177,8 +175,7 @@ class Lab:
         checks = {
             "control": "the control",
             "control+cascade": "the control",
-            **{v: {"minima_identical": torch.equal(out[v], control)}
-               for v in ("split", "onehot", "dp4a")},
+            "dp4a": {"minima_identical": torch.equal(out["dp4a"], control)},
             "trim": {"minima_identical": torch.equal(out["trim"], control)},
             "trim+cascade": {"ids_match": float(
                 (trim_ids == ctl_ids).float().mean())},

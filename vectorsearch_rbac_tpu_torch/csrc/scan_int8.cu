@@ -14,9 +14,11 @@
 //   out[r / group, q] = min of packed over the group's rows
 // The TPU kernel tests admissibility as an int8 matmul of role one-hots
 // (roles8 . onehot8 > 0). core.bits_to_onehot8 expands the same bitsets bit
-// for bit, so the W-word AND here is the same predicate. Shifts and packs are
-// done on unsigned values: a left shift of a negative int is undefined in
-// C++17, and L2 scores before the query norm is added are often negative.
+// for bit, so the W-word AND here is the same predicate. (That matmul as a
+// second wgmma took W <= 4 and no slot layout, and lost at d_pad 256:
+// PERF.md.) Shifts and packs are done on unsigned values: a left shift of a
+// negative int is undefined in C++17, and L2 scores before the query norm
+// is added are often negative.
 //
 // The slot form (mask_sb > 0) reads the mask words of query q from row
 // slot(q) of a (Q / mask_sb, W) tensor instead of row q of a (Q, W) one:
@@ -73,13 +75,6 @@
 // slice on one bit: per admitted pair one multiply-add and one minimum.
 // Other slot layouts read their queries' slot rows in the per-query path.
 //
-// The kernel lab (vsr_scan_int8_lab) also runs two other forms of it on
-// per-query masks: kSplit, each tile's dots as two 64-row halves with each
-// half's epilogue under the next half's dots (slower than the warpgroups'
-// drift: PERF.md), and kOneHot, admissibility as the TPU kernel computes it,
-// the count of shared roles from a second wgmma over role one-hots (W <= 4)
-// expanded in shared memory, in place of the W-word AND a pair.
-//
 // The dp4a kernel (scan_int8_kernel below) is the first port's design, kept
 // for the kernel lab only (vsr_scan_int8_lab): its plain epilogue as a
 // control, and the lab's epilogue variants (also the lab kernel
@@ -117,31 +112,22 @@ constexpr int kConsumers = 3;
 constexpr int kQueries = 64 * kConsumers;   // queries per block
 constexpr int kProducer = 4 * kConsumers;   // the producer's warp
 constexpr int kTcThreads = 32 * (kProducer + 1);
-// The main path's schedule (see consume); the lab times the other one.
-constexpr bool kSplitDefault = false;
 // a stage's row data: two planes of (kRows, 4) words, the bases, the flags
 constexpr int kPlaneBytes = 2 * kRows * 16;
 constexpr int kAuxBytes = kPlaneBytes + kRows * 4 + 16;
 // the producer's staging of one tile's raw words and norms (two buffers)
 constexpr int kStagingBytes = kRows * (kMaxWords + 1) * 4;
 
-// kOneHot (the lab's one-hot admissibility, W <= 4): the query tile's and
-// each stage's role one-hots, 128 roles a row, as a second wgmma operand.
-template <int D, bool kOneHot = false>
+template <int D>
 struct Ring {
   static constexpr int kChunks = D / 128;  // 128-byte d-chunks
-  static constexpr int kStages =
-      kOneHot ? (D == 128 ? 4 : 2) : (D == 128 ? 6 : 4);
+  static constexpr int kStages = D == 128 ? 6 : 4;
   static constexpr int kQBytes = kQueries * D;
-  static constexpr int kQHotBytes = kOneHot ? kQueries * 128 : 0;
   static constexpr int kRowBytes = kRows * D;
-  static constexpr int kHotBytes = kOneHot ? kRows * 128 : 0;
   static constexpr int kSmem =
       1024  // slack to align to 1024 bytes
-      + kQBytes + kQHotBytes +
-      kStages * (kRowBytes + kHotBytes + kAuxBytes) + 2 * kStagingBytes +
-      (kOneHot ? 256 * 8 : 0)      // the byte -> 8 one-hot bytes table
-      + (2 * kStages + 1) * 8;     // mbarriers
+      + kQBytes + kStages * (kRowBytes + kAuxBytes) + 2 * kStagingBytes +
+      (2 * kStages + 1) * 8;  // mbarriers
 };
 
 struct ScanArgs {
@@ -155,36 +141,25 @@ struct ScanArgs {
 };
 
 // Where a block's shared memory lies.
-template <int D, bool kOneHot = false>
+template <int D>
 struct Smem {
-  using R = Ring<D, kOneHot>;
+  using R = Ring<D>;
   uint32_t qtile;  // the query tile (1024-aligned: swizzle atoms)
-  uint32_t qhot;   // kOneHot: the query tile's role one-hots
   uint32_t rows;   // the ring's row tiles
-  uint32_t hot;    // kOneHot: the ring's row one-hots
-  uint8_t* qhot_p;  // the same two regions, as generic pointers
-  uint8_t* hot_p;
   uint8_t* aux;    // the ring's row data
   uint8_t* staging;
-  uint2* spread;   // kOneHot: byte b -> 8 bytes, byte k = bit k of b
   uint32_t bars;
   __device__ Smem(uint8_t* smem_raw) {
     const uint32_t raw = smem_addr(smem_raw);
     uint8_t* p = smem_raw + (((raw + 1023u) & ~1023u) - raw);
     qtile = smem_addr(p);
-    qhot = qtile + R::kQBytes;
-    rows = qhot + R::kQHotBytes;
-    hot = rows + R::kStages * R::kRowBytes;
-    qhot_p = p + R::kQBytes;
-    hot_p = p + (hot - qtile);
-    aux = p + R::kQBytes + R::kQHotBytes +
-          R::kStages * (R::kRowBytes + R::kHotBytes);
+    rows = qtile + R::kQBytes;
+    aux = p + R::kQBytes + R::kStages * R::kRowBytes;
     staging = aux + R::kStages * kAuxBytes;
-    spread = reinterpret_cast<uint2*>(staging + 2 * kStagingBytes);
-    bars = smem_addr(spread + (kOneHot ? 256 : 0));
+    bars = smem_addr(staging + 2 * kStagingBytes);
   }
   // full[s]: stage s's rows landed and its row data is written (the
-  // producer's 32 lanes and its byte count); empty[s]: the 16 consumer
+  // producer's 32 lanes and its byte count); empty[s]: the 12 consumer
   // warps are done with it; qfull: the query tile landed
   __device__ uint32_t full(int s) const { return bars + 8 * s; }
   __device__ uint32_t empty(int s) const {
@@ -212,36 +187,18 @@ __device__ __forceinline__ int mask_row(const ScanArgs& a, int q) {
   return (q / a.slot_tile) * nsb + q % nsb;
 }
 
-// Row r of a one-hot operand (128 role bytes, 1 where the role is set) in
-// the 128-byte swizzle: 16-byte chunk c of the row lands at chunk c ^ (r % 8)
-// of its line.
-template <int D, bool kOneHot>
-__device__ __forceinline__ void hot_row(uint8_t* dst, int r,
-                                        const int32_t* words,
-                                        const Smem<D, kOneHot>& sm) {
-  uint8_t* line = dst + (r >> 3) * 1024 + (r & 7) * 128;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const uint32_t w = (uint32_t)words[c >> 1] >> (16 * (c & 1));
-    const uint2 lo = sm.spread[w & 0xFF], hi = sm.spread[(w >> 8) & 0xFF];
-    *reinterpret_cast<int4*>(line + ((c ^ (r & 7)) << 4)) =
-        make_int4(lo.x, lo.y, hi.x, hi.y);
-  }
-}
-
 // The producer warp: the query tile once, then for each row tile of the
 // block's run its stage of the ring: the rows by TMA; the words, staged by
 // cp.async one tile ahead (before the wait for the stage), as planes; the
 // bases; and one flag a consumer warpgroup: whether the tile's roles meet
 // the union of its queries' masks (any_r (row_r & U) != 0 is (OR_r row_r) &
 // U != 0).
-template <int D, int kWords, bool kPack0, bool kOneHot>
+template <int D, int kWords, bool kPack0>
 __device__ __forceinline__ void produce(const CUtensorMap* q_map,
                                         const CUtensorMap* x_map,
-                                        const ScanArgs& a,
-                                        const Smem<D, kOneHot>& sm, int q0,
-                                        int t_begin, int t_end) {
-  using R = Ring<D, kOneHot>;
+                                        const ScanArgs& a, const Smem<D>& sm,
+                                        int q0, int t_begin, int t_end) {
+  using R = Ring<D>;
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
     mbar_expect(sm.qfull(), R::kQBytes);
@@ -328,7 +285,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
       const uint32_t nr = (uint32_t)stg[kRows * kMaxWords + r];
       base[r] = (int32_t)(kPack0 ? (a.l2 ? nr << 7 : 0u) + (uint32_t)(r & gm)
                                  : (a.l2 ? nr << up : 0u));
-      if constexpr (kOneHot) hot_row(sm.hot_p + s * R::kHotBytes, r, wd, sm);
     }
     uint32_t hit = 0;
 #pragma unroll
@@ -337,9 +293,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
     const uint32_t flags = __ballot_sync(0xffffffffu, hit != 0) &
                            ((1u << kConsumers) - 1);
     if (lane == 0) *sm.flags(s) = flags;
-    // the one-hots are read by wgmma, through the async proxy
-    if constexpr (kOneHot)
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive(sm.full(s));
     __syncwarp();  // staging buffer i & 1 is read: it may be refilled
   }
@@ -490,72 +443,23 @@ __device__ __forceinline__ void half_epilogue(const int32_t (&acc)[32],
   }
 }
 
-// The dots of one row tile (kHalf < 0: both halves as one m64n128 product
-// into lo and hi; else the half's m64n64 product into lo), committed as
-// one wgmma group.
-template <int D, int kHalf>
+// The dots of one row tile, one m64n128 product into lo (rows 0-63) and hi
+// (rows 64-127), committed as one wgmma group.
+template <int D>
 __device__ __forceinline__ void issue_dots(int32_t (&lo)[32],
                                            int32_t (&hi)[32], uint32_t a_wg,
                                            uint32_t b_s) {
   fence_acc(lo);
-  if constexpr (kHalf < 0) fence_acc(hi);
+  fence_acc(hi);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
   for (int c = 0; c < Ring<D>::kChunks; ++c)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint64_t da = sw128_desc(a_wg + c * kQueries * 128 + 32 * k);
-      const int acc = (c | k) != 0;
-      if constexpr (kHalf < 0)
-        wgmma_m64n128k32(lo, hi, da,
-                         sw128_desc(b_s + c * kRows * 128 + 32 * k), acc);
-      else
-        wgmma_m64n64k32(lo, da,
-                        sw128_desc(b_s + c * kRows * 128 + kHalf * 64 * 128 +
-                                   32 * k),
-                        acc);
-    }
+    for (int k = 0; k < 4; ++k)
+      wgmma_m64n128k32(lo, hi, sw128_desc(a_wg + c * kQueries * 128 + 32 * k),
+                       sw128_desc(b_s + c * kRows * 128 + 32 * k),
+                       (c | k) != 0);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// The shared-role counts of one 64-row half: the query tile's role one-hots
-// (a_hot) times the stage's (b_hot), K = 128 roles, as one wgmma group.
-template <int kHalf>
-__device__ __forceinline__ void issue_counts(int32_t (&cnt)[32],
-                                             uint32_t a_hot, uint32_t b_hot) {
-  fence_acc(cnt);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    wgmma_m64n64k32(cnt, sw128_desc(a_hot + 32 * k),
-                    sw128_desc(b_hot + kHalf * 64 * 128 + 32 * k), k != 0);
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// The one-hot epilogue of one half: cnt holds the number of roles a
-// (query, row) pair shares, the TPU kernel's admissibility count; the pair
-// is admitted where it is nonzero.
-template <int kHalf, bool kPack0>
-__device__ __forceinline__ void half_onehot(const int32_t (&acc)[32],
-                                            const int32_t (&cnt)[32],
-                                            const int32_t* __restrict__ base,
-                                            Epi& e) {
-  const int cl = 2 * (threadIdx.x % 4);
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int n8 = 8 * kHalf + n;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = 8 * n8 + cl + j;
-      const uint32_t bs = (uint32_t)base[r];
-      const uint32_t rank = kPack0 ? 0u : (uint32_t)(r & e.gm);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        min_if(e.best[i], cnt[4 * n + 2 * i + j],
-               pack<kPack0>(acc[4 * n + 2 * i + j], e.mul, bs, e.down, rank));
-    }
-    if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
-  }
 }
 
 template <int N>
@@ -563,18 +467,15 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// A consumer warpgroup: 64 queries against every row tile of the run.
-// kSplit issues a tile's dots as two 64-row halves and runs each half's
-// epilogue under the next half's dots (the previous tile's second half
-// under this tile's first); otherwise one m64n128 product a tile, waited
-// for before its epilogue, and the warpgroups' drift overlaps one's
-// epilogue with another's dots.
-template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kSplit,
-          bool kOneHot>
-__device__ __forceinline__ void consume(const ScanArgs& a,
-                                        const Smem<D, kOneHot>& sm, int q0,
-                                        int t_begin, int t_end) {
-  using R = Ring<D, kOneHot>;
+// A consumer warpgroup: 64 queries against every row tile of the run, one
+// m64n128 product a tile, waited for before its epilogue; the warpgroups'
+// drift overlaps one's epilogue with another's dots. (Each tile's dots as
+// two 64-row halves, each half's epilogue under the next half's dots, was
+// 15-19% slower: PERF.md.)
+template <int D, int kWords, bool kPack0, bool kWarpSlot>
+__device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
+                                        int q0, int t_begin, int t_end) {
+  using R = Ring<D>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4;
   const int qw0 = q0 + 64 * wg + 16 * (warp % 4);  // the warp's first query
@@ -607,144 +508,52 @@ __device__ __forceinline__ void consume(const ScanArgs& a,
                      ? a.q_bits[(size_t)mask_row(a, q) * a.w + m]
                      : 0;
   }
-  if constexpr (kOneHot) {  // the warpgroup's 64 query rows of one-hots
-    const int tw = threadIdx.x % 128, row = tw / 2, q = q0 + 64 * wg + row;
-    int32_t words[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      words[m] = m < a.w && q < a.nq ? a.q_bits[(size_t)q * a.w + m] : 0;
-    if (tw % 2 == 0) hot_row(sm.qhot_p + wg * 64 * 128, row, words, sm);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  }
   mbar_wait(sm.qfull(), 0);
   const uint32_t a_wg = sm.qtile + wg * 64 * 128;
   int32_t lo[32], hi[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) lo[i] = hi[i] = 0;
-  auto release = [&](int s) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(sm.empty(s));
-  };
-  auto open_tile = [&](int t) {
-    e.out = a.out + ((size_t)t * kRows >> lg) * e.nq + qa;
-  };
-  auto masked_tile = [&](int t) {  // no query of the warpgroup admits a row
-    open_tile(t);
-#pragma unroll 1
-    for (int g = 0; g < (kRows >> lg); ++g) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (e.store[i]) e.out[8 * i] = kMasked;
-      e.out += e.nq;
-    }
-  };
-  // kSplit: the previous tile's stage and whether its second half runs
-  int s_prev = 0;
-  bool run_prev = false;
 #pragma unroll 1
   for (int t = t_begin; t < t_end; ++t) {
     const int i = t - t_begin, s = i % R::kStages;
     mbar_wait(sm.full(s), (i / R::kStages) & 1);
-    const bool run = (*sm.flags(s) >> wg) & 1u;  // warpgroup-uniform
-    const uint32_t b_s = sm.rows + s * R::kRowBytes;
-    if constexpr (kOneHot) {  // per half: the dots and the counts, then
-      if (run) {              // the epilogue
-        const uint32_t a_hot = sm.qhot + wg * 64 * 128;
-        const uint32_t b_hot = sm.hot + s * R::kHotBytes;
-        open_tile(t);
-        issue_dots<D, 0>(lo, hi, a_wg, b_s);
-        issue_counts<0>(hi, a_hot, b_hot);
-        wgmma_wait<0>();
-        fence_acc(lo);
-        fence_acc(hi);
-        half_onehot<0, kPack0>(lo, hi, sm.base(s), e);
-        issue_dots<D, 1>(lo, hi, a_wg, b_s);
-        issue_counts<1>(hi, a_hot, b_hot);
-        wgmma_wait<0>();
-        fence_acc(lo);
-        fence_acc(hi);
-        half_onehot<1, kPack0>(lo, hi, sm.base(s), e);
-      } else {
-        masked_tile(t);
-      }
-      release(s);
-    } else if (kSplit) {
-      // every product is issued and waited for on every path, so that no
-      // wgmma wait sits in a data-dependent branch (ptxas would serialize
-      // them); a tile no query admits skips its epilogues only
-      issue_dots<D, 0>(lo, hi, a_wg, b_s);
-      if (i > 0) {
-        wgmma_wait<1>();
-        fence_acc(hi);
-        if (run_prev)
-          half_epilogue<1, kWords, kPack0, kWarpSlot>(
-              hi, qw, sw, sm.planes(s_prev), sm.base(s_prev), e);
-        release(s_prev);
-      }
-      issue_dots<D, 1>(hi, lo, a_wg, b_s);
-      wgmma_wait<1>();
+    e.out = a.out + ((size_t)t * kRows >> lg) * e.nq + qa;
+    if ((*sm.flags(s) >> wg) & 1u) {  // warpgroup-uniform
+      issue_dots<D>(lo, hi, a_wg, sm.rows + s * R::kRowBytes);
+      wgmma_wait<0>();
       fence_acc(lo);
-      if (run) {
-        open_tile(t);
-        half_epilogue<0, kWords, kPack0, kWarpSlot>(lo, qw, sw, sm.planes(s),
-                                                    sm.base(s), e);
-      } else {
-        masked_tile(t);
+      fence_acc(hi);
+      half_epilogue<0, kWords, kPack0, kWarpSlot>(lo, qw, sw, sm.planes(s),
+                                                  sm.base(s), e);
+      half_epilogue<1, kWords, kPack0, kWarpSlot>(hi, qw, sw, sm.planes(s),
+                                                  sm.base(s), e);
+    } else {  // no query of the warpgroup admits a row of the tile
+#pragma unroll 1
+      for (int g = 0; g < (kRows >> lg); ++g) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (e.store[i]) e.out[8 * i] = kMasked;
+        e.out += e.nq;
       }
-      run_prev = run;
-      s_prev = s;
-    } else {
-      if (run) {
-        issue_dots<D, -1>(lo, hi, a_wg, b_s);
-        wgmma_wait<0>();
-        fence_acc(lo);
-        fence_acc(hi);
-        open_tile(t);
-        half_epilogue<0, kWords, kPack0, kWarpSlot>(lo, qw, sw, sm.planes(s),
-                                                    sm.base(s), e);
-        half_epilogue<1, kWords, kPack0, kWarpSlot>(hi, qw, sw, sm.planes(s),
-                                                    sm.base(s), e);
-      } else {
-        masked_tile(t);
-      }
-      release(s);
     }
-  }
-  if (kSplit && !kOneHot && t_end > t_begin) {
-    wgmma_wait<0>();
-    fence_acc(hi);
-    if (run_prev)
-      half_epilogue<1, kWords, kPack0, kWarpSlot>(
-          hi, qw, sw, sm.planes(s_prev), sm.base(s_prev), e);
-    release(s_prev);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.empty(s));
   }
 }
 
-template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kSplit,
-          bool kOneHot>
+template <int D, int kWords, bool kPack0, bool kWarpSlot>
 __global__ void __launch_bounds__(kTcThreads, 1)
 scan_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q8 (Q, D)
                const __grid_constant__ CUtensorMap x_map,  // x8 (Npad, D)
                const ScanArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  const Smem<D, kOneHot> sm(smem_raw);
+  const Smem<D> sm(smem_raw);
   const int q0 = (blockIdx.x % a.n_qtiles) * kQueries;
   const int run = blockIdx.x / a.n_qtiles;
   const int t_begin = (int)((long long)run * a.n_tiles / a.runs);
   const int t_end = (int)((long long)(run + 1) * a.n_tiles / a.runs);
-  if constexpr (kOneHot)
-    for (int b = threadIdx.x; b < 256; b += kTcThreads) {
-      uint32_t lo = 0, hi = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        lo |= (uint32_t)((b >> k) & 1) << (8 * k);
-        hi |= (uint32_t)((b >> (k + 4)) & 1) << (8 * k);
-      }
-      sm.spread[b] = make_uint2(lo, hi);
-    }
   if (threadIdx.x == 32 * kProducer) {
-    for (int s = 0; s < Ring<D, kOneHot>::kStages; ++s) {
+    for (int s = 0; s < Ring<D>::kStages; ++s) {
       mbar_init(sm.full(s), 33);
       mbar_init(sm.empty(s), 4 * kConsumers);
     }
@@ -753,19 +562,16 @@ scan_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q8 (Q, D)
   }
   __syncthreads();
   if (threadIdx.x / 32 == kProducer)
-    produce<D, kWords, kPack0, kOneHot>(&q_map, &x_map, a, sm, q0, t_begin,
-                                        t_end);
+    produce<D, kWords, kPack0>(&q_map, &x_map, a, sm, q0, t_begin, t_end);
   else
-    consume<D, kWords, kPack0, kWarpSlot, kSplit, kOneHot>(a, sm, q0, t_begin,
-                                                           t_end);
+    consume<D, kWords, kPack0, kWarpSlot>(a, sm, q0, t_begin, t_end);
 }
 
-template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kSplit,
-          bool kOneHot = false>
+template <int D, int kWords, bool kPack0, bool kWarpSlot>
 cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
                       const ScanArgs& a, int blocks, cudaStream_t stream) {
-  auto kernel = scan_tc_kernel<D, kWords, kPack0, kWarpSlot, kSplit, kOneHot>;
-  constexpr int smem = Ring<D, kOneHot>::kSmem;
+  auto kernel = scan_tc_kernel<D, kWords, kPack0, kWarpSlot>;
+  constexpr int smem = Ring<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -773,27 +579,14 @@ cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
   return cudaGetLastError();
 }
 
-// kSlots false: per-query masks only (the lab's other schedule).
-template <int D, bool kSplit, bool kSlots>
+template <int D, bool kPack0>
 cudaError_t dispatch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
                         const ScanArgs& a, int blocks, cudaStream_t stream) {
-  const bool pack0 = a.score_shift == 0;
-  if constexpr (kSlots) {
-    if (a.mask_sb > 0 && a.slot_tile == 0 && a.mask_sb % 16 == 0)
-      return pack0 ? launch_tc<D, 8, true, true, kSplit>(q_map, x_map, a,
-                                                         blocks, stream)
-                   : launch_tc<D, 8, false, true, kSplit>(q_map, x_map, a,
-                                                          blocks, stream);
-  }
+  if (a.mask_sb > 0 && a.slot_tile == 0 && a.mask_sb % 16 == 0)
+    return launch_tc<D, 8, kPack0, true>(q_map, x_map, a, blocks, stream);
   if (a.w <= 4)
-    return pack0 ? launch_tc<D, 4, true, false, kSplit>(q_map, x_map, a,
-                                                        blocks, stream)
-                 : launch_tc<D, 4, false, false, kSplit>(q_map, x_map, a,
-                                                         blocks, stream);
-  return pack0 ? launch_tc<D, 8, true, false, kSplit>(q_map, x_map, a, blocks,
-                                                      stream)
-               : launch_tc<D, 8, false, false, kSplit>(q_map, x_map, a,
-                                                       blocks, stream);
+    return launch_tc<D, 4, kPack0, false>(q_map, x_map, a, blocks, stream);
+  return launch_tc<D, 8, kPack0, false>(q_map, x_map, a, blocks, stream);
 }
 
 // ------------------------------------------------- the dp4a kernel (lab)
@@ -940,17 +733,11 @@ int sm_count() {
   return n;
 }
 
-// The tensor-core kernel's forms: the main path's, and the lab's (per-query
-// masks only) other schedule and one-hot admissibility (W <= 4).
-constexpr int kFormMain = 0, kFormOther = 1, kFormOneHot = 2;
-
 int scan_tc(const void* q8, const void* x8, const void* norms,
             const void* row_bits, const void* q_bits, void* out, int nq,
             int npad, int d_pad, int w, int group, int l2, int score_shift,
-            int mask_sb, int slot_tile, int form, void* stream) {
-  if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, mask_sb,
-                 slot_tile) ||
-      (form != kFormMain && mask_sb != 0) || (form == kFormOneHot && w > 4))
+            int mask_sb, int slot_tile, void* stream) {
+  if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, mask_sb, slot_tile))
     return (int)cudaErrorInvalidValue;
   ScanArgs a;
   a.norms = static_cast<const int32_t*>(norms);
@@ -980,26 +767,12 @@ int scan_tc(const void* q8, const void* x8, const void* norms,
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = (int)blocks;
-  const bool pack0 = score_shift == 0;
-  if (form == kFormOneHot)
-    err = d_pad == 128
-              ? (pack0 ? launch_tc<128, 4, true, false, false, true>(
-                             q_map, x_map, a, nb, s)
-                       : launch_tc<128, 4, false, false, false, true>(
-                             q_map, x_map, a, nb, s))
-              : (pack0 ? launch_tc<256, 4, true, false, false, true>(
-                             q_map, x_map, a, nb, s)
-                       : launch_tc<256, 4, false, false, false, true>(
-                             q_map, x_map, a, nb, s));
-  else if (form == kFormOther)
-    err = d_pad == 128
-              ? dispatch_tc<128, !kSplitDefault, false>(q_map, x_map, a, nb, s)
-              : dispatch_tc<256, !kSplitDefault, false>(q_map, x_map, a, nb,
-                                                        s);
+  if (d_pad == 128)
+    err = score_shift == 0 ? dispatch_tc<128, true>(q_map, x_map, a, nb, s)
+                           : dispatch_tc<128, false>(q_map, x_map, a, nb, s);
   else
-    err = d_pad == 128
-              ? dispatch_tc<128, kSplitDefault, true>(q_map, x_map, a, nb, s)
-              : dispatch_tc<256, kSplitDefault, true>(q_map, x_map, a, nb, s);
+    err = score_shift == 0 ? dispatch_tc<256, true>(q_map, x_map, a, nb, s)
+                           : dispatch_tc<256, false>(q_map, x_map, a, nb, s);
   return (int)err;
 }
 
@@ -1015,23 +788,16 @@ extern "C" int vsr_scan_int8(const void* q8, const void* x8, const void* norms,
                              int group, int l2, int score_shift, int mask_sb,
                              int slot_tile, void* stream) {
   return scan_tc(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w,
-                 group, l2, score_shift, mask_sb, slot_tile, kFormMain, stream);
+                 group, l2, score_shift, mask_sb, slot_tile, stream);
 }
 
-// The kernel lab's scans on per-query masks: variants 0-2 the dp4a kernel
-// (0 its plain epilogue, the first port's K1; 1 trim; 2 floor); 3 the
-// tensor-core kernel on the schedule the main path does not take; 4 the
-// tensor-core kernel with admissibility as the TPU kernel computes it, a
-// count of shared roles from a second wgmma over role one-hots (W <= 4).
+// The kernel lab's scans on per-query masks, by the dp4a kernel: variant 0
+// its plain epilogue (the first port's K1, the control), 1 trim, 2 floor.
 extern "C" int vsr_scan_int8_lab(const void* q8, const void* x8,
                                  const void* norms, const void* row_bits,
                                  const void* q_bits, void* out, int nq,
                                  int npad, int d_pad, int w, int group, int l2,
                                  int score_shift, int variant, void* stream) {
-  if (variant == 3 || variant == 4)
-    return scan_tc(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w,
-                   group, l2, score_shift, 0, 0,
-                   variant == 3 ? kFormOther : kFormOneHot, stream);
   if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, 0, 0) ||
       variant < kPlain || variant > kFloor)
     return (int)cudaErrorInvalidValue;

@@ -159,32 +159,6 @@ __device__ __forceinline__ void wgmma_m64n128k32(int32_t (&lo)[32],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d (64 queries x 64 rows, int32) = A (64 x 32 int8) . B (64 x 32 int8)^T
-// + (accumulate ? d : 0)
-__device__ __forceinline__ void wgmma_m64n64k32(int32_t (&d)[32],
-                                                uint64_t desc_a,
-                                                uint64_t desc_b,
-                                                int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, "
-      "%32, %33, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
 __device__ __forceinline__ void fence_acc(int32_t (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");

@@ -40,13 +40,11 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # launches of its admit-dedup slot form among them, and "scan_int8_wide" /
 # "scan_int8_wide_slots" the same for the wide scan. The kernel lab's
 # variants count on their own: the dp4a scan's plain, trim and floor
-# epilogues, the narrow scan's split schedule and one-hot form, the y-form
-# extraction and the y-form bitonic sort in its two forms.
+# epilogues, the y-form extraction and the y-form bitonic sort in its two forms.
 LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
             "scan_int8_wide_slots": 0, "merge_extract": 0,
             "merge_bitonic": 0, "graph_score": 0, "graph_merge": 0,
             "scan_int8_dp4a": 0, "scan_int8_trim": 0, "scan_int8_floor": 0,
-            "scan_int8_split": 0, "scan_int8_onehot": 0,
             "merge_y_extract": 0, "merge_y_sort": 0, "merge_y_pairs": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -1,5 +1,5 @@
 """The kernel lab's scan variants: the dp4a K1, its epilogue trimmed and
-stripped; the tensor-core K1's other schedule and its one-hot admissibility.
+stripped.
 
 Counterpart of scripts/r4_kernel_variants.py `int8_masked_topk_lab` (the
 lab kernel S1), which times two restructured epilogues of the narrow scan
@@ -11,15 +11,6 @@ plain epilogue is the lab's third variant:
 - "dp4a" is the first port's K1 (d_pad / 4 __dp4a a pair, one thread per
   query): K1's packed minima, bit for bit, by the old design. It is the
   control of trim and floor, and the old design's time beside the new K1;
-- "split" is the tensor-core K1 on the schedule the main path does not
-  take: each row tile's dots as two 64-row halves, each half's epilogue
-  under the next half's dots, where the main path waits for a tile's dots
-  and lets its warpgroups overlap each other;
-- "onehot" is the tensor-core K1 with admissibility as the TPU kernel
-  computes it: the number of roles a query and a row share, from a second
-  wgmma over role one-hots expanded in shared memory (W <= 4), in place of
-  the W-word AND a pair;
-
 - "trim" folds the `<< 7` pack into the score arithmetic: l2 without a
   score shift packs `(norms << 7) - (dots << 8) | lane`, ip `-dots << 7 |
   lane`; with a shift it keeps the shift-then-pack chain. Its output is
@@ -31,9 +22,8 @@ plain epilogue is the lab's third variant:
   K1's time into the dots and the rest.
 
 dp4a, trim and floor run as template variants of the dp4a kernel (a
-run-time flag cost it 12%), split and onehot as forms of the tensor-core
-kernel, all on per-query masks, as the lab's; no serving path reaches the
-dp4a kernel or these two forms. The lab's `unroll` and `chunk`
+run-time flag cost it 12%), on per-query masks, as the lab's; no serving
+path reaches the dp4a kernel. The lab's `unroll` and `chunk`
 knobs schedule Mosaic's loop and size its VMEM chunk: they have no
 counterpart on this card and are not carried over. The plain versions are
 here beside the wrappers; CPU tensors take them.
@@ -52,7 +42,7 @@ from .scan_int8 import (NARROW_MAX_D, _check_kernel_tensors,
                         merge_group_minima)
 
 # the C entry's variant codes
-VARIANTS = {"dp4a": 0, "trim": 1, "floor": 2, "split": 3, "onehot": 4}
+VARIANTS = {"dp4a": 0, "trim": 1, "floor": 2}
 _CHUNK_ELEMS = 1 << 26               # floor plain: elements per temporary
 
 
@@ -94,7 +84,7 @@ def lab_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
     """(n_groups, Q) int32 minima of the lab's `variant` (all but "floor":
     K1's packed minima; "floor": the probe). Operands as
     ops/scan_int8.int8_group_minima's with per-query masks, d_pad 128 or
-    256 ("onehot": W <= 4). CPU tensors take the plain versions (all but
+    256. CPU tensors take the plain versions (all but
     floor's are K1's); CUDA tensors launch the variant (counted under
     "scan_int8_<variant>")."""
     if variant not in VARIANTS:
@@ -117,8 +107,6 @@ def lab_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
     if d_pad not in (128, 256):
         raise ValueError(f"d_pad {d_pad}: the narrow scan takes d_pad 128 or "
                          "256")
-    if variant == "onehot" and w > 4:
-        raise ValueError(f"W {w}: the one-hot form takes at most 4 words")
     tensors = (queries_q, vectors_q, norms_q, role_bits, query_bits)
     _check_kernel_tensors(tensors, w)
     out = torch.empty((npad // group, nq), dtype=torch.int32,
