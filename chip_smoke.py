@@ -46,7 +46,15 @@ without a CUDA device or without the port's package beside it. Phases:
    queries), and the step's merges at ef 64, kk 18 (bit-identical); beside
    the score kernel, index_select's time for the same row gather, printed
    as a gather-only yardstick (the kernel also scores the rows, so it is
-   not the kernel's library_ms);
+   not the kernel's library_ms); its search half runs after 4d, on 4d's
+   slab: a 4096-query chunk of the cell (the recorded graph chunks' real
+   queries with their slots, entries and step budgets) through the fused
+   graph search and its plain loop, bit-equal, beside the step loop on the
+   same inputs (KS7 + KS6 + the PyTorch dedup: a yardstick, since no one
+   PyTorch call computes a graph search) and the bound from the kernel's
+   expansion count; then the harvest leg, the same chunk with the 2-hop
+   harvest (the step loop: KS7 and KS6 launch, the fused search not),
+   bit-equal to its plain loop, with its own launch counts;
 4. the SIFT path at full size: a 1M x 128 SIFT-like corpus (seed 0) with
    bench.py's tree RBAC world (100 roles, 10k users), 8192 queries drawn
    from the corpus's held-out pool as bench.py draws them, top-100, L2,
@@ -70,10 +78,12 @@ without a CUDA device or without the port's package beside it. Phases:
    selectivity >= 0.5, the int8 scan on the remainder, over the first 4096
    queries, top-10, batch 1024, against the exact top-10 oracle, with
    recall, QPS, batch-1 latency, graph and flat partitions, the graph
-   build seconds by builder, storage, and the device time of the graph
-   step against the flat remainder from one traced pass; the graph score
-   and merge kernels, the narrow scan and the merge kernels must all have
-   launched;
+   build seconds by builder, storage (the graph batcher's slabs and packed
+   rows included), and the device time of the graph search against the
+   flat remainder from one traced pass; the fused graph search, the narrow
+   scan and the merge kernels must all have launched, and the graph step's
+   kernels (the step loop's) not; the same pass on the
+   graph search's plain loop must give the same ids and distances;
 3b. the wide scan against its plain version at the 768-d path's geometry
    (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
    metric, score shift 3, group 128), bit-identical, beside a dots-only
@@ -737,18 +747,22 @@ def check_graph_step(arena, workload, world, device, smi):
 def drive_hybrid(plan, corpus, world, arena, workload, truth, smi):
     """Phase 4d: the hybrid AnonySys executor through build_searcher and
     run_benchmark on 4c's plan, launch counts set to 0 just before and
-    read just after; then one traced pass for the device split. Returns
-    the launch counts."""
+    read just after; the same pass on the graph search's plain loop, equal
+    ids and distances; then one traced pass for the device split. Returns
+    the launch counts and the plain pass's recorded graph chunks (args,
+    kwargs of each graph_beam_search_iterative call)."""
     import collections
 
+    import numpy as np
     import torch
 
     from vectorsearch_rbac_tpu_torch.bench import (run_benchmark,
                                                    serving_config)
     from vectorsearch_rbac_tpu_torch.bench.profile import profile_pass
     from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
-    from vectorsearch_rbac_tpu_torch.ops import _build
-    from vectorsearch_rbac_tpu_torch.partition import build_searcher
+    from vectorsearch_rbac_tpu_torch.ops import _build, graph_search
+    from vectorsearch_rbac_tpu_torch.partition import (build_searcher,
+                                                       graph_batch)
 
     cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, topk=PART_TOPK,
                          strategy="dynamic")
@@ -771,10 +785,30 @@ def drive_hybrid(plan, corpus, world, arena, workload, truth, smi):
     res = run_benchmark(searcher, corpus, world, workload, None, k=PART_TOPK,
                         warmup_runs=1, timed_batches=32, timed_passes=5,
                         recall_sample=None, truth=truth)
-    _, ids = searcher.search_batch(workload.vectors, workload.user_ids,
-                                   world.user_masks, PART_TOPK)
+    dists, ids = searcher.search_batch(workload.vectors, workload.user_ids,
+                                       world.user_masks, PART_TOPK)
     launches = dict(_build.LAUNCHES)
     name = "hybrid AnonySys (1M x 128, l2, batch 1024)"
+    # the same pass with the graph search's plain loop in place of the
+    # fused kernel; its graph chunks are recorded for phase 3d's search half
+    calls = []
+
+    def plain_search(*args, **kw):
+        calls.append((args, kw))
+        return graph_search.graph_beam_search_iterative_plain(*args, **kw)
+
+    graph_batch.graph_beam_search_iterative = plain_search
+    try:
+        dists_p, ids_p = searcher.search_batch(
+            workload.vectors, workload.user_ids, world.user_masks, PART_TOPK)
+    finally:
+        graph_batch.graph_beam_search_iterative = \
+            graph_search.graph_beam_search_iterative
+    same = np.array_equal(ids, ids_p) and np.array_equal(dists, dists_p)
+    say(f"{name}: ids and distances equal to the plain loop's {same} "
+        f"({len(calls)} graph chunks)")
+    if not same:
+        fail(f"{name}: the fused graph search disagrees with its plain loop")
     check_readable(name, ids, workload.user_ids, PART_TOPK, corpus, world,
                    arena)
 
@@ -788,30 +822,155 @@ def drive_hybrid(plan, corpus, world, arena, workload, truth, smi):
     flat = sum(spans.get(k, (0.0, 0.0))[1]
                for k in ("partitioned.enqueue", "flat_int8.fetch_unpack"))
     step = {k: round(spans.get(f"graph.{k}", (0.0, 0.0))[1], 3)
-            for k in ("step", "dedup", "score", "merge", "drain")}
+            for k in ("search", "step", "dedup", "score", "merge", "drain")}
     rep = res.storage
     say(f"{name} ({smi}): recall@{PART_TOPK} {res.avg_recall}, {res.qps} "
         f"QPS over {workload.num_queries} queries (pass walls ms "
         f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 p50 "
         f"{res.p50_ms} ms p95 {res.p95_ms} ms; {len(graphs)} graph and "
         f"{len(searcher.partitions) - len(graphs)} flat partitions, "
-        f"{rep['total_mb']:.1f} MB; build {build_s:.2f} s (graphs "
+        f"{rep['total_mb']:.1f} MB (graph slabs {rep['graph_slab_mb']:.1f},"
+        f" packed rows {rep['packed_rows_mb']:.1f}); build {build_s:.2f} s "
+        f"(graphs "
         f"{searcher.graph_build_s:.2f} s wall; by builder [count, summed s, "
         f"largest rows] {dict(by_builder)}); traced pass {wall:.3f} ms, "
-        f"device busy {busy:.3f} ms: graph step {graph:.3f} ms "
+        f"device busy {busy:.3f} ms: graph {graph:.3f} ms "
         f"{step}, flat remainder {flat:.3f} ms; launches {launches}")
     for ms, count, key in kernels[:12]:
         say(f"  device {ms:10.3f} ms {count:6d}x  {key[:80]}")
     if res.avg_recall < RECALL_FLOOR:
         fail(f"{name}: recall {res.avg_recall:.4f} < {RECALL_FLOOR}")
-    idle = [k for k in ("graph_score", "graph_merge", "merge_extract",
-                        "merge_bitonic") if launches[k] == 0]
+    idle = [k for k in ("graph_search", "merge_extract", "merge_bitonic")
+            if launches[k] == 0]
     if launches["scan_int8"] == 0:
         idle.append("scan_int8")
     if idle:
         fail(f"{name}: the path never launched {idle}")
+    stepped = {k: launches[k] for k in ("graph_score", "graph_merge")
+               if launches[k]}
+    if stepped:
+        fail(f"{name}: the cell's graph search took the step loop {stepped}")
     del searcher
-    return launches
+    return launches, calls
+
+
+def check_graph_search(calls, smi):
+    """Phase 3d, search half (after 4d: it takes 4d's slab and chunks): a
+    4096-query chunk of the hybrid cell (the real, unpadded queries of the
+    recorded no-harvest chunks of the largest slab, with their slots,
+    entries, step budgets and the packed rows) through the fused search
+    and its plain loop, bit-equal; beside them the step loop on the same
+    inputs (KS7, KS6 and the PyTorch dedup: the path before the fused
+    kernel, a yardstick, not a library call); its bound from the kernel's
+    expansion count. Then the harvest leg: the same chunk with the 2-hop
+    harvest (the step loop's path, KS7 and KS6) held bit-equal to its plain
+    loop, launch counts set to 0 just before and read just after. Returns
+    ({kernel: (ok, max_abs_err, ms, plain ms)}, {kernel: (bound ms,
+    bound_by, library ms)}, the harvest leg's launches)."""
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops import (_build, graph_search,
+                                                 graph_step)
+
+    by_slab = {}
+    for args, kw in calls:
+        if not args[10]:                         # harvest_2hop
+            by_slab.setdefault(id(args[4]), []).append((args, kw))
+    chunks = max(by_slab.values(),
+                 key=lambda c: sum(int((kw["step_budget"] > 0).sum())
+                                   for _, kw in c))
+    args0, kw0 = chunks[0]
+    graph, kk, ef = args0[4], args0[7], args0[8]
+    cols = {k: [] for k in ("q", "mask", "entry", "pid", "budget", "qcd")}
+    for args, kw in chunks:
+        real = kw["step_budget"] > 0             # the batcher pads with 0
+        for key, t in (("q", args[0]), ("mask", args[5]), ("entry", args[6]),
+                       ("pid", kw["pids"]), ("budget", kw["step_budget"]),
+                       ("qcd", kw["q_center_dot"])):
+            cols[key].append(t[real])
+    cols = {k: torch.cat(v) for k, v in cols.items()}
+    n_real = cols["q"].shape[0]
+    reps = -(-GRAPH_Q // n_real)
+    cols = {k: v.repeat(reps, *[1] * (v.dim() - 1))[:GRAPH_Q].contiguous()
+            for k, v in cols.items()}
+    max_steps = 1 << (int(cols["budget"].max()) - 1).bit_length()
+    packed = kw0["packed_rows"]
+    fused_args = (cols["q"], graph, cols["mask"], cols["entry"], kk, ef,
+                  max_steps, packed, kw0["dq_scale"], cols["qcd"],
+                  kw0["row_map"], cols["pid"], cols["budget"])
+    loop_args = (cols["q"], None, None, None, graph, cols["mask"],
+                 cols["entry"], kk, ef, max_steps)
+    loop_kw = dict(row_map=kw0["row_map"], pids=cols["pid"],
+                   step_budget=cols["budget"], packed_rows=packed,
+                   dq_scale=kw0["dq_scale"], q_center_dot=cols["qcd"])
+    stats = torch.zeros(2, dtype=torch.int64, device=graph.device)
+    stats_p = torch.zeros_like(stats)
+    got = graph_search.graph_search_fused(*fused_args, stats=stats)
+    want = graph_search.graph_beam_search_iterative_plain(
+        *loop_args, **loop_kw, stats=stats_p)
+    steps = graph_search._step_loop(
+        *loop_args, False, kw0["row_map"], cols["pid"], cols["budget"],
+        packed, kw0["dq_scale"], cols["qcd"], graph_search.SYNC_EVERY,
+        graph_step.graph_score_packed, graph_step.graph_merge_step)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    steps_same = all(torch.equal(a, b) for a, b in zip(steps, want))
+    fin = torch.isfinite(want[0])
+    err = float((got[0] - want[0])[fin].abs().max()) if fin.any() else 0.0
+    expansions, scored = (int(v) for v in stats.tolist())
+    m0 = graph.shape[-1]
+    w = cols["mask"].shape[1]
+    d_pad = packed.shape[1] - 4 * w - 4
+    # per query its operands, its entry's row map entry and packed row, its
+    # results; per expansion the graph row; per scored candidate its row
+    # map entry and packed row; 2 d_pad float32 operations a scored row
+    s_bytes = (nbytes(*cols.values(), *got)
+               + GRAPH_Q * (4 + packed.shape[1]) + expansions * 4 * m0
+               + scored * (4 + packed.shape[1]))
+    bound = bound_ms(s_bytes, 2.0 * d_pad * (scored + GRAPH_Q), F32_OPS_S)
+    fused_ms = cuda_ms(lambda: graph_search.graph_search_fused(*fused_args),
+                       10)
+    plain_ms = cuda_ms(lambda: graph_search.graph_beam_search_iterative_plain(
+        *loop_args, **loop_kw), 2)
+    steps_ms = cuda_ms(lambda: graph_search._step_loop(
+        *loop_args, False, kw0["row_map"], cols["pid"], cols["budget"],
+        packed, kw0["dq_scale"], cols["qcd"], graph_search.SYNC_EVERY,
+        graph_step.graph_score_packed, graph_step.graph_merge_step), 2)
+    out = {"graph_search": (same, err, fused_ms, plain_ms)}
+    report(f"fused graph search vs its plain loop on a {GRAPH_Q}-query chunk "
+           f"of the hybrid cell ({n_real} real queries of "
+           f"{len(chunks)} chunks, repeated to {GRAPH_Q}), slab "
+           f"{tuple(graph.shape)}, ef {ef}, kk {kk}, max_steps {max_steps} "
+           f"(step budgets {int(cols['budget'].min())}-"
+           f"{int(cols['budget'].max())}), {packed.shape[1]}-B packed rows "
+           f"({smi}); tolerance 0:", out)
+    say(f"  graph_search: {expansions} expansions "
+        f"({expansions / GRAPH_Q:.2f} a query), {scored} scored candidates;"
+        f" bound {bound[0]:.6f} ms ({bound[1]}, {s_bytes} bytes); the step "
+        f"loop on the same inputs (KS7 + KS6 + PyTorch dedup, every launch;"
+        f" a yardstick, not library_ms) {steps_ms:.3f} ms, equal to the "
+        f"plain loop {steps_same}")
+    if not steps_same:
+        fail("the step loop disagrees with the plain loop on the cell chunk")
+
+    _build.reset_launches()
+    got_h = graph_search.graph_beam_search_iterative(*loop_args, True,
+                                                     **loop_kw)
+    launches = dict(_build.LAUNCHES)
+    want_h = graph_search.graph_beam_search_iterative_plain(*loop_args, True,
+                                                            **loop_kw)
+    torch.cuda.synchronize()
+    same_h = all(torch.equal(a, b) for a, b in zip(got_h, want_h))
+    say(f"harvest leg ({GRAPH_Q} queries of the same chunk, 2-hop harvest, "
+        f"the step loop) ({smi}): equal to its plain loop {same_h}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not same_h:
+        fail("the harvest leg disagrees with its plain loop")
+    idle = [k for k in ("graph_score", "graph_merge") if launches[k] == 0]
+    if idle or launches["graph_search"]:
+        fail(f"the harvest leg launched {launches}: it must run the step "
+             "kernels, not the fused search")
+    return out, {"graph_search": (*bound, None)}, launches
 
 
 def drive_partitioned(name, searcher, build_s, corpus, world, workload,
@@ -1088,9 +1247,13 @@ def main() -> None:
         fail("admit-dedup grouped no big-tier pass of the partitioned path")
     say(f"4d workload hash {digest(part_workload.vectors, part_workload.user_ids)}"
         f", truth hash {digest(part_truth)} (4c's)")
-    launches_hybrid = drive_hybrid(plan, corpus, world, arena, part_workload,
-                                   part_truth, smi)
-    del plan
+    launches_hybrid, graph_calls = drive_hybrid(
+        plan, corpus, world, arena, part_workload, part_truth, smi)
+    search_rows, search_extra, launches_harvest = check_graph_search(
+        graph_calls, smi)
+    result.update(search_rows)
+    extra.update(search_extra)
+    del plan, graph_calls
     gc.collect()
     torch.cuda.empty_cache()
     # free the SIFT arrays before the 768-d corpus (3 GB of float32)
@@ -1165,7 +1328,7 @@ def main() -> None:
         arena, ("scan_int8_wide", "merge_extract", "merge_bitonic"), smi)
     check_wires("768-d", searcher, workload, world, smi)
     paths = (launches_sift, launches_part, launches_wide, launches_hybrid,
-             launches_lab, launches_wide_lab)
+             launches_harvest, launches_lab, launches_wide_lab)
     launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules
@@ -1186,6 +1349,11 @@ def main() -> None:
                           "vectorsearch_rbac_tpu/ops/pallas_merge.py:55"),
         "merge_bitonic": ("vectorsearch_rbac_tpu_torch/csrc/merge.cu",
                           "vectorsearch_rbac_tpu/ops/pallas_merge.py:79"),
+        "graph_search": ("vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",
+                         "vectorsearch_rbac_tpu/ops/graph_search.py:343 (its "
+                         "lax.while_loop, :607) with scripts/"
+                         "pallas_merge_probe.py:107 and scripts/"
+                         "r5_graph_fused_probe.py:233"),
         "graph_merge": ("vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",
                         "scripts/pallas_merge_probe.py:107"),
         "graph_score": ("vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",

@@ -557,8 +557,8 @@ def test_graph_wrappers_refuse_a_device_mix(dev):
 def test_hybrid_searcher_cuda_equals_cpu(dev):
     """Hybrid AnonySys at 20,000 rows on one plan, on the card and on the
     CPU: identical distances and ids (lossless int8, exact float32 dots,
-    the graph step's kernels bit-identical to their plain versions); on
-    the card the graph kernels and the flat scan launched. The device kNN
+    the graph kernels bit-identical to their plain versions); on the card
+    the fused graph search and the flat scan launched. The device kNN
     builder gives the CPU's graph on the card too."""
     from vectorsearch_rbac_tpu_torch import build_device_arena, build_searcher
     from vectorsearch_rbac_tpu_torch.bench import make_scenario, serving_config
@@ -583,8 +583,7 @@ def test_hybrid_searcher_cuda_equals_cpu(dev):
                                      10)
         if d.type == "cuda":
             fired = {k: v for k, v in _build.LAUNCHES.items() if v}
-            assert {"graph_score", "graph_merge", "scan_int8"} <= set(
-                fired), fired
+            assert {"graph_search", "scan_int8"} <= set(fired), fired
         graphs[d.type] = HNSWIndex(arena, np.arange(3000, 6000), m=8,
                                    builder="tpu").graph_state()
     np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
@@ -593,6 +592,157 @@ def test_hybrid_searcher_cuda_equals_cpu(dev):
     for key in ("neighbors", "entry"):
         np.testing.assert_array_equal(graphs["cuda"][key],
                                       graphs["cpu"][key])
+
+
+# ---- the fused graph search: the whole iterative search in one launch
+
+def _search_inputs(rng, dev, nq, m0, d_pad, w, mode, spread, n_class=1500,
+                   npad=4096, budget_max=None):
+    """Integer packed rows (codes in [-spread, spread], queries in [-20,
+    20]: every dot and score an exact float32 integer, small spreads tie
+    often), a random graph with -1 pads over n_class local nodes, and the
+    per-query operands: a (3, n_class) slab with slots ("multi"), a 1-D row
+    map ("logical") or none (ids are arena rows). Row map entries of -1
+    (padded rows), entries that map to -1 or to a row no mask admits, and
+    per-query step budgets (0 included) where budget_max is given."""
+    d = d_pad - 7
+    code = np.zeros((npad, d_pad), np.int8)
+    code[:, :d] = rng.integers(-spread, spread + 1, (npad, d))
+    bits = rng.integers(0, 2**32, (npad, w), dtype=np.uint64).astype(
+        np.uint32)
+    bits[rng.random((npad, w)) < 0.7] = 0
+    bits[7] = 0                                  # a row no mask admits
+    norm = (code.astype(np.float32) ** 2).sum(1, dtype=np.float32)
+    packed = np.concatenate([code, bits.view(np.int8).reshape(npad, -1),
+                             norm.view(np.int8).reshape(npad, 4)], axis=1)
+    q = rng.integers(-20, 21, (nq, d)).astype(np.float32)
+    qmask = rng.integers(0, 2**32, (nq, w), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    qcd = rng.integers(-5000, 5000, nq).astype(np.float32)
+    n_nodes = npad if mode == "none" else n_class
+    shape = ((3, n_class, m0) if mode == "multi" else (n_nodes, m0))
+    graph = rng.integers(0, n_nodes, shape).astype(np.int32)
+    graph[rng.random(shape) < 0.15] = -1         # graph row pads
+    row_map = pids = None
+    if mode == "multi":
+        row_map = rng.integers(0, npad, (3, n_class)).astype(np.int32)
+        pids = rng.integers(0, 3, nq).astype(np.int32)
+    elif mode == "logical":
+        row_map = rng.integers(0, npad, n_class).astype(np.int32)
+    entries = rng.integers(0, n_nodes, nq).astype(np.int32)
+    if row_map is not None:
+        row_map[rng.random(row_map.shape) < 0.05] = -1
+        row_map[..., 11] = -1                    # a padded entry
+        row_map[..., 13] = 7                     # an inadmissible entry
+        entries[:2] = (11, 13)
+    else:
+        entries[:2] = (-1, 7)
+    sb = None
+    if budget_max is not None:
+        sb = rng.choice([0, 1, 5, budget_max // 2, budget_max], nq).astype(
+            np.int32)
+    t = lambda a: None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a)).to(dev)
+    return dict(queries=t(q), graph=t(graph), query_masks=t(qmask),
+                entries=t(entries), packed_rows=t(packed), dq_scale=1.0,
+                q_center_dot=t(qcd), row_map=t(row_map), pids=t(pids),
+                step_budget=t(sb))
+
+
+@pytest.mark.parametrize(
+    "nq,ef,kk,m0,max_steps,w,d_pad,mode,budget,spread", [
+        (300, 64, 18, 32, 128, 4, 128, "multi", True, 20),   # hybrid cell
+        (64, 16, 1, 8, 4096, 1, 128, "logical", False, 1),   # ties
+        (50, 16, 16, 8, 1, 4, 256, "none", True, 20),        # kk = ef
+        (40, 512, 512, 64, 4096, 8, 768, "multi", True, 20),
+        (100, 64, 64, 64, 128, 8, 128, "logical", True, 1),  # M0 64, ties
+        (33, 512, 10, 32, 128, 4, 256, "none", False, 20),
+        (20, 1, 1, 8, 16, 1, 128, "multi", False, 20),       # done at entry
+        (4096, 64, 18, 32, 128, 4, 128, "multi", True, 2),   # one wave
+    ])
+def test_graph_search_fused_against_plain(dev, nq, ef, kk, m0, max_steps, w,
+                                          d_pad, mode, budget, spread):
+    """The fused search (through graph_beam_search_iterative, one launch,
+    no step kernel) bit-equal in distances and ids to its plain loop, with
+    the same expansions and scored candidates."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    kw = _search_inputs(np.random.default_rng(nq + ef + m0), dev, nq, m0,
+                        d_pad, w, mode, spread,
+                        budget_max=max_steps if budget else None)
+    args = (kw.pop("queries"), None, None, None, kw.pop("graph"),
+            kw.pop("query_masks"), kw.pop("entries"), kk, ef, max_steps)
+    before = dict(_build.LAUNCHES)
+    got = graph_search.graph_beam_search_iterative(*args, **kw)
+    after = dict(_build.LAUNCHES)
+    assert after["graph_search"] == before["graph_search"] + 1
+    assert after["graph_score"] == before["graph_score"]
+    assert after["graph_merge"] == before["graph_merge"]
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    stats_p = torch.zeros_like(stats)
+    graph_search.graph_search_fused(args[0], *args[4:], **kw, stats=stats)
+    want = graph_search.graph_beam_search_iterative_plain(*args, **kw,
+                                                          stats=stats_p)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(stats, stats_p), (stats, stats_p)
+    assert (want[1][2:] >= 0).any()
+    assert (want[1][0] < 0).all()                # the padded entry
+
+
+def test_graph_search_fused_refuses_other_shapes(dev):
+    """Outside the kernel's shapes the packed search raises before any
+    launch; it never falls back to the step loop."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    kw = _search_inputs(np.random.default_rng(5), dev, 8, 32, 128, 4,
+                        "multi", 20)
+    q, g, m, e = (kw.pop(k) for k in ("queries", "graph", "query_masks",
+                                      "entries"))
+    before = dict(_build.LAUNCHES)
+    for bad in (dict(ef=1024, k=10), dict(ef=64, k=80),
+                dict(ef=64, k=10, max_steps=5000),
+                dict(ef=64, k=10, graph=torch.zeros((3, 1500, 128),
+                                                    dtype=torch.int32,
+                                                    device=dev)),
+                dict(ef=64, k=10, graph=g.long())):
+        call = {**dict(ef=64, k=10, max_steps=64, graph=g), **bad}
+        with pytest.raises(ValueError, match="graph_search_fused"):
+            graph_search.graph_beam_search_iterative(
+                q, None, None, None, call["graph"], m, e, call["k"],
+                call["ef"], call["max_steps"], **kw)
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["harvest", "unpacked"])
+def test_graph_step_loop_keeps_the_step_kernels(dev, packed):
+    """The 2-hop harvest (packed) and the unpacked scorer keep the step
+    loop: KS6 (and KS7 where packed) launch, the fused search does not,
+    and the outputs equal the plain loop's."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    kw = _search_inputs(np.random.default_rng(9), dev, 64, 16, 128, 4,
+                        "logical", 20, budget_max=32)
+    args = (kw.pop("queries"), None, None, None, kw.pop("graph"),
+            kw.pop("query_masks"), kw.pop("entries"), 10, 32, 32, packed)
+    if not packed:
+        rows = kw["packed_rows"]
+        d = args[0].shape[1]
+        args = (args[0], rows[:, :d].float(), rows[:, -4:].contiguous()
+                .view(torch.float32)[:, 0], rows[:, 128:-4].contiguous()
+                .view(torch.int32), *args[4:10], False)
+        for key in ("packed_rows", "dq_scale", "q_center_dot"):
+            kw.pop(key)
+    before = dict(_build.LAUNCHES)
+    got = graph_search.graph_beam_search_iterative(*args, **kw)
+    after = dict(_build.LAUNCHES)
+    want = graph_search.graph_beam_search_iterative_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert after["graph_search"] == before["graph_search"]
+    assert after["graph_merge"] > before["graph_merge"]
+    assert (after["graph_score"] > before["graph_score"]) == packed
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 # ---- the kernel lab's kernels: K1's trim and floor epilogues (S1), K2's

@@ -42,8 +42,10 @@ from vectorsearch_rbac_tpu_torch.core import (build_packed_graph_rows,
                                               packed_query_operands)
 from vectorsearch_rbac_tpu_torch.index import hnsw as hnsw_mod
 from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+from vectorsearch_rbac_tpu_torch.ops import _build, graph_search
 from vectorsearch_rbac_tpu_torch.ops.graph_search import (
-    graph_beam_search, graph_beam_search_iterative)
+    graph_beam_search, graph_beam_search_iterative,
+    graph_beam_search_iterative_plain)
 from vectorsearch_rbac_tpu_torch.ops.graph_step import (
     graph_merge_step, graph_merge_step_plain, graph_score_packed)
 from vectorsearch_rbac_tpu_torch.partition.dynamic import plan_from_reference
@@ -136,7 +138,7 @@ CASES = [("whole", False, False, False), ("logical", True, False, False),
          ("multi", True, True, True), ("multi", True, True, False)]
 
 
-def _run_both(s, case, **port_kw):
+def _run_both(s, case, fn=graph_beam_search_iterative, **port_kw):
     mode, packed, harvest, budget = case
     graph, entries, jkw, pkw = _iterative_case(s, *case)
     ra, pa = s["ra"], s["pa"]
@@ -144,23 +146,104 @@ def _run_both(s, case, **port_kw):
         jnp.asarray(s["qf"]), ra.vectors, ra.norms, ra.role_bits,
         jnp.asarray(graph), jnp.asarray(s["masks"]), jnp.asarray(entries),
         K, EF, STEPS, harvest, **jkw)
-    got = graph_beam_search_iterative(
+    got = fn(
         _t(s["qf"]), pa.vectors, pa.norms, pa.role_bits, _t(graph),
         _t(s["masks"].view(np.int32)), _t(entries), K, EF, STEPS, harvest,
         **pkw, **port_kw)
     return [np.asarray(a) for a in want], [a.numpy() for a in got]
 
 
+@pytest.mark.parametrize("fn", [graph_beam_search_iterative,
+                                graph_beam_search_iterative_plain],
+                         ids=["search", "plain"])
 @pytest.mark.parametrize("case", CASES,
                          ids=["-".join(map(str, c)) for c in CASES])
-def test_iterative_search_matches_reference(setup, case):
-    """graph_beam_search_iterative: packed and unpacked scoring, one graph
-    (whole arena or logical) and the multi-graph slab with per-query step
-    budgets, the 2-hop harvest on and off: equal ids, equal distances."""
-    (wd, wi), (gd, gi) = _run_both(setup, case)
+def test_iterative_search_matches_reference(setup, case, fn):
+    """graph_beam_search_iterative and its plain loop (the fused kernel's
+    plain version): packed and unpacked scoring, one graph (whole arena
+    or logical) and the multi-graph slab with per-query step budgets, the
+    2-hop harvest on and off: equal ids, equal distances."""
+    (wd, wi), (gd, gi) = _run_both(setup, case, fn)
     np.testing.assert_array_equal(gi, wi)
     np.testing.assert_array_equal(gd, wd)
     assert (gi >= 0).sum() > 0.5 * gi.size
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[2], CASES[4]],
+                         ids=["packed-logical", "packed-budget",
+                              "packed-harvest"])
+def test_cpu_search_is_the_plain_loop(setup, case, monkeypatch):
+    """On CPU tensors every combination (the fused kernel's packed path
+    included) runs the step loop, with the step kernels' plain versions:
+    graph_beam_search_iterative equals graph_beam_search_iterative_plain,
+    and so does graph_search_fused where it applies; no kernel launches
+    and no fused launch is tried."""
+    def refuse(*a, **k):
+        raise AssertionError("the fused search was called on CPU tensors")
+
+    before = dict(_build.LAUNCHES)
+    _, (gd, gi) = _run_both(setup, case)
+    monkeypatch.setattr(graph_search, "graph_search_fused", refuse)
+    _, (pd, pi) = _run_both(setup, case, graph_beam_search_iterative)
+    _, (qd, qi) = _run_both(setup, case, graph_beam_search_iterative_plain)
+    for a, b in ((gd, qd), (gi, qi), (pd, qd), (pi, qi)):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.undo()
+    if not case[2]:                              # no harvest: fused applies
+        graph, entries, _, pkw = _iterative_case(setup, *case)
+        stats = torch.zeros(2, dtype=torch.int64)
+        fd, fi = graph_search.graph_search_fused(
+            _t(setup["qf"]), _t(graph), _t(setup["masks"].view(np.int32)),
+            _t(entries), K, EF, STEPS, **pkw, stats=stats)
+        np.testing.assert_array_equal(fi.numpy(), qi)
+        np.testing.assert_array_equal(fd.numpy(), qd)
+        assert 0 < stats[0] <= NQ * STEPS and stats[1] > stats[0]
+    assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("packed,harvest,device,fused", [
+    (True, False, "cuda", True), (True, True, "cuda", False),
+    (False, False, "cuda", False), (True, False, "cpu", False)])
+def test_only_the_packed_path_on_the_card_is_fused(packed, harvest, device,
+                                                   fused, monkeypatch):
+    """The dispatch: only packed rows without the 2-hop harvest on CUDA
+    tensors take the fused kernel; the harvest and the unpacked scorer
+    keep the step loop (KS7 and KS6 on the card)."""
+    taken = []
+    monkeypatch.setattr(graph_search, "graph_search_fused",
+                        lambda *a, **k: taken.append("fused"))
+    monkeypatch.setattr(graph_search, "_step_loop",
+                        lambda *a, **k: taken.append("steps"))
+
+    class Queries:           # stands in for a tensor on `device`
+        pass
+
+    q = Queries()
+    q.device = torch.device(device)
+    graph_beam_search_iterative(q, None, None, None, None, None, None, K, EF,
+                                STEPS, harvest, packed_rows=(
+                                    object() if packed else None))
+    assert taken == ["fused" if fused else "steps"]
+
+
+def test_fused_search_refuses_other_shapes(setup):
+    """graph_search_fused takes the kernel's shapes only, on any device:
+    ef <= 512, k <= ef, M0 <= 64, max_steps <= 4096, d_pad 128/256/768."""
+    graph, entries, _, pkw = _iterative_case(setup, "multi", True, False,
+                                             False)
+    args = (_t(setup["qf"]), _t(graph), _t(setup["masks"].view(np.int32)),
+            _t(entries))
+    for k, ef, steps, g in ((K, 1024, STEPS, args[1]), (EF + 1, EF, STEPS,
+                            args[1]), (K, EF, 5000, args[1]),
+                            (K, EF, STEPS, args[1].repeat(1, 1, 9))):
+        with pytest.raises(ValueError, match="graph_search_fused"):
+            graph_search.graph_search_fused(args[0], g, *args[2:], k, ef,
+                                            steps, **pkw)
+    code = pkw["packed_rows"][:, :-4 - 4 * setup["masks"].shape[1]]
+    with pytest.raises(ValueError, match="d_pad 384"):
+        graph_search.graph_search_fused(*args, K, EF, STEPS, **{
+            **pkw, "packed_rows": torch.cat([code, code, pkw["packed_rows"]],
+                                            1)})
 
 
 @pytest.mark.parametrize("case", [CASES[2], CASES[4]],
@@ -395,3 +478,25 @@ def test_hybrid_searcher_matches_reference(hybrid):
     masks = hybrid["pw"].user_masks[wl.user_ids]
     readable = (bits[np.maximum(gi, 0)] & masks[:, None, :]).any(-1)
     assert (readable | (gi < 0)).all()
+
+
+def test_hybrid_storage_counts_the_batcher(hybrid):
+    """The hybrid's storage report counts the graph batcher's slabs (graph
+    and row map) and its packed rows, on top of the arena and the
+    partitions (the reference leaves both out)."""
+    got_s = hybrid["got"]
+    b = got_s.graph_batcher
+    rep = got_s.storage_report()
+    mb = 1024 * 1024
+    slabs = sum(g3.numel() * 4 + rm2.numel() * 4
+                for g3, rm2 in b.slabs.values())
+    a = got_s.arena
+    packed = a.n_padded * (a.quant.d_pad + 4 * a.role_bits.shape[1] + 4)
+    assert slabs > 0 and rep["graph_slab_mb"] == slabs / mb
+    assert rep["packed_rows_mb"] == packed / mb
+    if b._packed is not None:
+        assert b._packed.numel() == packed
+    parts = sum(rep[k] for k in ("arena_vectors_mb", "arena_aux_mb",
+                                 "partition_vectors_mb",
+                                 "partition_index_mb"))
+    assert rep["total_mb"] == pytest.approx(parts + (slabs + packed) / mb)

@@ -25,11 +25,12 @@ which run one after another on the one stream). The spans split a pass:
 - dynamic --index hybrid (the hybrid executor: HNSW graphs where the
   combs' selectivity holds, the int8 scan on the remainder):
   partitioned.route, partitioned.enqueue (the flat partitions' scans,
-  flat_int8.* inside), partitioned.graph (the graph batcher: per step
-  graph.step, inside it graph.dedup (pop, neighbour gather, dedup against
-  beam and history), graph.score (the packed-row score kernel) and
-  graph.merge (the merge kernel); graph.drain the host's id mapping) and
-  partitioned.merge.
+  flat_int8.* inside), partitioned.graph (the graph batcher: graph.search,
+  the fused search kernel, one a chunk; on the step loop (the 2-hop
+  harvest) per step graph.step, inside it graph.dedup (pop, neighbour
+  gather, dedup against beam and history), graph.score (the packed-row
+  score kernel) and graph.merge (the merge kernel); graph.drain the host's
+  id mapping) and partitioned.merge.
 
 Needs a CUDA device.
 """
@@ -186,8 +187,9 @@ def main(argv=None) -> int:
     if args.index == "hybrid":
         flat = (dev.get("partitioned.enqueue", 0.0)
                 + dev.get("flat_int8.fetch_unpack", 0.0))
-        print(f"  device: graph step {dev.get('partitioned.graph', 0.0):.3f}"
-              f" ms (score {dev.get('graph.score', 0.0):.3f}, merge "
+        print(f"  device: graph {dev.get('partitioned.graph', 0.0):.3f}"
+              f" ms (fused search {dev.get('graph.search', 0.0):.3f}; step "
+              f"loop: score {dev.get('graph.score', 0.0):.3f}, merge "
               f"{dev.get('graph.merge', 0.0):.3f}, dedup "
               f"{dev.get('graph.dedup', 0.0):.3f}), flat remainder "
               f"{flat:.3f} ms")

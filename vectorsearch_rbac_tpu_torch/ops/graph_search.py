@@ -1,4 +1,5 @@
-"""Batched HNSW graph beam search, in PyTorch with the graph step's kernels.
+"""Batched HNSW graph beam search: the fused search kernel, and the step
+loop in PyTorch with the graph step's kernels.
 
 Counterpart of vectorsearch_rbac_tpu/ops/graph_search.py: Q queries
 advance together; each step expands one frontier node per query, gathers
@@ -12,18 +13,25 @@ admit only rows whose bitset meets the query's mask.
 - `graph_beam_search_iterative` (:343): the iterative rescan the HNSW
   executor serves with: per-query termination against the ef-wide visited
   window, multi-graph slabs (`pids`), per-query step budgets, the 2-hop
-  harvest, and the packed-row scoring. Its step runs the two kernels of
-  ops/graph_step.py (score and merge); the neighbour gather and the dedup
-  against beam and history stay PyTorch.
+  harvest, and the packed-row scoring. On CUDA tensors in packed mode
+  without the harvest (the hybrid executor's path) the whole search is
+  one launch of `graph_search_fused` (csrc/graph_step.cu, see the note
+  there), which keeps each query's state on chip from the first pop to
+  the last merge. Every other combination runs the step loop: its step
+  runs the two kernels of ops/graph_step.py (score and merge); the
+  neighbour gather and the dedup against beam and history stay PyTorch.
+- `graph_beam_search_iterative_plain`: the step loop with the plain score
+  and merge on any device, the fused kernel's plain version.
 
-The state layout is the reference's: a pop leaves +inf and id -1 in the
-popped slot, and every merge keeps the lower position first among equal
-values (lax.top_k's order), so ids and distances come out equal to the
-reference's on the same inputs. The reference's lax.while_loop becomes a
-Python loop that asks the device whether every query is done only every
-`sync_every` steps: a query that is done keeps popping its beam, but every
-candidate it adds is -1/+inf, so its results, its window and its done
-test do not move, and the outputs equal those of a test at every step.
+The step loop's state layout is the reference's: a pop leaves +inf and id
+-1 in the popped slot, and every merge keeps the lower position first
+among equal values (lax.top_k's order), so ids and distances come out
+equal to the reference's on the same inputs. The reference's
+lax.while_loop becomes a Python loop that asks the device whether every
+query is done only every `sync_every` steps: a query that is done keeps
+popping its beam, but every candidate it adds is -1/+inf, so its results,
+its window and its done test do not move, and the outputs equal those of
+a test at every step.
 
 Metric: l2 only (the port's partitions serve l2); ip, cosine and l1 graph
 scoring raise (ROADMAP queue 1 item 11). The ACORN filtered traversal
@@ -32,15 +40,24 @@ scoring raise (ROADMAP queue 1 item 11). The ACORN filtered traversal
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
-from .graph_step import candidate_rows, graph_merge_step, graph_score_packed
+from . import _build
+from .graph_step import (_same_device, candidate_rows, graph_merge_step,
+                         graph_merge_step_plain, graph_score_packed,
+                         graph_score_packed_plain)
 
 INF = float("inf")
 SYNC_EVERY = 8   # steps between the host's "all done?" reads
+# the fused kernel's shapes (csrc/graph_step.cu vsr_graph_search_fused)
+FUSED_D_PAD = (128, 256, 768)
+FUSED_MAX_M0 = 64
+FUSED_MAX_EF = 512
+FUSED_MAX_STEPS = 4096
 
 
 def _check_metric(metric: str) -> None:
@@ -162,8 +179,132 @@ def graph_beam_search_iterative(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The iterative-rescan filtered beam search (the reference's :343, see
     its docstring for the termination rule and the dedup by beam and
-    history). Returns (dists (Q, k) ascending, local ids (Q, k))."""
+    history). Returns (dists (Q, k) ascending, local ids (Q, k)).
+
+    On CUDA tensors in packed mode without the 2-hop harvest the whole
+    search is one launch of the fused kernel (`graph_search_fused`); a
+    shape outside the kernel's raises. Every other combination, and every
+    CPU call, runs the step loop, whose score and merge launch KS7 and KS6
+    on the card and take their plain versions on the CPU."""
     _check_metric(metric)
+    if packed_rows is not None and not harvest_2hop \
+            and queries.device.type == "cuda":
+        with record_function("graph.search"):
+            return graph_search_fused(
+                queries, graph, query_masks, entries, k, ef, max_steps,
+                packed_rows, dq_scale, q_center_dot, row_map, pids,
+                step_budget)
+    return _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
+                      entries, k, ef, max_steps, harvest_2hop, row_map, pids,
+                      step_budget, packed_rows, dq_scale, q_center_dot,
+                      sync_every, graph_score_packed, graph_merge_step)
+
+
+def graph_beam_search_iterative_plain(
+    queries, vectors, norms, role_bits, graph, query_masks, entries, k, ef,
+    max_steps, harvest_2hop=False, row_map=None, metric="l2", pids=None,
+    step_budget=None, packed_rows=None, dq_scale=1.0, q_center_dot=None,
+    sync_every=SYNC_EVERY, stats=None):
+    """The step loop with the plain score and merge on any device: the
+    fused kernel's plain version (and the harvest's). `stats`, a (2,) int64
+    tensor, gains the expansions and the scored 1-hop candidates, as the
+    fused kernel counts them."""
+    _check_metric(metric)
+    return _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
+                      entries, k, ef, max_steps, harvest_2hop, row_map, pids,
+                      step_budget, packed_rows, dq_scale, q_center_dot,
+                      sync_every, graph_score_packed_plain,
+                      graph_merge_step_plain, stats)
+
+
+def graph_search_fused(queries, graph, query_masks, entries, k, ef,
+                       max_steps, packed_rows, dq_scale=1.0,
+                       q_center_dot=None, row_map=None, pids=None,
+                       step_budget=None, stats=None):
+    """The packed-row iterative search without harvest, the whole loop in
+    one launch of csrc/graph_step.cu graph_search_fused_kernel on CUDA
+    tensors; CPU tensors take its plain version, the step loop with the
+    plain score and merge. Arguments as graph_beam_search_iterative's;
+    `stats` as graph_beam_search_iterative_plain's.
+
+    The kernel takes ef <= 512, 1 <= k <= ef, M0 <= 64, max_steps <= 4096,
+    1-31 bitset words and d_pad 128, 256 or 768, with int32 graph, row map,
+    slots, entries and budgets; anything else raises ValueError."""
+    q = queries.float()
+    nq, d = q.shape
+    w = query_masks.shape[1]
+    d_pad = packed_rows.shape[1] - 4 * w - 4
+    m0 = graph.shape[-1]
+    multi = pids is not None
+    problems = [
+        msg for bad, msg in (
+            (not 1 <= w <= 31, f"{w} bitset words (1-31)"),
+            (d_pad not in FUSED_D_PAD or d > d_pad,
+             f"d_pad {d_pad} for d {d} (one of {FUSED_D_PAD})"),
+            (not 1 <= m0 <= FUSED_MAX_M0, f"M0 {m0} (1-{FUSED_MAX_M0})"),
+            (not 1 <= k <= ef <= FUSED_MAX_EF,
+             f"k {k}, ef {ef} (1 <= k <= ef <= {FUSED_MAX_EF})"),
+            (not 0 <= max_steps <= FUSED_MAX_STEPS,
+             f"max_steps {max_steps} (0-{FUSED_MAX_STEPS})"),
+            (graph.dim() != (3 if multi else 2) or (row_map is not None and (
+                row_map.dim() != graph.dim() - 1 or (multi and tuple(
+                    row_map.shape) != tuple(graph.shape[:2])))),
+             f"graph {tuple(graph.shape)}, row map "
+             f"{None if row_map is None else tuple(row_map.shape)}"),
+            (multi and row_map is None, "slots without a (P, n_class) row map"),
+            (query_masks.shape[0] != nq or entries.numel() != nq or any(
+                t is not None and t.numel() != nq
+                for t in (pids, step_budget, q_center_dot)),
+             "per-query operands that do not pair with the queries"),
+        ) if bad]
+    if problems:
+        raise ValueError("graph_search_fused does not take: "
+                         + "; ".join(problems))
+    dev = _same_device(q, graph, query_masks, entries, packed_rows,
+                       q_center_dot, row_map, pids, step_budget, stats)
+    if dev.type == "cpu":
+        return graph_beam_search_iterative_plain(
+            queries, None, None, None, graph, query_masks, entries, k, ef,
+            max_steps, False, row_map, "l2", pids, step_budget, packed_rows,
+            dq_scale, q_center_dot, stats=stats)
+    for name, t, dt in (("graph", graph, torch.int32),
+                        ("query_masks", query_masks, torch.int32),
+                        ("entries", entries, torch.int32),
+                        ("packed_rows", packed_rows, torch.int8),
+                        ("row_map", row_map, torch.int32),
+                        ("pids", pids, torch.int32),
+                        ("step_budget", step_budget, torch.int32),
+                        ("q_center_dot", q_center_dot, torch.float32),
+                        ("stats", stats, torch.int64)):
+        if t is not None and (t.dtype != dt or not t.is_contiguous()):
+            raise ValueError(f"graph_search_fused: {name} must be a "
+                             f"contiguous {dt} tensor, not {t.dtype}")
+    qp = (q if d == d_pad else torch.nn.functional.pad(q, (0, d_pad - d))
+          ).contiguous()
+    qcd = (torch.zeros(nq, device=dev) if q_center_dot is None
+           else q_center_dot)
+    res_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    res_ids = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _build.lib().vsr_graph_search_fused(
+        qp.data_ptr(), query_masks.data_ptr(), qcd.data_ptr(),
+        ctypes.c_float(dq_scale), packed_rows.data_ptr(),
+        packed_rows.shape[1], graph.data_ptr(), m0, ptr(row_map), ptr(pids),
+        graph.shape[1] if multi else 0, entries.data_ptr(), ptr(step_budget),
+        res_d.data_ptr(), res_ids.data_ptr(), ptr(stats), nq, d_pad, w, ef,
+        k, max_steps, _build.stream_ptr(dev))
+    _build.check(err, "vsr_graph_search_fused")
+    _build.LAUNCHES["graph_search"] += 1
+    return _finish(res_d, res_ids, q)
+
+
+def _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
+               entries, k, ef, max_steps, harvest_2hop, row_map, pids,
+               step_budget, packed_rows, dq_scale, q_center_dot, sync_every,
+               score_packed, merge_step, stats=None):
+    """The reference's lax.while_loop as a Python loop over steps, with the
+    given packed-row scorer and merge (the kernels' wrappers or their plain
+    versions)."""
     q = queries.float()
     nq, d = q.shape
     dev = q.device
@@ -181,9 +322,8 @@ def graph_beam_search_iterative(
                else q_center_dot)
 
         def score_admit(ids):
-            return graph_score_packed(ids.contiguous(), packed_rows, qp,
-                                      query_masks, qcd, dq_scale, row_map,
-                                      pids)
+            return score_packed(ids.contiguous(), packed_rows, qp,
+                                query_masks, qcd, dq_scale, row_map, pids)
     else:
         score_admit = _unpacked_scorer(vectors, norms, role_bits,
                                        query_masks, q, row_map, pids)
@@ -232,6 +372,9 @@ def graph_beam_search_iterative(
                 nb = torch.where(seen, -1, nb).contiguous()
             with record_function("graph.score"):
                 nd, nb_ok = score_admit(nb)
+            if stats is not None:
+                stats += torch.stack([(node >= 0).sum(),
+                                      torch.isfinite(nd).sum()])
             with record_function("graph.merge"):
                 if harvest_2hop:
                     cand_ids, cand_d = _harvest(
@@ -239,7 +382,7 @@ def graph_beam_search_iterative(
                         m0, tri)
                 else:
                     cand_ids, cand_d = nb, torch.where(nb_ok, nd, INF)
-                beam_d, beam_ids, w_d, res_d, res_ids = graph_merge_step(
+                beam_d, beam_ids, w_d, res_d, res_ids = merge_step(
                     beam_d, beam_ids, nd, nb, w_d, res_d, res_ids,
                     cand_d.contiguous(), cand_ids.contiguous())
     return _finish(res_d, res_ids, q)

@@ -1,5 +1,7 @@
 """The graph step's two kernels: packed-row candidate scoring and the
-step's three stable merges.
+step's three stable merges. The step loop of ops/graph_search.py runs
+them where the fused search does not apply (the 2-hop harvest); the fused
+search (graph_search.graph_search_fused) does both inside its own loop.
 
 Counterparts of the two TPU kernels of the HNSW step
 (vectorsearch_rbac_tpu/ops/graph_search.py graph_beam_search_iterative):

@@ -179,7 +179,10 @@ class PartitionedSearcher:
         return finalize
 
     def storage_report(self) -> Dict[str, float]:
-        """MB accounting: the shared arena plus per-partition structures."""
+        """MB accounting: the shared arena plus per-partition structures,
+        and the graph batcher's own device copies (its graph and row-map
+        slabs, and the packed rows it scores from). The reference leaves
+        the batcher out; the port counts it (ROADMAP queue 3)."""
         a = self.arena
         arena_vec = a.n_padded * a.dim * a.vectors.element_size()
         arena_aux = a.n_padded * (4 + 4 * a.role_bits.shape[1])
@@ -188,13 +191,19 @@ class PartitionedSearcher:
             sb = p.index.storage_bytes()
             part_vec += sb["vectors"]
             part_idx += sb["index"]
+        batcher = getattr(self, "graph_batcher", None)
+        gb = ({"graph_slabs": 0, "packed_rows": 0} if batcher is None
+              else batcher.storage_bytes())
         mb = 1024 * 1024
         return {
             "arena_vectors_mb": arena_vec / mb,
             "arena_aux_mb": arena_aux / mb,
             "partition_vectors_mb": part_vec / mb,
             "partition_index_mb": part_idx / mb,
-            "total_mb": (arena_vec + arena_aux + part_vec + part_idx) / mb,
+            "graph_slab_mb": gb["graph_slabs"] / mb,
+            "packed_rows_mb": gb["packed_rows"] / mb,
+            "total_mb": (arena_vec + arena_aux + part_vec + part_idx
+                         + gb["graph_slabs"] + gb["packed_rows"]) / mb,
             "num_partitions": len(self.partitions),
         }
 

@@ -15,8 +15,9 @@ largest.
 The slab merge rule, the 4096-query chunk and the host drain (local ids to
 arena rows, dedupe to k) are the reference's. Scoring takes the packed
 rows (core.build_packed_graph_rows) where the arena's int8 mirror is
-lossless, as the reference's does; the slab dispatch then runs the graph
-step's two kernels (ops/graph_step.py).
+lossless, as the reference's does; the slab dispatch then runs the fused
+graph search kernel (ops/graph_search.py graph_search_fused) on the card,
+or the step loop where a group takes the 2-hop harvest.
 """
 
 from __future__ import annotations
@@ -109,6 +110,19 @@ class GraphProbeBatcher:
         logger.info("graph batcher: %d partitions in %d classes %s",
                     len(hnsw_parts), len(classes),
                     sorted((s[0], len(p)) for s, p in classes.items()))
+
+    def storage_bytes(self) -> Dict[str, int]:
+        """Device bytes of the batcher's own copies: the graph and row-map
+        slabs, and the packed rows (built at the first run on a lossless
+        arena, counted from then on as from the start)."""
+        slabs = sum(t.numel() * t.element_size()
+                    for pair in self.slabs.values() for t in pair)
+        quant = self.arena.quant
+        packed = 0
+        if quant is not None and quant.lossless:
+            packed = self.arena.n_padded * (
+                quant.d_pad + 4 * self.arena.role_bits.shape[1] + 4)
+        return {"graph_slabs": slabs, "packed_rows": packed}
 
     def run(self, queries: np.ndarray, qmasks: np.ndarray,
             jobs: Sequence[Tuple[int, List[int], dict]],
