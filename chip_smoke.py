@@ -13,9 +13,13 @@ without a CUDA device or without the port's package beside it. Phases:
 3. the narrow scan and the merge kernels against their plain PyTorch
    versions at the SIFT path's geometry (a 2048-query batch against the
    1M-row arena, group 128, k 100): the scan must be bit-identical; the
-   merge stages must give identical values and identical positions on the
-   non-empty slots. Times come from CUDA events. Beside the scan, its
-   yardsticks: the wide scan (K2) launched on the same d_pad-128 operands
+   extraction must give identical values and identical positions on the
+   non-empty slots, the bitonic sort identical values and metas in every
+   row (fed the same survivors), beside its bound and torch.topk's time
+   over the minima. Times come from CUDA events around launches queued
+   behind a spin on the card (a wrapper's host dispatch is not timed).
+   Beside the scan, its yardsticks: the wide scan (K2) launched on the
+   same d_pad-128 operands
    (bit-identical to the same plain minima), a dots-only torch._int_mm
    over the same operands in 8 row chunks (not the scan's function, so not
    its library_ms), the first port's dp4a scan (the lab control of 3e),
@@ -29,8 +33,10 @@ without a CUDA device or without the port's package beside it. Phases:
    per-query form's time on the same masks, and the slot form's epilogue
    floor over the admitted pairs;
 3e. the kernel lab's path (bench/lab.py's entry points) on phase 3's
-   operands: the dp4a scan's plain (the control), trim and floor
-   epilogues, extract_merge and extract_merge_v2 on phase 3's 2048 x
+   operands: the dp4a scan's plain (the control) and trim epilogues, the
+   floor probe on the narrow scan's tensor-core schedule (timed beside
+   the narrow scan on the same operands: the share of its time that its
+   epilogue takes), extract_merge and extract_merge_v2 on phase 3's 2048 x
    8192-group minima, the y-form extraction (sub 128, t 8 and 16) and
    both y-form sorts (keep 128), with
    the counts set to 0 just before and read just after; then each of these
@@ -170,13 +176,18 @@ def say(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
+    """Mean device time of fn() over reps launches, after one warm-up. The
+    launches queue up behind a spin of about 50 us a launch on the card,
+    so the events time them back to back: a wrapper's host dispatch (~15-25
+    us of Python and ctypes) would otherwise be the time of a kernel that
+    runs for less."""
     import torch
 
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(reps * 100_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -269,10 +280,12 @@ def check_merge(packed, k, nsub=32, t=16):
             max_abs_err(y, y_plain),
             cuda_ms(lambda: merge.extract_pairs(packed, nsub, t), 10),
             cuda_ms(lambda: merge.extract_pairs_plain(packed, nsub, t), 3)),
+        # fed the same survivors, the sort's every row must agree: the
+        # metas of equal values (drained INT32_MAX, inadmissible
+        # 0x7F000000) follow the TPU network's tie order
         "merge_bitonic": (
-            torch.equal(ys, ys_plain)
-            and torch.equal(gs[ys < empty], gs_plain[ys < empty]),
-            max_abs_err(ys, ys_plain),
+            torch.equal(ys, ys_plain) and torch.equal(gs, gs_plain),
+            max(max_abs_err(ys, ys_plain), max_abs_err(gs, gs_plain)),
             cuda_ms(lambda: merge.bitonic_pairs(y, meta, keep), 10),
             cuda_ms(lambda: merge.bitonic_pairs_plain(y, meta, keep), 3)),
     }
@@ -282,6 +295,10 @@ def check_merge(packed, k, nsub=32, t=16):
                                topk_ms),
              "merge_bitonic": (*bound_ms(nbytes(y, meta, ys, gs), 0, 1),
                                topk_ms)}
+    say(f"  bitonic sort (npc {y.shape[0]}, keep {keep}, Q {y.shape[1]}): "
+        f"{out['merge_bitonic'][2]:.6f} ms, bound "
+        f"{extra['merge_bitonic'][0]:.6f} ms (bytes), torch.topk over the "
+        f"minima (the extraction and sort together) {topk_ms:.6f} ms")
     return out, keep, extra
 
 
@@ -495,6 +512,21 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
             cuda_ms(plain_fn, 3))
         extra[f"scan_int8_{variant}"] = (*scan_bound(*rows, out_meta), None)
         del got, plain
+    # the floor runs on K1's schedule: K1 and the floor in turns on the same
+    # operands; K1's time less the floor's is what K1's epilogue costs there
+    k1 = lambda: scan_int8.int8_group_minima(*rows, **lab_kw)
+    floor = lambda: lab_scan.lab_group_minima(*rows, variant="floor",
+                                              **lab_kw)
+    turns = {"k1": [], "floor": []}
+    for name in ("k1", "floor", "floor", "k1"):
+        turns[name].append(cuda_ms(k1 if name == "k1" else floor, 10))
+    k1_ms, floor_ms = (sum(turns[n]) / 2 for n in ("k1", "floor"))
+    say(f"floor on K1's tensor-core schedule at Q={q8.shape[0]} x "
+        f"{x8.shape[0]} rows, W {bits.shape[1]}, group {group} ({smi}): "
+        f"K1 {turns['k1']} ms, floor {turns['floor']} ms (in turns); "
+        f"epilogue share (K1 - floor) / K1 {(k1_ms - floor_ms) / k1_ms:.4f}"
+        f"; floor bound {extra['scan_int8_floor'][0]:.6f} ms "
+        f"({extra['scan_int8_floor'][1]})")
     topk_ms = cuda_ms(lambda: torch.topk(packed, TOPK, dim=0, largest=False),
                       10)
     names = ("merge_y_extract", "merge_y_sort", "merge_y_pairs")
@@ -1157,8 +1189,9 @@ def main() -> None:
     extra.update(merge_extra)
     report(f"kernel vs plain at Q={BATCH} x {arena.n_padded} rows x d_pad "
            f"128, group {GROUP}, nsub 32, t 16, keep {keep} ({smi}); "
-           "tolerance 0: values bit-identical, merge positions identical "
-           "where the value is a candidate:",
+           "tolerance 0: values bit-identical, extraction positions "
+           "identical where the value is a candidate, sort metas identical "
+           "in every row:",
            {k: result[k] for k in ("scan_int8", *merges)})
     result["scan_int8_slots"], extra["scan_int8_slots"] = check_slot_form(
         arena, workload, world, device, smi)

@@ -357,19 +357,68 @@ def test_extract_kernel_lane_corners(dev, case):
         assert (y_p.view(nsub, t, nq)[:, -1] == 2**31 - 1).all()
 
 
-@pytest.mark.parametrize("npc,nq,keep", [(64, 33, 16), (512, 300, 104),
-                                         (2048, 17, 2048)])
+@pytest.mark.parametrize("npc,nq,keep", [
+    (64, 33, 16), (512, 300, 104), (2048, 17, 2048),
+    # the paths' npc 512 at keep 16 (top-10), 104 (top-100) and 136 (the
+    # 768-d path's kk 132), at a full batch and ragged query counts
+    (512, 2048, 16), (512, 2048, 104), (512, 2048, 136),
+    (512, 1, 16), (512, 1, 104), (512, 1, 136),
+    (512, 2049, 16), (512, 2049, 104), (512, 2049, 136),
+    # the other instantiations: below a warp's 32 lanes, 32 and 1024 lanes'
+    # worth, and npc 2048's two warps with the upper one stopping early
+    (2, 5, 1), (8, 9, 8), (32, 40, 8), (1024, 20, 520), (2048, 33, 1024),
+    (2048, 9, 104),
+])
 def test_bitonic_kernel_identical(dev, npc, nq, keep):
+    """K4 against its plain version in every row, values and metas, on
+    values in [0, 40) with random metas: ties everywhere, so a
+    compare-exchange that orders equal values otherwise than the TPU
+    network (a symmetric min/max across lanes) fails here."""
     rng = np.random.default_rng(npc)
     y = torch.from_numpy(rng.integers(0, 40, size=(npc, nq)).astype(
         np.int32)).to(dev)
     g = torch.from_numpy(rng.integers(0, 1 << 20, size=(npc, nq)).astype(
         np.int32)).to(dev)
+    before = _build.LAUNCHES["merge_bitonic"]
     ys, gs = merge.bitonic_pairs(y, g, keep)
+    assert _build.LAUNCHES["merge_bitonic"] == before + 1
     ys_p, gs_p = merge.bitonic_pairs_plain(y, g, keep)
     torch.cuda.synchronize()
     assert torch.equal(ys, ys_p) and torch.equal(gs, gs_p)
     assert (ys[1:] >= ys[:-1]).all()
+
+
+@pytest.mark.parametrize("case", ["one-value", "from-extract"])
+def test_bitonic_kernel_equal_values(dev, case):
+    """K4 where only the tie rule orders the output: columns of one
+    repeated value (INT32_MAX, the inadmissible 0x7F000000, a score) with
+    distinct metas; and K3's output on drained and all-inadmissible
+    columns, whose survivors repeat INT32_MAX and 0x7F000000 with
+    different metas. Every row is compared, values and metas."""
+    rng = np.random.default_rng(len(case))
+    npc, nq, keep = 512, 70, 136
+    if case == "one-value":
+        y = np.empty((npc, nq), np.int32)
+        y[:, 0::3] = 2**31 - 1
+        y[:, 1::3] = scan_int8.MASKED_I32
+        y[:, 2::3] = 1234 << 7
+        g = rng.permutation(npc * nq).reshape(npc, nq).astype(np.int32)
+        y, g = (torch.from_numpy(a).to(dev) for a in (y, g))
+    else:
+        p = _packed_with_ties(rng, 8192, nq)
+        p[:, 2:6] = scan_int8.MASKED_I32        # all inadmissible
+        p[5:, 6:9] = scan_int8.MASKED_I32       # drained after 5 groups
+        p[:, 9] = 2**31 - 1                     # the sentinel itself
+        y, g = merge.extract_pairs(torch.from_numpy(p).to(dev), 32, 16)
+    before = _build.LAUNCHES["merge_bitonic"]
+    ys, gs = merge.bitonic_pairs(y, g, keep)
+    assert _build.LAUNCHES["merge_bitonic"] == before + 1
+    ys_p, gs_p = merge.bitonic_pairs_plain(y, g, keep)
+    torch.cuda.synchronize()
+    assert torch.equal(ys, ys_p) and torch.equal(gs, gs_p)
+    if case == "from-extract":
+        assert (ys[:, 2:6] == scan_int8.MASKED_I32).any()
+        assert (ys[:, 9] == 2**31 - 1).all()
 
 
 def test_masked_topk_cuda_equals_cpu(dev):
@@ -776,6 +825,45 @@ def test_lab_scan_variants_bit_identical(dev, variant, nq, npad, d_pad, w,
     assert torch.equal(got.cpu(), want)
     if variant != "floor":
         assert torch.equal(got, scan_int8.int8_group_minima(*args, **kw))
+
+
+@pytest.mark.parametrize("d_pad,w,group", [(256, 8, 32), (128, 4, 128)])
+def test_floor_extreme_operands(dev, d_pad, w, group):
+    """The floor on K1's tensor-core schedule at its range's ends: every
+    dot at +-127^2 * d_pad (a group's rows and each query all +127 or all
+    -127) and every role word set on both sides (the count at 32 W, 256 at
+    W 8), beside groups and queries that share no role (count 0). dots and
+    count add as plain int32, as in the plain version."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_scan
+
+    nq, npad = 130, 1024
+    g_of_row = np.arange(npad) // group
+    sign_x = np.where(g_of_row % 2 == 0, 1, -1)
+    sign_q = np.where(np.arange(nq) % 2 == 0, 1, -1)
+    x8 = np.repeat(127 * sign_x[:, None], d_pad, axis=1).astype(np.int8)
+    q8 = np.repeat(127 * sign_q[:, None], d_pad, axis=1).astype(np.int8)
+    norms = np.full(npad, 127 * 127 * d_pad, np.int32)
+    rbits = np.full((npad, w), -1, np.int32)
+    qbits = np.full((nq, w), -1, np.int32)
+    rbits[g_of_row % 4 == 3] = 0               # groups that share no role
+    qbits[np.arange(nq) % 5 == 4] = 0          # queries that share none
+    top = 127 * 127 * d_pad
+    n_groups = npad // group
+    share = ((np.arange(n_groups) % 4 != 3)[:, None]
+             & (np.arange(nq) % 5 != 4)[None, :])
+    expect = (np.where(np.arange(n_groups) % 2 == 0, 1, -1)[:, None]
+              * sign_q[None, :] * top + 32 * w * share).astype(np.int32)
+    assert {top + 32 * w, -top, -top + 32 * w, top} <= set(expect.ravel())
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = tuple(t(a) for a in (q8, x8, norms, rbits, qbits))
+    before = dict(_build.LAUNCHES)
+    got = lab_scan.lab_group_minima(*args, group=group, variant="floor")
+    fired = {k for k, v in _build.LAUNCHES.items() if v != before[k]}
+    assert fired == {"scan_int8_floor"}
+    want = lab_scan.floor_minima_plain(*args, group)
+    torch.cuda.synchronize()
+    assert torch.equal(want.cpu(), torch.from_numpy(expect))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift,sb,tile", [

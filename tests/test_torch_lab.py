@@ -244,3 +244,13 @@ def test_lab_entry_refuses_cpu_and_unknown_legs():
     assert out.returncode == 2 and out.stdout.strip() == ""
     with pytest.raises(SystemExit):
         lab_entry.main(["tunnel"])
+
+
+def test_merge_ab_refuses_cpu_and_needs_a_source():
+    """The K4 A/B measures the card: without CUDA it returns 2 before it
+    builds anything; without a --source its parser refuses."""
+    from vectorsearch_rbac_tpu_torch.bench import merge_ab
+
+    assert merge_ab.main(["--source", "other=no/such/merge.cu"]) == 2
+    with pytest.raises(SystemExit):
+        merge_ab.main([])

@@ -6,14 +6,17 @@ The port's CPU path is the kernels' plain PyTorch versions: values must be
 identical and positions identical wherever the value is a real candidate
 (below 0x7E000000)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
-from vectorsearch_rbac_tpu.ops.pallas_merge import pallas_merge_topk
+from vectorsearch_rbac_tpu.ops.pallas_merge import (
+    _make_bitonic_pairs_kernel, pallas_merge_topk)
 from vectorsearch_rbac_tpu_torch.ops.merge import (
-    extract_pairs, merge_supported, merge_topk)
+    bitonic_pairs_plain, extract_pairs, merge_supported, merge_topk)
 
 MASKED = 0x7F000000
 EMPTY = 0x7E000000
@@ -116,6 +119,30 @@ def test_merge_matches_pallas_at_a_large_subgroup(t, dup):
     real = want_v < EMPTY
     np.testing.assert_array_equal(got_p.numpy()[real], want_p[real])
     assert (want_v[5, 3:] >= EMPTY).all() and (want_v[7] >= EMPTY).all()
+
+
+@pytest.mark.parametrize("keep", [16, 64])
+def test_bitonic_stage_matches_pallas(keep):
+    """Stage 2 alone: the plain bitonic sort against the reference's
+    bitonic pairs kernel in interpret mode, at npc 64, on values with many
+    ties (a few scores, the inadmissible 0x7F000000 and the drained
+    INT32_MAX repeated, with distinct metas), so the order of equal values
+    is compared too: values and metas in every kept row."""
+    rng = np.random.default_rng(keep)
+    npc, nq = 64, 24
+    y = rng.integers(0, 6, size=(npc, nq)).astype(np.int32) << 7
+    y[rng.random((npc, nq)) < 0.2] = MASKED
+    y[rng.random((npc, nq)) < 0.2] = 2**31 - 1
+    y[:, 3] = MASKED                    # one value down a whole column
+    meta = rng.permutation(npc * nq).reshape(npc, nq).astype(np.int32)
+    want_y, want_m = pl.pallas_call(
+        _make_bitonic_pairs_kernel(npc, keep),
+        out_shape=[jax.ShapeDtypeStruct((keep, nq), jnp.int32)] * 2,
+        interpret=True)(jnp.asarray(y), jnp.asarray(meta))
+    got_y, got_m = bitonic_pairs_plain(torch.from_numpy(y),
+                                       torch.from_numpy(meta), keep)
+    np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
 
 
 def test_merge_gate():

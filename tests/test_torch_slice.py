@@ -340,6 +340,7 @@ assert ids.shape == (8, 5) and (ids >= 0).all(), ids
 # the kernel lab's entry point and modules, and its merges on the CPU
 import torch
 import vectorsearch_rbac_tpu_torch.bench.lab
+import vectorsearch_rbac_tpu_torch.bench.merge_ab
 from vectorsearch_rbac_tpu_torch.ops import lab_merge, lab_scan
 mins = torch.randint(0, 1 << 29, (1024, 16), dtype=torch.int32)
 assert lab_merge.extract_merge_v2(mins, 10, 128, 8, 16)[0].shape == (16, 10)

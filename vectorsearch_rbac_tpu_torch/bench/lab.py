@@ -9,9 +9,10 @@ LEG is one of:
   tensor cores, its raw minima and K1 + the cascade merge), the first
   port's dp4a K1 (the same minima, checked bit for bit),
   the trim epilogue on that design (the same minima, and its cascade ids
-  against the control's) and the floor probe (the dots and the shared-role count
-  only, by dp4a). The floor's time over the dp4a kernel's says what share
-  of that design the epilogue takes.
+  against the control's) and the floor probe (the dots and the
+  shared-role count only, on the control's tensor-core schedule). The
+  floor's time beside the control's says what share of K1's time its
+  epilogue takes.
 - merge: the y-form merge against the package's (scripts/r4_merge_lab4.py,
   r4_merge_lab5.py): 8192 x 8192 packed minima from numpy's
   default_rng(0) as the lab makes them, top-100. The cascade at t = 12
@@ -37,7 +38,8 @@ LEG is one of:
   are not carried over.
 
 Each leg prints one JSON line per variant on stdout: its CUDA-event time
-(ms, the mean over --reps launches after one warm-up; the wire leg also
+(ms, the mean over --reps launches queued behind a spin on the card after
+one warm-up; the wire leg also
 the host wall of a pass), its check against the leg's control, and the
 card's name and power limit as nvidia-smi reports them. It needs a CUDA
 device and exits 2 without one.
@@ -78,11 +80,14 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
+    """Mean device time of fn() over reps launches, after one warm-up. The
+    launches queue up behind a spin of about 50 us a launch on the card,
+    so the events time them back to back, not the host's dispatch."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(reps * 100_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -184,9 +189,10 @@ class Lab:
         for name, t in ms.items():
             self.emit("kernel", name, ms=t, check=checks[name], shape=shape)
         self.emit("kernel", "epilogue_share", value=(
-            ms["dp4a"] - ms["floor"]) / ms["dp4a"],
-            check="(dp4a - floor) / dp4a, raw minima: the dp4a design's "
-            "epilogue share", shape=shape)
+            ms["control"] - ms["floor"]) / ms["control"],
+            check="(K1 - floor) / K1, raw minima on the same operands: the "
+            "share of K1's time its epilogue takes on its own schedule",
+            shape=shape)
 
     def merge(self) -> None:
         from ..ops import lab_merge

@@ -56,11 +56,29 @@
 // so equal values SWAP in a descending block. Copying that rule keeps the
 // meta order of equal values identical to the TPU kernel's.
 //
-// What bounds it on an H100: barrier latency. log2(npc) (log2(npc) + 1) / 2
-// stages (45 at npc = 512), each a __syncthreads over npc / 2 exchanges in
-// shared memory; the column load reads one int32 per row, uncoalesced.
-// Design: one block per query column, the column in shared memory, one
-// thread per exchange.
+// What bounds it on an H100: the bytes of one read of the survivors and one
+// write of the kept rows (0.0030 ms at 2048 queries, npc 512, keep 104).
+// The first port gave each column a block of npc / 2 threads in shared
+// memory: 45 stages at npc 512, each ending in a __syncthreads, and a
+// column load that stepped by nq, one 32-byte sector an int32 (0.060 ms,
+// 20x the bound). Design: a warp owns a column in registers, npc / 32
+// values and metas a lane (j = lane * kE + e), so the network has no block
+// barrier: strides below kE are compare-exchanges between a lane's
+// registers, the larger ones (at most five a merge) __shfl_xor_sync of
+// value and meta. A cross-lane pair is no symmetric min/max: both lanes
+// evaluate it as (lower index, upper index), so equal values keep the TPU
+// network's order. Every index is a template constant (the kernel is
+// instantiated per npc), so nothing spills. A block stages 8 adjacent
+// queries' (npc, 8) tile through shared memory, so each row's read is one
+// full sector, and stores the kept rows the same way. npc 2048 (64 + 64
+// registers a lane would spill) gives a column two warps, whose one
+// pairing stride (the last merge's npc / 2) goes through shared memory
+// between two barriers; where keep <= npc / 2 the upper warp stops there,
+// its half unable to reach the output. Below npc 2048 the same pruning
+// would leave whole lanes idle in a warp that still issues every
+// instruction, so the kernel drops the dead half only from the stores.
+// What holds it now is the network's compare-and-select work on the
+// integer pipes, about two thirds of its time (PERF.md).
 //
 // ---------------------------------------------------------------------------
 // The y-form lab merge (scripts/r4_extract_kernel.py, r4_bitonic_kernel.py):
@@ -95,7 +113,9 @@
 // loaded, and swaps equal y the TPU network's way (le = a <= b; a descending
 // block puts hi first), so equal y of different subgroups keep the TPU's gid
 // order. The sort form carries nothing; its output is the sorted values,
-// whatever the order of equal ones. Bound and design: bitonic_pairs_kernel's.
+// whatever the order of equal ones. Bound: bitonic_pairs_kernel's. Design:
+// the first port's of bitonic_pairs_kernel, one block a column in shared
+// memory, one thread an exchange and a __syncthreads a stage.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -213,42 +233,179 @@ extract_pairs_kernel(const int32_t* __restrict__ mins,  // (n_groups, Q)
   }
 }
 
-__global__ void bitonic_pairs_kernel(const int32_t* __restrict__ y,     // (npc, Q)
-                                     const int32_t* __restrict__ meta,  // (npc, Q)
-                                     int32_t* __restrict__ out_y,       // (keep, Q)
-                                     int32_t* __restrict__ out_m,       // (keep, Q)
-                                     int nq, int npc, int keep) {
-  extern __shared__ int32_t smem[];
-  int32_t* sy = smem;
-  int32_t* sg = smem + npc;
-  const int q = blockIdx.x;
-  for (int i = threadIdx.x; i < npc; i += blockDim.x) {
-    sy[i] = y[(size_t)i * nq + q];
-    sg[i] = meta[(size_t)i * nq + q];
-  }
-  __syncthreads();
-  for (int size = 2; size <= npc; size <<= 1) {
-    for (int stride = size >> 1; stride >= 1; stride >>= 1) {
-      for (int p = threadIdx.x; p < npc / 2; p += blockDim.x) {
-        const int i = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
-        const int k = i + stride;
-        const int32_t a = sy[i], b = sy[k], ga = sg[i], gb = sg[k];
-        const bool le = a <= b;
-        const int32_t lo = le ? a : b, hi = le ? b : a;
-        const int32_t glo = le ? ga : gb, ghi = le ? gb : ga;
-        const bool desc = (i & size) != 0;
-        sy[i] = desc ? hi : lo;
-        sy[k] = desc ? lo : hi;
-        sg[i] = desc ? ghi : glo;
-        sg[k] = desc ? glo : ghi;
-      }
-      __syncthreads();
+// ---- bitonic_pairs_kernel: the network in registers, a warp a column
+
+// The compare-exchange of a pair, a at the lower index and b at the upper:
+// whether the two swap (a descending block puts hi first, so equal values
+// swap there).
+__device__ __forceinline__ bool swaps(int32_t a, int32_t b, bool desc) {
+  return (a <= b) == desc;
+}
+
+// One stride of the network on a column laid out as j = lp * kE + e (lane
+// place lp, register e). Strides below kE pair two registers of a lane;
+// larger ones pair register e of lanes lp and lp ^ (stride / kE), and each
+// lane evaluates the pair as the lower index's lane does, so both keep the
+// same side of a tie. All indices are compile-time: nothing spills.
+template <int kE, int kSize, int kStride>
+__device__ __forceinline__ void net_stage(int32_t (&v)[kE], int32_t (&m)[kE],
+                                          int jb) {
+  if constexpr (kStride >= kE) {
+    constexpr int kX = kStride / kE;
+    const bool lower = (jb & kStride) == 0;
+    const bool desc = (jb & kSize) != 0;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int32_t pv = __shfl_xor_sync(0xffffffffu, v[e], kX);
+      const int32_t pm = __shfl_xor_sync(0xffffffffu, m[e], kX);
+      const bool sw = lower ? swaps(v[e], pv, desc) : swaps(pv, v[e], desc);
+      v[e] = sw ? pv : v[e];
+      m[e] = sw ? pm : m[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      if (e & kStride) continue;
+      constexpr int k = kStride;
+      const bool desc = kSize < kE ? (e & kSize) != 0 : (jb & kSize) != 0;
+      const bool sw = swaps(v[e], v[e + k], desc);
+      const int32_t a = v[e], ma = m[e];
+      v[e] = sw ? v[e + k] : a;
+      v[e + k] = sw ? a : v[e + k];
+      m[e] = sw ? m[e + k] : ma;
+      m[e + k] = sw ? ma : m[e + k];
     }
   }
-  for (int i = threadIdx.x; i < keep; i += blockDim.x) {
-    out_y[(size_t)i * nq + q] = sy[i];
-    out_m[(size_t)i * nq + q] = sg[i];
+}
+
+// The strides kStride, kStride / 2, ..., 1 of the size-kSize merge.
+template <int kE, int kSize, int kStride>
+__device__ __forceinline__ void net_merge(int32_t (&v)[kE], int32_t (&m)[kE],
+                                          int jb) {
+  net_stage<kE, kSize, kStride>(v, m, jb);
+  if constexpr (kStride > 1) net_merge<kE, kSize, kStride / 2>(v, m, jb);
+}
+
+// The merges of sizes kSize, 2 kSize, ..., kTop.
+template <int kE, int kSize, int kTop>
+__device__ __forceinline__ void net_sort(int32_t (&v)[kE], int32_t (&m)[kE],
+                                         int jb) {
+  net_merge<kE, kSize, kSize / 2>(v, m, jb);
+  if constexpr (kSize < kTop) net_sort<kE, kSize * 2, kTop>(v, m, jb);
+}
+
+constexpr int kSortCols = 8;  // queries a block: a row's 8 int32 fill a sector
+
+// The geometry of one column of npc survivors: kWarps warps of kLanes
+// lanes, kE values (and metas) a lane. npc 2048 takes two warps (64 + 64
+// registers a lane would spill); below 32 a column uses npc lanes and the
+// others repeat them.
+template <int kNpc>
+struct Net {
+  static constexpr int kWarps = kNpc == 2048 ? 2 : 1;
+  static constexpr int kLanes = kNpc < 32 ? kNpc : 32;
+  static constexpr int kE = kNpc / (kLanes * kWarps);
+  static constexpr int kThreads = 32 * kWarps * kSortCols;
+  // a column in shared memory: one pad word after each lane's kE values
+  // (conflict-free register loads), the pitch 4 mod 32 (conflict-free
+  // staging: a warp's load is 4 rows x 8 queries)
+  static constexpr int kSpan = kNpc + kNpc / kE;
+  static constexpr int kPitch = kSpan + (36 - kSpan % 32) % 32;
+  static constexpr int kSmem = 2 * kSortCols * kPitch * 4;
+  __device__ static int slot(int j) { return j + j / kE; }
+};
+
+template <int kNpc>
+__global__ void __launch_bounds__(Net<kNpc>::kThreads)
+bitonic_pairs_kernel(const int32_t* __restrict__ y,     // (npc, Q)
+                     const int32_t* __restrict__ meta,  // (npc, Q)
+                     int32_t* __restrict__ out_y,       // (keep, Q)
+                     int32_t* __restrict__ out_m,       // (keep, Q)
+                     int nq, int keep) {
+  using N = Net<kNpc>;
+  constexpr int kE = N::kE;
+  extern __shared__ int32_t smem[];
+  int32_t* sy = smem;
+  int32_t* sm = smem + kSortCols * N::kPitch;
+  // stage the block's (npc, 8) tile: each row's 8 queries are one sector
+  const int q0 = blockIdx.x * kSortCols;
+  const int cq = threadIdx.x % kSortCols;
+  const bool q_ok = q0 + cq < nq;
+#pragma unroll 4
+  for (int i = threadIdx.x / kSortCols; i < kNpc;
+       i += N::kThreads / kSortCols) {
+    const size_t src = (size_t)i * nq + q0 + cq;
+    sy[cq * N::kPitch + N::slot(i)] = q_ok ? __ldg(y + src) : kBig;
+    sm[cq * N::kPitch + N::slot(i)] = q_ok ? __ldg(meta + src) : kBig;
   }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lp = (warp % N::kWarps) * N::kLanes + lane % N::kLanes;
+  const int jb = lp * kE;
+  int32_t* cy = sy + (warp / N::kWarps) * N::kPitch;
+  int32_t* cm = sm + (warp / N::kWarps) * N::kPitch;
+  int32_t v[kE], m[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    v[e] = cy[N::slot(jb + e)];
+    m[e] = cm[N::slot(jb + e)];
+  }
+  net_sort<kE, 2, kNpc / N::kWarps>(v, m, jb);
+  bool live = true;
+  if constexpr (N::kWarps == 2) {
+    // the last merge's stride npc / 2 pairs the two warps: one exchange
+    // through the column's shared memory; where keep <= npc / 2 the upper
+    // warp's half cannot reach the output and stops there
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      cy[N::slot(jb + e)] = v[e];
+      cm[N::slot(jb + e)] = m[e];
+    }
+    __syncthreads();
+    const bool lower = jb < kNpc / 2;
+    const int pb = jb ^ (kNpc / 2);
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int32_t pv = cy[N::slot(pb + e)], pm = cm[N::slot(pb + e)];
+      const bool sw = lower ? swaps(v[e], pv, false) : swaps(pv, v[e], false);
+      v[e] = sw ? pv : v[e];
+      m[e] = sw ? pm : m[e];
+    }
+    __syncthreads();
+    live = lower || keep > kNpc / 2;
+    if (live) net_merge<kE, kNpc, kNpc / 4>(v, m, jb);
+  }
+  if (live && lane < N::kLanes) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      cy[N::slot(jb + e)] = v[e];
+      cm[N::slot(jb + e)] = m[e];
+    }
+  }
+  __syncthreads();
+  if (!q_ok) return;
+  for (int i = threadIdx.x / kSortCols; i < keep;
+       i += N::kThreads / kSortCols) {
+    const size_t dst = (size_t)i * nq + q0 + cq;
+    out_y[dst] = sy[cq * N::kPitch + N::slot(i)];
+    out_m[dst] = sm[cq * N::kPitch + N::slot(i)];
+  }
+}
+
+template <int kNpc>
+cudaError_t launch_bitonic(const int32_t* y, const int32_t* meta,
+                           int32_t* out_y, int32_t* out_m, int nq, int keep,
+                           cudaStream_t stream) {
+  using N = Net<kNpc>;
+  auto kernel = bitonic_pairs_kernel<kNpc>;
+  if (N::kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, N::kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(nq + kSortCols - 1) / kSortCols, N::kThreads, N::kSmem, stream>>>(
+      y, meta, out_y, out_m, nq, keep);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kExtractThreads)
@@ -332,17 +489,26 @@ extern "C" int vsr_extract_pairs(const void* mins, void* out_y, void* out_m,
 extern "C" int vsr_bitonic_pairs(const void* y, const void* meta, void* out_y,
                                  void* out_m, int nq, int npc, int keep,
                                  void* stream) {
-  if (nq < 1 || npc < 2 || npc > 2048 || (npc & (npc - 1)) != 0 || keep < 1 ||
-      keep > npc)
-    return (int)cudaErrorInvalidValue;
-  const int threads = npc / 2 < 32 ? 32 : npc / 2;
-  const size_t smem = 2 * (size_t)npc * sizeof(int32_t);
-  bitonic_pairs_kernel<<<nq, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(y), static_cast<const int32_t*>(meta),
-      static_cast<int32_t*>(out_y), static_cast<int32_t*>(out_m), nq, npc,
-      keep);
-  return (int)cudaGetLastError();
+  if (nq < 1 || keep < 1 || keep > npc) return (int)cudaErrorInvalidValue;
+  const auto* yy = static_cast<const int32_t*>(y);
+  const auto* mm = static_cast<const int32_t*>(meta);
+  auto* oy = static_cast<int32_t*>(out_y);
+  auto* om = static_cast<int32_t*>(out_m);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (npc) {
+    case 2: return (int)launch_bitonic<2>(yy, mm, oy, om, nq, keep, s);
+    case 4: return (int)launch_bitonic<4>(yy, mm, oy, om, nq, keep, s);
+    case 8: return (int)launch_bitonic<8>(yy, mm, oy, om, nq, keep, s);
+    case 16: return (int)launch_bitonic<16>(yy, mm, oy, om, nq, keep, s);
+    case 32: return (int)launch_bitonic<32>(yy, mm, oy, om, nq, keep, s);
+    case 64: return (int)launch_bitonic<64>(yy, mm, oy, om, nq, keep, s);
+    case 128: return (int)launch_bitonic<128>(yy, mm, oy, om, nq, keep, s);
+    case 256: return (int)launch_bitonic<256>(yy, mm, oy, om, nq, keep, s);
+    case 512: return (int)launch_bitonic<512>(yy, mm, oy, om, nq, keep, s);
+    case 1024: return (int)launch_bitonic<1024>(yy, mm, oy, om, nq, keep, s);
+    case 2048: return (int)launch_bitonic<2048>(yy, mm, oy, om, nq, keep, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // out: (n_groups / sub * t, Q); sub <= 128 (the position has 7 bits).

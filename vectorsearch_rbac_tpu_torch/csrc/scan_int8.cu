@@ -4,7 +4,8 @@
 // Replaces the TPU kernel vectorsearch_rbac_tpu/ops/pallas_scan_int8.py
 // _make_kernel (launched by int8_masked_topk), the narrow d_pad <= 256 form,
 // with and without its admit-dedup `mask_sub_block` slot form (also the lab
-// kernel scripts/r4_admit_lab.py scan_sb, in both of its slot layouts).
+// kernel scripts/r4_admit_lab.py scan_sb, in both of its slot layouts), and
+// the kernel lab's floor probe as a form of its own (kFloor, below).
 //
 // Contract, bit for bit the TPU kernel's output: for query q and arena row r
 //   dots   = sum_d x8[r, d] * q8[q, d]                       (int32, exact)
@@ -75,9 +76,25 @@
 // slice on one bit: per admitted pair one multiply-add and one minimum.
 // Other slot layouts read their queries' slot rows in the per-query path.
 //
+// The floor form (kFloor; the lab kernel scripts/r4_kernel_variants.py
+// _make_kernel_floor, S1's lower-bound probe, per-query masks only):
+//   out[g, q] = min over the group's rows r of
+//               dots + sum_w popc(row_bits[r, w] & query_bits[q, w])
+// as int32: no score, no pack, no admissibility select and no skip. It runs
+// on this kernel's own schedule (ring, producer warp, wgmma), so its time
+// beside K1's is what K1's epilogue costs there. The role count comes from
+// the tensor cores too: one mma.sync m16n8k256 b1 AND.POPC an 8-row slice
+// and warp (the 256 bits are the 8 words the producer lays out as two
+// planes a row), whose D fragment is the warp's slice of the wgmma
+// accumulator, so the count adds in place (BMMA is native on sm_90a, at
+// IMMA m16n8k32's instruction rate: a probe, PERF.md). Counting on the CUDA
+// cores would cost W ANDs, W POPCs and W adds a pair, more than K1's W + 2
+// operations: no floor. The epilogue is then one minimum a pair and the
+// group's two quad shuffles, with no branch.
+//
 // The dp4a kernel (scan_int8_kernel below) is the first port's design, kept
 // for the kernel lab only (vsr_scan_int8_lab): its plain epilogue as a
-// control, and the lab's epilogue variants (also the lab kernel
+// control, and the lab's trim epilogue (also the lab kernel
 // scripts/r4_kernel_variants.py int8_masked_topk_lab, S1), selected by the
 // kEpi template flag, per-query masks only, as the lab's:
 //   kTrim:  the pack folded into the score arithmetic: l2 without a shift
@@ -85,10 +102,6 @@
 //           with a shift the shift-then-pack chain above. Both are (score <<
 //           7) | lane in 32-bit arithmetic, so the output equals kPlain's bit
 //           for bit; the variant times the cheaper instruction chain.
-//   kFloor: a lower-bound probe, not a correct kernel: out[g, q] = min over
-//           the group of (dots + admit), where admit is the number of roles
-//           row and query share (the TPU's one-hot matmul count: the popcount
-//           of the AND summed over the W words). No pack, no lane, no mask.
 // The TPU lab's unroll and chunk knobs schedule Mosaic and size VMEM; they
 // have no counterpart here. Its design: one thread per query keeps its int8
 // query row and its W mask words in registers, the block stages 128-row
@@ -193,7 +206,7 @@ __device__ __forceinline__ int mask_row(const ScanArgs& a, int q) {
 // bases; and one flag a consumer warpgroup: whether the tile's roles meet
 // the union of its queries' masks (any_r (row_r & U) != 0 is (OR_r row_r) &
 // U != 0).
-template <int D, int kWords, bool kPack0>
+template <int D, int kWords, bool kPack0, bool kFloor>
 __device__ __forceinline__ void produce(const CUtensorMap* q_map,
                                         const CUtensorMap* x_map,
                                         const ScanArgs& a, const Smem<D>& sm,
@@ -206,12 +219,13 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
     for (int c = 0; c < R::kChunks; ++c)
       tma_load(sm.qtile + c * kQueries * 128, q_map, c * 128, q0, sm.qfull());
   }
-  // lane g < kConsumers keeps the union of warpgroup g's masks
+  // lane g < kConsumers keeps the union of warpgroup g's masks (the floor
+  // skips nothing and needs none)
   uint32_t uni[kWords];
 #pragma unroll
   for (int m = 0; m < kWords; ++m) uni[m] = 0;
 #pragma unroll 1
-  for (int g = 0; g < kConsumers; ++g)
+  for (int g = 0; g < (kFloor ? 0 : kConsumers); ++g)
 #pragma unroll
     for (int m = 0; m < kWords; ++m) {
       uint32_t u = 0;
@@ -283,16 +297,19 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
         planes[kRows + r] = make_int4(wd[4 % kWords], wd[5 % kWords],
                                       wd[6 % kWords], wd[7 % kWords]);
       const uint32_t nr = (uint32_t)stg[kRows * kMaxWords + r];
-      base[r] = (int32_t)(kPack0 ? (a.l2 ? nr << 7 : 0u) + (uint32_t)(r & gm)
-                                 : (a.l2 ? nr << up : 0u));
+      if (!kFloor)
+        base[r] = (int32_t)(kPack0 ? (a.l2 ? nr << 7 : 0u) + (uint32_t)(r & gm)
+                                   : (a.l2 ? nr << up : 0u));
     }
-    uint32_t hit = 0;
+    if (!kFloor) {
+      uint32_t hit = 0;
 #pragma unroll
-    for (int m = 0; m < kWords; ++m)
-      hit |= __reduce_or_sync(0xffffffffu, any[m]) & uni[m];
-    const uint32_t flags = __ballot_sync(0xffffffffu, hit != 0) &
-                           ((1u << kConsumers) - 1);
-    if (lane == 0) *sm.flags(s) = flags;
+      for (int m = 0; m < kWords; ++m)
+        hit |= __reduce_or_sync(0xffffffffu, any[m]) & uni[m];
+      const uint32_t flags = __ballot_sync(0xffffffffu, hit != 0) &
+                             ((1u << kConsumers) - 1);
+      if (lane == 0) *sm.flags(s) = flags;
+    }
     mbar_arrive(sm.full(s));
     __syncwarp();  // staging buffer i & 1 is read: it may be refilled
   }
@@ -443,6 +460,56 @@ __device__ __forceinline__ void half_epilogue(const int32_t (&acc)[32],
   }
 }
 
+// d += the 16 x 8 popcount product of one m16n8k256 b1 tile: A's row g
+// (the warp's queries lane / 4 and lane / 4 + 8) holds words t and t + 4
+// (t = lane % 4) of a query's 256 role bits, B's column g words t and
+// t + 4 of a row's; d holds (query, row) = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1): the wgmma accumulator's place for the
+// same pairs, so the count adds in place.
+__device__ __forceinline__ void bmma_and_popc(int32_t& d0, int32_t& d1,
+                                              int32_t& d2, int32_t& d3,
+                                              const uint32_t (&qf)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d0), "+r"(d1), "+r"(d2), "+r"(d3)
+      : "r"(qf[0]), "r"(qf[1]), "r"(qf[2]), "r"(qf[3]), "r"(b0), "r"(b1));
+}
+
+// The floor's role counts of one 64-row half: one binary product an 8-row
+// slice, B read from the planes (row 64 kHalf + 8 n + lane / 4).
+template <int kHalf, int kWords>
+__device__ __forceinline__ void half_counts(int32_t (&acc)[32],
+                                            const uint32_t (&qf)[4],
+                                            const int4* __restrict__ planes) {
+  const int32_t* words = reinterpret_cast<const int32_t*>(planes);
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int r = 64 * kHalf + 8 * n + lane / 4;
+    const uint32_t b0 = (uint32_t)words[4 * r + lane % 4];
+    const uint32_t b1 =
+        kWords > 4 ? (uint32_t)words[4 * (kRows + r) + lane % 4] : 0u;
+    bmma_and_popc(acc[4 * n], acc[4 * n + 1], acc[4 * n + 2],
+                  acc[4 * n + 3], qf, b0, b1);
+  }
+}
+
+// The floor's epilogue of one half: the group minimum of dots + count, no
+// pack and no mask.
+template <int kHalf>
+__device__ __forceinline__ void half_floor(const int32_t (&acc)[32], Epi& e) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      e.best[i] =
+          min(e.best[i], min(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]));
+    if (((8 * kHalf + n + 1) & (e.span - 1)) == 0) close_group(e);
+  }
+}
+
 // The dots of one row tile, one m64n128 product into lo (rows 0-63) and hi
 // (rows 64-127), committed as one wgmma group.
 template <int D>
@@ -472,7 +539,7 @@ __device__ __forceinline__ void wgmma_wait() {
 // drift overlaps one's epilogue with another's dots. (Each tile's dots as
 // two 64-row halves, each half's epilogue under the next half's dots, was
 // 15-19% slower: PERF.md.)
-template <int D, int kWords, bool kPack0, bool kWarpSlot>
+template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kFloor>
 __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
                                         int q0, int t_begin, int t_end) {
   using R = Ring<D>;
@@ -494,6 +561,14 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
   e.down = down ? a.score_shift - 7 : 0;
   int32_t qw[2][kWords];   // the per-query path: both queries' words
   uint32_t sw[kMaxWords];  // the warp-slot path: the slot's words
+  uint32_t qf[4];          // the floor: the binary product's A fragment
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int q = qa + 8 * (k & 1), m = lane % 4 + 4 * (k >> 1);
+    qf[k] = (kFloor && m < a.w && q < a.nq)
+                ? (uint32_t)a.q_bits[(size_t)q * a.w + m]
+                : 0u;
+  }
 #pragma unroll
   for (int m = 0; m < kMaxWords; ++m)
     sw[m] = (kWarpSlot && m < a.w && qw0 < a.nq)
@@ -504,7 +579,7 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
     const int q = qa + 8 * i;
 #pragma unroll
     for (int m = 0; m < kWords; ++m)
-      qw[i][m] = (!kWarpSlot && m < a.w && q < a.nq)
+      qw[i][m] = (!kWarpSlot && !kFloor && m < a.w && q < a.nq)
                      ? a.q_bits[(size_t)mask_row(a, q) * a.w + m]
                      : 0;
   }
@@ -518,15 +593,22 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
     const int i = t - t_begin, s = i % R::kStages;
     mbar_wait(sm.full(s), (i / R::kStages) & 1);
     e.out = a.out + ((size_t)t * kRows >> lg) * e.nq + qa;
-    if ((*sm.flags(s) >> wg) & 1u) {  // warpgroup-uniform
+    if (kFloor || (*sm.flags(s) >> wg) & 1u) {  // warpgroup-uniform
       issue_dots<D>(lo, hi, a_wg, sm.rows + s * R::kRowBytes);
       wgmma_wait<0>();
       fence_acc(lo);
       fence_acc(hi);
-      half_epilogue<0, kWords, kPack0, kWarpSlot>(lo, qw, sw, sm.planes(s),
-                                                  sm.base(s), e);
-      half_epilogue<1, kWords, kPack0, kWarpSlot>(hi, qw, sw, sm.planes(s),
-                                                  sm.base(s), e);
+      if (kFloor) {  // the role counts onto the dots, then the minima
+        half_counts<0, kWords>(lo, qf, sm.planes(s));
+        half_counts<1, kWords>(hi, qf, sm.planes(s));
+        half_floor<0>(lo, e);
+        half_floor<1>(hi, e);
+      } else {
+        half_epilogue<0, kWords, kPack0, kWarpSlot>(lo, qw, sw, sm.planes(s),
+                                                    sm.base(s), e);
+        half_epilogue<1, kWords, kPack0, kWarpSlot>(hi, qw, sw, sm.planes(s),
+                                                    sm.base(s), e);
+      }
     } else {  // no query of the warpgroup admits a row of the tile
 #pragma unroll 1
       for (int g = 0; g < (kRows >> lg); ++g) {
@@ -541,7 +623,7 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
   }
 }
 
-template <int D, int kWords, bool kPack0, bool kWarpSlot>
+template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kFloor>
 __global__ void __launch_bounds__(kTcThreads, 1)
 scan_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q8 (Q, D)
                const __grid_constant__ CUtensorMap x_map,  // x8 (Npad, D)
@@ -562,15 +644,16 @@ scan_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q8 (Q, D)
   }
   __syncthreads();
   if (threadIdx.x / 32 == kProducer)
-    produce<D, kWords, kPack0>(&q_map, &x_map, a, sm, q0, t_begin, t_end);
+    produce<D, kWords, kPack0, kFloor>(&q_map, &x_map, a, sm, q0, t_begin,
+                                       t_end);
   else
-    consume<D, kWords, kPack0, kWarpSlot>(a, sm, q0, t_begin, t_end);
+    consume<D, kWords, kPack0, kWarpSlot, kFloor>(a, sm, q0, t_begin, t_end);
 }
 
-template <int D, int kWords, bool kPack0, bool kWarpSlot>
+template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kFloor = false>
 cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
                       const ScanArgs& a, int blocks, cudaStream_t stream) {
-  auto kernel = scan_tc_kernel<D, kWords, kPack0, kWarpSlot>;
+  auto kernel = scan_tc_kernel<D, kWords, kPack0, kWarpSlot, kFloor>;
   constexpr int smem = Ring<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -589,12 +672,24 @@ cudaError_t dispatch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
   return launch_tc<D, 8, kPack0, false>(q_map, x_map, a, blocks, stream);
 }
 
+// The floor (per-query masks only; the score arithmetic does not enter).
+template <int D>
+cudaError_t dispatch_floor(const CUtensorMap& q_map, const CUtensorMap& x_map,
+                           const ScanArgs& a, int blocks, cudaStream_t stream) {
+  if (a.w <= 4)
+    return launch_tc<D, 4, false, false, true>(q_map, x_map, a, blocks,
+                                               stream);
+  return launch_tc<D, 8, false, false, true>(q_map, x_map, a, blocks, stream);
+}
+
 // ------------------------------------------------- the dp4a kernel (lab)
 
 constexpr int kTileRows = 128;     // rows staged in shared memory at a time
 constexpr int kThreads = 256;      // queries per block
 constexpr int kTilesPerBlock = 8;  // tiles a block walks with one query load
-constexpr int kPlain = 0, kTrim = 1, kFloor = 2;  // epilogue variants (kEpi)
+// the lab's variants: the dp4a kernel's epilogues (kEpi), and the floor,
+// which runs on the tensor-core kernel
+constexpr int kPlain = 0, kTrim = 1, kLabFloor = 2;
 
 template <int D16>
 __device__ __forceinline__ int32_t row_dot(const int4* x, const int4* qv) {
@@ -663,29 +758,20 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
     for (int r = 0; r < kTileRows; ++r) {
       const int32_t dot = row_dot<D16>(xs + r * D16, qv);
       const int lane = r & lane_mask;  // row0 is a multiple of group
-      int32_t packed;
-      if (kEpi == kFloor) {
-        int32_t count = 0;
-#pragma unroll
-        for (int j = 0; j < kMaxWords; ++j)
-          count += __popc(bs[r * kMaxWords + j] & qb[j]);
-        packed = dot + count;
+      uint32_t p;  // the score << 7, in unsigned arithmetic
+      if (kEpi == kTrim && score_shift == 0) {
+        p = l2 ? ((uint32_t)ns[r] << 7) - ((uint32_t)dot << 8)
+               : (uint32_t)(-dot) << 7;
       } else {
-        uint32_t p;  // the score << 7, in unsigned arithmetic
-        if (kEpi == kTrim && score_shift == 0) {
-          p = l2 ? ((uint32_t)ns[r] << 7) - ((uint32_t)dot << 8)
-                 : (uint32_t)(-dot) << 7;
-        } else {
-          int32_t score = l2 ? ns[r] - 2 * dot : -dot;
-          score >>= score_shift;
-          p = (uint32_t)score << 7;
-        }
-        int32_t hit = 0;
-#pragma unroll
-        for (int j = 0; j < kMaxWords; ++j)
-          hit |= bs[r * kMaxWords + j] & qb[j];
-        packed = hit ? (int32_t)(p | (uint32_t)lane) : kMasked;
+        int32_t score = l2 ? ns[r] - 2 * dot : -dot;
+        score >>= score_shift;
+        p = (uint32_t)score << 7;
       }
+      int32_t hit = 0;
+#pragma unroll
+      for (int j = 0; j < kMaxWords; ++j)
+        hit |= bs[r * kMaxWords + j] & qb[j];
+      const int32_t packed = hit ? (int32_t)(p | (uint32_t)lane) : kMasked;
       best = lane == 0 ? packed : min(best, packed);
       if (lane == lane_mask) out[((row0 + r) / group) * (size_t)nq + q] = best;
     }
@@ -700,9 +786,8 @@ void launch_dp4a(const void* q8, const void* x8, const void* norms,
   const int n_tiles = npad / kTileRows;
   const dim3 grid((n_tiles + kTilesPerBlock - 1) / kTilesPerBlock,
                   (nq + kThreads - 1) / kThreads);
-  auto kernel = variant == kTrim    ? scan_int8_kernel<D16, kTrim>
-                : variant == kFloor ? scan_int8_kernel<D16, kFloor>
-                                    : scan_int8_kernel<D16, kPlain>;
+  auto kernel = variant == kTrim ? scan_int8_kernel<D16, kTrim>
+                                 : scan_int8_kernel<D16, kPlain>;
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(q8), static_cast<const int8_t*>(x8),
       static_cast<const int32_t*>(norms), static_cast<const int32_t*>(row_bits),
@@ -736,7 +821,7 @@ int sm_count() {
 int scan_tc(const void* q8, const void* x8, const void* norms,
             const void* row_bits, const void* q_bits, void* out, int nq,
             int npad, int d_pad, int w, int group, int l2, int score_shift,
-            int mask_sb, int slot_tile, void* stream) {
+            int mask_sb, int slot_tile, bool floor, void* stream) {
   if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, mask_sb, slot_tile))
     return (int)cudaErrorInvalidValue;
   ScanArgs a;
@@ -767,7 +852,10 @@ int scan_tc(const void* q8, const void* x8, const void* norms,
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = (int)blocks;
-  if (d_pad == 128)
+  if (floor)
+    err = d_pad == 128 ? dispatch_floor<128>(q_map, x_map, a, nb, s)
+                       : dispatch_floor<256>(q_map, x_map, a, nb, s);
+  else if (d_pad == 128)
     err = score_shift == 0 ? dispatch_tc<128, true>(q_map, x_map, a, nb, s)
                            : dispatch_tc<128, false>(q_map, x_map, a, nb, s);
   else
@@ -788,19 +876,23 @@ extern "C" int vsr_scan_int8(const void* q8, const void* x8, const void* norms,
                              int group, int l2, int score_shift, int mask_sb,
                              int slot_tile, void* stream) {
   return scan_tc(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w,
-                 group, l2, score_shift, mask_sb, slot_tile, stream);
+                 group, l2, score_shift, mask_sb, slot_tile, false, stream);
 }
 
-// The kernel lab's scans on per-query masks, by the dp4a kernel: variant 0
-// its plain epilogue (the first port's K1, the control), 1 trim, 2 floor.
+// The kernel lab's scans on per-query masks: variant 0 the dp4a kernel's
+// plain epilogue (the first port's K1, the control), 1 its trim epilogue,
+// 2 the floor on the tensor-core kernel.
 extern "C" int vsr_scan_int8_lab(const void* q8, const void* x8,
                                  const void* norms, const void* row_bits,
                                  const void* q_bits, void* out, int nq,
                                  int npad, int d_pad, int w, int group, int l2,
                                  int score_shift, int variant, void* stream) {
   if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, 0, 0) ||
-      variant < kPlain || variant > kFloor)
+      variant < kPlain || variant > kLabFloor)
     return (int)cudaErrorInvalidValue;
+  if (variant == kLabFloor)
+    return scan_tc(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w,
+                   group, l2, score_shift, 0, 0, true, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_pad == 128)
     launch_dp4a<8>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group,

@@ -41,8 +41,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # "scan_int8_wide_slots" the same for the wide scan; "graph_search" counts
 # the fused graph search (one launch a search), "graph_score" and
 # "graph_merge" the step kernels of the step loop. The kernel lab's
-# variants count on their own: the dp4a scan's plain, trim and floor
-# epilogues, the y-form extraction and the y-form bitonic sort in its two forms.
+# variants count on their own: the dp4a scan's plain and trim epilogues,
+# the tensor-core scan's floor form, the y-form extraction and the y-form
+# bitonic sort in its two forms.
 LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
             "scan_int8_wide_slots": 0, "merge_extract": 0,
             "merge_bitonic": 0, "graph_search": 0, "graph_score": 0,

@@ -1,32 +1,34 @@
-"""The kernel lab's scan variants: the dp4a K1, its epilogue trimmed and
-stripped.
+"""The kernel lab's scan variants: the dp4a K1 and its trimmed epilogue,
+and the floor probe on K1's own tensor-core schedule.
 
 Counterpart of scripts/r4_kernel_variants.py `int8_masked_topk_lab` (the
 lab kernel S1), which times two restructured epilogues of the narrow scan
-(ops/scan_int8.py int8_group_minima) on the same inputs. The narrow scan
-now runs its dots on the tensor cores; S1's variants stay on the first
-port's design, the dp4a kernel of csrc/scan_int8.cu, and that kernel's
-plain epilogue is the lab's third variant:
+(ops/scan_int8.py int8_group_minima) on the same inputs:
 
 - "dp4a" is the first port's K1 (d_pad / 4 __dp4a a pair, one thread per
   query): K1's packed minima, bit for bit, by the old design. It is the
-  control of trim and floor, and the old design's time beside the new K1;
-- "trim" folds the `<< 7` pack into the score arithmetic: l2 without a
-  score shift packs `(norms << 7) - (dots << 8) | lane`, ip `-dots << 7 |
-  lane`; with a shift it keeps the shift-then-pack chain. Its output is
-  K1's, bit for bit; only the instruction chain differs;
+  control of trim, and the old design's time beside the new K1;
+- "trim", on the dp4a kernel, folds the `<< 7` pack into the score
+  arithmetic: l2 without a score shift packs `(norms << 7) - (dots << 8)
+  | lane`, ip `-dots << 7 | lane`; with a shift it keeps the
+  shift-then-pack chain. Its output is K1's, bit for bit; only the
+  instruction chain differs;
 - "floor" is a lower-bound probe, not a correct kernel: the min over each
   group of (dots + admit), where admit is the number of roles the row and
   the query share (the TPU lab's one-hot matmul count: the popcount of the
-  AND summed over the bitset words). No score, no pack, no mask. It splits
-  K1's time into the dots and the rest.
+  AND summed over the bitset words). No score, no pack, no mask. It runs
+  as a template form of K1's tensor-core kernel (csrc/scan_int8.cu
+  kFloor: the dots by wgmma, the count by binary mma.sync, both on the
+  tensor cores), so K1's time less the floor's is what K1's epilogue
+  costs on K1's own schedule.
 
-dp4a, trim and floor run as template variants of the dp4a kernel (a
-run-time flag cost it 12%), on per-query masks, as the lab's; no serving
-path reaches the dp4a kernel. The lab's `unroll` and `chunk`
-knobs schedule Mosaic's loop and size its VMEM chunk: they have no
-counterpart on this card and are not carried over. The plain versions are
-here beside the wrappers; CPU tensors take them.
+dp4a and trim are template variants of the dp4a kernel (a run-time flag
+cost it 12%), the floor a template form of the tensor-core kernel; all
+three take per-query masks, as the lab's; no serving path reaches them.
+The lab's `unroll` and `chunk` knobs schedule Mosaic's loop and size its
+VMEM chunk: they have no counterpart on this card and are not carried
+over. The plain versions are here beside the wrappers; CPU tensors take
+them.
 """
 
 from __future__ import annotations
@@ -82,11 +84,12 @@ def lab_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
                      score_shift: int = 0,
                      variant: str = "trim") -> torch.Tensor:
     """(n_groups, Q) int32 minima of the lab's `variant` (all but "floor":
-    K1's packed minima; "floor": the probe). Operands as
-    ops/scan_int8.int8_group_minima's with per-query masks, d_pad 128 or
-    256. CPU tensors take the plain versions (all but
-    floor's are K1's); CUDA tensors launch the variant (counted under
-    "scan_int8_<variant>")."""
+    K1's packed minima; "floor": the probe, which reads neither `metric`
+    nor `score_shift`). Operands as ops/scan_int8.int8_group_minima's with
+    per-query masks, d_pad 128 or 256, W 1-8. CPU tensors take the plain
+    versions (all but floor's are K1's); CUDA tensors launch the variant
+    (counted under "scan_int8_<variant>"): dp4a and trim on the dp4a
+    kernel, floor on the tensor-core kernel's floor form."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is not one of "
                          f"{tuple(VARIANTS)}")
