@@ -33,9 +33,11 @@ without a CUDA device or without the port's package beside it. Phases:
    per-query form's time on the same masks, and the slot form's epilogue
    floor over the admitted pairs;
 3e. the kernel lab's path (bench/lab.py's entry points) on phase 3's
-   operands: the dp4a scan's plain (the control) and trim epilogues, the
-   floor probe on the narrow scan's tensor-core schedule (timed beside
-   the narrow scan on the same operands: the share of its time that its
+   operands: the first port's dp4a scan, and three forms of the narrow
+   scan's tensor-core kernel: trim (the narrow scan's own per-query form),
+   its control the chain (the reference's literal epilogue) and the floor
+   probe, timed in turns beside the narrow scan on the same operands (the
+   fold's saving, chain - trim, and the share of the scan's time that its
    epilogue takes), extract_merge and extract_merge_v2 on phase 3's 2048 x
    8192-group minima, the y-form extraction (sub 128, t 8 and 16) and
    both y-form sorts (keep 128), with
@@ -164,6 +166,9 @@ INT32_OPS_S = 64 * 132 * 1.98e9
 # warp-slot path one multiply-add and one minimum on an admitted pair
 K1_EPI_OPS = lambda w: w + 2
 S2_EPI_OPS = 2
+# the chain (trim's control): K1's with the shift and the shift-or of the
+# pack after the multiply-add, two more a pair
+CHAIN_EPI_OPS = lambda w: w + 4
 
 
 def fail(msg: str) -> None:
@@ -480,6 +485,8 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     lab_scan.int8_masked_topk_lab(*full, merge="none", variant="dp4a",
                                   **lab_kw)
     lab_scan.int8_masked_topk_lab(*full, variant="trim", **lab_kw)
+    lab_scan.int8_masked_topk_lab(*full, merge="none", variant="chain",
+                                  **lab_kw)
     lab_scan.int8_masked_topk_lab(*full, merge="none", variant="floor",
                                   **lab_kw)
     for t in (16, 8):
@@ -489,8 +496,9 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
                                 128)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    lab_kernels = ("scan_int8_dp4a", "scan_int8_trim", "scan_int8_floor",
-                   "merge_y_extract", "merge_y_sort", "merge_y_pairs")
+    lab_kernels = ("scan_int8_dp4a", "scan_int8_trim", "scan_int8_chain",
+                   "scan_int8_floor", "merge_y_extract", "merge_y_sort",
+                   "merge_y_pairs")
     idle = [k for k in lab_kernels if launches[k] == 0]
     if idle:
         fail(f"the kernel lab's path never launched {idle}")
@@ -498,7 +506,7 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     out, extra = {}, {}
     out_meta = torch.empty(packed.shape, dtype=torch.int32, device="meta")
     k1_plain = lambda: scan_int8.int8_group_minima_plain(*rows, **lab_kw)
-    plains = {"dp4a": k1_plain, "trim": k1_plain,
+    plains = {"dp4a": k1_plain, "trim": k1_plain, "chain": k1_plain,
               "floor": lambda: lab_scan.floor_minima_plain(*rows, group)}
     for variant, plain_fn in plains.items():
         fn = lambda v=variant: lab_scan.lab_group_minima(*rows, variant=v,
@@ -512,21 +520,31 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
             cuda_ms(plain_fn, 3))
         extra[f"scan_int8_{variant}"] = (*scan_bound(*rows, out_meta), None)
         del got, plain
-    # the floor runs on K1's schedule: K1 and the floor in turns on the same
-    # operands; K1's time less the floor's is what K1's epilogue costs there
-    k1 = lambda: scan_int8.int8_group_minima(*rows, **lab_kw)
-    floor = lambda: lab_scan.lab_group_minima(*rows, variant="floor",
-                                              **lab_kw)
-    turns = {"k1": [], "floor": []}
-    for name in ("k1", "floor", "floor", "k1"):
-        turns[name].append(cuda_ms(k1 if name == "k1" else floor, 10))
-    k1_ms, floor_ms = (sum(turns[n]) / 2 for n in ("k1", "floor"))
-    say(f"floor on K1's tensor-core schedule at Q={q8.shape[0]} x "
-        f"{x8.shape[0]} rows, W {bits.shape[1]}, group {group} ({smi}): "
-        f"K1 {turns['k1']} ms, floor {turns['floor']} ms (in turns); "
-        f"epilogue share (K1 - floor) / K1 {(k1_ms - floor_ms) / k1_ms:.4f}"
-        f"; floor bound {extra['scan_int8_floor'][0]:.6f} ms "
-        f"({extra['scan_int8_floor'][1]})")
+    # trim, the chain and the floor run on K1's schedule: the four in turns
+    # on the same operands. The chain less trim is what the fold saves; K1
+    # less the floor is what K1's epilogue costs there
+    fns = {"k1": lambda: scan_int8.int8_group_minima(*rows, **lab_kw)}
+    for v in ("trim", "chain", "floor"):
+        fns[v] = lambda v=v: lab_scan.lab_group_minima(*rows, variant=v,
+                                                       **lab_kw)
+    turns = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)):
+        turns[name].append(cuda_ms(fns[name], 10))
+    mean = {name: sum(ts) / len(ts) for name, ts in turns.items()}
+    w, n_pairs = bits.shape[1], q8.shape[0] * x8.shape[0]
+    epi = {n: f(w) * n_pairs / INT32_OPS_S * 1e3
+           for n, f in (("k1", K1_EPI_OPS), ("chain", CHAIN_EPI_OPS))}
+    say(f"trim, chain and floor on K1's tensor-core schedule at Q="
+        f"{q8.shape[0]} x {x8.shape[0]} rows, W {w}, group {group} ({smi}),"
+        f" in turns: " + ", ".join(f"{n} {ts} ms" for n, ts in turns.items())
+        + f"; the fold's saving (chain - trim) "
+        f"{mean['chain'] - mean['trim']:.4f} ms, chain / trim "
+        f"{mean['chain'] / mean['trim']:.4f}; epilogue share (K1 - floor) "
+        f"/ K1 {(mean['k1'] - mean['floor']) / mean['k1']:.4f}; epilogue "
+        f"floors: K1/trim {epi['k1']:.6f} ms ({K1_EPI_OPS(w)} integer "
+        f"operations a pair), chain {epi['chain']:.6f} ms "
+        f"({CHAIN_EPI_OPS(w)}); bound {extra['scan_int8_trim'][0]:.6f} ms "
+        f"({extra['scan_int8_trim'][1]})")
     topk_ms = cuda_ms(lambda: torch.topk(packed, TOPK, dim=0, largest=False),
                       10)
     names = ("merge_y_extract", "merge_y_sort", "merge_y_pairs")
@@ -571,7 +589,7 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     extra["merge_y_sort"] = (*bound_ms(nbytes(y, ys), 0, 1), keep_ms)
     extra["merge_y_pairs"] = (*bound_ms(nbytes(y, yp, gp), 0, 1), keep_ms)
     report(f"kernel lab vs plain at Q={q8.shape[0]} x {x8.shape[0]} rows "
-           f"(dp4a, trim, floor: group {group}) and on the "
+           f"(dp4a, trim, chain, floor: group {group}) and on the "
            f"{packed.shape[0]} x "
            f"{packed.shape[1]} minima (y-form: sub 128, t 8 and 16, keep "
            f"128; timed at t 8) ({smi}); tolerance 0:", out)
@@ -1401,6 +1419,10 @@ def main() -> None:
                            "control)"),
         "scan_int8_trim": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
                            "scripts/r4_kernel_variants.py:37"),
+        "scan_int8_chain": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
+                            "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:40"
+                            " (its epilogue chain, :74-97, as the control of "
+                            "scripts/r4_kernel_variants.py:37)"),
         "scan_int8_floor": ("vectorsearch_rbac_tpu_torch/csrc/scan_int8.cu",
                             "scripts/r4_kernel_variants.py:94"),
         "merge_y_extract": ("vectorsearch_rbac_tpu_torch/csrc/merge.cu",

@@ -794,10 +794,11 @@ def test_graph_step_loop_keeps_the_step_kernels(dev, packed):
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
-# ---- the kernel lab's kernels: K1's trim and floor epilogues (S1), K2's
-# slot form, the y-form extraction (S4) and bitonic sort (S5)
+# ---- the kernel lab's kernels: K1's trim and floor epilogues (S1) and
+# trim's control (the chain), K2's slot form, the y-form extraction (S4) and
+# bitonic sort (S5)
 
-@pytest.mark.parametrize("variant", ["dp4a", "trim", "floor"])
+@pytest.mark.parametrize("variant", ["dp4a", "trim", "floor", "chain"])
 @pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift", [
     (1, 1024, 128, 4, 128, "l2", 0),
     (37, 1152, 128, 1, 8, "ip", 0),
@@ -807,8 +808,8 @@ def test_graph_step_loop_keeps_the_step_kernels(dev, packed):
 ])
 def test_lab_scan_variants_bit_identical(dev, variant, nq, npad, d_pad, w,
                                          group, metric, shift):
-    """Each variant of the dp4a kernel against its plain version; the
-    dp4a control's and trim's minima are also K1's."""
+    """Each lab variant against its plain version; all but the floor's
+    minima are also K1's."""
     from vectorsearch_rbac_tpu_torch.ops import lab_scan
 
     args = _scan_inputs(np.random.default_rng(nq + 7), dev, nq, npad, d_pad,
@@ -825,6 +826,65 @@ def test_lab_scan_variants_bit_identical(dev, variant, nq, npad, d_pad, w,
     assert torch.equal(got.cpu(), want)
     if variant != "floor":
         assert torch.equal(got, scan_int8.int8_group_minima(*args, **kw))
+
+
+@pytest.mark.parametrize("variant", ["trim", "chain"])
+@pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift", [
+    (37, 1152, 128, 1, 8, "l2", 0),
+    (100, 2048, 128, 4, 128, "ip", 3),
+    (257, 1280, 256, 5, 64, "l2", 9),
+    (130, 4736, 256, 8, 32, "ip", 0),
+    (65, 2048, 128, 5, 16, "ip", 9),
+    (199, 1152, 256, 4, 128, "l2", 3),
+    (1, 1024, 256, 1, 8, "ip", 3),
+    (385, 2048, 128, 8, 64, "l2", 0),
+])
+def test_trim_and_chain_against_k1_plain(dev, variant, nq, npad, d_pad, w,
+                                         group, metric, shift):
+    """S1 trim (K1's per-query form) and its control, the reference's
+    literal chain, against K1's plain version at d_pad 128 and 256, W 1-8
+    (both word forms), l2 and ip, shifts 0, 3 and 9 (past 7), query counts
+    that fill no 64- or 192-query tile; one launch of its own counter."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_scan
+
+    args = _scan_inputs(np.random.default_rng(nq + w + shift), dev, nq,
+                        npad, d_pad, w)
+    kw = dict(group=group, metric=metric, score_shift=shift)
+    before = dict(_build.LAUNCHES)
+    got = lab_scan.lab_group_minima(*args, variant=variant, **kw)
+    fired = {k for k, v in _build.LAUNCHES.items() if v != before[k]}
+    assert fired == {f"scan_int8_{variant}"}
+    assert _build.LAUNCHES[f"scan_int8_{variant}"] == (
+        before[f"scan_int8_{variant}"] + 1)
+    want = scan_int8.int8_group_minima_plain(*(a.cpu() for a in args), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shift", [0, 9])
+@pytest.mark.parametrize("d_pad,group", [(128, 8), (256, 32)])
+def test_chain_extreme_operands(dev, d_pad, group, shift):
+    """The chain and trim with every product at its extreme (-128 * -128
+    and -128 * 127), l2, where the scores come closest to the int32 range
+    and the most negative ones keep their sign through the shift."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_scan
+
+    nq, npad = 70, 512
+    x = np.full((npad, d_pad), -128, np.int8)
+    x[1::2] = 127
+    q = np.full((nq, d_pad), -128, np.int8)
+    q[::3, ::2] = 127
+    norms = np.einsum("nd,nd->n", x.astype(np.int64),
+                      x.astype(np.int64)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = (t(q), t(x), t(norms), t(np.full((npad, 1), -1, np.int32)),
+            t(np.full((nq, 1), 1, np.int32)))
+    kw = dict(group=group, metric="l2", score_shift=shift)
+    want = scan_int8.int8_group_minima_plain(*args, **kw)
+    for variant in ("chain", "trim"):
+        got = lab_scan.lab_group_minima(*args, variant=variant, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), variant
 
 
 @pytest.mark.parametrize("d_pad,w,group", [(256, 8, 32), (128, 4, 128)])
@@ -918,6 +978,40 @@ def test_y_extract_kernel_identical(dev, ng, nq, sub, t):
     y_p = lab_merge.subgroup_extract_plain(p, sub, t)
     torch.cuda.synchronize()
     assert torch.equal(y, y_p)
+
+
+@pytest.mark.parametrize("t", [1, 8, 16, 32, 48])
+@pytest.mark.parametrize("sub", [8, 32, 128])
+def test_y_extract_kernel_lists(dev, sub, t):
+    """S4's kernel at every list it is templated on (t <= 8, 16, 32) and
+    past the largest (t 48: a second read of the column), at t 1, against
+    its plain version: drained subgroups (t > sub), a subgroup whose
+    groups are all inadmissible (positions in order), a column with
+    nothing, negative and extreme minima, 45 queries (not a multiple of a
+    warp); one launch of its counter."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_merge
+
+    ng, nq = 4 * 128, 45
+    rng = np.random.default_rng(sub * 100 + t)
+    p = _packed_with_ties(rng, ng, nq)
+    neg = rng.random((ng, nq)) < 0.1               # negative scores
+    p[neg] = rng.integers(-(1 << 31), 0, size=int(neg.sum()),
+                          dtype=np.int64).astype(np.int32)
+    p[sub:2 * sub] = scan_int8.MASKED_I32          # subgroup 1: inadmissible
+    p[0, 2], p[sub - 1, 3] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    p = torch.from_numpy(p).to(dev)
+    before = dict(_build.LAUNCHES)
+    y = lab_merge.y_extract(p, sub, t)
+    fired = {k for k, v in _build.LAUNCHES.items() if v != before[k]}
+    assert fired == {"merge_y_extract"}
+    y_p = lab_merge.y_extract_plain(p.cpu(), sub, t)
+    torch.cuda.synchronize()
+    assert torch.equal(y.cpu(), y_p)
+    rows = y_p.view(ng // sub, t, nq)
+    assert (rows[1, :min(t, sub)] == (scan_int8.MASKED_I32 | torch.arange(
+        min(t, sub), dtype=torch.int32)[:, None])).all()
+    if t > sub:
+        assert (rows[:, sub:] == np.iinfo(np.int32).max).all()
 
 
 @pytest.mark.parametrize("npc,nq,keep,t,sub", [(64, 33, 16, 8, 128),

@@ -4,7 +4,8 @@ interpret mode on the CPU.
 
 On the CPU the port runs each kernel's plain version, so these tests hold
 the plain versions bit-identical to the lab's TPU kernels: K1's trim and
-floor epilogues (scripts/r4_kernel_variants.py, S1), the y-form subgroup
+floor epilogues (scripts/r4_kernel_variants.py, S1; trim's control, the
+chain, against the reference K1 itself), the y-form subgroup
 extraction (scripts/r4_extract_kernel.py, S4) and both forms of the y-form
 bitonic sort (scripts/r4_bitonic_kernel.py, S5), and the two merges built
 from them. The one place the port departs from the lab on purpose, the
@@ -90,6 +91,30 @@ def test_scan_variants_bit_identical(lab, scan_prob, variant, metric, shift):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("metric,shift", [("l2", 0), ("ip", 0), ("l2", 3)])
+def test_chain_matches_reference_k1(scan_prob, metric, shift):
+    """The chain (trim's control: the reference K1's literal epilogue on
+    K1's schedule) on CPU tensors against the reference K1 itself,
+    int8_masked_topk(merge="none") in interpret mode, fed the bitsets'
+    one-hot expansion."""
+    from vectorsearch_rbac_tpu.ops.pallas_scan_int8 import int8_masked_topk
+
+    vecs, norms, rbits, queries, qbits = scan_prob
+    want, _ = int8_masked_topk(
+        jnp.asarray(queries), jnp.zeros(Q, jnp.int32), jnp.asarray(vecs),
+        jnp.asarray(norms), jnp.asarray(bits_to_onehot8(rbits, R, R)),
+        jnp.asarray(bits_to_onehot8(qbits, R, R)), jnp.float32(1.0), 10,
+        q_tile=Q, group=128, merge="none", interpret=True, metric=metric,
+        score_shift=shift)
+    t = torch.from_numpy
+    got = lab_scan.lab_group_minima(
+        t(queries), t(vecs), t(norms), t(rbits.view(np.int32)),
+        t(qbits.view(np.int32)), group=128, metric=metric,
+        score_shift=shift, variant="chain")
+    assert got.shape == (N // 128, Q)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_trim_merges_like_k1(scan_prob):
     """trim's minima are K1's, so its merged results are K1's too."""
     from vectorsearch_rbac_tpu_torch.ops.scan_int8 import int8_masked_topk
@@ -108,9 +133,9 @@ def test_trim_merges_like_k1(scan_prob):
 
 @pytest.mark.parametrize("metric,shift", [("l2", 0), ("ip", 3)])
 def test_dp4a_variant_is_k1_plain(scan_prob, metric, shift):
-    """The lab's dp4a K1 (the control of trim and floor) has K1's plain
-    minima as its CPU path and a counter of its own; an unknown variant is
-    refused."""
+    """The lab's dp4a K1 (the old design) and the chain (trim's control)
+    have K1's plain minima as their CPU path and counters of their own; an
+    unknown variant is refused."""
     from vectorsearch_rbac_tpu_torch.ops import _build
     from vectorsearch_rbac_tpu_torch.ops.scan_int8 import (
         int8_group_minima_plain)
@@ -120,10 +145,12 @@ def test_dp4a_variant_is_k1_plain(scan_prob, metric, shift):
     rows = (t(queries), t(vecs), t(norms), t(rbits.view(np.int32)),
             t(qbits.view(np.int32)))
     kw = dict(group=32, metric=metric, score_shift=shift)
-    got = lab_scan.lab_group_minima(*rows, variant="dp4a", **kw)
-    assert torch.equal(got, int8_group_minima_plain(*rows, **kw))
+    want = int8_group_minima_plain(*rows, **kw)
+    for variant in ("dp4a", "chain"):
+        got = lab_scan.lab_group_minima(*rows, variant=variant, **kw)
+        assert torch.equal(got, want)
     assert lab_scan.VARIANTS["dp4a"] == 0
-    assert set(lab_scan.VARIANTS) == {"dp4a", "trim", "floor"}
+    assert set(lab_scan.VARIANTS) == {"dp4a", "trim", "floor", "chain"}
     assert all(f"scan_int8_{v}" in _build.LAUNCHES for v in lab_scan.VARIANTS)
     with pytest.raises(ValueError, match="not one of"):
         lab_scan.lab_group_minima(*rows, variant="plain", **kw)
@@ -146,6 +173,24 @@ def test_subgroup_extract_bit_identical(lab, sub, t):
         jnp.asarray(mins), sub=sub, t=t, interpret=True)
     got = lab_merge.subgroup_extract(torch.from_numpy(mins), sub, t)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("sub,t", [(128, 1), (32, 5), (8, 40), (128, 48)])
+def test_y_extract_any_t(sub, t):
+    """S4's kernel wrapper takes any t >= 1 (the lab's entry takes
+    multiples of 8): its rows are the sorted y of each subgroup cut at t,
+    padded with INT32_MAX past sub."""
+    nq = 8
+    mins = _packed(256, nq, seed=sub + t)
+    mins[:sub] = 0x7F000000              # a subgroup of inadmissible groups
+    got = lab_merge.y_extract(torch.from_numpy(mins), sub, t).numpy()
+    y = (mins.reshape(-1, sub, nq) & ~np.int32(127)) | np.arange(
+        sub, dtype=np.int32)[None, :, None]
+    want = np.full((256 // sub, t, nq), INT32_MAX, np.int32)
+    want[:, :min(t, sub)] = np.sort(y, axis=1)[:, :t]
+    np.testing.assert_array_equal(got, want.reshape(-1, nq))
+    with pytest.raises(ValueError):
+        lab_merge.y_extract(torch.from_numpy(mins), sub, 0)
 
 
 def test_subgroup_extract_refuses_lab_breaking_shapes():

@@ -7,17 +7,21 @@ LEG is one of:
 - kernel: K1's epilogue split (scripts/r4_kernel_lab.py): 8192 queries x the
   1M SIFT-like int8 arena, top-100, group 128. The control (K1 on the
   tensor cores, its raw minima and K1 + the cascade merge), the first
-  port's dp4a K1 (the same minima, checked bit for bit),
-  the trim epilogue on that design (the same minima, and its cascade ids
-  against the control's) and the floor probe (the dots and the
-  shared-role count only, on the control's tensor-core schedule). The
+  port's dp4a K1 (the same minima, checked bit for bit), trim (K1's own
+  per-query form: the same minima, and its cascade ids against the
+  control's), the chain (the reference's literal epilogue on the same
+  schedule, trim's control: the same minima) and the floor probe (the
+  dots and the shared-role count only, on the same schedule). The chain
+  less trim is what the fold of the pack into the score saves; the
   floor's time beside the control's says what share of K1's time its
   epilogue takes.
 - merge: the y-form merge against the package's (scripts/r4_merge_lab4.py,
   r4_merge_lab5.py): 8192 x 8192 packed minima from numpy's
   default_rng(0) as the lab makes them, top-100. The cascade at t = 12
   (the control), the extraction kernel alone (S4, t 16) and the y-form
-  sort alone (S5, on its output), extract_merge at t 16 and 8,
+  sort alone (S5, on its output), the extraction at t 8 beside
+  torch.topk of the 8 smallest of each subgroup of 128 (its library
+  line), extract_merge at t 16 and 8,
   extract_merge_v2 over the lab's (sub, t, keep) grid, v3 (the package's
   merge, K3 + K4) and torch.topk over the minima (the library line); each
   merge's positions against the cascade's, compared as sorted sets as
@@ -157,7 +161,7 @@ class Lab:
         control = int8_group_minima(*rows, group=128)
         _, ctl_ids = int8_masked_topk(*full, group=128, merge="cascade")
         out = {"control": control}
-        for variant in ("dp4a", "trim", "floor"):
+        for variant in ("dp4a", "trim", "chain", "floor"):
             out[variant], _ = int8_masked_topk_lab(*full, group=128,
                                                    merge="none",
                                                    variant=variant)
@@ -174,6 +178,8 @@ class Lab:
                 *full, group=128, merge="none", variant="trim"), self.reps),
             "trim+cascade": cuda_ms(lambda: int8_masked_topk_lab(
                 *full, group=128), self.reps),
+            "chain": cuda_ms(lambda: int8_masked_topk_lab(
+                *full, group=128, merge="none", variant="chain"), self.reps),
             "floor": cuda_ms(lambda: int8_masked_topk_lab(
                 *full, group=128, merge="none", variant="floor"), self.reps),
         }
@@ -184,6 +190,7 @@ class Lab:
             "trim": {"minima_identical": torch.equal(out["trim"], control)},
             "trim+cascade": {"ids_match": float(
                 (trim_ids == ctl_ids).float().mean())},
+            "chain": {"minima_identical": torch.equal(out["chain"], control)},
             "floor": {"probe": "not a correct kernel"},
         }
         for name, t in ms.items():
@@ -193,6 +200,9 @@ class Lab:
             check="(K1 - floor) / K1, raw minima on the same operands: the "
             "share of K1's time its epilogue takes on its own schedule",
             shape=shape)
+        self.emit("kernel", "fold_saving_ms", value=ms["chain"] - ms["trim"],
+                  check="chain - trim, raw minima on the same operands: "
+                  "what folding the pack into the score saves", shape=shape)
 
     def merge(self) -> None:
         from ..ops import lab_merge
@@ -212,6 +222,10 @@ class Lab:
             "cascade_t12": lambda: cascade_topk(mins.T, K, 12),
             "s4_extract_t16": lambda: lab_merge.subgroup_extract(mins, 128,
                                                                  16),
+            "s4_extract_t8": lambda: lab_merge.subgroup_extract(mins, 128,
+                                                                8),
+            "torch_topk_per_subgroup_t8": lambda: torch.topk(
+                mins.view(-1, 128, nq), 8, dim=1, largest=False),
             "extract_merge_t16": lambda: lab_merge.extract_merge(
                 mins, K, 128, 16),
             "extract_merge_t8": lambda: lab_merge.extract_merge(

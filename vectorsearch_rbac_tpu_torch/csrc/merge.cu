@@ -99,9 +99,24 @@
 // with INT32_MAX, as the package's extraction kernel does
 // (vectorsearch_rbac_tpu/ops/pallas_merge.py:62-67); on every input where no
 // subgroup runs out of admissible groups within t rounds the two agree bit
-// for bit. Bound: as extract_pairs_kernel's. Design: the first port's of
-// extract_pairs_kernel, one thread a column that re-reads its sub values in
-// every round (no meta word; sub <= 128 keeps the re-reads short).
+// for bit. Bound: as extract_pairs_kernel's, the bytes of one read of the
+// minima (0.0213 ms at 2048 queries x 8192 groups, sub 128, t 8). The first
+// port gave each column one thread that re-read its sub values in every one
+// of the t rounds: t passes over the minima (67 MB at that shape, more than
+// L2 holds) and a dependent chain of t * sub loads (0.186 ms on an NVIDIA
+// H100 80GB HBM3 at 700.00 W, 8.7x the bound). Design: one thread a column
+// still, but one read: it loads its rows kYBatch at a time, all in flight
+// (neighbouring threads own neighbouring queries, so a warp's load of a
+// row is 128 contiguous bytes), and inserts each y into an ascending list
+// of kT registers, one min and one max an entry (no branch, no dynamic
+// index: nothing spills); then it writes the list's first t. The y of a
+// column are distinct, so no meta and no dedup: the list holds exactly the
+// kT smallest. The list is templated on kT = 8, 16, 32 (the smallest that
+// holds t); t > 32 reads the column again for each further 32, keeping
+// only the y above the last one written. Against a team of lanes a column
+// (extract_pairs_kernel's layout, without its meta) it does fewer
+// operations a value and writes each output row as 128 contiguous bytes
+// (PERF.md: the A/B).
 //
 // bitonic_y_kernel replaces the TPU kernels r4_bitonic_kernel.py
 // _make_bitonic_kernel (bitonic_sort_keep) and _make_bitonic_pairs_kernel
@@ -124,6 +139,7 @@ namespace {
 
 constexpr int32_t kBig = 0x7FFFFFFF;
 constexpr int kExtractThreads = 128;  // the y-form extraction's block
+constexpr int kYBatch = 16;           // rows a thread loads before inserting
 constexpr int kTeam = 8;              // lanes per (subgroup, query) column
 constexpr int kCap = 16;              // distinct values a lane keeps
 constexpr int kBatch = 8;             // rows a lane loads before inserting
@@ -408,6 +424,41 @@ cudaError_t launch_bitonic(const int32_t* y, const int32_t* meta,
   return cudaGetLastError();
 }
 
+// Insert y into the ascending list v: one min and one max an entry. The y
+// of a column are distinct; inserting kBig changes nothing.
+template <int kT>
+__device__ __forceinline__ void y_insert(int32_t (&v)[kT], int32_t y) {
+#pragma unroll
+  for (int i = 0; i < kT; ++i) {
+    const int32_t lo = min(v[i], y);
+    y = max(v[i], y);
+    v[i] = lo;
+  }
+}
+
+// One read of a column: v = its kT smallest y (kBig past the last), among
+// the y above `last` where kAbove.
+template <int kT, bool kAbove>
+__device__ __forceinline__ void y_scan(const int32_t* __restrict__ col,
+                                       int nq, int sub, int32_t last,
+                                       int32_t (&v)[kT]) {
+#pragma unroll
+  for (int i = 0; i < kT; ++i) v[i] = kBig;
+  for (int p0 = 0; p0 < sub; p0 += kYBatch) {
+    int32_t x[kYBatch];
+#pragma unroll
+    for (int b = 0; b < kYBatch; ++b)
+      x[b] = p0 + b < sub ? __ldg(col + (size_t)(p0 + b) * nq) : kBig;
+#pragma unroll
+    for (int b = 0; b < kYBatch; ++b) {
+      const int32_t y = (x[b] & ~127) | (p0 + b);
+      const bool out = p0 + b >= sub || (kAbove && y <= last);
+      y_insert<kT>(v, out ? kBig : y);
+    }
+  }
+}
+
+template <int kT>
 __global__ void __launch_bounds__(kExtractThreads)
 y_extract_kernel(const int32_t* __restrict__ mins,  // (n_groups, Q)
                  int32_t* __restrict__ out,         // (n_groups / sub * t, Q)
@@ -416,15 +467,18 @@ y_extract_kernel(const int32_t* __restrict__ mins,  // (n_groups, Q)
   const int j = blockIdx.y;
   if (q >= nq) return;
   const int32_t* col = mins + (size_t)j * sub * nq + q;
-  int32_t last = 0;
-  for (int r = 0; r < t; ++r) {
-    int32_t cur = kBig;
-    for (int p = 0; p < sub; ++p) {
-      const int32_t y = (col[(size_t)p * nq] & ~127) | p;
-      if ((r == 0 || y > last) && y < cur) cur = y;
-    }
-    out[((size_t)j * t + r) * nq + q] = cur;
-    last = cur;  // once cur is INT32_MAX no y is above it: INT32_MAX stays
+  int32_t* dst = out + (size_t)j * t * nq + q;
+  int32_t v[kT];
+  y_scan<kT, false>(col, nq, sub, 0, v);
+  for (int r0 = 0;;) {
+#pragma unroll
+    for (int r = 0; r < kT; ++r)
+      if (r0 + r < t) dst[(size_t)(r0 + r) * nq] = v[r];
+    r0 += kT;
+    if (r0 >= t) break;
+    // the next kT rounds: the y above the last one written (once the
+    // column is drained that is kBig, and no y lies above it)
+    y_scan<kT, true>(col, nq, sub, v[kT - 1], v);
   }
 }
 
@@ -517,8 +571,10 @@ extern "C" int vsr_y_extract(const void* mins, void* out, int nq, int nsub,
   if (nq < 1 || nsub < 1 || nsub > 65535 || sub < 1 || sub > 128 || t < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((nq + kExtractThreads - 1) / kExtractThreads, nsub);
-  y_extract_kernel<<<grid, kExtractThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = t <= 8    ? y_extract_kernel<8>
+                : t <= 16 ? y_extract_kernel<16>
+                          : y_extract_kernel<32>;
+  kernel<<<grid, kExtractThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(mins), static_cast<int32_t*>(out), nq, sub,
       t);
   return (int)cudaGetLastError();

@@ -4,8 +4,11 @@
 // Replaces the TPU kernel vectorsearch_rbac_tpu/ops/pallas_scan_int8.py
 // _make_kernel (launched by int8_masked_topk), the narrow d_pad <= 256 form,
 // with and without its admit-dedup `mask_sub_block` slot form (also the lab
-// kernel scripts/r4_admit_lab.py scan_sb, in both of its slot layouts), and
-// the kernel lab's floor probe as a form of its own (kFloor, below).
+// kernel scripts/r4_admit_lab.py scan_sb, in both of its slot layouts); its
+// per-query form is also the lab kernel S1 trim
+// (scripts/r4_kernel_variants.py _make_kernel_trim), and the lab's floor
+// probe and trim's control, the reference's literal epilogue chain, are
+// forms of their own (kFloor, kChain, below).
 //
 // Contract, bit for bit the TPU kernel's output: for query q and arena row r
 //   dots   = sum_d x8[r, d] * q8[q, d]                       (int32, exact)
@@ -92,21 +95,30 @@
 // operations: no floor. The epilogue is then one minimum a pair and the
 // group's two quad shuffles, with no branch.
 //
-// The dp4a kernel (scan_int8_kernel below) is the first port's design, kept
-// for the kernel lab only (vsr_scan_int8_lab): its plain epilogue as a
-// control, and the lab's trim epilogue (also the lab kernel
-// scripts/r4_kernel_variants.py int8_masked_topk_lab, S1), selected by the
-// kEpi template flag, per-query masks only, as the lab's:
-//   kTrim:  the pack folded into the score arithmetic: l2 without a shift
-//           packs (norms[r] << 7) - (dots << 8) | lane, ip -dots << 7 | lane;
-//           with a shift the shift-then-pack chain above. Both are (score <<
-//           7) | lane in 32-bit arithmetic, so the output equals kPlain's bit
-//           for bit; the variant times the cheaper instruction chain.
-// The TPU lab's unroll and chunk knobs schedule Mosaic and size VMEM; they
-// have no counterpart here. Its design: one thread per query keeps its int8
-// query row and its W mask words in registers, the block stages 128-row
-// tiles in shared memory (broadcast reads) and walks kTilesPerBlock of them;
-// the group minimum is a running minimum in a register.
+// The chain form (kPack == kChain; the lab's control of S1 trim, per-query
+// masks only): the reference K1's literal epilogue
+// (vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:74-97) on this kernel's
+// schedule. Per pair
+//   s = (l2 ? norms[r] - 2 * dots : -dots) >> shift     (arithmetic)
+//   v = ((uint32_t)s << 7) | (r & (group - 1))
+// then the same predicated minimum; the producer writes the raw norms (0
+// for ip) as the base plane. The lab kernel S1 trim
+// (scripts/r4_kernel_variants.py _make_kernel_trim) folds the << 7 pack into
+// the score arithmetic; here that fold is K1's own epilogue (pack<kFold>:
+// one multiply-add over a base shifted in advance), so the lab's trim is
+// K1's per-query form, and the chain beside it, on the same schedule, shows
+// what the fold saves: the shift and the shift-or of the pack, two integer
+// operations a pair. It covers every shift K1 takes (0-31): the sign of a
+// negative score survives the arithmetic shift before the unsigned << 7.
+//
+// The dp4a kernel (scan_int8_kernel below) is the first port's design of
+// K1, kept for the kernel lab only (vsr_scan_int8_lab variant dp4a, per-query
+// masks): the old design's time beside K1's. The TPU lab's unroll and chunk
+// knobs schedule Mosaic and size VMEM; they have no counterpart here. Its
+// design: one thread per query keeps its int8 query row and its W mask words
+// in registers, the block stages 128-row tiles in shared memory (broadcast
+// reads) and walks kTilesPerBlock of them; the group minimum is a running
+// minimum in a register.
 
 #include "tma_wgmma.cuh"
 
@@ -114,6 +126,9 @@ namespace {
 
 constexpr int kMaxWords = 8;  // role bitset words: up to 256 roles
 constexpr int32_t kMasked = 0x7F000000;
+// how an accumulator becomes a packed key (pack<kPack> below): K1's fold at
+// score shift 0, K1's shifted form otherwise, and the reference's chain
+constexpr int kFold = 0, kShifted = 1, kChain = 2;
 
 // ------------------------------------------------- the tensor-core kernel
 
@@ -206,7 +221,7 @@ __device__ __forceinline__ int mask_row(const ScanArgs& a, int q) {
 // bases; and one flag a consumer warpgroup: whether the tile's roles meet
 // the union of its queries' masks (any_r (row_r & U) != 0 is (OR_r row_r) &
 // U != 0).
-template <int D, int kWords, bool kPack0, bool kFloor>
+template <int D, int kWords, int kPack, bool kFloor>
 __device__ __forceinline__ void produce(const CUtensorMap* q_map,
                                         const CUtensorMap* x_map,
                                         const ScanArgs& a, const Smem<D>& sm,
@@ -298,8 +313,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
                                       wd[6 % kWords], wd[7 % kWords]);
       const uint32_t nr = (uint32_t)stg[kRows * kMaxWords + r];
       if (!kFloor)
-        base[r] = (int32_t)(kPack0 ? (a.l2 ? nr << 7 : 0u) + (uint32_t)(r & gm)
-                                   : (a.l2 ? nr << up : 0u));
+        base[r] = (int32_t)(kPack == kFold
+                                ? (a.l2 ? nr << 7 : 0u) + (uint32_t)(r & gm)
+                            : kPack == kShifted ? (a.l2 ? nr << up : 0u)
+                                                : (a.l2 ? nr : 0u));
     }
     if (!kFloor) {
       uint32_t hit = 0;
@@ -324,15 +341,18 @@ __device__ __forceinline__ void min_if(int32_t& best, int32_t hit,
 }
 
 // The packed score of one accumulator: v = dots * mul + base is the packed
-// key itself where the shift is 0 (kPack0); otherwise it is the score
-// shifted up by 7 - shift (down by `down` past 7), whose low 7 bits give way
-// to the row's rank in its group.
-template <bool kPack0>
+// key itself where the shift is 0 (kFold); with a shift (kShifted) it is the
+// score shifted up by 7 - shift (down by `down` past 7), whose low 7 bits
+// give way to the row's rank in its group; in the chain (kChain) it is the
+// score itself (the base is the raw norm), shifted down by the score shift
+// and then packed.
+template <int kPack>
 __device__ __forceinline__ int32_t pack(int32_t dots, uint32_t mul,
                                         uint32_t base, int down,
                                         uint32_t rank) {
   uint32_t v = (uint32_t)dots * mul + base;
-  if (!kPack0) v = ((uint32_t)((int32_t)v >> down) & ~127u) | rank;
+  if (kPack == kShifted) v = ((uint32_t)((int32_t)v >> down) & ~127u) | rank;
+  if (kPack == kChain) v = ((uint32_t)((int32_t)v >> down) << 7) | rank;
   return (int32_t)v;
 }
 
@@ -346,6 +366,7 @@ struct Epi {
   int gm, span;   // group - 1; 8-row slices a group
   uint32_t mul;
   int down;
+  uint32_t row0;  // the tile's first arena row (the chain's ranks)
 };
 
 __device__ __forceinline__ void close_group(Epi& e) {
@@ -362,7 +383,7 @@ __device__ __forceinline__ void close_group(Epi& e) {
 // The per-query epilogue of one 64-row half of a tile: acc[4 n + 2 i + j]
 // holds query qa + 8 i and row 64 kHalf + 8 n + 2 (lane % 4) + j.
 // kWords is 4 (W <= 4: the second plane is not read) or 8.
-template <int kHalf, int kWords, bool kPack0>
+template <int kHalf, int kWords, int kPack>
 __device__ __forceinline__ void half_pairs(const int32_t (&acc)[32],
                                            const int32_t (&qw)[2][kWords],
                                            const int4* __restrict__ planes,
@@ -378,7 +399,13 @@ __device__ __forceinline__ void half_pairs(const int32_t (&acc)[32],
       const int4 b0 = planes[r];
       const int4 b1 = kWords > 4 ? planes[kRows + r] : make_int4(0, 0, 0, 0);
       const uint32_t bs = (uint32_t)base[r];
-      const uint32_t rank = kPack0 ? 0u : (uint32_t)(r & e.gm);
+      // the chain's rank is its arena row's, as the reference takes it (a
+      // tile-invariant r & gm would be hoisted out of the tile loop, 32
+      // registers a thread, and spill at W 8)
+      const uint32_t rank =
+          kPack == kFold    ? 0u
+          : kPack == kChain ? (e.row0 + (uint32_t)r) & (uint32_t)e.gm
+                            : (uint32_t)(r & e.gm);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         int32_t hit = (b0.x & qw[i][0]) | (b0.y & qw[i][1]) |
@@ -387,7 +414,7 @@ __device__ __forceinline__ void half_pairs(const int32_t (&acc)[32],
           hit |= (b1.x & qw[i][4]) | (b1.y & qw[i][5]) | (b1.z & qw[i][6]) |
                  (b1.w & qw[i][7]);
         min_if(e.best[i], hit,
-               pack<kPack0>(acc[4 * n + 2 * i + j], e.mul, bs, e.down, rank));
+               pack<kPack>(acc[4 * n + 2 * i + j], e.mul, bs, e.down, rank));
       }
     }
     if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
@@ -415,7 +442,7 @@ __device__ __forceinline__ void half_admit(uint32_t (&adm)[2],
 // The warp-slot epilogue of one half: an 8-row slice none of whose rows
 // the slot admits is skipped by the whole warp; a thread's two rows of a
 // slice are gated by one admit bit each, no test a pair.
-template <int kHalf, bool kPack0>
+template <int kHalf, int kPack>
 __device__ __forceinline__ void half_slot(const int32_t (&acc)[32],
                                           const uint32_t (&adm)[2],
                                           const int32_t* __restrict__ base,
@@ -432,10 +459,10 @@ __device__ __forceinline__ void half_slot(const int32_t (&acc)[32],
         const int r = 8 * n8 + cl + j;
         if ((mine >> j) & 1u) {
           const uint32_t bs = (uint32_t)base[r];
-          const uint32_t rank = kPack0 ? 0u : (uint32_t)(r & e.gm);
+          const uint32_t rank = kPack == kFold ? 0u : (uint32_t)(r & e.gm);
 #pragma unroll
           for (int i = 0; i < 2; ++i)
-            e.best[i] = min(e.best[i], pack<kPack0>(acc[4 * n + 2 * i + j],
+            e.best[i] = min(e.best[i], pack<kPack>(acc[4 * n + 2 * i + j],
                                                     e.mul, bs, e.down, rank));
         }
       }
@@ -445,7 +472,7 @@ __device__ __forceinline__ void half_slot(const int32_t (&acc)[32],
 }
 
 // One half's epilogue, in the path the template selects.
-template <int kHalf, int kWords, bool kPack0, bool kWarpSlot>
+template <int kHalf, int kWords, int kPack, bool kWarpSlot>
 __device__ __forceinline__ void half_epilogue(const int32_t (&acc)[32],
                                               const int32_t (&qw)[2][kWords],
                                               const uint32_t (&sw)[kMaxWords],
@@ -454,9 +481,9 @@ __device__ __forceinline__ void half_epilogue(const int32_t (&acc)[32],
   if (kWarpSlot) {
     uint32_t adm[2];
     half_admit<kHalf>(adm, sw, planes);
-    half_slot<kHalf, kPack0>(acc, adm, base, e);
+    half_slot<kHalf, kPack>(acc, adm, base, e);
   } else {
-    half_pairs<kHalf, kWords, kPack0>(acc, qw, planes, base, e);
+    half_pairs<kHalf, kWords, kPack>(acc, qw, planes, base, e);
   }
 }
 
@@ -539,7 +566,7 @@ __device__ __forceinline__ void wgmma_wait() {
 // drift overlaps one's epilogue with another's dots. (Each tile's dots as
 // two 64-row halves, each half's epilogue under the next half's dots, was
 // 15-19% slower: PERF.md.)
-template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kFloor>
+template <int D, int kWords, int kPack, bool kWarpSlot, bool kFloor>
 __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
                                         int q0, int t_begin, int t_end) {
   using R = Ring<D>;
@@ -557,8 +584,9 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
   e.gm = a.group - 1;
   e.span = a.group / 8;
   const bool down = a.score_shift > 7;
-  e.mul = (uint32_t)(a.l2 ? -2 : -1) << (down ? 0 : 7 - a.score_shift);
-  e.down = down ? a.score_shift - 7 : 0;
+  e.mul = (uint32_t)(a.l2 ? -2 : -1)
+          << (kPack == kChain || down ? 0 : 7 - a.score_shift);
+  e.down = kPack == kChain ? a.score_shift : down ? a.score_shift - 7 : 0;
   int32_t qw[2][kWords];   // the per-query path: both queries' words
   uint32_t sw[kMaxWords];  // the warp-slot path: the slot's words
   uint32_t qf[4];          // the floor: the binary product's A fragment
@@ -593,6 +621,7 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
     const int i = t - t_begin, s = i % R::kStages;
     mbar_wait(sm.full(s), (i / R::kStages) & 1);
     e.out = a.out + ((size_t)t * kRows >> lg) * e.nq + qa;
+    e.row0 = (uint32_t)t * kRows;
     if (kFloor || (*sm.flags(s) >> wg) & 1u) {  // warpgroup-uniform
       issue_dots<D>(lo, hi, a_wg, sm.rows + s * R::kRowBytes);
       wgmma_wait<0>();
@@ -604,9 +633,9 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
         half_floor<0>(lo, e);
         half_floor<1>(hi, e);
       } else {
-        half_epilogue<0, kWords, kPack0, kWarpSlot>(lo, qw, sw, sm.planes(s),
+        half_epilogue<0, kWords, kPack, kWarpSlot>(lo, qw, sw, sm.planes(s),
                                                     sm.base(s), e);
-        half_epilogue<1, kWords, kPack0, kWarpSlot>(hi, qw, sw, sm.planes(s),
+        half_epilogue<1, kWords, kPack, kWarpSlot>(hi, qw, sw, sm.planes(s),
                                                     sm.base(s), e);
       }
     } else {  // no query of the warpgroup admits a row of the tile
@@ -623,7 +652,7 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
   }
 }
 
-template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kFloor>
+template <int D, int kWords, int kPack, bool kWarpSlot, bool kFloor>
 __global__ void __launch_bounds__(kTcThreads, 1)
 scan_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q8 (Q, D)
                const __grid_constant__ CUtensorMap x_map,  // x8 (Npad, D)
@@ -644,16 +673,16 @@ scan_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q8 (Q, D)
   }
   __syncthreads();
   if (threadIdx.x / 32 == kProducer)
-    produce<D, kWords, kPack0, kFloor>(&q_map, &x_map, a, sm, q0, t_begin,
+    produce<D, kWords, kPack, kFloor>(&q_map, &x_map, a, sm, q0, t_begin,
                                        t_end);
   else
-    consume<D, kWords, kPack0, kWarpSlot, kFloor>(a, sm, q0, t_begin, t_end);
+    consume<D, kWords, kPack, kWarpSlot, kFloor>(a, sm, q0, t_begin, t_end);
 }
 
-template <int D, int kWords, bool kPack0, bool kWarpSlot, bool kFloor = false>
+template <int D, int kWords, int kPack, bool kWarpSlot, bool kFloor = false>
 cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
                       const ScanArgs& a, int blocks, cudaStream_t stream) {
-  auto kernel = scan_tc_kernel<D, kWords, kPack0, kWarpSlot, kFloor>;
+  auto kernel = scan_tc_kernel<D, kWords, kPack, kWarpSlot, kFloor>;
   constexpr int smem = Ring<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -662,14 +691,14 @@ cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
   return cudaGetLastError();
 }
 
-template <int D, bool kPack0>
+template <int D, int kPack>
 cudaError_t dispatch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
                         const ScanArgs& a, int blocks, cudaStream_t stream) {
   if (a.mask_sb > 0 && a.slot_tile == 0 && a.mask_sb % 16 == 0)
-    return launch_tc<D, 8, kPack0, true>(q_map, x_map, a, blocks, stream);
+    return launch_tc<D, 8, kPack, true>(q_map, x_map, a, blocks, stream);
   if (a.w <= 4)
-    return launch_tc<D, 4, kPack0, false>(q_map, x_map, a, blocks, stream);
-  return launch_tc<D, 8, kPack0, false>(q_map, x_map, a, blocks, stream);
+    return launch_tc<D, 4, kPack, false>(q_map, x_map, a, blocks, stream);
+  return launch_tc<D, 8, kPack, false>(q_map, x_map, a, blocks, stream);
 }
 
 // The floor (per-query masks only; the score arithmetic does not enter).
@@ -677,9 +706,19 @@ template <int D>
 cudaError_t dispatch_floor(const CUtensorMap& q_map, const CUtensorMap& x_map,
                            const ScanArgs& a, int blocks, cudaStream_t stream) {
   if (a.w <= 4)
-    return launch_tc<D, 4, false, false, true>(q_map, x_map, a, blocks,
-                                               stream);
-  return launch_tc<D, 8, false, false, true>(q_map, x_map, a, blocks, stream);
+    return launch_tc<D, 4, kShifted, false, true>(q_map, x_map, a, blocks,
+                                                  stream);
+  return launch_tc<D, 8, kShifted, false, true>(q_map, x_map, a, blocks,
+                                                stream);
+}
+
+// The chain (per-query masks only): every shift by the one form.
+template <int D>
+cudaError_t dispatch_chain(const CUtensorMap& q_map, const CUtensorMap& x_map,
+                           const ScanArgs& a, int blocks, cudaStream_t stream) {
+  if (a.w <= 4)
+    return launch_tc<D, 4, kChain, false>(q_map, x_map, a, blocks, stream);
+  return launch_tc<D, 8, kChain, false>(q_map, x_map, a, blocks, stream);
 }
 
 // ------------------------------------------------- the dp4a kernel (lab)
@@ -687,9 +726,9 @@ cudaError_t dispatch_floor(const CUtensorMap& q_map, const CUtensorMap& x_map,
 constexpr int kTileRows = 128;     // rows staged in shared memory at a time
 constexpr int kThreads = 256;      // queries per block
 constexpr int kTilesPerBlock = 8;  // tiles a block walks with one query load
-// the lab's variants: the dp4a kernel's epilogues (kEpi), and the floor,
-// which runs on the tensor-core kernel
-constexpr int kPlain = 0, kTrim = 1, kLabFloor = 2;
+// the lab's variants (vsr_scan_int8_lab): the dp4a kernel, and three forms
+// of the tensor-core kernel: K1's own (the lab's trim), the floor, the chain
+constexpr int kLabDp4a = 0, kLabTrim = 1, kLabFloor = 2, kLabChain = 3;
 
 template <int D16>
 __device__ __forceinline__ int32_t row_dot(const int4* x, const int4* qv) {
@@ -705,8 +744,7 @@ __device__ __forceinline__ int32_t row_dot(const int4* x, const int4* qv) {
   return dot;
 }
 
-// kEpi selects the epilogue at compile time (a run-time flag cost 12%).
-template <int D16, int kEpi>  // D16 = d_pad / 16: words per row
+template <int D16>  // D16 = d_pad / 16: words per row
 __global__ void __launch_bounds__(kThreads)
 scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
                  const int8_t* __restrict__ x8,         // (Npad, d_pad)
@@ -758,15 +796,9 @@ scan_int8_kernel(const int8_t* __restrict__ q8,         // (Q, d_pad)
     for (int r = 0; r < kTileRows; ++r) {
       const int32_t dot = row_dot<D16>(xs + r * D16, qv);
       const int lane = r & lane_mask;  // row0 is a multiple of group
-      uint32_t p;  // the score << 7, in unsigned arithmetic
-      if (kEpi == kTrim && score_shift == 0) {
-        p = l2 ? ((uint32_t)ns[r] << 7) - ((uint32_t)dot << 8)
-               : (uint32_t)(-dot) << 7;
-      } else {
-        int32_t score = l2 ? ns[r] - 2 * dot : -dot;
-        score >>= score_shift;
-        p = (uint32_t)score << 7;
-      }
+      int32_t score = l2 ? ns[r] - 2 * dot : -dot;
+      score >>= score_shift;
+      const uint32_t p = (uint32_t)score << 7;  // unsigned: see the header
       int32_t hit = 0;
 #pragma unroll
       for (int j = 0; j < kMaxWords; ++j)
@@ -782,13 +814,11 @@ template <int D16>
 void launch_dp4a(const void* q8, const void* x8, const void* norms,
                  const void* row_bits, const void* q_bits, void* out, int nq,
                  int npad, int w, int group, int l2, int score_shift,
-                 int variant, cudaStream_t stream) {
+                 cudaStream_t stream) {
   const int n_tiles = npad / kTileRows;
   const dim3 grid((n_tiles + kTilesPerBlock - 1) / kTilesPerBlock,
                   (nq + kThreads - 1) / kThreads);
-  auto kernel = variant == kTrim ? scan_int8_kernel<D16, kTrim>
-                                 : scan_int8_kernel<D16, kPlain>;
-  kernel<<<grid, kThreads, 0, stream>>>(
+  scan_int8_kernel<D16><<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(q8), static_cast<const int8_t*>(x8),
       static_cast<const int32_t*>(norms), static_cast<const int32_t*>(row_bits),
       static_cast<const int32_t*>(q_bits), static_cast<int32_t*>(out), nq,
@@ -818,10 +848,12 @@ int sm_count() {
   return n;
 }
 
+// The tensor-core kernel in the form `lab` names by its lab variant code:
+// kLabTrim is K1's own (the served scan), kLabFloor and kLabChain the lab's.
 int scan_tc(const void* q8, const void* x8, const void* norms,
             const void* row_bits, const void* q_bits, void* out, int nq,
             int npad, int d_pad, int w, int group, int l2, int score_shift,
-            int mask_sb, int slot_tile, bool floor, void* stream) {
+            int mask_sb, int slot_tile, int lab, void* stream) {
   if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, mask_sb, slot_tile))
     return (int)cudaErrorInvalidValue;
   ScanArgs a;
@@ -852,15 +884,20 @@ int scan_tc(const void* q8, const void* x8, const void* norms,
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = (int)blocks;
-  if (floor)
+  if (lab == kLabFloor)
     err = d_pad == 128 ? dispatch_floor<128>(q_map, x_map, a, nb, s)
                        : dispatch_floor<256>(q_map, x_map, a, nb, s);
+  else if (lab == kLabChain)
+    err = d_pad == 128 ? dispatch_chain<128>(q_map, x_map, a, nb, s)
+                       : dispatch_chain<256>(q_map, x_map, a, nb, s);
   else if (d_pad == 128)
-    err = score_shift == 0 ? dispatch_tc<128, true>(q_map, x_map, a, nb, s)
-                           : dispatch_tc<128, false>(q_map, x_map, a, nb, s);
+    err = score_shift == 0
+              ? dispatch_tc<128, kFold>(q_map, x_map, a, nb, s)
+              : dispatch_tc<128, kShifted>(q_map, x_map, a, nb, s);
   else
-    err = score_shift == 0 ? dispatch_tc<256, true>(q_map, x_map, a, nb, s)
-                           : dispatch_tc<256, false>(q_map, x_map, a, nb, s);
+    err = score_shift == 0
+              ? dispatch_tc<256, kFold>(q_map, x_map, a, nb, s)
+              : dispatch_tc<256, kShifted>(q_map, x_map, a, nb, s);
   return (int)err;
 }
 
@@ -876,30 +913,32 @@ extern "C" int vsr_scan_int8(const void* q8, const void* x8, const void* norms,
                              int group, int l2, int score_shift, int mask_sb,
                              int slot_tile, void* stream) {
   return scan_tc(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w,
-                 group, l2, score_shift, mask_sb, slot_tile, false, stream);
+                 group, l2, score_shift, mask_sb, slot_tile, kLabTrim,
+                 stream);
 }
 
-// The kernel lab's scans on per-query masks: variant 0 the dp4a kernel's
-// plain epilogue (the first port's K1, the control), 1 its trim epilogue,
-// 2 the floor on the tensor-core kernel.
+// The kernel lab's scans on per-query masks: variant 0 the dp4a kernel (the
+// first port's K1), 1 trim (K1's own form: the pack folded into the score),
+// 2 the floor and 3 the chain (the reference's epilogue, trim's control),
+// both forms of the tensor-core kernel.
 extern "C" int vsr_scan_int8_lab(const void* q8, const void* x8,
                                  const void* norms, const void* row_bits,
                                  const void* q_bits, void* out, int nq,
                                  int npad, int d_pad, int w, int group, int l2,
                                  int score_shift, int variant, void* stream) {
   if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, 0, 0) ||
-      variant < kPlain || variant > kLabFloor)
+      variant < kLabDp4a || variant > kLabChain)
     return (int)cudaErrorInvalidValue;
-  if (variant == kLabFloor)
+  if (variant != kLabDp4a)
     return scan_tc(q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w,
-                   group, l2, score_shift, 0, 0, true, stream);
+                   group, l2, score_shift, 0, 0, variant, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_pad == 128)
     launch_dp4a<8>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group,
-                   l2, score_shift, variant, s);
+                   l2, score_shift, s);
   else
     launch_dp4a<16>(q8, x8, norms, row_bits, q_bits, out, nq, npad, w, group,
-                    l2, score_shift, variant, s);
+                    l2, score_shift, s);
   return (int)cudaGetLastError();
 }
 

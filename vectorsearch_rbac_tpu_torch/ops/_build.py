@@ -41,14 +41,15 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # "scan_int8_wide_slots" the same for the wide scan; "graph_search" counts
 # the fused graph search (one launch a search), "graph_score" and
 # "graph_merge" the step kernels of the step loop. The kernel lab's
-# variants count on their own: the dp4a scan's plain and trim epilogues,
-# the tensor-core scan's floor form, the y-form extraction and the y-form
-# bitonic sort in its two forms.
+# variants count on their own: the dp4a scan, the tensor-core scan's trim
+# (K1's per-query form), floor and chain forms, the y-form extraction and
+# the y-form bitonic sort in its two forms.
 LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
             "scan_int8_wide_slots": 0, "merge_extract": 0,
             "merge_bitonic": 0, "graph_search": 0, "graph_score": 0,
             "graph_merge": 0,
             "scan_int8_dp4a": 0, "scan_int8_trim": 0, "scan_int8_floor": 0,
+            "scan_int8_chain": 0,
             "merge_y_extract": 0, "merge_y_sort": 0, "merge_y_pairs": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -8,7 +8,8 @@ of a candidate inside its subgroup of at most 128 groups rides in the low 7
 bits of its packed value (y = (score << 7) | pos, the lane bits dropped),
 so a survivor is one int32 and no meta word is written.
 
-- `subgroup_extract` (S4): the t smallest y of each subgroup, ascending;
+- `subgroup_extract` (S4): the t smallest y of each subgroup, ascending
+  (`y_extract`, its kernel's wrapper, takes any t >= 1);
 - `bitonic_sort_keep` (S5, sort form): a column's survivors sorted, the
   first `keep` rows;
 - `bitonic_pairs_keep` (S5, pairs form): the same network carrying each
@@ -47,23 +48,29 @@ MAX_SUB = 128   # the position field is 7 bits
 extract_merge_v3 = merge_topk
 
 
-def _check_extract(mins: torch.Tensor, sub: int, t: int) -> None:
+def _check_y(mins: torch.Tensor, sub: int, t: int) -> None:
     ng = mins.shape[0]
     if not 1 <= sub <= MAX_SUB or ng % sub:
         raise ValueError(f"sub {sub} must be in [1, {MAX_SUB}] (a 7-bit "
                          f"position) and divide n_groups {ng}")
+    if t < 1:
+        raise ValueError(f"t {t} must be positive")
+
+
+def _check_extract(mins: torch.Tensor, sub: int, t: int) -> None:
+    _check_y(mins, sub, t)
     if t < 8 or t % 8:
         raise ValueError(f"t {t} must be a positive multiple of 8, as the "
                          "lab kernel's output block requires")
 
 
-def subgroup_extract_plain(mins: torch.Tensor, sub: int = 128,
-                           t: int = 16) -> torch.Tensor:
-    """Plain version of the y-form extraction: (n_groups, Q) packed minima
-    -> (n_groups / sub * t, Q) y, row j * t + r the r-th smallest of
-    subgroup j, INT32_MAX past its sub values. The y of a subgroup are
-    distinct, so its sorted prefix is the kernel's rounds of (min, mask)."""
-    _check_extract(mins, sub, t)
+def y_extract_plain(mins: torch.Tensor, sub: int, t: int) -> torch.Tensor:
+    """Plain version of the y-form extraction at any t >= 1: (n_groups, Q)
+    packed minima -> (n_groups / sub * t, Q) y, row j * t + r the r-th
+    smallest of subgroup j, INT32_MAX past its sub values. The y of a
+    subgroup are distinct, so its sorted prefix is the lab kernel's rounds
+    of (min, mask)."""
+    _check_y(mins, sub, t)
     ng, nq = mins.shape
     pos = torch.arange(sub, dtype=torch.int32, device=mins.device)
     y = (mins.view(ng // sub, sub, nq) & ~127) | pos[None, :, None]
@@ -74,15 +81,15 @@ def subgroup_extract_plain(mins: torch.Tensor, sub: int = 128,
     return y.reshape(ng // sub * t, nq)
 
 
-def subgroup_extract(mins: torch.Tensor, sub: int = 128,
-                     t: int = 16) -> torch.Tensor:
-    """S4. CPU tensors take the plain version; CUDA tensors launch
-    csrc/merge.cu y_extract_kernel (counted under "merge_y_extract")."""
-    _check_extract(mins, sub, t)
+def y_extract(mins: torch.Tensor, sub: int, t: int) -> torch.Tensor:
+    """S4's kernel at any t >= 1. CPU tensors take y_extract_plain; CUDA
+    tensors launch csrc/merge.cu y_extract_kernel (counted under
+    "merge_y_extract")."""
+    _check_y(mins, sub, t)
     if mins.device.type == "cpu":
-        return subgroup_extract_plain(mins, sub, t)
+        return y_extract_plain(mins, sub, t)
     if mins.dtype != torch.int32 or not mins.is_contiguous():
-        raise ValueError("subgroup_extract takes a contiguous int32 tensor")
+        raise ValueError("y_extract takes a contiguous int32 tensor")
     ng, nq = mins.shape
     out = torch.empty((ng // sub * t, nq), dtype=torch.int32,
                       device=mins.device)
@@ -92,6 +99,21 @@ def subgroup_extract(mins: torch.Tensor, sub: int = 128,
     _build.check(err, "vsr_y_extract")
     _build.LAUNCHES["merge_y_extract"] += 1
     return out
+
+
+def subgroup_extract_plain(mins: torch.Tensor, sub: int = 128,
+                           t: int = 16) -> torch.Tensor:
+    """Plain version of S4 at the lab's shapes (t a multiple of 8)."""
+    _check_extract(mins, sub, t)
+    return y_extract_plain(mins, sub, t)
+
+
+def subgroup_extract(mins: torch.Tensor, sub: int = 128,
+                     t: int = 16) -> torch.Tensor:
+    """S4 at the lab's shapes (t a multiple of 8). CPU tensors take the
+    plain version; CUDA tensors launch the kernel (y_extract)."""
+    _check_extract(mins, sub, t)
+    return y_extract(mins, sub, t)
 
 
 def _check_sort(y: torch.Tensor, keep: int) -> None:

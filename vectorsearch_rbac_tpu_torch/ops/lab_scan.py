@@ -1,18 +1,24 @@
-"""The kernel lab's scan variants: the dp4a K1 and its trimmed epilogue,
-and the floor probe on K1's own tensor-core schedule.
+"""The kernel lab's scan variants: S1's trim and floor on K1's own
+tensor-core schedule, the reference K1's epilogue chain beside trim as its
+control, and the first port's dp4a K1.
 
 Counterpart of scripts/r4_kernel_variants.py `int8_masked_topk_lab` (the
 lab kernel S1), which times two restructured epilogues of the narrow scan
 (ops/scan_int8.py int8_group_minima) on the same inputs:
 
+- "trim" folds the `<< 7` pack into the score arithmetic. On this card
+  that fold is K1's own epilogue (csrc/scan_int8.cu pack<kFold>: one
+  multiply-add over a per-row base shifted in advance; with a score shift
+  K1's shifted form), so trim launches K1's tensor-core kernel on
+  per-query masks: K1's minima, by K1's instructions;
+- "chain" is trim's control on the same schedule: the reference K1's
+  literal epilogue (vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:74-97),
+  per pair `score = (l2 ? norms - 2 dots : -dots) >> shift`, then
+  `(score << 7) | lane` (csrc/scan_int8.cu kChain). Its output is K1's,
+  bit for bit; its time less trim's is what the fold saves;
 - "dp4a" is the first port's K1 (d_pad / 4 __dp4a a pair, one thread per
-  query): K1's packed minima, bit for bit, by the old design. It is the
-  control of trim, and the old design's time beside the new K1;
-- "trim", on the dp4a kernel, folds the `<< 7` pack into the score
-  arithmetic: l2 without a score shift packs `(norms << 7) - (dots << 8)
-  | lane`, ip `-dots << 7 | lane`; with a shift it keeps the
-  shift-then-pack chain. Its output is K1's, bit for bit; only the
-  instruction chain differs;
+  query): K1's packed minima, bit for bit, by the old design, for the old
+  design's time beside the new K1;
 - "floor" is a lower-bound probe, not a correct kernel: the min over each
   group of (dots + admit), where admit is the number of roles the row and
   the query share (the TPU lab's one-hot matmul count: the popcount of the
@@ -22,9 +28,10 @@ lab kernel S1), which times two restructured epilogues of the narrow scan
   tensor cores), so K1's time less the floor's is what K1's epilogue
   costs on K1's own schedule.
 
-dp4a and trim are template variants of the dp4a kernel (a run-time flag
-cost it 12%), the floor a template form of the tensor-core kernel; all
-three take per-query masks, as the lab's; no serving path reaches them.
+The floor and the chain are template forms of the tensor-core kernel (a
+run-time flag cost the dp4a kernel 12% on an NVIDIA H100 80GB HBM3 at
+700.00 W); every variant takes per-query masks, as the lab's, and no
+serving path reaches them.
 The lab's `unroll` and `chunk` knobs schedule Mosaic's loop and size its
 VMEM chunk: they have no counterpart on this card and are not carried
 over. The plain versions are here beside the wrappers; CPU tensors take
@@ -44,7 +51,7 @@ from .scan_int8 import (NARROW_MAX_D, _check_kernel_tensors,
                         merge_group_minima)
 
 # the C entry's variant codes
-VARIANTS = {"dp4a": 0, "trim": 1, "floor": 2}
+VARIANTS = {"dp4a": 0, "trim": 1, "floor": 2, "chain": 3}
 _CHUNK_ELEMS = 1 << 26               # floor plain: elements per temporary
 
 
@@ -88,8 +95,9 @@ def lab_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
     nor `score_shift`). Operands as ops/scan_int8.int8_group_minima's with
     per-query masks, d_pad 128 or 256, W 1-8. CPU tensors take the plain
     versions (all but floor's are K1's); CUDA tensors launch the variant
-    (counted under "scan_int8_<variant>"): dp4a and trim on the dp4a
-    kernel, floor on the tensor-core kernel's floor form."""
+    (counted under "scan_int8_<variant>"): trim, chain and floor on the
+    tensor-core kernel (K1's per-query form, its chain and floor forms),
+    dp4a on the dp4a kernel."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is not one of "
                          f"{tuple(VARIANTS)}")
