@@ -44,7 +44,9 @@ without a CUDA device or without the port's package beside it. Phases:
    the counts set to 0 just before and read just after; then each of these
    kernels against its plain version, bit-identical, beside its bound and
    torch.topk's time on each merge kernel's own input (and over the whole
-   minima, the y-form merge's yardstick); its wide half (K2's slot form,
+   minima, the y-form merge's yardstick), the y-form sorts also beside the
+   bitonic sort (K4) on the same survivors with their gids as metas; its
+   wide half (K2's slot form,
    100 masks in slots of 16, both layouts, on phase 3b's operands) runs
    after phase 3b;
 3d. the graph step's two kernels against their plain versions at the
@@ -72,6 +74,14 @@ without a CUDA device or without the port's package beside it. Phases:
    wire, and on the uid wire (the path's own) with the ids, f32, bf16 and
    u8 result wires: the same ids, the distances within each wire's
    precision of the f32 wire's;
+4e. a wider world on the same corpus: the tree generator's world with 300
+   roles (10k users, 10 bitset words). The narrow scan and its slot form
+   at W 10 (and at W 32: the same bitsets with zero words appended)
+   against their plain versions on a 2048-query batch, bit-identical, and
+   timed in turns beside both at W 4 (phase 3's operands); then 8192
+   queries, top-100, through build_searcher("rls") with admit-dedup on and
+   run_benchmark against the exact float32 oracle: recall, readable rows,
+   and the slot form launched;
 4c. the partitioned strategies on the same corpus and arena: ROLE, USER
    and AnonySys (dynamic, storage alpha 2.0, the port's own planner), each
    over the first 4096 queries, top-10, batch 1024, against the exact
@@ -96,8 +106,10 @@ without a CUDA device or without the port's package beside it. Phases:
    (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
    metric, score shift 3, group 128), bit-identical, beside a dots-only
    yardstick (torch._int_mm over the same operands in 8 row chunks: the
-   int32 dots alone, written out), then the merge kernels on its minima at
-   kk = 100 + 32 (keep 136);
+   int32 dots alone, written out), the wide scan's W 10 and W 32 forms on
+   the same bitsets with zero words appended (the same minima), timed in
+   turns beside it, then the merge kernels on its minima at kk = 100 + 32
+   (keep 136);
 4b. the 768-d path at full size: the cohere-like 1M x 768 corpus (seed 0),
    the same world, 8192 queries, top-100, cosine, residual4 rerank,
    through build_searcher("rls") and run_benchmark against the exact
@@ -151,6 +163,7 @@ GRAPH_M0 = 32         # 2 * hnsw_m: candidates of one graph step
 GRAPH_EF = 64         # the hybrid probes' ef (pow2 of max(40, 2 * 10))
 GRAPH_KK = 18         # top-10 + the 8-row dedupe margin
 GRAPH_SLAB = (40, 65536)   # graph partitions x padded rows at 1M, alpha 2
+WIDE_ROLES = 300      # phase 4e's tree world: 10 bitset words
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, dense int8
 # tensor-core ops/s, float32 ops/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -474,7 +487,7 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     import torch
 
     from vectorsearch_rbac_tpu_torch.ops import (_build, lab_merge, lab_scan,
-                                                 scan_int8)
+                                                 merge, scan_int8)
 
     q8, x8, norms, bits, qbits, group, metric, shift = scan_args
     rows = (q8, x8, norms, bits, qbits)
@@ -588,6 +601,17 @@ def check_lab_path(scan_args, packed, packed_plain, smi):
     extra["merge_y_extract"] = (*bound_ms(nbytes(packed, y), 0, 1), sub_ms)
     extra["merge_y_sort"] = (*bound_ms(nbytes(y, ys), 0, 1), keep_ms)
     extra["merge_y_pairs"] = (*bound_ms(nbytes(y, yp, gp), 0, 1), keep_ms)
+    # S5 beside K4 on the same survivors, K4 reading the pairs form's gids
+    # as its metas (the network both run), and beside torch.topk
+    gid = lab_merge.group_ids(y, 8, 128).contiguous()
+    k4_ms = cuda_ms(lambda: merge.bitonic_pairs(y, gid, 128), 10)
+    say(f"  S5 at npc {y.shape[0]}, keep 128, Q {y.shape[1]} ({smi}): sort "
+        f"{out['merge_y_sort'][2]:.6f} ms (bound "
+        f"{extra['merge_y_sort'][0]:.6f}), pairs "
+        f"{out['merge_y_pairs'][2]:.6f} ms (bound "
+        f"{extra['merge_y_pairs'][0]:.6f}); K4 on the same survivors and "
+        f"gids {k4_ms:.6f} ms; torch.topk over the survivors {keep_ms:.6f} "
+        "ms")
     report(f"kernel lab vs plain at Q={q8.shape[0]} x {x8.shape[0]} rows "
            f"(dp4a, trim, chain, floor: group {group}) and on the "
            f"{packed.shape[0]} x "
@@ -661,6 +685,82 @@ def check_wide_slots(wide_args, arena, world, device, k, smi):
     if not all(same.values()):
         fail(f"the wide slot form disagrees with its plain version: {same}")
     return launches, (True, err, ms["interleaved"], plain_ms), (*bound, None)
+
+
+def pad_words(bits, w: int):
+    """(n, W) int32 bitsets with zero words appended up to w: the same
+    admissibility, read by the scan form for w words."""
+    import torch
+
+    return torch.nn.functional.pad(bits, (0, w - bits.shape[1])).contiguous()
+
+
+def check_wide_world(scan_args, arena, world, workload, device, smi):
+    """Phase 4e, kernel half: K1 and its slot form at W 10 (the 300-role
+    world's arena) and W 32 (the same bitsets with zero words appended)
+    against their plain versions on a 2048-query batch, and their times in
+    turns beside K1 and its slot form at W 4 (phase 3's operands: the same
+    query codes and rows, the 100-role world's bitsets). Returns {kernel:
+    (ok, max_abs_err)} for the scan rows."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops import scan_int8
+
+    q8, x8, norms, bits4, qbits4, group, metric, shift = scan_args
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    users = workload.user_ids[:BATCH]
+    bits10 = arena.role_bits
+    qbits10 = t(world.user_masks[users].view(np.int32))
+    kw = dict(group=group, metric=metric, score_shift=shift)
+    distinct = np.unique(world.user_masks, axis=0)
+    slots10 = t(distinct[np.arange(BATCH // SLOT_SB) % len(distinct)].view(
+        np.int32))
+    slot_kw = dict(group=SLOT_GROUP, metric=metric, score_shift=shift,
+                   mask_sub_block=SLOT_SB)
+    distinct4 = np.unique(np.ascontiguousarray(qbits4.cpu().numpy()), axis=0)
+    slots4 = t(distinct4[np.arange(BATCH // SLOT_SB) % len(distinct4)])
+    forms = {   # name: (operands, kwargs)
+        "K1 W4": ((q8, x8, norms, bits4, qbits4), kw),
+        "K1 W10": ((q8, x8, norms, bits10, qbits10), kw),
+        "K1 W32": ((q8, x8, norms, pad_words(bits10, 32),
+                    pad_words(qbits10, 32)), kw),
+        "S2 W4": ((q8, x8, norms, bits4, slots4), slot_kw),
+        "S2 W10": ((q8, x8, norms, bits10, slots10), slot_kw),
+        "S2 W32": ((q8, x8, norms, pad_words(bits10, 32),
+                    pad_words(slots10, 32)), slot_kw),
+    }
+    same, errs = {}, {}
+    for name in ("K1 W10", "K1 W32", "S2 W10", "S2 W32"):
+        ops, fkw = forms[name]
+        got = scan_int8.int8_group_minima(*ops, **fkw)
+        want = scan_int8.int8_group_minima_plain(*ops, **fkw)
+        torch.cuda.synchronize()
+        same[name] = torch.equal(got, want)
+        errs[name] = max_abs_err(got, want)
+        del got, want
+    turns = {name: [] for name in forms}
+    for name in (*forms, *reversed(forms)):
+        ops, fkw = forms[name]
+        turns[name].append(cuda_ms(
+            lambda ops=ops, fkw=fkw: scan_int8.int8_group_minima(*ops, **fkw),
+            10))
+    out_rows = {n: x8.shape[0] // (SLOT_GROUP if n.startswith("S2")
+                                   else group) for n in forms}
+    bounds = {n: scan_bound(*ops, torch.empty((out_rows[n], BATCH),
+                                              device="meta"))[0]
+              for n, (ops, _) in forms.items()}
+    say(f"wide-world scans at Q={BATCH} x {x8.shape[0]} rows x d_pad "
+        f"{x8.shape[1]} (K1 group {group}; S2 {SLOT_SB}-query slots, group "
+        f"{SLOT_GROUP}, the contiguous layout) ({smi}); tolerance 0: "
+        f"identical {same}; in turns (ms): "
+        + ", ".join(f"{n} {ts}" for n, ts in turns.items())
+        + "; bounds (ms, all-pairs dots) "
+        + ", ".join(f"{n} {b:.6f}" for n, b in bounds.items()))
+    if not all(same.values()):
+        fail(f"a wide-world scan disagrees with its plain version: {same}")
+    return {"scan_int8": (True, max(errs["K1 W10"], errs["K1 W32"])),
+            "scan_int8_slots": (True, max(errs["S2 W10"], errs["S2 W32"]))}
 
 
 def check_wires(name, searcher, workload, world, smi) -> None:
@@ -1262,6 +1362,38 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phase 4e: a 300-role tree world (10 bitset words) on the same
+    # corpus: the scans' wide-world forms, then the rls path with
+    # admit-dedup
+    t0 = time.perf_counter()
+    w_corpus, w_world, w_workload = make_scenario(
+        n=N_ROWS, num_queries=N_QUERIES, topk=TOPK, seed=0,
+        num_roles=WIDE_ROLES)
+    w_arena = build_device_arena(w_corpus, w_world, device=device,
+                                 block_rows=BLOCK_ROWS, dtype="int8")
+    say(f"wide-world data: {w_world.num_roles} roles, {w_world.num_users} "
+        f"users, {w_arena.role_bits.shape[1]} bitset words, "
+        f"{len(np.unique(w_world.user_masks, axis=0))} distinct masks: "
+        f"{time.perf_counter() - t0:.1f} s; workload hash "
+        f"{digest(w_workload.vectors, w_workload.user_ids)}")
+    if w_arena.role_bits.shape[1] != 10:
+        fail(f"{WIDE_ROLES} roles in {w_arena.role_bits.shape[1]} words")
+    for k, (ok, err) in check_wide_world(scan_args, w_arena, w_world,
+                                         w_workload, device, smi).items():
+        result[k] = (result[k][0] and ok, max(result[k][1], err),
+                     *result[k][2:])
+    w_truth = oracle_truth(w_corpus, w_world, w_workload, "l2")
+    say(f"wide-world ground-truth hash {digest(w_truth)}")
+    searcher = build_searcher("rls", w_corpus, w_world, w_arena, cfg)
+    launches_wide_world = drive_path(
+        f"wide world (1M x 128, {WIDE_ROLES} roles, l2)", searcher, w_corpus,
+        w_world, w_workload, w_truth, w_arena,
+        ("scan_int8", "scan_int8_slots", "merge_extract", "merge_bitonic"),
+        smi)
+    del searcher, w_corpus, w_world, w_workload, w_arena, w_truth
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phase 4c: the partitioned strategies on the same corpus and arena
     launches_part = {k: 0 for k in launches_sift}
     grouped = False
@@ -1344,6 +1476,33 @@ def main() -> None:
         cuda_ms(lambda: scan_int8.int8_group_minima_wide_plain(*wide_args),
                 3))
     extra["scan_int8_wide"] = (*scan_bound(*wide_args[:5], packed), None)
+    # K2's wide-world forms: the same bitsets with zero words appended up
+    # to W 10 and 32 (the same admissibility, so the same minima), in
+    # turns with K2 at W 4
+    k2_forms = {f"K2 W{w}": (*wide_args[:3], pad_words(wide_args[3], w),
+                             pad_words(wide_args[4], w)) for w in (10, 32)}
+    k2_forms = {"K2 W4": wide_args[:5], **k2_forms}
+    k2_kw = dict(group=GROUP, metric="ip", score_shift=shift)
+    k2_same = {}
+    for name in ("K2 W10", "K2 W32"):
+        got = scan_int8.int8_group_minima_wide(*k2_forms[name], **k2_kw)
+        torch.cuda.synchronize()
+        k2_same[name] = torch.equal(got, packed_plain)
+        del got
+    k2_turns = {name: [] for name in k2_forms}
+    for name in (*k2_forms, *reversed(k2_forms)):
+        k2_turns[name].append(cuda_ms(
+            lambda ops=k2_forms[name]: scan_int8.int8_group_minima_wide(
+                *ops, **k2_kw), 10))
+    say(f"K2's wide-world forms at Q={BATCH} x {arena.n_padded} rows x d_pad"
+        f" {arena.quant.d_pad} ({smi}); tolerance 0: identical to the W 4 "
+        f"plain minima {k2_same}; in turns (ms): "
+        + ", ".join(f"{n} {ts}" for n, ts in k2_turns.items())
+        + "; bounds (ms) " + ", ".join(
+            f"{n} {scan_bound(*ops, packed)[0]:.6f}"
+            for n, ops in k2_forms.items()))
+    if not all(k2_same.values()):
+        fail(f"K2's wide-world forms disagree: {k2_same}")
     del packed_plain
 
     say(f"dots only (torch._int_mm of the same int8 queries and rows, 8 "
@@ -1378,8 +1537,9 @@ def main() -> None:
         "768-d (1M x 768, cosine)", searcher, corpus, world, workload, truth,
         arena, ("scan_int8_wide", "merge_extract", "merge_bitonic"), smi)
     check_wires("768-d", searcher, workload, world, smi)
-    paths = (launches_sift, launches_part, launches_wide, launches_hybrid,
-             launches_harvest, launches_lab, launches_wide_lab)
+    paths = (launches_sift, launches_wide_world, launches_part, launches_wide,
+             launches_hybrid, launches_harvest, launches_lab,
+             launches_wide_lab)
     launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules

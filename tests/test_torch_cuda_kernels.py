@@ -8,10 +8,10 @@ conftest is left out):
         tests/test_torch_cuda_kernels.py
 
 The shapes here are small and deliberately ragged (query counts that fill
-no block, every group width, 1-8 bitset words, d_pad 256 and the wide
-384-768, the ip metric, score shifts, ties everywhere, both slot layouts
-of the admit-dedup form) to reach the corners the main-path runs in
-chip_smoke.py do not."""
+no block, every group width, 1-8 bitset words and the wide-world forms'
+9, 16 and 32, d_pad 256 and the wide 384-768, the ip metric, score
+shifts, ties everywhere, both slot layouts of the admit-dedup form) to
+reach the corners the main-path runs in chip_smoke.py do not."""
 
 import numpy as np
 import pytest
@@ -246,6 +246,60 @@ def test_slot_form_skips_what_no_slot_admits(dev, sb, tile):
     assert (got[4:8] != masked).any()          # tile 1: some slots
 
 
+@pytest.mark.parametrize("w", [9, 16, 32])
+@pytest.mark.parametrize("form,sb,tile", [("per-query", 0, 0),
+                                          ("slots-16", 16, 0),
+                                          ("slots-8", 8, 0),
+                                          ("interleaved", 16, 64)])
+@pytest.mark.parametrize("d_pad,nq,npad,group,metric,shift", [
+    (128, 320, 4736, 32, "l2", 0),      # K1, the index's geometry
+    (256, 256, 2048, 8, "ip", 9),       # K1 at d_pad 256, a shift past 7
+    (768, 128, 2048, 128, "l2", 3),     # K2
+])
+def test_wide_world_scans_bit_identical(dev, w, form, sb, tile, d_pad, nq,
+                                        npad, group, metric, shift):
+    """K1 (per-query and both slot layouts) and K2 (and its slot form) at W
+    9, 16 and 32, the wide-world forms (binary tensor-core admit test),
+    against the plain version, bit for bit; the slot forms also against
+    the per-query form on the expanded masks. Query (and slot) 0 has no
+    role, 1 every role, 2 only a role no row has; one launch of the scan
+    (and of its slot form) each."""
+    q8, x8, norms, rb, qb = _scan_inputs(
+        np.random.default_rng(w * d_pad + sb + tile), dev, nq, npad, d_pad,
+        w)
+    rb[:, w - 1] &= 0x7FFFFFFF                 # the last role: no row has it
+    qb[1] = -1                                 # every role
+    qb[2] = 0
+    qb[2, w - 1] = -0x80000000                 # only the last role
+    wide = d_pad > scan_int8.NARROW_MAX_D
+    count = "scan_int8_wide" if wide else "scan_int8"
+    kw = dict(group=group, metric=metric, score_shift=shift)
+    bits = qb[:nq // sb].contiguous() if sb else qb
+    slot_kw = dict(mask_sub_block=sb, slot_tile=tile) if sb else {}
+    before = dict(_build.LAUNCHES)
+    got = scan_int8.int8_group_minima(q8, x8, norms, rb, bits, **kw,
+                                      **slot_kw)
+    assert _build.LAUNCHES[count] == before[count] + 1
+    assert _build.LAUNCHES[count + "_slots"] == before[count + "_slots"] + (
+        1 if sb else 0)
+    want = scan_int8.int8_group_minima_plain(q8, x8, norms, rb, bits, **kw,
+                                             **slot_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    slot = (scan_int8.slot_of_query(nq, sb, tile, dev) if sb
+            else torch.arange(nq, device=dev))
+    for s_empty in (0, 2):                     # no role, no shared role
+        cols = (slot == s_empty).nonzero()[:, 0]
+        assert (got[:, cols] == scan_int8.MASKED_I32).all()
+    assert (got[:, (slot == 1).nonzero()[:, 0]] != scan_int8.MASKED_I32
+            ).all()                             # every role: every group
+    if sb:
+        per_query = bits.index_select(0, slot).contiguous()
+        ctl = scan_int8.int8_group_minima(q8, x8, norms, rb, per_query, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ctl)
+
+
 def test_tiled_searcher_cuda_equals_cpu(dev):
     """A two-tier TiledSearcher (a 6000-row big tier, whose 1024 queries
     admit-dedup groups into slots, beside the chunk
@@ -460,12 +514,17 @@ def test_wide_search_cuda_equals_cpu(dev):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 128, 9)
-    with pytest.raises(ValueError):
+    from vectorsearch_rbac_tpu_torch.ops import lab_scan
+
+    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 128, 33)
+    with pytest.raises(ValueError, match="queue 3 item 4"):
         scan_int8.int8_group_minima(*args)
-    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 384, 9)
-    with pytest.raises(ValueError):
-        scan_int8.int8_group_minima(*args)      # the wide kernel: W > 8
+    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 384, 33)
+    with pytest.raises(ValueError, match="queue 3 item 4"):
+        scan_int8.int8_group_minima(*args)      # the wide kernel: W > 32
+    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 128, 9)
+    with pytest.raises(ValueError):             # the lab's forms: W <= 8
+        lab_scan.lab_group_minima(*args, variant="chain")
     args = _scan_inputs(np.random.default_rng(1), dev, 8, 1000, 384, 1)
     with pytest.raises(ValueError):
         scan_int8.int8_group_minima(*args, group=8)   # npad % 128
@@ -741,8 +800,9 @@ def test_graph_search_fused_against_plain(dev, nq, ef, kk, m0, max_steps, w,
 
 
 def test_graph_search_fused_refuses_other_shapes(dev):
-    """Outside the kernel's shapes the packed search raises before any
-    launch; it never falls back to the step loop."""
+    """Outside the kernel's shapes the fused search raises before any
+    launch; it never falls back to the step loop (the shapes' dispatch
+    to the step loop is graph_beam_search_iterative's, tested below)."""
     from vectorsearch_rbac_tpu_torch.ops import graph_search
 
     kw = _search_inputs(np.random.default_rng(5), dev, 8, 32, 128, 4,
@@ -758,10 +818,40 @@ def test_graph_search_fused_refuses_other_shapes(dev):
                 dict(ef=64, k=10, graph=g.long())):
         call = {**dict(ef=64, k=10, max_steps=64, graph=g), **bad}
         with pytest.raises(ValueError, match="graph_search_fused"):
-            graph_search.graph_beam_search_iterative(
-                q, None, None, None, call["graph"], m, e, call["k"],
-                call["ef"], call["max_steps"], **kw)
+            graph_search.graph_search_fused(
+                q, call["graph"], m, e, call["k"], call["ef"],
+                call["max_steps"], **kw)
     assert dict(_build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("nq,ef,kk,m0,max_steps,mode", [
+    (64, 1024, 10, 32, 4096, "multi"),      # ef past 512, 4 ef steps
+    (100, 64, 18, 96, 128, "multi"),        # M0 96: hnsw_m 48
+    (40, 64, 10, 16, 8192, "logical"),      # a step budget past 4096
+])
+def test_hybrid_search_outside_the_fused_shapes(dev, nq, ef, kk, m0,
+                                                max_steps, mode):
+    """Shapes the fused kernel does not take go to the step loop on the
+    card: KS7 and KS6 launch, the fused search does not, and the results
+    equal the plain loop's, distances and ids."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    kw = _search_inputs(np.random.default_rng(nq + ef + m0), dev, nq, m0,
+                        128, 4, mode, 20, budget_max=min(max_steps, 2048))
+    args = (kw.pop("queries"), None, None, None, kw.pop("graph"),
+            kw.pop("query_masks"), kw.pop("entries"), kk, ef, max_steps)
+    assert graph_search.fused_shape_problems(4, 128, 121, m0, kk, ef,
+                                             max_steps)
+    before = dict(_build.LAUNCHES)
+    got = graph_search.graph_beam_search_iterative(*args, **kw)
+    after = dict(_build.LAUNCHES)
+    want = graph_search.graph_beam_search_iterative_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert after["graph_search"] == before["graph_search"]
+    assert after["graph_score"] > before["graph_score"]
+    assert after["graph_merge"] > before["graph_merge"]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert (want[1][2:] >= 0).any()
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["harvest", "unpacked"])
@@ -1014,10 +1104,19 @@ def test_y_extract_kernel_lists(dev, sub, t):
         assert (rows[:, sub:] == np.iinfo(np.int32).max).all()
 
 
-@pytest.mark.parametrize("npc,nq,keep,t,sub", [(64, 33, 16, 8, 128),
-                                               (512, 300, 104, 8, 128),
-                                               (1024, 129, 128, 16, 64),
-                                               (2048, 17, 2048, 16, 128)])
+# S5 at every npc its network is instantiated for, keep 1, 104 (or npc
+# below it) and npc, with query counts 1, 7 and 2049 (no block of 8 full;
+# more than a batch), t 1, 8 and 16 and sub 1, 100 and 128 in turn
+_S5_GRID = [(npc, keep) for npc in (2, 4, 8, 16, 32, 64, 128, 256, 512,
+                                    1024, 2048)
+            for keep in sorted({1, min(104, npc), npc})]
+_S5_CASES = [(64, 33, 16, 8, 128), (512, 300, 104, 8, 128),
+             (1024, 129, 128, 16, 64), (2048, 17, 2048, 16, 128)] + [
+    (npc, (1, 7, 2049)[i % 3], keep, (1, 8, 16)[i // 3 % 3],
+     (1, 100, 128)[(i + 1) % 3]) for i, (npc, keep) in enumerate(_S5_GRID)]
+
+
+@pytest.mark.parametrize("npc,nq,keep,t,sub", _S5_CASES)
 def test_y_bitonic_kernel_identical(dev, npc, nq, keep, t, sub):
     """Both S5 forms against their plain versions on y with many ties
     across subgroups: the pairs form's group ids in the TPU network's
@@ -1038,6 +1137,31 @@ def test_y_bitonic_kernel_identical(dev, npc, nq, keep, t, sub):
     torch.cuda.synchronize()
     assert torch.equal(ys, ys_p) and torch.equal(yp, yp_p)
     assert torch.equal(gp, gp_p) and torch.equal(ys, yp)
+
+
+@pytest.mark.parametrize("npc,t,sub", [(512, 8, 128), (2048, 16, 2),
+                                       (64, 1, 1)])
+def test_y_bitonic_kernel_equal_y_across_subgroups(dev, npc, t, sub):
+    """S5's pairs form where only the tie rule orders the gids: two scores
+    and positions 0 and 1 only, so most y recur in many subgroups, and
+    whole columns of one y. The gids must be the plain version's (the
+    TPU network's order) in every row, the sort form's values too."""
+    from vectorsearch_rbac_tpu_torch.ops import lab_merge
+
+    nq = 70
+    rng = np.random.default_rng(npc + t)
+    y = (rng.integers(0, 2, size=(npc, nq)) * 128
+         + rng.integers(0, min(sub, 2), size=(npc, nq))).astype(np.int32)
+    y[:, 5] = 3 * 128                            # one y in every row
+    y[:, 6] = np.iinfo(np.int32).max             # the drained sentinel
+    y = torch.from_numpy(y).to(dev)
+    yp, gp = lab_merge.bitonic_pairs_keep(y, npc, t, sub)
+    ys = lab_merge.bitonic_sort_keep(y, npc)
+    yp_p, gp_p = lab_merge.bitonic_pairs_keep_plain(y, npc, t, sub)
+    torch.cuda.synchronize()
+    assert torch.equal(yp, yp_p) and torch.equal(gp, gp_p)
+    assert torch.equal(ys, yp_p)
+    assert len(torch.unique(gp_p[:, 5])) == npc // t
 
 
 def test_lab_merges_cuda_equal_cpu(dev):

@@ -201,29 +201,81 @@ def test_cpu_search_is_the_plain_loop(setup, case, monkeypatch):
     assert dict(_build.LAUNCHES) == before
 
 
-@pytest.mark.parametrize("packed,harvest,device,fused", [
-    (True, False, "cuda", True), (True, True, "cuda", False),
-    (False, False, "cuda", False), (True, False, "cpu", False)])
+class _OnDevice:
+    """Stands in for a tensor on `device` of the given shape."""
+
+    def __init__(self, device, *shape):
+        self.device, self.shape = torch.device(device), shape
+
+
+@pytest.mark.parametrize("packed,harvest,device,shape,fused", [
+    (True, False, "cuda", {}, True), (True, True, "cuda", {}, False),
+    (False, False, "cuda", {}, False), (True, False, "cpu", {}, False),
+    # shapes outside the fused kernel's take the step loop on the card
+    (True, False, "cuda", dict(ef=1024), False),
+    (True, False, "cuda", dict(m0=96), False),
+    (True, False, "cuda", dict(steps=8192), False),
+    (True, False, "cuda", dict(d_pad=512), False),
+    (True, False, "cuda", dict(k=EF + 1), False),
+    (False, False, "cuda", dict(w=40), False),      # unpacked: any W
+])
 def test_only_the_packed_path_on_the_card_is_fused(packed, harvest, device,
-                                                   fused, monkeypatch):
+                                                   shape, fused,
+                                                   monkeypatch):
     """The dispatch: only packed rows without the 2-hop harvest on CUDA
-    tensors take the fused kernel; the harvest and the unpacked scorer
-    keep the step loop (KS7 and KS6 on the card)."""
+    tensors, at a shape the fused kernel takes, go to the fused kernel;
+    the harvest, the unpacked scorer and every other shape keep the step
+    loop (KS7 and KS6 on the card)."""
     taken = []
     monkeypatch.setattr(graph_search, "graph_search_fused",
                         lambda *a, **k: taken.append("fused"))
     monkeypatch.setattr(graph_search, "_step_loop",
                         lambda *a, **k: taken.append("steps"))
-
-    class Queries:           # stands in for a tensor on `device`
-        pass
-
-    q = Queries()
-    q.device = torch.device(device)
-    graph_beam_search_iterative(q, None, None, None, None, None, None, K, EF,
-                                STEPS, harvest, packed_rows=(
-                                    object() if packed else None))
+    sh = {**dict(ef=EF, m0=16, steps=STEPS, d_pad=128, k=K, w=4), **shape}
+    graph_beam_search_iterative(
+        _OnDevice(device, NQ, 32), None, None, None,
+        _OnDevice(device, 3, 2048, sh["m0"]), _OnDevice(device, NQ, sh["w"]),
+        None, sh["k"], sh["ef"], sh["steps"], harvest,
+        packed_rows=(_OnDevice(device, 4096, sh["d_pad"] + 4 * sh["w"] + 4)
+                     if packed else None))
     assert taken == ["fused" if fused else "steps"]
+
+
+@pytest.mark.parametrize("w,d_pad", [(32, 128), (4, 1152)])
+@pytest.mark.parametrize("harvest", [False, True])
+def test_wide_worlds_raise_on_the_card(harvest, w, d_pad, monkeypatch):
+    """32 bitset words or more, or packed rows past d_pad 1024: no graph
+    kernel takes them (KS7 holds a word a lane and at most 8 code words a
+    lane), so the packed search on the card raises, naming the ROADMAP
+    item, and never takes a plain version."""
+    monkeypatch.setattr(graph_search, "_step_loop",
+                        lambda *a, **k: pytest.fail("took the step loop"))
+    with pytest.raises(ValueError, match="ROADMAP queue 3 item 4"):
+        graph_beam_search_iterative(
+            _OnDevice("cuda", NQ, 32), None, None, None,
+            _OnDevice("cuda", 3, 2048, 16), _OnDevice("cuda", NQ, w), None,
+            K, EF, STEPS, harvest,
+            packed_rows=_OnDevice("cuda", 4096, d_pad + 4 * w + 4))
+
+
+@pytest.mark.parametrize("name,value,ok", [
+    ("w", 31, True), ("w", 32, False), ("w", 0, False),
+    ("d_pad", 768, True), ("d_pad", 512, False), ("d_pad", 1024, False),
+    ("m0", 64, True), ("m0", 65, False),
+    ("ef", 512, True), ("ef", 513, False),
+    ("k", 24, True), ("k", 25, False),
+    ("max_steps", 4096, True), ("max_steps", 4097, False),
+])
+def test_fused_shape_predicate(name, value, ok):
+    """fused_shape_problems on both sides of each of the kernel's limits
+    (every other dimension at the hybrid cell's shape), naming what it
+    refuses."""
+    shape = {**dict(w=4, d_pad=128, d=32, m0=32, k=K, ef=EF, max_steps=64),
+             name: value}
+    problems = graph_search.fused_shape_problems(**shape)
+    assert (problems == []) == ok, problems
+    if name == "d_pad" and not ok:
+        assert "d_pad" in problems[0]
 
 
 def test_fused_search_refuses_other_shapes(setup):

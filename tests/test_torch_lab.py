@@ -299,3 +299,38 @@ def test_merge_ab_refuses_cpu_and_needs_a_source():
     assert merge_ab.main(["--source", "other=no/such/merge.cu"]) == 2
     with pytest.raises(SystemExit):
         merge_ab.main([])
+
+
+@pytest.mark.parametrize("kernel", ["k4", "s4", "s5", "k1", "k2"])
+def test_merge_ab_kernels_refuse_cpu(kernel):
+    """Each kernel the merge A/B times (K4, S4, S5) is a choice of its
+    parser, and without CUDA each returns 2 before it builds anything."""
+    from vectorsearch_rbac_tpu_torch.bench import merge_ab
+
+    assert set(merge_ab.CASES) == set(merge_ab.ENTRIES) == {
+        "k4", "s4", "s5", "k1", "k2"}
+    assert merge_ab.main(["--source", "other=no/such/merge.cu",
+                          "--kernel", kernel]) == 2
+
+
+@pytest.mark.parametrize("npc,keep", [(2, 1), (2, 2), (16, 5), (64, 1),
+                                      (2048, 2048)])
+def test_bitonic_forms_take_any_keep(npc, keep):
+    """S5's wrappers take every shape its kernel takes (npc a power of two
+    in [2, 2048], 1 <= keep <= npc): the sort form is the first `keep`
+    rows of each sorted column, the pairs form the same values with their
+    group ids; other shapes are refused."""
+    rng = np.random.default_rng(npc + keep)
+    y = torch.from_numpy((rng.integers(0, 9, (npc, 5)) * 128 + rng.integers(
+        0, 4, (npc, 5))).astype(np.int32))
+    want = torch.sort(y, dim=0).values[:keep]
+    assert torch.equal(lab_merge.bitonic_sort_keep(y, keep), want)
+    got_y, got_g = lab_merge.bitonic_pairs_keep(y, keep, 2, 4)
+    assert torch.equal(got_y, want)
+    assert torch.equal(got_g % 4, got_y & 127)   # gid % sub: the position
+    for bad_npc, bad_keep in ((npc, 0), (npc, npc + 1), (1, 1), (4096, 8),
+                              (24, 8)):
+        with pytest.raises(ValueError):
+            lab_merge.bitonic_sort_keep(torch.zeros((bad_npc, 3),
+                                                    dtype=torch.int32),
+                                        bad_keep)

@@ -169,6 +169,39 @@ def test_rls_ids_match_reference(world, port_world):
     assert_same_up_to_ties(corpus, workload.vectors, got, want)
 
 
+def test_rls_ids_match_reference_past_256_roles():
+    """A 300-role tree world (10 bitset words, past the 8 that the first
+    kernel forms took) through RLS: the port's ids equal the reference's
+    on the same arena (its one-hot width 384)."""
+    kw = dict(num_users=1200, num_roles=300, h=4, b0=3, b1=4, seed=0)
+    corpus, _ = ref_corpus(num_vectors=N_ROWS, blocks_per_doc=10, seed=0)
+    w = RefTreeGenerator(num_docs=corpus.num_docs, **kw).generate()
+    cfg = RefFrameworkConfig(seed=0)
+    p_cfg = port.FrameworkConfig(seed=0)
+    for c in (cfg, p_cfg):
+        c.index.kind = "flat_approx"
+        c.search.batch_size = N_QUERIES
+        c.search.block_rows = BLOCK
+        c.search.wire_dist = "ids"
+    workload = ref_workload(corpus, w, num_queries=N_QUERIES, topk=K,
+                            zipf_param=0, seed=1)
+    ra = ref_arena(corpus, w, block_rows=BLOCK, dtype="int8")
+    _, want = ref_searcher("rls", corpus, w, ra, cfg).search_batch(
+        workload.vectors, workload.user_ids, w.user_masks, K)
+    p_corpus, _ = port.sift_like_corpus(num_vectors=N_ROWS,
+                                        blocks_per_doc=10, seed=0)
+    p_w = port.TreeRBACGenerator(num_docs=p_corpus.num_docs, **kw).generate()
+    assert p_w.words == 10
+    np.testing.assert_array_equal(p_w.user_masks, w.user_masks)
+    searcher = build_searcher("rls", p_corpus, p_w,
+                              arena_from_reference(ra, "cpu"), p_cfg)
+    _, got = searcher.search_batch(workload.vectors, workload.user_ids,
+                                   p_w.user_masks, K)
+    assert got.shape == want.shape == (N_QUERIES, K)
+    assert (got >= 0).sum() > 0.5 * got.size
+    assert_same_up_to_ties(corpus, workload.vectors, got, want)
+
+
 @pytest.mark.parametrize("wire", ["u8", "bf16", "f32"])
 def test_rls_wires_match_reference(world, port_world, wire):
     """The global path's result wires against the reference's on the same

@@ -1,11 +1,14 @@
-"""A merge kernel of other merge sources against the checkout's, on the card,
-in turns: the bitonic sort (K4) or the y-form extraction (S4).
+"""A kernel of other sources against the checkout's, on the card, in turns:
+the bitonic sort (K4), the y-form extraction (S4) or the y-form bitonic
+sort (S5) of csrc/merge.cu, or the narrow (K1) or wide (K2) scan.
 
     python -m vectorsearch_rbac_tpu_torch.bench.merge_ab \
         --source parent=state/ab/merge_parent.cu [--source LABEL=PATH ...] \
-        [--kernel k4|s4]
+        [--kernel k4|s4|s5|k1|k2]
 
-Each PATH is a copy of csrc/merge.cu (another commit's, say `git show
+Each PATH is a copy of csrc/merge.cu, or for K1 and K2 of
+csrc/scan_int8.cu or csrc/scan_int8_wide.cu with the csrc/tma_wgmma.cuh
+it includes beside it (another commit's, say `git show
 REV:vectorsearch_rbac_tpu_torch/csrc/merge.cu`, or a variant of it), built
 with nvcc into its own library beside the source and bound by the
 kernel's C entry. K4 (`vsr_bitonic_pairs`, the default): for each shape
@@ -13,7 +16,16 @@ kernel's C entry. K4 (`vsr_bitonic_pairs`, the default): for each shape
 widths; keep 16 at 1024, top-10's) the survivors come from the checkout's
 extraction kernel on random packed minima. S4 (`vsr_y_extract`): 8192
 random packed minima groups x 2048 queries, sub 128, t 8, 16 and 32 (the
-smoke's shape at t 8). Every source runs the kernel in turns (each source,
+smoke's shape at t 8). S5 (`vsr_bitonic_y`): its sort and pairs forms on
+the checkout's extraction of the same minima at t 8 (npc 512, 2048
+queries, keep 128, sub 128: the smoke's shape). K1 (`vsr_scan_int8`) and
+K2 (`vsr_scan_int8_wide`): 2048 queries x 1,048,576 rows at d_pad 128 and
+768, group 128, W 4, 10 and 32, random int8 codes and bitsets (5% of a
+row's roles, 10% of a query's), the l2 and ip kernel metrics at score
+shift 0 and 3 (the smoke's shapes), per-query masks and, at W 4, the
+slot form in both layouts (slots of 16, contiguous and interleaved in
+tiles of 512); a source that refuses a shape (an older one past W 8) is
+skipped there. Every source runs the kernel in turns (each source,
 the checkout, the checkout, each source) and its output is compared with
 the checkout's. Times are CUDA events around launches queued behind a spin
 on the card, so a wrapper's host dispatch is not timed. One JSON line per
@@ -33,14 +45,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import _build, lab_merge, merge
+from ..ops import _build, lab_merge, merge, scan_int8
 from .lab import card_line, cuda_ms
 
 SHAPES = ((2048, 104), (2048, 136), (1024, 16))   # (queries, keep) at npc 512
 NPC = 512
 S4_SHAPES = ((2048, 8), (2048, 16), (2048, 32))   # (queries, t) at sub 128
 S4_GROUPS, S4_SUB = 8192, 128
-ENTRIES = {"k4": "vsr_bitonic_pairs", "s4": "vsr_y_extract"}
+S5_T, S5_KEEP = 8, 128
+SCAN_Q, SCAN_ROWS, SCAN_GROUP = 2048, 1 << 20, 128
+SCAN_WORDS = (4, 10, 32)
+SCAN_SLOTS = ((0, 0), (16, 0), (16, 512))  # (mask_sb, slot_tile) at W 4
+ENTRIES = {"k4": "vsr_bitonic_pairs", "s4": "vsr_y_extract",
+           "s5": "vsr_bitonic_y", "k1": "vsr_scan_int8",
+           "k2": "vsr_scan_int8_wide"}
 
 
 def build(src: Path, entry: str) -> ctypes.CDLL:
@@ -104,6 +122,89 @@ def s4_cases(dev, rng):
                theirs)
 
 
+def s5_cases(dev, rng):
+    nq = S4_SHAPES[0][0]
+    mins = torch.from_numpy(packed_minima(rng, S4_GROUPS, nq)).to(dev)
+    y = lab_merge.subgroup_extract(mins, S4_SUB, S5_T)
+    npc = y.shape[0]
+    out_y = torch.empty((S5_KEEP, nq), dtype=torch.int32, device=dev)
+    out_g = torch.empty_like(out_y)
+    for pairs in (0, 1):
+
+        def theirs(lib, pairs=pairs):
+            err = lib.vsr_bitonic_y(y.data_ptr(), out_y.data_ptr(),
+                                    out_g.data_ptr() if pairs else None, nq,
+                                    npc, S5_KEEP, S5_T, S4_SUB, pairs,
+                                    _build.stream_ptr(dev))
+            if err:
+                raise RuntimeError(f"vsr_bitonic_y: CUDA error {err}")
+            return (out_y, out_g) if pairs else (out_y,)
+
+        ours = ((lambda: lab_merge.bitonic_pairs_keep(y, S5_KEEP, S5_T,
+                                                      S4_SUB)) if pairs
+                else (lambda: (lab_merge.bitonic_sort_keep(y, S5_KEEP),)))
+        yield ({"form": "pairs" if pairs else "sort", "npc": npc,
+                "keep": S5_KEEP, "t": S5_T, "sub": S4_SUB, "nq": nq},
+               ours, theirs)
+
+
+def scan_cases(kernel: str):
+    """K1's or K2's cases: the smoke's shape on random operands, at each
+    of SCAN_WORDS bitset words."""
+    d_pad, l2, shift = (128, 1, 0) if kernel == "k1" else (768, 0, 3)
+    metric = "l2" if l2 else "ip"
+    scan = (scan_int8.int8_group_minima if kernel == "k1"
+            else scan_int8.int8_group_minima_wide)
+
+    def cases(dev, rng):
+        gen = torch.Generator(device=dev).manual_seed(int(rng.integers(
+            1 << 30)))
+
+        def bits(n, w, p):   # (n, w) int32 words, each bit set with p
+            on = torch.rand((n, w, 32), device=dev, generator=gen) < p
+            words = (on.to(torch.int64) << torch.arange(32, device=dev)).sum(2)
+            return (words - (words >= 2**31).to(torch.int64) * 2**32).to(
+                torch.int32).contiguous()
+
+        q8 = torch.randint(-128, 128, (SCAN_Q, d_pad), device=dev,
+                           dtype=torch.int8, generator=gen)
+        x8 = torch.randint(-128, 128, (SCAN_ROWS, d_pad), device=dev,
+                           dtype=torch.int8, generator=gen)
+        norms = (x8.to(torch.int32) ** 2).sum(1, dtype=torch.int32)
+        out = torch.empty((SCAN_ROWS // SCAN_GROUP, SCAN_Q),
+                          dtype=torch.int32, device=dev)
+        shapes = [(w, 0, 0) for w in SCAN_WORDS] + [
+            (SCAN_WORDS[0], sb, tile) for sb, tile in SCAN_SLOTS if sb]
+        for w, sb, tile in shapes:
+            ops = (q8, x8, norms, bits(SCAN_ROWS, w, 0.05 * 4 / w),
+                   bits(SCAN_Q // (sb or 1), w, 0.1 * 4 / w))
+            kw = dict(group=SCAN_GROUP, metric=metric, score_shift=shift,
+                      mask_sub_block=sb, slot_tile=tile)
+
+            def theirs(lib, ops=ops, w=w, sb=sb, tile=tile):
+                err = getattr(lib, ENTRIES[kernel])(
+                    *(t.data_ptr() for t in ops), out.data_ptr(), SCAN_Q,
+                    SCAN_ROWS, d_pad, w, SCAN_GROUP, l2, shift, sb, tile,
+                    _build.stream_ptr(dev))
+                if err:
+                    raise RefusedShape(f"{ENTRIES[kernel]}: CUDA error {err}")
+                return (out,)
+
+            yield ({"nq": SCAN_Q, "rows": SCAN_ROWS, "d_pad": d_pad, "w": w,
+                    "mask_sb": sb, "slot_tile": tile, "group": SCAN_GROUP,
+                    "metric": metric, "shift": shift},
+                   lambda ops=ops, kw=kw: (scan(*ops, **kw),), theirs)
+    return cases
+
+
+class RefusedShape(RuntimeError):
+    """A source's kernel refused the shape (cudaErrorInvalidValue)."""
+
+
+CASES = {"k4": k4_cases, "s4": s4_cases, "s5": s5_cases,
+         "k1": scan_cases("k1"), "k2": scan_cases("k2")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", action="append", required=True,
@@ -120,12 +221,18 @@ def main(argv=None) -> int:
     for item in args.source:
         label, _, path = item.partition("=")
         libs[label] = build(Path(path), ENTRIES[args.kernel])
-    cases = k4_cases if args.kernel == "k4" else s4_cases
-    for shape, ours, theirs in cases(dev, np.random.default_rng(0)):
+    for shape, ours, theirs in CASES[args.kernel](dev,
+                                                  np.random.default_rng(0)):
         want = ours()
         for label, lib in libs.items():
             fn = lambda lib=lib: theirs(lib)
-            got = fn()
+            try:
+                got = fn()
+            except RefusedShape as e:
+                print(json.dumps({"kernel": args.kernel, "shape": shape,
+                                  "source": label, "refused": str(e),
+                                  "card": card}), flush=True)
+                continue
             torch.cuda.synchronize()
             same = all(torch.equal(g, w) for g, w in zip(got, want))
             times = {label: [], "checkout": []}

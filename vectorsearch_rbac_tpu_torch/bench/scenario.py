@@ -23,12 +23,15 @@ from .queries import QueryWorkload, generate_query_workload
 
 
 def make_scenario(n: int = 1_000_000, num_queries: int = 32768,
-                  topk: int = 100, seed: int = 0, dataset: str = "sift1m"
+                  topk: int = 100, seed: int = 0, dataset: str = "sift1m",
+                  num_roles: int = 100
                   ) -> Tuple[Corpus, RBACWorld, QueryWorkload]:
-    """(corpus, world, workload) as bench.py builds them."""
+    """(corpus, world, workload) as bench.py builds them; num_roles other
+    than bench.py's 100 grows the same tree generator's world (roles the
+    tree of height 4 cannot absorb hang off its root)."""
     corpus, pool = resolve_dataset(dataset, num_vectors=n, seed=seed)
     world = TreeRBACGenerator(
-        num_users=10_000, num_roles=100, num_docs=corpus.num_docs,
+        num_users=10_000, num_roles=num_roles, num_docs=corpus.num_docs,
         h=4, b0=3, b1=4, seed=seed).generate()
     workload = generate_query_workload(
         corpus, world, num_queries=num_queries, topk=topk, zipf_param=0,

@@ -633,19 +633,23 @@ extern "C" int vsr_graph_score_packed(const void* ids, const void* row_map,
       static_cast<const float*>(qf), static_cast<const int32_t*>(qmask),      \
       static_cast<const float*>(qcd), dq_scale, static_cast<float*>(out_s),   \
       static_cast<uint8_t*>(out_ok), c_width, w
-  switch (d_pad / 128) {
-    case 1:
-      graph_score_packed_kernel<1><<<grid, block, 0, s>>>(VSR_SCORE_ARGS);
-      break;
-    case 2:
-      graph_score_packed_kernel<2><<<grid, block, 0, s>>>(VSR_SCORE_ARGS);
-      break;
-    case 6:
-      graph_score_packed_kernel<6><<<grid, block, 0, s>>>(VSR_SCORE_ARGS);
-      break;
+#define VSR_SCORE_CASE(N_)                                                    \
+  case N_:                                                                    \
+    graph_score_packed_kernel<N_><<<grid, block, 0, s>>>(VSR_SCORE_ARGS);     \
+    break;
+  switch (d_pad / 128) {  // every d_pad the step loop takes: 128 .. 1024
+    VSR_SCORE_CASE(1)
+    VSR_SCORE_CASE(2)
+    VSR_SCORE_CASE(3)
+    VSR_SCORE_CASE(4)
+    VSR_SCORE_CASE(5)
+    VSR_SCORE_CASE(6)
+    VSR_SCORE_CASE(7)
+    VSR_SCORE_CASE(8)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef VSR_SCORE_CASE
 #undef VSR_SCORE_ARGS
   return (int)cudaGetLastError();
 }

@@ -44,9 +44,9 @@
 // sector, from L1.
 //
 // ---------------------------------------------------------------------------
-// bitonic_pairs_kernel replaces the TPU kernel
+// bitonic_net_kernel<npc, kMetaIn> (K4) replaces the TPU kernel
 // vectorsearch_rbac_tpu/ops/pallas_merge.py _make_bitonic_pairs_kernel
-// (stage 2 of pallas_merge_topk).
+// (stage 2 of pallas_merge_topk); its other forms are S5's (below).
 //
 // Contract: a full bitonic network sorts each query column's npc = nsub * t
 // survivors by value, meta riding along, and keeps the first `keep` rows.
@@ -118,19 +118,26 @@
 // operations a value and writes each output row as 128 contiguous bytes
 // (PERF.md: the A/B).
 //
-// bitonic_y_kernel replaces the TPU kernels r4_bitonic_kernel.py
-// _make_bitonic_kernel (bitonic_sort_keep) and _make_bitonic_pairs_kernel
-// (bitonic_pairs_keep), S5, chosen by the kPairs flag. Contract: the network
-// of bitonic_pairs_kernel above sorts each column of (npc, Q) y-values and
-// keeps the first `keep` rows; the pairs form carries
+// S5: bitonic_net_kernel<npc, kGid> and <npc, kValues> replace the TPU
+// kernels r4_bitonic_kernel.py _make_bitonic_pairs_kernel
+// (bitonic_pairs_keep) and _make_bitonic_kernel (bitonic_sort_keep).
+// Contract: K4's network sorts each column of (npc, Q) y-values and keeps
+// the first `keep` rows; the pairs form (kGid) carries
 //   gid[i] = (i / t) * sub + (y[i] & 127)
-// (the candidate's global group) along, computed from the row as it is
-// loaded, and swaps equal y the TPU network's way (le = a <= b; a descending
-// block puts hi first), so equal y of different subgroups keep the TPU's gid
-// order. The sort form carries nothing; its output is the sorted values,
-// whatever the order of equal ones. Bound: bitonic_pairs_kernel's. Design:
-// the first port's of bitonic_pairs_kernel, one block a column in shared
-// memory, one thread an exchange and a __syncthreads a stage.
+// (the candidate's global group) along as K4 carries its meta, computed
+// from the row i as it is staged, and swaps equal y the TPU network's way
+// (le = a <= b; a descending block puts hi first), so equal y of different
+// subgroups keep the TPU's gid order. The sort form (kValues) carries
+// nothing; its output is the sorted values, whatever the order of equal
+// ones, so its network is values only: one shuffle a cross-lane stride and
+// a plain min/max a pair. Bound: K4's, the bytes of one read of the y and
+// one write of the kept rows (and gids). The first port gave each column a
+// block of npc / 2 threads in shared memory and a __syncthreads after each
+// of the network's stages (45 at npc 512): 0.0345 ms (sort) and 0.0543
+// (pairs) at 2048 queries x npc 512, keep 128, 20x their bounds on an
+// NVIDIA H100 80GB HBM3 at 700.00 W. Design: K4's, above: a warp a column
+// in registers, 8 queries a block staged through shared memory, npc 2048
+// on two warps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -249,7 +256,7 @@ extract_pairs_kernel(const int32_t* __restrict__ mins,  // (n_groups, Q)
   }
 }
 
-// ---- bitonic_pairs_kernel: the network in registers, a warp a column
+// ---- bitonic_net_kernel: the network in registers, a warp a column
 
 // The compare-exchange of a pair, a at the lower index and b at the upper:
 // whether the two swap (a descending block puts hi first, so equal values
@@ -262,8 +269,11 @@ __device__ __forceinline__ bool swaps(int32_t a, int32_t b, bool desc) {
 // place lp, register e). Strides below kE pair two registers of a lane;
 // larger ones pair register e of lanes lp and lp ^ (stride / kE), and each
 // lane evaluates the pair as the lower index's lane does, so both keep the
-// same side of a tie. All indices are compile-time: nothing spills.
-template <int kE, int kSize, int kStride>
+// same side of a tie. All indices are compile-time: nothing spills. With
+// no meta (kMeta false) equal values cannot be told apart, so a pair is a
+// plain min/max (the lower index takes the min in an ascending block) and
+// a cross-lane stride one shuffle; m is then never read or written.
+template <int kE, int kSize, int kStride, bool kMeta>
 __device__ __forceinline__ void net_stage(int32_t (&v)[kE], int32_t (&m)[kE],
                                           int jb) {
   if constexpr (kStride >= kE) {
@@ -273,10 +283,14 @@ __device__ __forceinline__ void net_stage(int32_t (&v)[kE], int32_t (&m)[kE],
 #pragma unroll
     for (int e = 0; e < kE; ++e) {
       const int32_t pv = __shfl_xor_sync(0xffffffffu, v[e], kX);
-      const int32_t pm = __shfl_xor_sync(0xffffffffu, m[e], kX);
-      const bool sw = lower ? swaps(v[e], pv, desc) : swaps(pv, v[e], desc);
-      v[e] = sw ? pv : v[e];
-      m[e] = sw ? pm : m[e];
+      if constexpr (kMeta) {
+        const int32_t pm = __shfl_xor_sync(0xffffffffu, m[e], kX);
+        const bool sw = lower ? swaps(v[e], pv, desc) : swaps(pv, v[e], desc);
+        v[e] = sw ? pv : v[e];
+        m[e] = sw ? pm : m[e];
+      } else {
+        v[e] = lower != desc ? min(v[e], pv) : max(v[e], pv);
+      }
     }
   } else {
 #pragma unroll
@@ -284,30 +298,37 @@ __device__ __forceinline__ void net_stage(int32_t (&v)[kE], int32_t (&m)[kE],
       if (e & kStride) continue;
       constexpr int k = kStride;
       const bool desc = kSize < kE ? (e & kSize) != 0 : (jb & kSize) != 0;
-      const bool sw = swaps(v[e], v[e + k], desc);
-      const int32_t a = v[e], ma = m[e];
-      v[e] = sw ? v[e + k] : a;
-      v[e + k] = sw ? a : v[e + k];
-      m[e] = sw ? m[e + k] : ma;
-      m[e + k] = sw ? ma : m[e + k];
+      if constexpr (kMeta) {
+        const bool sw = swaps(v[e], v[e + k], desc);
+        const int32_t a = v[e], ma = m[e];
+        v[e] = sw ? v[e + k] : a;
+        v[e + k] = sw ? a : v[e + k];
+        m[e] = sw ? m[e + k] : ma;
+        m[e + k] = sw ? ma : m[e + k];
+      } else {
+        const int32_t lo = min(v[e], v[e + k]), hi = max(v[e], v[e + k]);
+        v[e] = desc ? hi : lo;
+        v[e + k] = desc ? lo : hi;
+      }
     }
   }
 }
 
 // The strides kStride, kStride / 2, ..., 1 of the size-kSize merge.
-template <int kE, int kSize, int kStride>
+template <int kE, int kSize, int kStride, bool kMeta>
 __device__ __forceinline__ void net_merge(int32_t (&v)[kE], int32_t (&m)[kE],
                                           int jb) {
-  net_stage<kE, kSize, kStride>(v, m, jb);
-  if constexpr (kStride > 1) net_merge<kE, kSize, kStride / 2>(v, m, jb);
+  net_stage<kE, kSize, kStride, kMeta>(v, m, jb);
+  if constexpr (kStride > 1)
+    net_merge<kE, kSize, kStride / 2, kMeta>(v, m, jb);
 }
 
 // The merges of sizes kSize, 2 kSize, ..., kTop.
-template <int kE, int kSize, int kTop>
+template <int kE, int kSize, int kTop, bool kMeta>
 __device__ __forceinline__ void net_sort(int32_t (&v)[kE], int32_t (&m)[kE],
                                          int jb) {
-  net_merge<kE, kSize, kSize / 2>(v, m, jb);
-  if constexpr (kSize < kTop) net_sort<kE, kSize * 2, kTop>(v, m, jb);
+  net_merge<kE, kSize, kSize / 2, kMeta>(v, m, jb);
+  if constexpr (kSize < kTop) net_sort<kE, kSize * 2, kTop, kMeta>(v, m, jb);
 }
 
 constexpr int kSortCols = 8;  // queries a block: a row's 8 int32 fill a sector
@@ -327,22 +348,33 @@ struct Net {
   // staging: a warp's load is 4 rows x 8 queries)
   static constexpr int kSpan = kNpc + kNpc / kE;
   static constexpr int kPitch = kSpan + (36 - kSpan % 32) % 32;
-  static constexpr int kSmem = 2 * kSortCols * kPitch * 4;
   __device__ static int slot(int j) { return j + j / kE; }
 };
 
-template <int kNpc>
+// What rides along with the values: K4's metas, read with them (kMetaIn);
+// S5's gids, computed from the row and the value as they are staged
+// (kGid); or nothing (kValues, S5's sort form).
+constexpr int kMetaIn = 0, kGid = 1, kValues = 2;
+
+template <int kNpc, int kForm>
+constexpr int net_smem() {
+  return (kForm == kValues ? 1 : 2) * kSortCols * Net<kNpc>::kPitch * 4;
+}
+
+template <int kNpc, int kForm>
 __global__ void __launch_bounds__(Net<kNpc>::kThreads)
-bitonic_pairs_kernel(const int32_t* __restrict__ y,     // (npc, Q)
-                     const int32_t* __restrict__ meta,  // (npc, Q)
-                     int32_t* __restrict__ out_y,       // (keep, Q)
-                     int32_t* __restrict__ out_m,       // (keep, Q)
-                     int nq, int keep) {
+bitonic_net_kernel(const int32_t* __restrict__ y,     // (npc, Q)
+                   const int32_t* __restrict__ meta,  // (npc, Q): kMetaIn
+                   int32_t* __restrict__ out_y,       // (keep, Q)
+                   int32_t* __restrict__ out_m,       // (keep, Q) unless
+                                                      // kValues
+                   int nq, int keep, int t, int sub) {
   using N = Net<kNpc>;
   constexpr int kE = N::kE;
+  constexpr bool kMeta = kForm != kValues;
   extern __shared__ int32_t smem[];
   int32_t* sy = smem;
-  int32_t* sm = smem + kSortCols * N::kPitch;
+  int32_t* sm = smem + kSortCols * N::kPitch;  // unused where !kMeta
   // stage the block's (npc, 8) tile: each row's 8 queries are one sector
   const int q0 = blockIdx.x * kSortCols;
   const int cq = threadIdx.x % kSortCols;
@@ -351,8 +383,12 @@ bitonic_pairs_kernel(const int32_t* __restrict__ y,     // (npc, Q)
   for (int i = threadIdx.x / kSortCols; i < kNpc;
        i += N::kThreads / kSortCols) {
     const size_t src = (size_t)i * nq + q0 + cq;
-    sy[cq * N::kPitch + N::slot(i)] = q_ok ? __ldg(y + src) : kBig;
-    sm[cq * N::kPitch + N::slot(i)] = q_ok ? __ldg(meta + src) : kBig;
+    const int32_t v = q_ok ? __ldg(y + src) : kBig;
+    sy[cq * N::kPitch + N::slot(i)] = v;
+    if constexpr (kForm == kMetaIn)
+      sm[cq * N::kPitch + N::slot(i)] = q_ok ? __ldg(meta + src) : kBig;
+    if constexpr (kForm == kGid)
+      sm[cq * N::kPitch + N::slot(i)] = (i / t) * sub + (v & 127);
   }
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -364,9 +400,9 @@ bitonic_pairs_kernel(const int32_t* __restrict__ y,     // (npc, Q)
 #pragma unroll
   for (int e = 0; e < kE; ++e) {
     v[e] = cy[N::slot(jb + e)];
-    m[e] = cm[N::slot(jb + e)];
+    m[e] = kMeta ? cm[N::slot(jb + e)] : 0;
   }
-  net_sort<kE, 2, kNpc / N::kWarps>(v, m, jb);
+  net_sort<kE, 2, kNpc / N::kWarps, kMeta>(v, m, jb);
   bool live = true;
   if constexpr (N::kWarps == 2) {
     // the last merge's stride npc / 2 pairs the two warps: one exchange
@@ -375,27 +411,33 @@ bitonic_pairs_kernel(const int32_t* __restrict__ y,     // (npc, Q)
 #pragma unroll
     for (int e = 0; e < kE; ++e) {
       cy[N::slot(jb + e)] = v[e];
-      cm[N::slot(jb + e)] = m[e];
+      if constexpr (kMeta) cm[N::slot(jb + e)] = m[e];
     }
     __syncthreads();
     const bool lower = jb < kNpc / 2;
     const int pb = jb ^ (kNpc / 2);
 #pragma unroll
     for (int e = 0; e < kE; ++e) {
-      const int32_t pv = cy[N::slot(pb + e)], pm = cm[N::slot(pb + e)];
-      const bool sw = lower ? swaps(v[e], pv, false) : swaps(pv, v[e], false);
-      v[e] = sw ? pv : v[e];
-      m[e] = sw ? pm : m[e];
+      const int32_t pv = cy[N::slot(pb + e)];
+      if constexpr (kMeta) {
+        const int32_t pm = cm[N::slot(pb + e)];
+        const bool sw =
+            lower ? swaps(v[e], pv, false) : swaps(pv, v[e], false);
+        v[e] = sw ? pv : v[e];
+        m[e] = sw ? pm : m[e];
+      } else {
+        v[e] = lower ? min(v[e], pv) : max(v[e], pv);
+      }
     }
     __syncthreads();
     live = lower || keep > kNpc / 2;
-    if (live) net_merge<kE, kNpc, kNpc / 4>(v, m, jb);
+    if (live) net_merge<kE, kNpc, kNpc / 4, kMeta>(v, m, jb);
   }
   if (live && lane < N::kLanes) {
 #pragma unroll
     for (int e = 0; e < kE; ++e) {
       cy[N::slot(jb + e)] = v[e];
-      cm[N::slot(jb + e)] = m[e];
+      if constexpr (kMeta) cm[N::slot(jb + e)] = m[e];
     }
   }
   __syncthreads();
@@ -404,24 +446,43 @@ bitonic_pairs_kernel(const int32_t* __restrict__ y,     // (npc, Q)
        i += N::kThreads / kSortCols) {
     const size_t dst = (size_t)i * nq + q0 + cq;
     out_y[dst] = sy[cq * N::kPitch + N::slot(i)];
-    out_m[dst] = sm[cq * N::kPitch + N::slot(i)];
+    if constexpr (kMeta) out_m[dst] = sm[cq * N::kPitch + N::slot(i)];
   }
 }
 
-template <int kNpc>
+template <int kNpc, int kForm>
 cudaError_t launch_bitonic(const int32_t* y, const int32_t* meta,
                            int32_t* out_y, int32_t* out_m, int nq, int keep,
-                           cudaStream_t stream) {
+                           int t, int sub, cudaStream_t stream) {
   using N = Net<kNpc>;
-  auto kernel = bitonic_pairs_kernel<kNpc>;
-  if (N::kSmem > 48 * 1024) {
+  constexpr int smem = net_smem<kNpc, kForm>();
+  auto kernel = bitonic_net_kernel<kNpc, kForm>;
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, N::kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<(nq + kSortCols - 1) / kSortCols, N::kThreads, N::kSmem, stream>>>(
-      y, meta, out_y, out_m, nq, keep);
+  kernel<<<(nq + kSortCols - 1) / kSortCols, N::kThreads, smem, stream>>>(
+      y, meta, out_y, out_m, nq, keep, t, sub);
   return cudaGetLastError();
+}
+
+// The network's form for a column of npc (a power of two, 2 .. 2048).
+template <int kForm>
+cudaError_t dispatch_bitonic(int npc, const int32_t* y, const int32_t* meta,
+                             int32_t* out_y, int32_t* out_m, int nq,
+                             int keep, int t, int sub, cudaStream_t s) {
+#define VSR_NPC(N_)                                                        \
+  case N_:                                                                 \
+    return launch_bitonic<N_, kForm>(y, meta, out_y, out_m, nq, keep, t,   \
+                                     sub, s);
+  switch (npc) {
+    VSR_NPC(2) VSR_NPC(4) VSR_NPC(8) VSR_NPC(16) VSR_NPC(32) VSR_NPC(64)
+    VSR_NPC(128) VSR_NPC(256) VSR_NPC(512) VSR_NPC(1024) VSR_NPC(2048)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef VSR_NPC
 }
 
 // Insert y into the ascending list v: one min and one max an entry. The y
@@ -482,48 +543,6 @@ y_extract_kernel(const int32_t* __restrict__ mins,  // (n_groups, Q)
   }
 }
 
-template <bool kPairs>
-__global__ void bitonic_y_kernel(const int32_t* __restrict__ y,  // (npc, Q)
-                                 int32_t* __restrict__ out_y,    // (keep, Q)
-                                 int32_t* __restrict__ out_g,    // (keep, Q)
-                                 int nq, int npc, int keep, int t, int sub) {
-  extern __shared__ int32_t smem[];
-  int32_t* sy = smem;
-  int32_t* sg = smem + npc;  // the pairs form's gids
-  const int q = blockIdx.x;
-  for (int i = threadIdx.x; i < npc; i += blockDim.x) {
-    const int32_t v = y[(size_t)i * nq + q];
-    sy[i] = v;
-    if (kPairs) sg[i] = (i / t) * sub + (v & 127);
-  }
-  __syncthreads();
-  for (int size = 2; size <= npc; size <<= 1) {
-    for (int stride = size >> 1; stride >= 1; stride >>= 1) {
-      for (int p = threadIdx.x; p < npc / 2; p += blockDim.x) {
-        const int i = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
-        const int k = i + stride;
-        const int32_t a = sy[i], b = sy[k];
-        const bool le = a <= b;
-        const bool desc = (i & size) != 0;
-        const int32_t lo = le ? a : b, hi = le ? b : a;
-        sy[i] = desc ? hi : lo;
-        sy[k] = desc ? lo : hi;
-        if (kPairs) {
-          const int32_t ga = sg[i], gb = sg[k];
-          const int32_t glo = le ? ga : gb, ghi = le ? gb : ga;
-          sg[i] = desc ? ghi : glo;
-          sg[k] = desc ? glo : ghi;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < keep; i += blockDim.x) {
-    out_y[(size_t)i * nq + q] = sy[i];
-    if (kPairs) out_g[(size_t)i * nq + q] = sg[i];
-  }
-}
-
 }  // namespace
 
 extern "C" int vsr_extract_pairs(const void* mins, void* out_y, void* out_m,
@@ -544,25 +563,10 @@ extern "C" int vsr_bitonic_pairs(const void* y, const void* meta, void* out_y,
                                  void* out_m, int nq, int npc, int keep,
                                  void* stream) {
   if (nq < 1 || keep < 1 || keep > npc) return (int)cudaErrorInvalidValue;
-  const auto* yy = static_cast<const int32_t*>(y);
-  const auto* mm = static_cast<const int32_t*>(meta);
-  auto* oy = static_cast<int32_t*>(out_y);
-  auto* om = static_cast<int32_t*>(out_m);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (npc) {
-    case 2: return (int)launch_bitonic<2>(yy, mm, oy, om, nq, keep, s);
-    case 4: return (int)launch_bitonic<4>(yy, mm, oy, om, nq, keep, s);
-    case 8: return (int)launch_bitonic<8>(yy, mm, oy, om, nq, keep, s);
-    case 16: return (int)launch_bitonic<16>(yy, mm, oy, om, nq, keep, s);
-    case 32: return (int)launch_bitonic<32>(yy, mm, oy, om, nq, keep, s);
-    case 64: return (int)launch_bitonic<64>(yy, mm, oy, om, nq, keep, s);
-    case 128: return (int)launch_bitonic<128>(yy, mm, oy, om, nq, keep, s);
-    case 256: return (int)launch_bitonic<256>(yy, mm, oy, om, nq, keep, s);
-    case 512: return (int)launch_bitonic<512>(yy, mm, oy, om, nq, keep, s);
-    case 1024: return (int)launch_bitonic<1024>(yy, mm, oy, om, nq, keep, s);
-    case 2048: return (int)launch_bitonic<2048>(yy, mm, oy, om, nq, keep, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch_bitonic<kMetaIn>(
+      npc, static_cast<const int32_t*>(y), static_cast<const int32_t*>(meta),
+      static_cast<int32_t*>(out_y), static_cast<int32_t*>(out_m), nq, keep, 1,
+      1, static_cast<cudaStream_t>(stream));
 }
 
 // out: (n_groups / sub * t, Q); sub <= 128 (the position has 7 bits).
@@ -587,11 +591,12 @@ extern "C" int vsr_bitonic_y(const void* y, void* out_y, void* out_g, int nq,
   if (nq < 1 || npc < 2 || npc > 2048 || (npc & (npc - 1)) != 0 || keep < 1 ||
       keep > npc || (pairs && (t < 1 || sub < 1 || sub > 128)))
     return (int)cudaErrorInvalidValue;
-  const int threads = npc / 2 < 32 ? 32 : npc / 2;
-  const size_t smem = (pairs ? 2 : 1) * (size_t)npc * sizeof(int32_t);
-  auto kernel = pairs ? bitonic_y_kernel<true> : bitonic_y_kernel<false>;
-  kernel<<<nq, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(y), static_cast<int32_t*>(out_y),
-      static_cast<int32_t*>(out_g), nq, npc, keep, t, sub);
-  return (int)cudaGetLastError();
+  const auto* yy = static_cast<const int32_t*>(y);
+  auto* oy = static_cast<int32_t*>(out_y);
+  auto* og = static_cast<int32_t*>(out_g);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(pairs ? dispatch_bitonic<kGid>(npc, yy, nullptr, oy, og, nq,
+                                              keep, t, sub, s)
+                     : dispatch_bitonic<kValues>(npc, yy, nullptr, oy,
+                                                 nullptr, nq, keep, 1, 1, s));
 }

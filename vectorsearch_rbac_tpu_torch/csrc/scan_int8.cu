@@ -111,6 +111,30 @@
 // operations a pair. It covers every shift K1 takes (0-31): the sign of a
 // negative score survives the arithmetic shift before the unsigned << 7.
 //
+// The wide-world forms (kWords 16 and 32) take W 9-16 and 17-32, worlds
+// of 257 to 1,024 roles, with per-query masks and in every slot layout
+// (their words read through mask_row). W AND/ORs a pair would cost about
+// 0.13 ms an operation a pair at 2048 queries x 1M rows (the epilogue is
+// bound by integer issue: PERF.md), 1-4 ms more at W 16-32, and the query
+// words would take 2W registers a thread. So the admit test moves to the
+// binary tensor cores, as the floor form's count did: in the epilogue,
+// each consumer warp counts the shared roles of an 8-row slice's 16 x 8
+// (query, row) pairs with one mma.sync m16n8k256 b1 AND.POPC a 256-role
+// chunk (W / 8 a slice), into four registers in the places of the slice's
+// accumulators. The query side is the A fragment, kWords / 2 registers a
+// thread; a pair is then the multiply-add and the minimum predicated on
+// its count, whatever W, and a slice none of whose pairs a warp admits is
+// skipped by the whole warp (so the contiguous slot layout, 16 queries a
+// slot and one mask a warp, skips as the warp-slot path does). The
+// producer lays a tile's words out as kWords / 4 planes of (kRows, 4)
+// words, the binary product's B fragments in conflict-free reads; it
+// stages the raw words with a row pitch of 4 x an odd number of words, so
+// its own reads of a row's 16-byte pieces are conflict-free too. The ring
+// drops stages to fit the planes (Ring below). W <= 8 keeps the forms
+// above, unchanged. Weighed and not taken: counting before the dots into
+// the tile's own accumulators, then one admit bit a pair; it spilled and
+// was 1.33x slower at W 10 (PERF.md).
+//
 // The dp4a kernel (scan_int8_kernel below) is the first port's design of
 // K1, kept for the kernel lab only (vsr_scan_int8_lab variant dp4a, per-query
 // masks): the old design's time beside K1's. The TPU lab's unroll and chunk
@@ -124,7 +148,8 @@
 
 namespace {
 
-constexpr int kMaxWords = 8;  // role bitset words: up to 256 roles
+constexpr int kMaxWords = 8;    // bitset words of the W <= 8 forms
+constexpr int kWideWords = 32;  // of the wide-world forms: 1,024 roles
 constexpr int32_t kMasked = 0x7F000000;
 // how an accumulator becomes a packed key (pack<kPack> below): K1's fold at
 // score shift 0, K1's shifted form otherwise, and the reference's chain
@@ -140,22 +165,32 @@ constexpr int kConsumers = 3;
 constexpr int kQueries = 64 * kConsumers;   // queries per block
 constexpr int kProducer = 4 * kConsumers;   // the producer's warp
 constexpr int kTcThreads = 32 * (kProducer + 1);
-// a stage's row data: two planes of (kRows, 4) words, the bases, the flags
-constexpr int kPlaneBytes = 2 * kRows * 16;
-constexpr int kAuxBytes = kPlaneBytes + kRows * 4 + 16;
-// the producer's staging of one tile's raw words and norms (two buffers)
-constexpr int kStagingBytes = kRows * (kMaxWords + 1) * 4;
-
-template <int D>
+template <int D, int kWords>
 struct Ring {
+  static constexpr bool kWide = kWords > kMaxWords;
   static constexpr int kChunks = D / 128;  // 128-byte d-chunks
-  static constexpr int kStages = D == 128 ? 6 : 4;
+  // the ring's stages: as many as fit beside the wide forms' planes
+  static constexpr int kStages = D == 128 ? (kWords <= 16 ? 6 : 5)
+                                 : kWords <= kMaxWords ? 4
+                                 : kWords <= 16        ? 3
+                                                       : 2;
   static constexpr int kQBytes = kQueries * D;
   static constexpr int kRowBytes = kRows * D;
+  // a stage's row data: planes of (kRows, 4) words (two where W <= 8),
+  // the bases, the flags
+  static constexpr int kPlanes = kWide ? kWords / 4 : 2;
+  static constexpr int kPlaneBytes = kPlanes * kRows * 16;
+  static constexpr int kAuxBytes = kPlaneBytes + kRows * 4 + 16;
+  // the producer's staging of one tile's raw words (a row every kPitch
+  // words: 4 x an odd number in the wide forms) and norms (two buffers)
+  static constexpr int kPitch = kWide ? kWords + 4 : kMaxWords;
+  static constexpr int kStagingBytes = kRows * (kPitch + 1) * 4;
   static constexpr int kSmem =
       1024  // slack to align to 1024 bytes
       + kQBytes + kStages * (kRowBytes + kAuxBytes) + 2 * kStagingBytes +
       (2 * kStages + 1) * 8;  // mbarriers
+  static_assert(kSmem <= 232448, "a block's shared memory");
+  static_assert(!kWide || (kPitch / 4) % 2 == 1, "odd pitch in 16 bytes");
 };
 
 struct ScanArgs {
@@ -169,9 +204,9 @@ struct ScanArgs {
 };
 
 // Where a block's shared memory lies.
-template <int D>
+template <int D, int kWords>
 struct Smem {
-  using R = Ring<D>;
+  using R = Ring<D, kWords>;
   uint32_t qtile;  // the query tile (1024-aligned: swizzle atoms)
   uint32_t rows;   // the ring's row tiles
   uint8_t* aux;    // the ring's row data
@@ -183,8 +218,8 @@ struct Smem {
     qtile = smem_addr(p);
     rows = qtile + R::kQBytes;
     aux = p + R::kQBytes + R::kStages * R::kRowBytes;
-    staging = aux + R::kStages * kAuxBytes;
-    bars = smem_addr(staging + 2 * kStagingBytes);
+    staging = aux + R::kStages * R::kAuxBytes;
+    bars = smem_addr(staging + 2 * R::kStagingBytes);
   }
   // full[s]: stage s's rows landed and its row data is written (the
   // producer's 32 lanes and its byte count); empty[s]: the 12 consumer
@@ -195,15 +230,15 @@ struct Smem {
   }
   __device__ uint32_t qfull() const { return bars + 16 * R::kStages; }
   __device__ const int4* planes(int s) const {
-    return reinterpret_cast<const int4*>(aux + s * kAuxBytes);
+    return reinterpret_cast<const int4*>(aux + s * R::kAuxBytes);
   }
   __device__ const int32_t* base(int s) const {
-    return reinterpret_cast<const int32_t*>(aux + s * kAuxBytes +
-                                            kPlaneBytes);
+    return reinterpret_cast<const int32_t*>(aux + s * R::kAuxBytes +
+                                            R::kPlaneBytes);
   }
   __device__ uint32_t* flags(int s) const {
-    return reinterpret_cast<uint32_t*>(aux + s * kAuxBytes + kPlaneBytes +
-                                       kRows * 4);
+    return reinterpret_cast<uint32_t*>(aux + s * R::kAuxBytes +
+                                       R::kPlaneBytes + kRows * 4);
   }
 };
 
@@ -224,9 +259,10 @@ __device__ __forceinline__ int mask_row(const ScanArgs& a, int q) {
 template <int D, int kWords, int kPack, bool kFloor>
 __device__ __forceinline__ void produce(const CUtensorMap* q_map,
                                         const CUtensorMap* x_map,
-                                        const ScanArgs& a, const Smem<D>& sm,
-                                        int q0, int t_begin, int t_end) {
-  using R = Ring<D>;
+                                        const ScanArgs& a,
+                                        const Smem<D, kWords>& sm, int q0,
+                                        int t_begin, int t_end) {
+  using R = Ring<D, kWords>;
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
     mbar_expect(sm.qfull(), R::kQBytes);
@@ -253,22 +289,41 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
       u = __reduce_or_sync(0xffffffffu, u);
       if (lane == g) uni[m] = u;
     }
+  // the wide forms stage row r's words at r * kPitch: a 16-byte piece j
+  // of a row (W a multiple of 4 and 16-byte rows) or a word m is element
+  // e = r * pieces + j (e = r * W + m) of the tile's words; e / pieces
+  // by one multiply-high with the rounded-up reciprocal (exact: e < 2^12,
+  // pieces <= 32)
+  const bool wide16 = R::kWide && a.aligned16 && a.w % 4 == 0;
+  const uint32_t pieces = wide16 ? a.w / 4 : a.w;
+  const uint32_t recip = 0xFFFFFFFFu / pieces + 1u;
   // staging buffer b: the tile's raw words (kRows x W), then its norms
   auto stage_in = [&](int tile, int b) {
     if (tile < t_end) {
-      const uint32_t dst = smem_addr(sm.staging + b * kStagingBytes);
+      const uint32_t dst = smem_addr(sm.staging + b * R::kStagingBytes);
       const int32_t* words = a.row_bits + (size_t)tile * kRows * a.w;
       const int32_t* norms = a.norms + (size_t)tile * kRows;
-      if (a.aligned16) {  // kRows * W words: W 16-byte pieces a lane
+      if (R::kWide) {
+        for (uint32_t e = lane; e < kRows * pieces; e += 32) {
+          const uint32_t r = __umulhi(e, recip), j = e - r * pieces;
+          if (wide16)
+            cp_async16(dst + 4 * (r * R::kPitch + 4 * j), words + 4 * e);
+          else
+            cp_async4(dst + 4 * (r * R::kPitch + j), words + e, 4);
+        }
+      } else if (a.aligned16) {  // kRows * W words: W 16-byte pieces a lane
         for (int e = lane; e < kRows * a.w / 4; e += 32)
           cp_async16(dst + 16 * e, words + 4 * e);
-        cp_async16(dst + 4 * kRows * kMaxWords + 16 * lane, norms + 4 * lane);
       } else {
         for (int e = lane; e < kRows * a.w; e += 32)
           cp_async4(dst + 4 * e, words + e, 4);
+      }
+      if (a.aligned16) {
+        cp_async16(dst + 4 * kRows * R::kPitch + 16 * lane, norms + 4 * lane);
+      } else {
 #pragma unroll
         for (int k = 0; k < kRows / 32; ++k)
-          cp_async4(dst + 4 * (kRows * kMaxWords + lane + 32 * k),
+          cp_async4(dst + 4 * (kRows * R::kPitch + lane + 32 * k),
                     norms + lane + 32 * k, 4);
       }
     }
@@ -291,27 +346,57 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
     }
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncwarp();  // every lane's staged words are in
-    const int32_t* stg =
-        reinterpret_cast<const int32_t*>(sm.staging + (i & 1) * kStagingBytes);
+    const int32_t* stg = reinterpret_cast<const int32_t*>(
+        sm.staging + (i & 1) * R::kStagingBytes);
     int4* planes = const_cast<int4*>(sm.planes(s));
     int32_t* base = const_cast<int32_t*>(sm.base(s));
-    uint32_t any[kWords];
+    uint32_t wide_hit = 0;  // the wide forms' flag test, plane by plane
+    if constexpr (R::kWide) {
+      // plane p: words 4p .. 4p + 3 of each row, one 16-byte read of the
+      // staged row (the odd pitch spreads a warp's reads over every bank)
+      // and one 16-byte store, then those words' OR over the tile's rows
+      // against the unions. Words past W are left as they are: the query
+      // words and the unions are 0 there.
 #pragma unroll
-    for (int m = 0; m < kWords; ++m) any[m] = 0;
+      for (int p = 0; p < kWords / 4; ++p) {
+        if (4 * p >= a.w) break;
+        uint32_t any4[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int k = 0; k < kRows / 32; ++k) {
+          const int r = lane + 32 * k;
+          const int4 v =
+              reinterpret_cast<const int4*>(stg)[r * (R::kPitch / 4) + p];
+          planes[p * kRows + r] = v;
+          any4[0] |= (uint32_t)v.x;
+          any4[1] |= (uint32_t)v.y;
+          any4[2] |= (uint32_t)v.z;
+          any4[3] |= (uint32_t)v.w;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wide_hit |=
+              __reduce_or_sync(0xffffffffu, any4[j]) & uni[4 * p + j];
+      }
+    }
+    uint32_t any[R::kWide ? 1 : kWords];
+#pragma unroll
+    for (int m = 0; m < (R::kWide ? 1 : kWords); ++m) any[m] = 0;
 #pragma unroll
     for (int k = 0; k < kRows / 32; ++k) {
       const int r = lane + 32 * k;
-      int32_t wd[kWords];
+      if constexpr (!R::kWide) {
+        int32_t wd[kWords];
 #pragma unroll
-      for (int m = 0; m < kWords; ++m) {
-        wd[m] = m < a.w ? stg[r * a.w + m] : 0;
-        any[m] |= (uint32_t)wd[m];
+        for (int m = 0; m < kWords; ++m) {
+          wd[m] = m < a.w ? stg[r * a.w + m] : 0;
+          any[m] |= (uint32_t)wd[m];
+        }
+        planes[r] = make_int4(wd[0], wd[1], wd[2], wd[3]);
+        if (kWords > 4)
+          planes[kRows + r] = make_int4(wd[4 % kWords], wd[5 % kWords],
+                                        wd[6 % kWords], wd[7 % kWords]);
       }
-      planes[r] = make_int4(wd[0], wd[1], wd[2], wd[3]);
-      if (kWords > 4)
-        planes[kRows + r] = make_int4(wd[4 % kWords], wd[5 % kWords],
-                                      wd[6 % kWords], wd[7 % kWords]);
-      const uint32_t nr = (uint32_t)stg[kRows * kMaxWords + r];
+      const uint32_t nr = (uint32_t)stg[kRows * R::kPitch + r];
       if (!kFloor)
         base[r] = (int32_t)(kPack == kFold
                                 ? (a.l2 ? nr << 7 : 0u) + (uint32_t)(r & gm)
@@ -319,9 +404,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
                                                 : (a.l2 ? nr : 0u));
     }
     if (!kFloor) {
-      uint32_t hit = 0;
+      uint32_t hit = wide_hit;
 #pragma unroll
-      for (int m = 0; m < kWords; ++m)
+      for (int m = 0; m < (R::kWide ? 0 : kWords); ++m)
         hit |= __reduce_or_sync(0xffffffffu, any[m]) & uni[m];
       const uint32_t flags = __ballot_sync(0xffffffffu, hit != 0) &
                              ((1u << kConsumers) - 1);
@@ -487,23 +572,6 @@ __device__ __forceinline__ void half_epilogue(const int32_t (&acc)[32],
   }
 }
 
-// d += the 16 x 8 popcount product of one m16n8k256 b1 tile: A's row g
-// (the warp's queries lane / 4 and lane / 4 + 8) holds words t and t + 4
-// (t = lane % 4) of a query's 256 role bits, B's column g words t and
-// t + 4 of a row's; d holds (query, row) = (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1): the wgmma accumulator's place for the
-// same pairs, so the count adds in place.
-__device__ __forceinline__ void bmma_and_popc(int32_t& d0, int32_t& d1,
-                                              int32_t& d2, int32_t& d3,
-                                              const uint32_t (&qf)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d0), "+r"(d1), "+r"(d2), "+r"(d3)
-      : "r"(qf[0]), "r"(qf[1]), "r"(qf[2]), "r"(qf[3]), "r"(b0), "r"(b1));
-}
-
 // The floor's role counts of one 64-row half: one binary product an 8-row
 // slice, B read from the planes (row 64 kHalf + 8 n + lane / 4).
 template <int kHalf, int kWords>
@@ -537,6 +605,51 @@ __device__ __forceinline__ void half_floor(const int32_t (&acc)[32], Epi& e) {
   }
 }
 
+// The wide forms' epilogue of one 64-row half, after the tile's dots: for
+// each 8-row slice, the shared roles of the thread's 4 (query, row) pairs
+// by one binary product a 256-role chunk, B read from planes 2c and 2c + 1
+// (row 64 kHalf + 8 n + lane / 4); d lands in the accumulator's places
+// (c[2 i + j]: query qa + 8 i, row 64 kHalf + 8 n + 2 (lane % 4) + j). A
+// slice none of whose pairs the warp admits is skipped by the whole warp;
+// otherwise a pair is the multiply-add and the minimum predicated on its
+// count.
+template <int kHalf, int kWords, int kPack>
+__device__ __forceinline__ void half_wide(const int32_t (&acc)[32],
+                                          const uint32_t (&qf)[kWords / 8][4],
+                                          const int4* __restrict__ planes,
+                                          const int32_t* __restrict__ base,
+                                          Epi& e) {
+  const int32_t* words = reinterpret_cast<const int32_t*>(planes);
+  const int lane = threadIdx.x % 32;
+  const int cl = 2 * (lane % 4);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int n8 = 8 * kHalf + n;
+    const int r = 8 * n8 + lane / 4;
+    int32_t c[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < kWords / 8; ++k)
+      bmma_and_popc(c[0], c[1], c[2], c[3], qf[k],
+                    (uint32_t)words[4 * (2 * k * kRows + r) + lane % 4],
+                    (uint32_t)words[4 * ((2 * k + 1) * kRows + r) + lane % 4]);
+    if (__any_sync(0xffffffffu, c[0] | c[1] | c[2] | c[3])) {  // uniform
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int rr = 8 * n8 + cl + j;
+        const uint32_t bs = (uint32_t)base[rr];
+        const uint32_t rank = kPack == kFold ? 0u : (uint32_t)(rr & e.gm);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          min_if(e.best[i], c[2 * i + j],
+                 pack<kPack>(acc[4 * n + 2 * i + j], e.mul, bs, e.down,
+                             rank));
+      }
+    }
+    asm volatile("" ::: "memory");  // one slice's reads at a time
+    if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
+  }
+}
+
 // The dots of one row tile, one m64n128 product into lo (rows 0-63) and hi
 // (rows 64-127), committed as one wgmma group.
 template <int D>
@@ -547,7 +660,7 @@ __device__ __forceinline__ void issue_dots(int32_t (&lo)[32],
   fence_acc(hi);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int c = 0; c < Ring<D>::kChunks; ++c)
+  for (int c = 0; c < D / 128; ++c)
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       wgmma_m64n128k32(lo, hi, sw128_desc(a_wg + c * kQueries * 128 + 32 * k),
@@ -567,9 +680,11 @@ __device__ __forceinline__ void wgmma_wait() {
 // two 64-row halves, each half's epilogue under the next half's dots, was
 // 15-19% slower: PERF.md.)
 template <int D, int kWords, int kPack, bool kWarpSlot, bool kFloor>
-__device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
-                                        int q0, int t_begin, int t_end) {
-  using R = Ring<D>;
+__device__ __forceinline__ void consume(const ScanArgs& a,
+                                        const Smem<D, kWords>& sm, int q0,
+                                        int t_begin, int t_end) {
+  using R = Ring<D, kWords>;
+  constexpr bool kWide = R::kWide;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4;
   const int qw0 = q0 + 64 * wg + 16 * (warp % 4);  // the warp's first query
@@ -587,9 +702,22 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
   e.mul = (uint32_t)(a.l2 ? -2 : -1)
           << (kPack == kChain || down ? 0 : 7 - a.score_shift);
   e.down = kPack == kChain ? a.score_shift : down ? a.score_shift - 7 : 0;
-  int32_t qw[2][kWords];   // the per-query path: both queries' words
+  int32_t qw[2][kWide ? 1 : kWords];  // the per-query path: both queries'
+                                      // words
   uint32_t sw[kMaxWords];  // the warp-slot path: the slot's words
   uint32_t qf[4];          // the floor: the binary product's A fragment
+  // the wide forms: the A fragments of the binary products, 256 roles each
+  uint32_t qa_bits[kWide ? kWords / 8 : 1][4];
+#pragma unroll
+  for (int c = 0; c < (kWide ? kWords / 8 : 1); ++c)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int q = qa + 8 * (k & 1), m = 8 * c + lane % 4 + 4 * (k >> 1);
+      qa_bits[c][k] = (kWide && m < a.w && q < a.nq)
+                          ? (uint32_t)a.q_bits[(size_t)mask_row(a, q) * a.w +
+                                               m]
+                          : 0u;
+    }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int q = qa + 8 * (k & 1), m = lane % 4 + 4 * (k >> 1);
@@ -606,8 +734,8 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
   for (int i = 0; i < 2; ++i) {
     const int q = qa + 8 * i;
 #pragma unroll
-    for (int m = 0; m < kWords; ++m)
-      qw[i][m] = (!kWarpSlot && !kFloor && m < a.w && q < a.nq)
+    for (int m = 0; m < (kWide ? 1 : kWords); ++m)
+      qw[i][m] = (!kWide && !kWarpSlot && !kFloor && m < a.w && q < a.nq)
                      ? a.q_bits[(size_t)mask_row(a, q) * a.w + m]
                      : 0;
   }
@@ -627,11 +755,16 @@ __device__ __forceinline__ void consume(const ScanArgs& a, const Smem<D>& sm,
       wgmma_wait<0>();
       fence_acc(lo);
       fence_acc(hi);
-      if (kFloor) {  // the role counts onto the dots, then the minima
+      if constexpr (kFloor) {  // the role counts onto the dots, the minima
         half_counts<0, kWords>(lo, qf, sm.planes(s));
         half_counts<1, kWords>(hi, qf, sm.planes(s));
         half_floor<0>(lo, e);
         half_floor<1>(hi, e);
+      } else if constexpr (kWide) {
+        half_wide<0, kWords, kPack>(lo, qa_bits, sm.planes(s), sm.base(s),
+                                    e);
+        half_wide<1, kWords, kPack>(hi, qa_bits, sm.planes(s), sm.base(s),
+                                    e);
       } else {
         half_epilogue<0, kWords, kPack, kWarpSlot>(lo, qw, sw, sm.planes(s),
                                                     sm.base(s), e);
@@ -658,13 +791,13 @@ scan_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q8 (Q, D)
                const __grid_constant__ CUtensorMap x_map,  // x8 (Npad, D)
                const ScanArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  const Smem<D> sm(smem_raw);
+  const Smem<D, kWords> sm(smem_raw);
   const int q0 = (blockIdx.x % a.n_qtiles) * kQueries;
   const int run = blockIdx.x / a.n_qtiles;
   const int t_begin = (int)((long long)run * a.n_tiles / a.runs);
   const int t_end = (int)((long long)(run + 1) * a.n_tiles / a.runs);
   if (threadIdx.x == 32 * kProducer) {
-    for (int s = 0; s < Ring<D>::kStages; ++s) {
+    for (int s = 0; s < Ring<D, kWords>::kStages; ++s) {
       mbar_init(sm.full(s), 33);
       mbar_init(sm.empty(s), 4 * kConsumers);
     }
@@ -683,7 +816,7 @@ template <int D, int kWords, int kPack, bool kWarpSlot, bool kFloor = false>
 cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
                       const ScanArgs& a, int blocks, cudaStream_t stream) {
   auto kernel = scan_tc_kernel<D, kWords, kPack, kWarpSlot, kFloor>;
-  constexpr int smem = Ring<D>::kSmem;
+  constexpr int smem = Ring<D, kWords>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -694,6 +827,11 @@ cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
 template <int D, int kPack>
 cudaError_t dispatch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
                         const ScanArgs& a, int blocks, cudaStream_t stream) {
+  // more than 256 roles: the wide-world forms, every mask layout
+  if (a.w > 16)
+    return launch_tc<D, 32, kPack, false>(q_map, x_map, a, blocks, stream);
+  if (a.w > kMaxWords)
+    return launch_tc<D, 16, kPack, false>(q_map, x_map, a, blocks, stream);
   if (a.mask_sb > 0 && a.slot_tile == 0 && a.mask_sb % 16 == 0)
     return launch_tc<D, 8, kPack, true>(q_map, x_map, a, blocks, stream);
   if (a.w <= 4)
@@ -825,7 +963,7 @@ void launch_dp4a(const void* q8, const void* x8, const void* norms,
       n_tiles, w, group, l2, score_shift);
 }
 
-bool shapes_ok(int nq, int npad, int d_pad, int w, int group,
+bool shapes_ok(int nq, int npad, int d_pad, int w, int max_words, int group,
                int score_shift, int mask_sb, int slot_tile) {
   const bool group_ok =
       group >= 8 && group <= kRows && (group & (group - 1)) == 0;
@@ -836,7 +974,7 @@ bool shapes_ok(int nq, int npad, int d_pad, int w, int group,
         (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
   return nq >= 1 && npad >= kRows && npad % kRows == 0 &&
          (d_pad == 128 || d_pad == 256) && group_ok && w >= 1 &&
-         w <= kMaxWords && score_shift >= 0 && score_shift <= 31 && slots_ok;
+         w <= max_words && score_shift >= 0 && score_shift <= 31 && slots_ok;
 }
 
 int sm_count() {
@@ -854,7 +992,8 @@ int scan_tc(const void* q8, const void* x8, const void* norms,
             const void* row_bits, const void* q_bits, void* out, int nq,
             int npad, int d_pad, int w, int group, int l2, int score_shift,
             int mask_sb, int slot_tile, int lab, void* stream) {
-  if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, mask_sb, slot_tile))
+  if (!shapes_ok(nq, npad, d_pad, w, lab == kLabTrim ? kWideWords : kMaxWords,
+                 group, score_shift, mask_sb, slot_tile))
     return (int)cudaErrorInvalidValue;
   ScanArgs a;
   a.norms = static_cast<const int32_t*>(norms);
@@ -926,7 +1065,8 @@ extern "C" int vsr_scan_int8_lab(const void* q8, const void* x8,
                                  const void* q_bits, void* out, int nq,
                                  int npad, int d_pad, int w, int group, int l2,
                                  int score_shift, int variant, void* stream) {
-  if (!shapes_ok(nq, npad, d_pad, w, group, score_shift, 0, 0) ||
+  // the lab's forms keep the W <= 8 kernels (trim among them)
+  if (!shapes_ok(nq, npad, d_pad, w, kMaxWords, group, score_shift, 0, 0) ||
       variant < kLabDp4a || variant > kLabChain)
     return (int)cudaErrorInvalidValue;
   if (variant != kLabDp4a)

@@ -68,6 +68,17 @@
 // shared memory. The epilogue keeps its 2 queries' words in registers and
 // reads the second plane only where W > 4. Two blocks fit an SM (~104 KB
 // of shared memory, 114 registers, no spills).
+//
+// The wide-world forms (kWords 16 and 32: W 9-16 and 17-32, 257 to 1,024
+// roles) count the shared roles of each (query, row) pair on the binary
+// tensor cores, as the narrow kernel's do (scan_int8.cu): the row words
+// come as kWords / 4 planes, and the epilogue takes one mma.sync
+// m16n8k256 b1 AND.POPC an 8-row slice and 256 roles into four registers
+// in the places of the slice's accumulators, then scores and keeps a pair
+// where its count is not 0. The query side is the binary product's A
+// fragment (kWords / 2 registers), not 2 W words. At kWords 32 the ring
+// has 2 stages, so that two blocks still fit an SM beside the 16 KB of
+// planes.
 
 #include "tma_wgmma.cuh"
 
@@ -77,18 +88,28 @@ constexpr int kRows = 128;       // arena rows per tile: the wgmma N
 constexpr int kQueries = 128;    // queries per tile: 2 x the wgmma M
 constexpr int kThreads = 256;    // two warpgroups
 constexpr int kChunk = 128;      // d bytes per stage: one swizzled line
-constexpr int kStages = 3;
-constexpr int kMaxWords = 8;     // role bitset words: up to 256 roles
+constexpr int kMaxWords = 8;     // bitset words of the W <= 8 forms
+constexpr int kWideWords = 32;   // of the wide-world forms: 1,024 roles
 constexpr int32_t kMasked = 0x7F000000;
 constexpr int kTileBytes = kRows * kChunk;   // 16 KB, also kQueries * kChunk
 constexpr int kStageBytes = 2 * kTileBytes;  // the query tile, then the rows
-// the row tile's words, as two planes of (kRows, 4) words, and its norms
-constexpr int kRowDataBytes = 2 * kRows * 16 + kRows * 4;
-constexpr int kSmemBytes = 1024  // slack to align the ring to 1024 bytes
-                           + kStages * kStageBytes + kRowDataBytes
-                           + 2 * kStages * 8;  // full and empty mbarriers
 
 static_assert(kQueries * kChunk == kTileBytes, "tile bytes");
+
+// A form's ring and row data: the tile's words as planes of (kRows, 4)
+// words (two where W <= 8), then its norms.
+template <int kWords>
+struct Geo {
+  static constexpr bool kWide = kWords > kMaxWords;
+  static constexpr int kStages = kWords <= 16 ? 3 : 2;
+  static constexpr int kPlanes = kWide ? kWords / 4 : 2;
+  static constexpr int kRowDataBytes = kPlanes * kRows * 16 + kRows * 4;
+  static constexpr int kSmemBytes = 1024  // slack to align the ring
+                                    + kStages * kStageBytes + kRowDataBytes
+                                    + 2 * kStages * 8;  // full and empty
+  // two blocks an SM (228 KB, 1 KB of it reserved a block)
+  static_assert(2 * (kSmemBytes + 1024) <= 233472, "two blocks an SM");
+};
 
 // The epilogue of one tile: score, shift, admissibility, pack, group
 // minimum, store. Thread (warp, lane) of a warpgroup holds queries qa and
@@ -147,7 +168,67 @@ __device__ __forceinline__ void tile_epilogue(
   }
 }
 
-template <bool kSlots>
+// The wide forms' epilogue of the tile: for each 8-row slice, the shared
+// roles of the thread's 4 (query, row) pairs by one binary product a
+// 256-role chunk (qf: words 8c + lane % 4 and + 4 of queries qa and qa + 8;
+// B from planes 2c and 2c + 1, row 8 n8 + lane / 4), in the places of the
+// slice's accumulators; a slice none of whose pairs the warp admits is
+// skipped by the whole warp, otherwise a pair is scored, packed and kept
+// where its count is not 0. Then as tile_epilogue.
+template <int kWords, bool kDown>
+__device__ __forceinline__ void tile_epilogue_wide(
+    const int32_t (&acc)[64], const uint32_t (&qf)[kWords / 8][4],
+    const int4* __restrict__ planes, const int32_t* __restrict__ ns,
+    int32_t* __restrict__ out, size_t row0, int qa, int nq, int group, int l2,
+    int score_shift) {
+  const int32_t* words = reinterpret_cast<const int32_t*>(planes);
+  const int lane = threadIdx.x % 32;
+  const int lane_mask = group - 1;
+  const int span = group / 8;
+  const int up = kDown ? 0 : 7 - score_shift;
+  const int down = kDown ? score_shift - 7 : 0;
+  const uint32_t mul = (uint32_t)(l2 ? -2 : -1) << up;
+  int32_t best[2] = {kMasked, kMasked};
+#pragma unroll
+  for (int n8 = 0; n8 < kRows / 8; ++n8) {
+    const int r = 8 * n8 + lane / 4;
+    int32_t c[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < kWords / 8; ++k)
+      bmma_and_popc(c[0], c[1], c[2], c[3], qf[k],
+                    (uint32_t)words[4 * (2 * k * kRows + r) + lane % 4],
+                    (uint32_t)words[4 * ((2 * k + 1) * kRows + r) + lane % 4]);
+    if (__any_sync(0xffffffffu, c[0] | c[1] | c[2] | c[3])) {  // uniform
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = n8 * 8 + (lane % 4) * 2 + j;
+        const uint32_t base = l2 ? (uint32_t)ns[n] << up : 0u;
+        const uint32_t rank = (uint32_t)(n & lane_mask);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          uint32_t v = (uint32_t)acc[4 * n8 + 2 * i + j] * mul + base;
+          if (kDown) v = (uint32_t)((int32_t)v >> down);
+          const int32_t packed = (int32_t)((v & ~127u) | rank);
+          if (c[2 * i + j]) best[i] = min(best[i], packed);
+        }
+      }
+    }
+    asm volatile("" ::: "memory");  // one slice's reads at a time
+    if (((n8 + 1) & (span - 1)) == 0) {  // slice n8 closes a group
+      const size_t g = (row0 + n8 * 8) / group;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        best[i] = min(best[i], __shfl_xor_sync(0xffffffffu, best[i], 1));
+        best[i] = min(best[i], __shfl_xor_sync(0xffffffffu, best[i], 2));
+        const int q = qa + 8 * i;
+        if (lane % 4 == 0 && q < nq) out[g * (size_t)nq + q] = best[i];
+        best[i] = kMasked;
+      }
+    }
+  }
+}
+
+template <bool kSlots, int kWords>
 __global__ void __launch_bounds__(kThreads, 2)
 scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
                       const __grid_constant__ CUtensorMap x_map,  // x8
@@ -157,6 +238,8 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
                       int32_t* __restrict__ out,             // (Npad/group, Q)
                       int nq, int n_qtiles, int d_pad, int w, int group,
                       int l2, int score_shift, int mask_sb, int slot_tile) {
+  using G = Geo<kWords>;
+  constexpr int kStages = G::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
@@ -164,7 +247,7 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
   uint8_t* row_data = smem + kStages * kStageBytes;
   // full[s]: stage s's two boxes landed; empty[s]: both warpgroups' wgmma
   // finished reading it
-  const uint32_t bars = smem_addr(row_data + kRowDataBytes);
+  const uint32_t bars = smem_addr(row_data + G::kRowDataBytes);
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kStages + s); };
 
@@ -190,16 +273,17 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int s = 0; s < kStages && s < nk; ++s) load_chunk(s, s);
   }
-  // the row tile's words (zero past w) and norms, waited for before the
-  // epilogue
-  for (int i = tid; i < kRows * kMaxWords; i += kThreads) {
-    const int r = i / kMaxWords, m = i % kMaxWords;
+  // the row tile's words (zero past w; as many planes as the form reads)
+  // and norms, waited for before the epilogue
+  constexpr int kStaged = G::kWide ? kWords : kMaxWords;
+  for (int i = tid; i < kRows * kStaged; i += kThreads) {
+    const int r = i / kStaged, m = i % kStaged;
     cp_async4(smem_addr(row_data + (m / 4) * kRows * 16 + r * 16 + m % 4 * 4),
               row_bits + (row0 + r) * w + (m < w ? m : 0), m < w ? 4 : 0);
   }
   for (int i = tid; i < kRows; i += kThreads)
-    cp_async4(smem_addr(row_data + 2 * kRows * 16 + i * 4), norms + row0 + i,
-              4);
+    cp_async4(smem_addr(row_data + G::kPlanes * kRows * 16 + i * 4),
+              norms + row0 + i, 4);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   __syncthreads();  // the barriers are initialised
 
@@ -236,6 +320,9 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
   const int qa =
       q0 + wg * 64 + ((tid % 128) / 32) * 16 + (tid % 32) / 4;
   int32_t qw[2][kMaxWords];
+  // the wide forms: the binary products' A fragments, words 8c + lane % 4
+  // and + 4 of queries qa (k even) and qa + 8 (k odd)
+  uint32_t qf[G::kWide ? kWords / 8 : 1][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int q = qa + 8 * i;
@@ -246,26 +333,64 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
     }
 #pragma unroll
     for (int m = 0; m < kMaxWords; ++m)
-      qw[i][m] = (m < w && q < nq) ? q_bits[(size_t)row * w + m] : 0;
+      qw[i][m] = (!G::kWide && m < w && q < nq) ? q_bits[(size_t)row * w + m]
+                                                 : 0;
+    if constexpr (G::kWide) {
+#pragma unroll
+      for (int c = 0; c < kWords / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 8 * c + tid % 4 + 4 * h;
+          qf[c][i + 2 * h] =
+              (m < w && q < nq) ? (uint32_t)q_bits[(size_t)row * w + m] : 0u;
+        }
+    }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();  // every thread's row words and norms landed
   const int4* planes = reinterpret_cast<const int4*>(row_data);
   const int32_t* ns =
-      reinterpret_cast<const int32_t*>(row_data + 2 * kRows * 16);
+      reinterpret_cast<const int32_t*>(row_data + G::kPlanes * kRows * 16);
   const bool down = score_shift > 7;
-  if (w <= 4 && !down)
+  if constexpr (G::kWide) {
+    if (!down)
+      tile_epilogue_wide<kWords, false>(acc, qf, planes, ns, out, row0, qa,
+                                        nq, group, l2, score_shift);
+    else
+      tile_epilogue_wide<kWords, true>(acc, qf, planes, ns, out, row0, qa,
+                                       nq, group, l2, score_shift);
+  } else if (w <= 4 && !down) {
     tile_epilogue<4, false>(acc, qw, planes, ns, out, row0, qa, nq, group, l2,
                             score_shift);
-  else if (w <= 4)
+  } else if (w <= 4) {
     tile_epilogue<4, true>(acc, qw, planes, ns, out, row0, qa, nq, group, l2,
                            score_shift);
-  else if (!down)
+  } else if (!down) {
     tile_epilogue<8, false>(acc, qw, planes, ns, out, row0, qa, nq, group, l2,
                             score_shift);
-  else
+  } else {
     tile_epilogue<8, true>(acc, qw, planes, ns, out, row0, qa, nq, group, l2,
                            score_shift);
+  }
+}
+
+// The form for W and the slot layout.
+template <bool kSlots, int kWords>
+cudaError_t launch_wide(const CUtensorMap& q_map, const CUtensorMap& x_map,
+                        unsigned blocks, cudaStream_t stream,
+                        const int32_t* norms, const int32_t* row_bits,
+                        const int32_t* q_bits, int32_t* out, int nq,
+                        int n_qtiles, int d_pad, int w, int group, int l2,
+                        int score_shift, int mask_sb, int slot_tile) {
+  constexpr int smem = Geo<kWords>::kSmemBytes;
+  auto kernel = scan_int8_wide_kernel<kSlots, kWords>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      q_map, x_map, norms, row_bits, q_bits, out, nq, n_qtiles, d_pad, w,
+      group, l2, score_shift, mask_sb, slot_tile);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -287,7 +412,7 @@ extern "C" int vsr_scan_int8_wide(const void* q8, const void* x8,
        (slot_tile == 0 ||
         (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
   if (nq < 1 || npad < kRows || npad % kRows != 0 || d_pad < kChunk ||
-      d_pad % kChunk != 0 || !group_ok || w < 1 || w > kMaxWords ||
+      d_pad % kChunk != 0 || !group_ok || w < 1 || w > kWideWords ||
       score_shift < 0 || score_shift > 31 || !slots_ok)
     return (int)cudaErrorInvalidValue;
   const long long n_qtiles = (nq + kQueries - 1) / kQueries;
@@ -296,17 +421,24 @@ extern "C" int vsr_scan_int8_wide(const void* q8, const void* x8,
   CUtensorMap q_map, x_map;
   cudaError_t err = box_map(&q_map, q8, nq, d_pad, kQueries);
   if (err == cudaSuccess) err = box_map(&x_map, x8, npad, d_pad, kRows);
-  auto kernel = mask_sb > 0 ? scan_int8_wide_kernel<true>
-                            : scan_int8_wide_kernel<false>;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, kSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      q_map, x_map, static_cast<const int32_t*>(norms),
-      static_cast<const int32_t*>(row_bits),
-      static_cast<const int32_t*>(q_bits), static_cast<int32_t*>(out), nq,
-      (int)n_qtiles, d_pad, w, group, l2, score_shift, mask_sb, slot_tile);
-  return (int)cudaGetLastError();
+  const bool slots = mask_sb > 0;
+  // W <= 8: the forms of before; 9-16 and 17-32: the wide-world forms
+  const int words = w <= kMaxWords ? kMaxWords : w <= 16 ? 16 : kWideWords;
+#define VSR_WIDE(S_, W_)                                                      \
+  launch_wide<S_, W_>(q_map, x_map, (unsigned)blocks,                        \
+                      static_cast<cudaStream_t>(stream),                     \
+                      static_cast<const int32_t*>(norms),                    \
+                      static_cast<const int32_t*>(row_bits),                 \
+                      static_cast<const int32_t*>(q_bits),                   \
+                      static_cast<int32_t*>(out), nq, (int)n_qtiles, d_pad,  \
+                      w, group, l2, score_shift, mask_sb, slot_tile)
+  if (words == kMaxWords)
+    err = slots ? VSR_WIDE(true, kMaxWords) : VSR_WIDE(false, kMaxWords);
+  else if (words == 16)
+    err = slots ? VSR_WIDE(true, 16) : VSR_WIDE(false, 16);
+  else
+    err = slots ? VSR_WIDE(true, kWideWords) : VSR_WIDE(false, kWideWords);
+#undef VSR_WIDE
+  return (int)err;
 }

@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the tensor-core scans (scan_int8.cu,
 // scan_int8_wide.cu): mbarriers, TMA box loads in the 128-byte swizzle, the
-// wgmma shared-memory descriptor and the m64n128k32 s32.s8.s8 product, and
-// the tensor maps the C entry points encode per call.
+// wgmma shared-memory descriptor and the m64n128k32 s32.s8.s8 product, the
+// binary m16n8k256 AND.POPC product that counts shared roles in the same
+// accumulator places, and the tensor maps the C entry points encode per
+// call.
 //
 // Each source that includes this header compiles it on its own (the build
 // runs one nvcc per .cu); ops/_build.py hashes the header with the sources.
@@ -162,6 +164,23 @@ __device__ __forceinline__ void wgmma_m64n128k32(int32_t (&lo)[32],
 __device__ __forceinline__ void fence_acc(int32_t (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d += the 16 x 8 popcount product of one m16n8k256 b1 tile: A's row g
+// (the warp's queries lane / 4 and lane / 4 + 8) holds words t and t + 4
+// (t = lane % 4) of a query's 256 role bits, B's column g words t and
+// t + 4 of a row's; d holds (query, row) = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1): the wgmma accumulator's place for the
+// same pairs, so the count adds in place.
+__device__ __forceinline__ void bmma_and_popc(int32_t& d0, int32_t& d1,
+                                              int32_t& d2, int32_t& d3,
+                                              const uint32_t (&qf)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d0), "+r"(d1), "+r"(d2), "+r"(d3)
+      : "r"(qf[0]), "r"(qf[1]), "r"(qf[2]), "r"(qf[3]), "r"(b0), "r"(b1));
 }
 
 // The tensor map of a (rows, d_pad) int8 matrix, read in 128-byte x

@@ -14,10 +14,11 @@ admit only rows whose bitset meets the query's mask.
   executor serves with: per-query termination against the ef-wide visited
   window, multi-graph slabs (`pids`), per-query step budgets, the 2-hop
   harvest, and the packed-row scoring. On CUDA tensors in packed mode
-  without the harvest (the hybrid executor's path) the whole search is
-  one launch of `graph_search_fused` (csrc/graph_step.cu, see the note
-  there), which keeps each query's state on chip from the first pop to
-  the last merge. Every other combination runs the step loop: its step
+  without the harvest (the hybrid executor's path), at a shape the fused
+  kernel takes (`fused_shape_problems`), the whole search is one launch
+  of `graph_search_fused` (csrc/graph_step.cu, see the note there), which
+  keeps each query's state on chip from the first pop to the last merge.
+  Every other combination runs the step loop: its step
   runs the two kernels of ops/graph_step.py (score and merge); the
   neighbour gather and the dedup against beam and history stay PyTorch.
 - `graph_beam_search_iterative_plain`: the step loop with the plain score
@@ -58,6 +59,32 @@ FUSED_D_PAD = (128, 256, 768)
 FUSED_MAX_M0 = 64
 FUSED_MAX_EF = 512
 FUSED_MAX_STEPS = 4096
+# the packed-row score kernel's (KS7: csrc/graph_step.cu
+# vsr_graph_score_packed) shapes: bitset words below a warp's 32 lanes,
+# d_pad a multiple of 128 up to 1024
+STEP_MAX_WORDS = 31
+STEP_MAX_D_PAD = 1024
+_NO_KERNEL = ("ROADMAP queue 3 item 4: no graph kernel takes more than "
+              f"{STEP_MAX_WORDS} bitset words ({32 * STEP_MAX_WORDS} roles) "
+              f"or packed rows wider than d_pad {STEP_MAX_D_PAD}")
+
+
+def fused_shape_problems(w: int, d_pad: int, d: int, m0: int, k: int,
+                         ef: int, max_steps: int) -> list:
+    """What the fused kernel does not take of a search's shape (empty if
+    it takes it): 1-31 bitset words, d_pad 128, 256 or 768 (at least d),
+    M0 <= 64, 1 <= k <= ef <= 512, max_steps <= 4096."""
+    return [msg for bad, msg in (
+        (not 1 <= w <= STEP_MAX_WORDS,
+         f"{w} bitset words (1-{STEP_MAX_WORDS})"),
+        (d_pad not in FUSED_D_PAD or d > d_pad,
+         f"d_pad {d_pad} for d {d} (one of {FUSED_D_PAD})"),
+        (not 1 <= m0 <= FUSED_MAX_M0, f"M0 {m0} (1-{FUSED_MAX_M0})"),
+        (not 1 <= k <= ef <= FUSED_MAX_EF,
+         f"k {k}, ef {ef} (1 <= k <= ef <= {FUSED_MAX_EF})"),
+        (not 0 <= max_steps <= FUSED_MAX_STEPS,
+         f"max_steps {max_steps} (0-{FUSED_MAX_STEPS})"),
+    ) if bad]
 
 
 def _check_metric(metric: str) -> None:
@@ -181,19 +208,28 @@ def graph_beam_search_iterative(
     its docstring for the termination rule and the dedup by beam and
     history). Returns (dists (Q, k) ascending, local ids (Q, k)).
 
-    On CUDA tensors in packed mode without the 2-hop harvest the whole
-    search is one launch of the fused kernel (`graph_search_fused`); a
-    shape outside the kernel's raises. Every other combination, and every
-    CPU call, runs the step loop, whose score and merge launch KS7 and KS6
-    on the card and take their plain versions on the CPU."""
+    On CUDA tensors in packed mode without the 2-hop harvest, at a shape
+    the fused kernel takes (`fused_shape_problems`), the whole search is
+    one launch of it (`graph_search_fused`). Every other combination, and
+    every CPU call, runs the step loop, whose score and merge launch KS7
+    and KS6 on the card and take their plain versions on the CPU. On the
+    card no graph kernel takes packed rows of 32 bitset words or more, or
+    of d_pad above 1024: those raise."""
     _check_metric(metric)
-    if packed_rows is not None and not harvest_2hop \
-            and queries.device.type == "cuda":
-        with record_function("graph.search"):
-            return graph_search_fused(
-                queries, graph, query_masks, entries, k, ef, max_steps,
-                packed_rows, dq_scale, q_center_dot, row_map, pids,
-                step_budget)
+    if packed_rows is not None and queries.device.type == "cuda":
+        w = query_masks.shape[1]
+        d_pad = packed_rows.shape[1] - 4 * w - 4
+        if w > STEP_MAX_WORDS or d_pad % 128 or d_pad > STEP_MAX_D_PAD:
+            raise ValueError(f"graph search over {w} bitset words at d_pad "
+                             f"{d_pad}: " + _NO_KERNEL)
+        if not harvest_2hop and not fused_shape_problems(
+                w, d_pad, queries.shape[1], graph.shape[-1], k, ef,
+                max_steps):
+            with record_function("graph.search"):
+                return graph_search_fused(
+                    queries, graph, query_masks, entries, k, ef, max_steps,
+                    packed_rows, dq_scale, q_center_dot, row_map, pids,
+                    step_budget)
     return _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
                       entries, k, ef, max_steps, harvest_2hop, row_map, pids,
                       step_budget, packed_rows, dq_scale, q_center_dot,
@@ -227,25 +263,17 @@ def graph_search_fused(queries, graph, query_masks, entries, k, ef,
     plain score and merge. Arguments as graph_beam_search_iterative's;
     `stats` as graph_beam_search_iterative_plain's.
 
-    The kernel takes ef <= 512, 1 <= k <= ef, M0 <= 64, max_steps <= 4096,
-    1-31 bitset words and d_pad 128, 256 or 768, with int32 graph, row map,
-    slots, entries and budgets; anything else raises ValueError."""
+    The kernel takes the shapes `fused_shape_problems` passes, with int32
+    graph, row map, slots, entries and budgets; anything else raises
+    ValueError."""
     q = queries.float()
     nq, d = q.shape
     w = query_masks.shape[1]
     d_pad = packed_rows.shape[1] - 4 * w - 4
     m0 = graph.shape[-1]
     multi = pids is not None
-    problems = [
+    problems = fused_shape_problems(w, d_pad, d, m0, k, ef, max_steps) + [
         msg for bad, msg in (
-            (not 1 <= w <= 31, f"{w} bitset words (1-31)"),
-            (d_pad not in FUSED_D_PAD or d > d_pad,
-             f"d_pad {d_pad} for d {d} (one of {FUSED_D_PAD})"),
-            (not 1 <= m0 <= FUSED_MAX_M0, f"M0 {m0} (1-{FUSED_MAX_M0})"),
-            (not 1 <= k <= ef <= FUSED_MAX_EF,
-             f"k {k}, ef {ef} (1 <= k <= ef <= {FUSED_MAX_EF})"),
-            (not 0 <= max_steps <= FUSED_MAX_STEPS,
-             f"max_steps {max_steps} (0-{FUSED_MAX_STEPS})"),
             (graph.dim() != (3 if multi else 2) or (row_map is not None and (
                 row_map.dim() != graph.dim() - 1 or (multi and tuple(
                     row_map.shape) != tuple(graph.shape[:2])))),

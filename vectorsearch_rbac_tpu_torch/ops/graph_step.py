@@ -1,7 +1,8 @@
 """The graph step's two kernels: packed-row candidate scoring and the
 step's three stable merges. The step loop of ops/graph_search.py runs
-them where the fused search does not apply (the 2-hop harvest); the fused
-search (graph_search.graph_search_fused) does both inside its own loop.
+them where the fused search does not apply (the 2-hop harvest, shapes
+past the fused kernel's); the fused search
+(graph_search.graph_search_fused) does both inside its own loop.
 
 Counterparts of the two TPU kernels of the HNSW step
 (vectorsearch_rbac_tpu/ops/graph_search.py graph_beam_search_iterative):
@@ -94,7 +95,8 @@ def graph_score_packed(ids: torch.Tensor, packed_rows: torch.Tensor,
     W) int32 bitset words; qcd (Q,) float32 query . quant center; row_map
     None, (n_local,) or, with pids (Q,), a (P, n_class) slab, int32. CPU
     tensors take the plain version; CUDA tensors launch csrc/graph_step.cu
-    graph_score_packed_kernel."""
+    graph_score_packed_kernel, which takes 1-31 bitset words and d_pad a
+    multiple of 128 up to 1024 (the launch is refused otherwise)."""
     dev = _same_device(ids, packed_rows, qf, qmask, qcd, row_map, pids)
     nq, c = ids.shape
     w = qmask.shape[1]

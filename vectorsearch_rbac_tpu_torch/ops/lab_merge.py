@@ -117,10 +117,13 @@ def subgroup_extract(mins: torch.Tensor, sub: int = 128,
 
 
 def _check_sort(y: torch.Tensor, keep: int) -> None:
+    """The shapes the kernel takes: npc a power of two in [2, MAX_NPC],
+    1 <= keep <= npc (the TPU lab's keep, a multiple of 8, is one of
+    them)."""
     npc = y.shape[0]
-    if npc & (npc - 1) or npc > MAX_NPC or keep % 8 or not 8 <= keep <= npc:
-        raise ValueError(f"npc {npc} must be a power of two <= {MAX_NPC} and "
-                         f"keep {keep} a multiple of 8 in [8, npc]")
+    if npc & (npc - 1) or not 2 <= npc <= MAX_NPC or not 1 <= keep <= npc:
+        raise ValueError(f"npc {npc} must be a power of two in [2, {MAX_NPC}]"
+                         f" and keep {keep} in [1, npc]")
 
 
 def group_ids(y: torch.Tensor, t: int, sub: int) -> torch.Tensor:
@@ -162,7 +165,7 @@ def _bitonic_y(y, keep, t, sub, pairs):
 
 def bitonic_sort_keep(y: torch.Tensor, keep: int = 128) -> torch.Tensor:
     """S5's sort form. CPU tensors take the plain version; CUDA tensors
-    launch csrc/merge.cu bitonic_y_kernel<false> ("merge_y_sort")."""
+    launch csrc/merge.cu bitonic_net_kernel<npc, kValues> ("merge_y_sort")."""
     _check_sort(y, keep)
     if y.device.type == "cpu":
         return bitonic_sort_keep_plain(y, keep)
@@ -173,7 +176,7 @@ def bitonic_pairs_keep(y: torch.Tensor, keep: int, t: int,
                        sub: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """S5's pairs form: ((keep, Q) sorted y, (keep, Q) int32 global groups).
     CPU tensors take the plain version; CUDA tensors launch csrc/merge.cu
-    bitonic_y_kernel<true> ("merge_y_pairs")."""
+    bitonic_net_kernel<npc, kGid> ("merge_y_pairs")."""
     _check_sort(y, keep)
     if not 1 <= sub <= MAX_SUB or t < 1:
         raise ValueError(f"sub {sub} must be in [1, {MAX_SUB}], t {t} >= 1")

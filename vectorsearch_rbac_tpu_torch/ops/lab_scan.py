@@ -52,6 +52,7 @@ from .scan_int8 import (NARROW_MAX_D, _check_kernel_tensors,
 
 # the C entry's variant codes
 VARIANTS = {"dp4a": 0, "trim": 1, "floor": 2, "chain": 3}
+LAB_MAX_WORDS = 8                    # the lab's forms: 256 roles
 _CHUNK_ELEMS = 1 << 26               # floor plain: elements per temporary
 
 
@@ -119,7 +120,7 @@ def lab_group_minima(queries_q, vectors_q, norms_q, role_bits, query_bits,
         raise ValueError(f"d_pad {d_pad}: the narrow scan takes d_pad 128 or "
                          "256")
     tensors = (queries_q, vectors_q, norms_q, role_bits, query_bits)
-    _check_kernel_tensors(tensors, w)
+    _check_kernel_tensors(tensors, w, LAB_MAX_WORDS)
     out = torch.empty((npad // group, nq), dtype=torch.int32,
                       device=queries_q.device)
     err = _build.lib().vsr_scan_int8_lab(

@@ -128,9 +128,10 @@ def bitonic_pairs_plain(y: torch.Tensor, g: torch.Tensor,
 def bitonic_pairs(y: torch.Tensor, meta: torch.Tensor,
                   keep: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage 2. CPU tensors take the plain version; CUDA tensors launch
-    csrc/merge.cu bitonic_pairs_kernel, instantiated for each power of two
-    npc <= MAX_NPC: a warp sorts a column in registers, except at npc 2048,
-    where a column takes two warps and one shared-memory exchange."""
+    csrc/merge.cu bitonic_net_kernel<npc, kMetaIn>, instantiated for each
+    power of two npc <= MAX_NPC: a warp sorts a column in registers,
+    except at npc 2048, where a column takes two warps and one
+    shared-memory exchange."""
     npc, nq = y.shape
     if npc & (npc - 1) or meta.shape != y.shape or not 1 <= keep <= npc:
         raise ValueError(f"bitonic_pairs: npc {npc} must be a power of two, "

@@ -13,9 +13,11 @@ Against the reference's arithmetic:
   all-zero for chunk 0 (the dummy chunk padding slots point at) and for
   pad rows, ANDed with the query's W mask words: the predicate of the
   reference's int8 one-hot matmul, as in the fused scan (ops/scan_int8);
-- the dots are a float32 bmm with TF32 off, exact while every partial sum
-  is an integer below 2^24 (|dot| <= 128 * 128 * d_pad, so d_pad <= 768;
-  the chunk engine serves d_pad 128): CUDA has no int8 bmm in PyTorch;
+- the dots are float32 bmms with TF32 off over column slices of at most
+  768, whose int32 partials are summed (as ops/scan_int8.exact_dots does):
+  every partial sum inside one slice is an integer with |.| <= 128 * 128 *
+  768 < 2^24, which float32 holds exactly, so the dots are exact at any
+  d_pad. CUDA has no int8 bmm in PyTorch;
 - every top-k is a stable sort, which orders ties by position as
   lax.top_k does, so ids match the reference's up to nothing.
 """
@@ -30,7 +32,7 @@ from .scan import exact_f32_matmul
 
 BIG_I32 = 2**30            # unpacked sentinel: no admissible row
 MASKED_I32 = 0x7F000000    # packed sentinel of the grouped epilogue
-_MAX_EXACT_D = 768
+_EXACT_D = 768             # columns per float32 partial dot
 
 
 def _topk_smallest(vals: torch.Tensor, k: int):
@@ -40,11 +42,25 @@ def _topk_smallest(vals: torch.Tensor, k: int):
     return srt[..., :k], pos[..., :k]
 
 
+def _exact_bmm(q3f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(S, Q, C) int32 dots of float32 copies of int8 queries (S, Q, d)
+    and int8 rows (S, C, d), as float32 bmms over column slices of at most
+    768 whose int32 partials are summed (exact: see the module note). Call
+    it inside exact_f32_matmul()."""
+    dots = None
+    for c0 in range(0, q3f.shape[2], _EXACT_D):
+        part = torch.bmm(q3f[:, :, c0:c0 + _EXACT_D],
+                         x[:, :, c0:c0 + _EXACT_D].to(torch.float32)
+                         .transpose(1, 2)).to(torch.int32)
+        dots = part if dots is None else dots + part
+    return dots
+
+
 def _chunk_step(q3f, m3, ids, vec_chunks, norm_chunks, role_chunks):
     """One chunk of every slot: (S, Q, C) int32 scores ||x||^2 - 2 q.x and
     (S, Q, C) bool admissibility."""
-    x = vec_chunks.index_select(0, ids).to(torch.float32)        # (S, C, d)
-    dots = torch.bmm(q3f, x.transpose(1, 2)).to(torch.int32)     # (S, Q, C)
+    x = vec_chunks.index_select(0, ids)                          # (S, C, d)
+    dots = _exact_bmm(q3f, x)                                    # (S, Q, C)
     nrm = norm_chunks.index_select(0, ids)                       # (S, C)
     r = role_chunks.index_select(0, ids)                         # (S, C, W)
     admit = torch.zeros(dots.shape, dtype=torch.bool, device=dots.device)
@@ -69,11 +85,8 @@ def tiled_scan_core(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-slot chunked scan: (S, q_tile, k) int32 partial scores
     (BIG_I32 where empty) and their arena rows."""
-    s, q_tile, d = q3.shape
+    s, q_tile, _ = q3.shape
     chunk_rows = vec_chunks.shape[1]
-    if d > _MAX_EXACT_D:
-        raise ValueError(f"d_pad {d}: the float32 dots are exact up to "
-                         f"{_MAX_EXACT_D}")
     if scan_group and scan_group < chunk_rows:
         return _tiled_scan_grouped(
             q3, m3, chunk_ids, vec_chunks, norm_chunks, role_chunks,

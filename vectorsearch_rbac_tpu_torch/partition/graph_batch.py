@@ -17,7 +17,9 @@ arena rows, dedupe to k) are the reference's. Scoring takes the packed
 rows (core.build_packed_graph_rows) where the arena's int8 mirror is
 lossless, as the reference's does; the slab dispatch then runs the fused
 graph search kernel (ops/graph_search.py graph_search_fused) on the card,
-or the step loop where a group takes the 2-hop harvest.
+or the step loop where a group takes the 2-hop harvest or a shape the
+fused kernel does not take (ef above 512, M0 above 64, budgets past 4096
+steps).
 """
 
 from __future__ import annotations
