@@ -56,13 +56,17 @@ without a CUDA device or without the port's package beside it. Phases:
    queries), and the step's merges at ef 64, kk 18 (bit-identical); beside
    the score kernel, index_select's time for the same row gather, printed
    as a gather-only yardstick (the kernel also scores the rows, so it is
-   not the kernel's library_ms); its search half runs after 4d, on 4d's
+   not the kernel's library_ms), and the score kernel on the same
+   candidates at W 40 (36 sparse random words appended to the rows and
+   masks) and at d_pad 1152 (1,024 random code columns appended), each
+   bit-identical to its plain version; its search half runs after 4d, on 4d's
    slab: a 4096-query chunk of the cell (the recorded graph chunks' real
    queries with their slots, entries and step budgets) through the fused
    graph search and its plain loop, bit-equal, beside the step loop on the
    same inputs (KS7 + KS6 + the PyTorch dedup: a yardstick, since no one
    PyTorch call computes a graph search) and the bound from the kernel's
-   expansion count; then the harvest leg, the same chunk with the 2-hop
+   expansion count, then the same chunk at W 40 through the fused search
+   and its plain loop, bit-equal; then the harvest leg, the same chunk with the 2-hop
    harvest (the step loop: KS7 and KS6 launch, the fused search not),
    bit-equal to its plain loop, with its own launch counts;
 4. the SIFT path at full size: a 1M x 128 SIFT-like corpus (seed 0) with
@@ -78,12 +82,18 @@ without a CUDA device or without the port's package beside it. Phases:
    roles (10k users, 10 bitset words). The narrow scan and its slot form
    at W 10 (and at W 32: the same bitsets with zero words appended)
    against their plain versions on a 2048-query batch, bit-identical, and
-   timed in turns beside both at W 4 (phase 3's operands); then 8192
+   timed in turns beside both at W 4 (phase 3's operands), with both on
+   random bitsets at W 32, 64 and 128 (past 32 words: the huge forms),
+   bit-identical to their plain versions; then 8192
    queries, top-100, through build_searcher("rls") with admit-dedup on and
    run_benchmark against the exact float32 oracle: recall, readable rows,
    and the slot form launched;
-4c. the partitioned strategies on the same corpus and arena: ROLE, USER
-   and AnonySys (dynamic, storage alpha 2.0, the port's own planner), each
+4c. the partitioned strategies on the same corpus and arena: ROLE, USER,
+   AnonySys (dynamic, storage alpha 2.0, the port's own planner) and
+   QDTree (built from the 4096 queries as the reference's strategy compare
+   builds it: min_leaf 64, max_depth 16, radius scale 0.3; its leaves and
+   their tiers printed, and where a leaf takes the big tier the slot form,
+   the extraction and the bitonic sort must launch), each
    over the first 4096 queries, top-10, batch 1024, against the exact
    top-10 oracle, with recall, QPS, batch-1 latency, partitions, storage,
    build time and the device time of the chunk engine against the big
@@ -106,7 +116,7 @@ without a CUDA device or without the port's package beside it. Phases:
    (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
    metric, score shift 3, group 128), bit-identical, beside a dots-only
    yardstick (torch._int_mm over the same operands in 8 row chunks: the
-   int32 dots alone, written out), the wide scan's W 10 and W 32 forms on
+   int32 dots alone, written out), the wide scan's W 10, 32, 64 and 128 forms on
    the same bitsets with zero words appended (the same minima), timed in
    turns beside it, then the merge kernels on its minima at kk = 100 + 32
    (keep 136);
@@ -164,6 +174,12 @@ GRAPH_EF = 64         # the hybrid probes' ef (pow2 of max(40, 2 * 10))
 GRAPH_KK = 18         # top-10 + the 8-row dedupe margin
 GRAPH_SLAB = (40, 65536)   # graph partitions x padded rows at 1M, alpha 2
 WIDE_ROLES = 300      # phase 4e's tree world: 10 bitset words
+HUGE_WORDS = (32, 64, 128)  # phase 4e's random bitsets: 1,024-4,096 roles
+GRAPH_WIDE_W = 40     # phase 3d's graph rows past 1,024 roles
+GRAPH_WIDE_D = 1152   # and past the register form's d_pad 1024
+# QDTree in 4c: the reference's strategy compare's build
+# (scripts/strategy_compare_1m.py:69, build_qdtree_searcher's defaults)
+QD_MIN_LEAF, QD_MAX_DEPTH, QD_RADIUS_SCALE = 64, 16, 0.3
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, dense int8
 # tensor-core ops/s, float32 ops/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -695,13 +711,50 @@ def pad_words(bits, w: int):
     return torch.nn.functional.pad(bits, (0, w - bits.shape[1])).contiguous()
 
 
+def sparse_words(n: int, w: int, device, gen, ands: int = 5):
+    """(n, w) int32 random bitset words, each bit set with p 2^-ands (the
+    AND of `ands` uniform words)."""
+    import torch
+
+    out = None
+    for _ in range(ands):
+        r = torch.randint(-2**31, 2**31, (n, w), dtype=torch.int32,
+                          device=device, generator=gen)
+        out = r if out is None else out & r
+    return out
+
+
+def widen_packed(packed, w: int, more_words: int = 0, more_cols: int = 0,
+                 gen=None):
+    """Packed graph rows [int8 code | w words | f32 norm] with more_cols
+    random int8 code columns and more_words sparse random words appended to
+    their sections (the kernels and their plain versions read the same
+    rows, so the norm need not follow the code)."""
+    import torch
+
+    d_pad = packed.shape[1] - 4 * w - 4
+    n = packed.shape[0]
+    parts = [packed[:, :d_pad]]
+    if more_cols:
+        parts.append(torch.randint(-127, 128, (n, more_cols),
+                                   dtype=torch.int8, device=packed.device,
+                                   generator=gen))
+    parts.append(packed[:, d_pad:d_pad + 4 * w])
+    if more_words:
+        parts.append(sparse_words(n, more_words, packed.device, gen).view(
+            torch.int8))
+    parts.append(packed[:, d_pad + 4 * w:])
+    return torch.cat(parts, 1).contiguous()
+
+
 def check_wide_world(scan_args, arena, world, workload, device, smi):
     """Phase 4e, kernel half: K1 and its slot form at W 10 (the 300-role
-    world's arena) and W 32 (the same bitsets with zero words appended)
-    against their plain versions on a 2048-query batch, and their times in
-    turns beside K1 and its slot form at W 4 (phase 3's operands: the same
-    query codes and rows, the 100-role world's bitsets). Returns {kernel:
-    (ok, max_abs_err)} for the scan rows."""
+    world's arena) and W 32 (the same bitsets with zero words appended),
+    and on random bitsets at W 32, 64 and 128 (the huge forms past 32
+    words), against their plain versions on a 2048-query batch, and their
+    times in turns beside K1 and its slot form at W 4 (phase 3's operands:
+    the same query codes and rows, the 100-role world's bitsets). Returns
+    {kernel: (ok, max_abs_err)} for the scan rows."""
     import numpy as np
     import torch
 
@@ -720,6 +773,18 @@ def check_wide_world(scan_args, arena, world, workload, device, smi):
                    mask_sub_block=SLOT_SB)
     distinct4 = np.unique(np.ascontiguousarray(qbits4.cpu().numpy()), axis=0)
     slots4 = t(distinct4[np.arange(BATCH // SLOT_SB) % len(distinct4)])
+    # past 1,024 roles: random bitsets at W 32, 64 and 128 (each bit of a
+    # row set with p 1 / (4 W), of a query with 1 / (2 W): about 1 - e^(-4
+    # / W) of the pairs admitted), the huge forms beside the W 32 form
+    gen = torch.Generator(device=device).manual_seed(4)
+    huge = {}
+    for w in HUGE_WORDS:
+        lg = w.bit_length() - 1
+        rb = sparse_words(x8.shape[0], w, device, gen, lg + 2)
+        huge[f"K1 W{w} rand"] = ((q8, x8, norms, rb, sparse_words(
+            BATCH, w, device, gen, lg + 1)), kw)
+        huge[f"S2 W{w} rand"] = ((q8, x8, norms, rb, sparse_words(
+            BATCH // SLOT_SB, w, device, gen, lg + 1)), slot_kw)
     forms = {   # name: (operands, kwargs)
         "K1 W4": ((q8, x8, norms, bits4, qbits4), kw),
         "K1 W10": ((q8, x8, norms, bits10, qbits10), kw),
@@ -729,9 +794,10 @@ def check_wide_world(scan_args, arena, world, workload, device, smi):
         "S2 W10": ((q8, x8, norms, bits10, slots10), slot_kw),
         "S2 W32": ((q8, x8, norms, pad_words(bits10, 32),
                     pad_words(slots10, 32)), slot_kw),
+        **huge,
     }
     same, errs = {}, {}
-    for name in ("K1 W10", "K1 W32", "S2 W10", "S2 W32"):
+    for name in ("K1 W10", "K1 W32", "S2 W10", "S2 W32", *huge):
         ops, fkw = forms[name]
         got = scan_int8.int8_group_minima(*ops, **fkw)
         want = scan_int8.int8_group_minima_plain(*ops, **fkw)
@@ -759,8 +825,10 @@ def check_wide_world(scan_args, arena, world, workload, device, smi):
         + ", ".join(f"{n} {b:.6f}" for n, b in bounds.items()))
     if not all(same.values()):
         fail(f"a wide-world scan disagrees with its plain version: {same}")
-    return {"scan_int8": (True, max(errs["K1 W10"], errs["K1 W32"])),
-            "scan_int8_slots": (True, max(errs["S2 W10"], errs["S2 W32"]))}
+    return {"scan_int8": (True, max(v for n, v in errs.items()
+                                    if n.startswith("K1"))),
+            "scan_int8_slots": (True, max(v for n, v in errs.items()
+                                          if n.startswith("S2")))}
 
 
 def check_wires(name, searcher, workload, world, smi) -> None:
@@ -858,6 +926,47 @@ def check_graph_step(arena, workload, world, device, smi):
     extra = {"graph_score": (
         *bound_ms(s_bytes, 2.0 * arena.quant.d_pad * valid, F32_OPS_S),
         None)}
+    # past 1,024 roles and past d_pad 1024: the same candidates on rows
+    # with 36 sparse random words appended (W 40: the role test loops past
+    # 32 words) and on rows with 1,024 random code columns appended (d_pad
+    # 1152: the query's floats read from L1), each against its plain
+    # version; integer queries keep every dot exact
+    gen = torch.Generator(device=device).manual_seed(5)
+    w0 = qmask.shape[1]
+    legs = {}
+    for leg, more_w, more_c in ((f"W {GRAPH_WIDE_W}", GRAPH_WIDE_W - w0, 0),
+                                (f"d_pad {GRAPH_WIDE_D}", 0,
+                                 GRAPH_WIDE_D - arena.quant.d_pad)):
+        wide = widen_packed(packed, w0, more_w, more_c, gen)
+        wargs = list(sargs)
+        wargs[1] = wide
+        if more_w:
+            wargs[3] = torch.cat([sargs[3], sparse_words(
+                nq, more_w, device, gen, 4)], 1).contiguous()
+        if more_c:
+            wargs[2] = torch.cat([sargs[2], torch.randint(
+                -20, 21, (nq, more_c), device=device, generator=gen).float()],
+                1).contiguous()
+        ws, wok = graph_step.graph_score_packed(*wargs)
+        ws_p, wok_p = graph_step.graph_score_packed_plain(*wargs)
+        torch.cuda.synchronize()
+        wd = wide.shape[1] - 4 * wargs[3].shape[1] - 4
+        legs[leg] = (
+            torch.equal(ws, ws_p) and torch.equal(wok, wok_p),
+            cuda_ms(lambda wargs=wargs: graph_step.graph_score_packed(
+                *wargs), 20),
+            bound_ms(nbytes(wargs[0], wargs[2], wargs[3], wargs[4],
+                            wargs[7], ws, wok) + valid * (4 + wide.shape[1]),
+                     2.0 * wd * valid, F32_OPS_S)[0],
+            float(wok.float().mean()))
+        del wide, ws, wok, ws_p, wok_p
+    say("  graph_score past the first forms (" + smi + "; tolerance 0): "
+        + "; ".join(f"{leg}: identical={ok} {ms:.4f} ms, bound {b:.6f} ms, "
+                    f"admitted share {adm:.4f}"
+                    for leg, (ok, ms, b, adm) in legs.items()))
+    if not all(v[0] for v in legs.values()):
+        fail(f"graph_score disagrees with its plain version past W 32 or "
+             f"d_pad 1024: { {k: v[0] for k, v in legs.items()} }")
 
     def sorted_vals(w, empty):
         v = np.sort(rng.integers(0, 400_000, (nq, w)).astype(np.float32), 1)
@@ -1103,6 +1212,41 @@ def check_graph_search(calls, smi):
     if not steps_same:
         fail("the step loop disagrees with the plain loop on the cell chunk")
 
+    # past 1,024 roles: the same chunk on packed rows with 36 sparse random
+    # words appended (W 40) and query masks with as many, through the fused
+    # search (its role test loops past 32 words) and its plain loop
+    gen = torch.Generator(device=graph.device).manual_seed(6)
+    more = GRAPH_WIDE_W - w
+    packed_w = widen_packed(packed, w, more, 0, gen)
+    mask_w = torch.cat([cols["mask"], sparse_words(
+        GRAPH_Q, more, graph.device, gen, 4)], 1).contiguous()
+    fused_w = (fused_args[0], graph, mask_w, *fused_args[3:7], packed_w,
+               *fused_args[8:])
+    stats_w = torch.zeros_like(stats)
+    got_w = graph_search.graph_search_fused(*fused_w, stats=stats_w)
+    want_w = graph_search.graph_beam_search_iterative_plain(
+        cols["q"], None, None, None, graph, mask_w, cols["entry"], kk, ef,
+        max_steps, **{**loop_kw, "packed_rows": packed_w})
+    torch.cuda.synchronize()
+    same_w = all(torch.equal(a, b) for a, b in zip(got_w, want_w))
+    ms_w = cuda_ms(lambda: graph_search.graph_search_fused(*fused_w), 10)
+    exp_w, scored_w = (int(v) for v in stats_w.tolist())
+    row_w = packed_w.shape[1]
+    bound_w = bound_ms(
+        nbytes(*cols.values(), mask_w, *got_w) + GRAPH_Q * (4 + row_w)
+        + exp_w * 4 * m0 + scored_w * (4 + row_w),
+        2.0 * d_pad * (scored_w + GRAPH_Q), F32_OPS_S)
+    say(f"  graph_search at W {GRAPH_WIDE_W} (the same chunk, {row_w}-B "
+        f"packed rows) ({smi}): equal to its plain loop {same_w}, "
+        f"{ms_w:.3f} ms against {fused_ms:.3f} ms at W {w}; bound "
+        f"{bound_w[0]:.6f} ms ({bound_w[1]}); {exp_w} expansions, "
+        f"{scored_w} scored; {int((want_w[1] >= 0).sum())} results against "
+        f"{int((want[1] >= 0).sum())}")
+    if not same_w:
+        fail(f"the fused graph search at W {GRAPH_WIDE_W} disagrees with its "
+             "plain loop")
+    del packed_w, got_w, want_w
+
     _build.reset_launches()
     got_h = graph_search.graph_beam_search_iterative(*loop_args, True,
                                                      **loop_kw)
@@ -1165,7 +1309,8 @@ def drive_partitioned(name, searcher, build_s, corpus, world, workload,
     say(f"{name} ({smi}): recall@{PART_TOPK} {res.avg_recall}, {res.qps} "
         f"QPS over {workload.num_queries} queries (pass walls ms "
         f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 p50 "
-        f"{res.p50_ms} ms p95 {res.p95_ms} ms, {rep['num_partitions']} "
+        f"{res.p50_ms} ms p95 {res.p95_ms} ms p99 {res.p99_ms} ms, "
+        f"{rep['num_partitions']} "
         f"partitions ({len(searcher._big)} big tier), {rep['total_mb']:.1f} "
         f"MB, build {build_s:.2f} s; traced pass {wall:.3f} ms, device busy "
         f"{busy:.3f} ms: chunk engine {chunk:.3f} ms, big tier {big:.3f} "
@@ -1174,6 +1319,26 @@ def drive_partitioned(name, searcher, build_s, corpus, world, workload,
     if res.avg_recall < RECALL_FLOOR:
         fail(f"{name}: recall {res.avg_recall:.4f} < {RECALL_FLOOR}")
     return launches, any(grouped.values())
+
+
+def check_qdtree_tiers(searcher, launches, smi) -> None:
+    """4c's QDTree leg: its leaves and the tier each took (the chunk engine
+    or the big tier, above 48 chunks of 2,048 rows); where a leaf took the
+    big tier, the narrow scan's slot form (admit-dedup), the extraction
+    and the bitonic sort must have launched in the leg."""
+    tree = searcher.tree
+    big = {pid: len(tree.leaf_rows[pid]) for pid in sorted(searcher._big)}
+    chunked = {pid: len(tree.leaf_rows[pid])
+               for pid in sorted(searcher.part_chunks)}
+    say(f"qdtree leaves ({smi}): {len(tree.leaf_rows)} leaves, route radius "
+        f"{tree.route_radius}; big tier (rows) {big}; chunk engine (rows) "
+        f"{chunked}")
+    if big:
+        idle = [k for k in ("scan_int8_slots", "merge_extract",
+                            "merge_bitonic") if launches[k] == 0]
+        if idle:
+            fail(f"qdtree: a leaf took the big tier but {idle} never "
+                 "launched")
 
 
 def main() -> None:
@@ -1398,13 +1563,16 @@ def main() -> None:
     launches_part = {k: 0 for k in launches_sift}
     grouped = False
     plan = None
-    for name in ("role", "user", "dynamic"):
+    for name in ("role", "user", "dynamic", "qdtree"):
         pcfg = serving_config(seed=0, block_rows=BLOCK_ROWS, topk=PART_TOPK,
                               strategy=name)
         pcfg.optimizer.storage_alpha = PART_ALPHA
         pcfg.optimizer.topk = PART_TOPK
+        kw = (dict(workload=part_workload, min_leaf=QD_MIN_LEAF,
+                   max_depth=QD_MAX_DEPTH, radius_scale=QD_RADIUS_SCALE)
+              if name == "qdtree" else {})
         t0 = time.perf_counter()
-        searcher = build_searcher(name, corpus, world, arena, pcfg)
+        searcher = build_searcher(name, corpus, world, arena, pcfg, **kw)
         build_s = time.perf_counter() - t0
         launches, g = drive_partitioned(
             f"{name} (1M x 128, l2, batch {pcfg.search.batch_size})",
@@ -1413,6 +1581,8 @@ def main() -> None:
         grouped |= g
         for k in launches_part:
             launches_part[k] += launches[k]
+        if name == "qdtree":
+            check_qdtree_tiers(searcher, launches, smi)
         if name == "dynamic":
             plan = searcher.plan
             ab_dedup("AnonySys", list(searcher._big.values()),
@@ -1476,15 +1646,16 @@ def main() -> None:
         cuda_ms(lambda: scan_int8.int8_group_minima_wide_plain(*wide_args),
                 3))
     extra["scan_int8_wide"] = (*scan_bound(*wide_args[:5], packed), None)
-    # K2's wide-world forms: the same bitsets with zero words appended up
-    # to W 10 and 32 (the same admissibility, so the same minima), in
-    # turns with K2 at W 4
+    # K2's wide-world forms (W 10, 32) and huge forms (W 64, 128): the
+    # same bitsets with zero words appended (the same admissibility, so
+    # the same minima), in turns with K2 at W 4
     k2_forms = {f"K2 W{w}": (*wide_args[:3], pad_words(wide_args[3], w),
-                             pad_words(wide_args[4], w)) for w in (10, 32)}
+                             pad_words(wide_args[4], w))
+                for w in (10, 32, 64, 128)}
     k2_forms = {"K2 W4": wide_args[:5], **k2_forms}
     k2_kw = dict(group=GROUP, metric="ip", score_shift=shift)
     k2_same = {}
-    for name in ("K2 W10", "K2 W32"):
+    for name in ("K2 W10", "K2 W32", "K2 W64", "K2 W128"):
         got = scan_int8.int8_group_minima_wide(*k2_forms[name], **k2_kw)
         torch.cuda.synchronize()
         k2_same[name] = torch.equal(got, packed_plain)

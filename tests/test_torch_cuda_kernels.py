@@ -8,8 +8,8 @@ conftest is left out):
         tests/test_torch_cuda_kernels.py
 
 The shapes here are small and deliberately ragged (query counts that fill
-no block, every group width, 1-8 bitset words and the wide-world forms'
-9, 16 and 32, d_pad 256 and the wide 384-768, the ip metric, score
+no block, every group width, 1-8 bitset words, the wide-world forms'
+9, 16 and 32 and the huge forms' 33-128, d_pad 256 and the wide 384-768, the ip metric, score
 shifts, ties everywhere, both slot layouts of the admit-dedup form) to
 reach the corners the main-path runs in chip_smoke.py do not."""
 
@@ -246,7 +246,7 @@ def test_slot_form_skips_what_no_slot_admits(dev, sb, tile):
     assert (got[4:8] != masked).any()          # tile 1: some slots
 
 
-@pytest.mark.parametrize("w", [9, 16, 32])
+@pytest.mark.parametrize("w", [9, 16, 32, 33, 64, 65, 128])
 @pytest.mark.parametrize("form,sb,tile", [("per-query", 0, 0),
                                           ("slots-16", 16, 0),
                                           ("slots-8", 8, 0),
@@ -260,10 +260,12 @@ def test_wide_world_scans_bit_identical(dev, w, form, sb, tile, d_pad, nq,
                                         npad, group, metric, shift):
     """K1 (per-query and both slot layouts) and K2 (and its slot form) at W
     9, 16 and 32, the wide-world forms (binary tensor-core admit test),
-    against the plain version, bit for bit; the slot forms also against
-    the per-query form on the expanded masks. Query (and slot) 0 has no
-    role, 1 every role, 2 only a role no row has; one launch of the scan
-    (and of its slot form) each."""
+    and 33, 64, 65 and 128, the huge forms (the same test 32 words at a
+    time), against the plain version, bit for bit; the slot forms also
+    against the per-query form on the expanded masks. Query (and slot) 0
+    has no role, 1 every role, 2 only a role no row has, 3 only the other
+    roles of the last word (admitted by the last word alone); one launch
+    of the scan (and of its slot form) each."""
     q8, x8, norms, rb, qb = _scan_inputs(
         np.random.default_rng(w * d_pad + sb + tile), dev, nq, npad, d_pad,
         w)
@@ -271,6 +273,8 @@ def test_wide_world_scans_bit_identical(dev, w, form, sb, tile, d_pad, nq,
     qb[1] = -1                                 # every role
     qb[2] = 0
     qb[2, w - 1] = -0x80000000                 # only the last role
+    qb[3] = 0
+    qb[3, w - 1] = 0x7FFFFFFF                  # the last word's others
     wide = d_pad > scan_int8.NARROW_MAX_D
     count = "scan_int8_wide" if wide else "scan_int8"
     kw = dict(group=group, metric=metric, score_shift=shift)
@@ -332,6 +336,43 @@ def test_tiled_searcher_cuda_equals_cpu(dev):
     np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
     np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
     assert (got["cpu"][1] >= 0).mean() > 0.9
+
+
+def test_qdtree_on_the_card(dev):
+    """A QDTree over a 200,000-row SIFT-like corpus, built from its workload
+    (the strategy compare's build), on the card and on the CPU: the same
+    tree, identical distances and ids (lossless int8, exact float32 dots),
+    and recall@10 against the exact float32 oracle on the card at least
+    0.95."""
+    from vectorsearch_rbac_tpu_torch import (GroundTruthOracle,
+                                             build_device_arena,
+                                             build_searcher)
+    from vectorsearch_rbac_tpu_torch.bench import (compute_truth_sample,
+                                                   make_scenario,
+                                                   serving_config)
+    from vectorsearch_rbac_tpu_torch.bench.ground_truth import (
+        compute_recall)
+
+    corpus, w, wl = make_scenario(n=200_000, num_queries=1024, topk=10)
+    cfg = serving_config(seed=0, block_rows=16384, topk=10,
+                         strategy="qdtree")
+    got, leaves = {}, {}
+    for d in (dev, torch.device("cpu")):
+        arena = build_device_arena(corpus, w, device=d, block_rows=16384,
+                                   dtype="int8")
+        s = build_searcher("qdtree", corpus, w, arena, cfg, workload=wl,
+                           min_leaf=64, max_depth=16)
+        leaves[d.type] = [r.tolist() for r in s.tree.leaf_rows]
+        got[d.type] = s.search_batch(wl.vectors, wl.user_ids, w.user_masks,
+                                     10)
+    assert leaves["cuda"] == leaves["cpu"] and len(leaves["cpu"]) > 1
+    np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
+    np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
+    gt = build_device_arena(corpus, w, device=dev, block_rows=16384,
+                            dtype="float32")
+    truth = compute_truth_sample(GroundTruthOracle(gt, block_rows=16384),
+                                 corpus, w, wl, 10, recall_sample=None)
+    assert compute_recall(got["cuda"][1], truth) >= 0.95
 
 
 def test_merge_kernels_at_the_rerank_width(dev):
@@ -513,15 +554,26 @@ def test_wide_search_cuda_equals_cpu(dev):
     assert np.mean(same) >= 19.9 and min(same) >= 18
 
 
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one byte off 16."""
+    raw = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.int8,
+                      device=t.device)
+    off = (1 - raw.data_ptr()) % 16
+    out = raw[off:off + t.numel() * t.element_size()].view(t.dtype)
+    return out.view(t.shape).copy_(t)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     from vectorsearch_rbac_tpu_torch.ops import lab_scan
 
-    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 128, 33)
-    with pytest.raises(ValueError, match="queue 3 item 4"):
-        scan_int8.int8_group_minima(*args)
-    args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 384, 33)
-    with pytest.raises(ValueError, match="queue 3 item 4"):
-        scan_int8.int8_group_minima(*args)      # the wide kernel: W > 32
+    q8, x8, *rest = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 128,
+                                 33)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        scan_int8.int8_group_minima(q8, _misaligned(x8), *rest)
+    q8, x8, *rest = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 384,
+                                 33)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        scan_int8.int8_group_minima(_misaligned(q8), x8, *rest)  # K2
     args = _scan_inputs(np.random.default_rng(1), dev, 8, 1024, 128, 9)
     with pytest.raises(ValueError):             # the lab's forms: W <= 8
         lab_scan.lab_group_minima(*args, variant="chain")
@@ -545,6 +597,8 @@ def _score_inputs(rng, dev, nq, c, npad, d, w, integer, multi):
     bits = rng.integers(0, 2**32, (npad, w), dtype=np.uint64).astype(
         np.uint32)
     bits[rng.random((npad, w)) < 0.7] = 0
+    if w > 32:
+        bits[::2, :32] = 0      # rows admitted by the words past 32 alone
     norm = rng.random(npad).astype(np.float32) * 1e6
     packed = np.concatenate([code, bits.view(np.int8).reshape(npad, -1),
                              norm.view(np.int8).reshape(npad, 4)], axis=1)
@@ -553,6 +607,7 @@ def _score_inputs(rng, dev, nq, c, npad, d, w, integer, multi):
                  else rng.standard_normal((nq, d)) * 50)
     qmask = rng.integers(0, 2**32, (nq, w), dtype=np.uint64).astype(
         np.uint32).view(np.int32)
+    qmask[::3, 32:] = 0         # and queries that do not have the rest
     qcd = rng.integers(-5000, 5000, nq).astype(np.float32)
     n_class = 512
     ids = rng.integers(-1, n_class, (nq, c)).astype(np.int32)
@@ -576,10 +631,17 @@ def _score_inputs(rng, dev, nq, c, npad, d, w, integer, multi):
     (64, 1024, 128, 4, True, True),      # the 2-hop harvest's M0^2
     (50, 32, 200, 8, True, False),       # d_pad 256
     (130, 32, 768, 2, False, True),      # float data: the tolerance
+    # worlds of 1,024 roles and past: the role test loops past 32 words
+    (300, 32, 128, 32, True, True),
+    (77, 32, 128, 40, True, False),
+    (64, 1024, 128, 64, True, True),
+    (50, 32, 1100, 4, True, False),      # d_pad 1152: the floats from L1
+    (30, 32, 1152, 40, False, True),
 ])
 def test_graph_score_kernel_against_plain(dev, nq, c, d, w, integer, multi):
     """KS7: bit-identical on integer data; on float data within the
-    stated tolerance. -1 ids give +inf / False."""
+    stated tolerance, at 1-64 bitset words and d_pad 128-1152. -1 ids give
+    +inf / False."""
     from vectorsearch_rbac_tpu_torch.ops import graph_step
 
     args = _score_inputs(np.random.default_rng(nq + c), dev, nq, c, 4096, d,
@@ -719,6 +781,8 @@ def _search_inputs(rng, dev, nq, m0, d_pad, w, mode, spread, n_class=1500,
     bits = rng.integers(0, 2**32, (npad, w), dtype=np.uint64).astype(
         np.uint32)
     bits[rng.random((npad, w)) < 0.7] = 0
+    if w > 32:
+        bits[::2, :32] = 0      # rows admitted by the words past 32 alone
     bits[7] = 0                                  # a row no mask admits
     norm = (code.astype(np.float32) ** 2).sum(1, dtype=np.float32)
     packed = np.concatenate([code, bits.view(np.int8).reshape(npad, -1),
@@ -726,6 +790,7 @@ def _search_inputs(rng, dev, nq, m0, d_pad, w, mode, spread, n_class=1500,
     q = rng.integers(-20, 21, (nq, d)).astype(np.float32)
     qmask = rng.integers(0, 2**32, (nq, w), dtype=np.uint64).astype(
         np.uint32).view(np.int32)
+    qmask[::3, 32:] = 0         # and queries that do not have the rest
     qcd = rng.integers(-5000, 5000, nq).astype(np.float32)
     n_nodes = npad if mode == "none" else n_class
     shape = ((3, n_class, m0) if mode == "multi" else (n_nodes, m0))
@@ -767,6 +832,10 @@ def _search_inputs(rng, dev, nq, m0, d_pad, w, mode, spread, n_class=1500,
         (33, 512, 10, 32, 128, 4, 256, "none", False, 20),
         (20, 1, 1, 8, 16, 1, 128, "multi", False, 20),       # done at entry
         (4096, 64, 18, 32, 128, 4, 128, "multi", True, 2),   # one wave
+        # 1,024 roles and past: the role test loops past 32 words
+        (300, 64, 18, 32, 128, 32, 128, "multi", True, 20),
+        (100, 64, 18, 32, 128, 40, 256, "logical", True, 20),
+        (64, 128, 10, 64, 256, 64, 768, "multi", True, 20),
     ])
 def test_graph_search_fused_against_plain(dev, nq, ef, kk, m0, max_steps, w,
                                           d_pad, mode, budget, spread):
@@ -842,6 +911,31 @@ def test_hybrid_search_outside_the_fused_shapes(dev, nq, ef, kk, m0,
             kw.pop("query_masks"), kw.pop("entries"), kk, ef, max_steps)
     assert graph_search.fused_shape_problems(4, 128, 121, m0, kk, ef,
                                              max_steps)
+    before = dict(_build.LAUNCHES)
+    got = graph_search.graph_beam_search_iterative(*args, **kw)
+    after = dict(_build.LAUNCHES)
+    want = graph_search.graph_beam_search_iterative_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert after["graph_search"] == before["graph_search"]
+    assert after["graph_score"] > before["graph_score"]
+    assert after["graph_merge"] > before["graph_merge"]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert (want[1][2:] >= 0).any()
+
+
+@pytest.mark.parametrize("w,harvest", [(4, False), (40, False), (40, True)])
+def test_graph_search_past_d_pad_1024(dev, w, harvest):
+    """Packed rows of d_pad 1152 (past the fused kernel's d_pads and KS7's
+    register form) run the step loop on the card, KS7 reading the query's
+    floats from L1, with and without the harvest, at 4 and 40 bitset
+    words: KS7 and KS6 launch, the fused search does not, and the results
+    equal the plain loop's, distances and ids."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    kw = _search_inputs(np.random.default_rng(w + harvest), dev, 48, 16,
+                        1152, w, "logical", 20, budget_max=32)
+    args = (kw.pop("queries"), None, None, None, kw.pop("graph"),
+            kw.pop("query_masks"), kw.pop("entries"), 10, 32, 32, harvest)
     before = dict(_build.LAUNCHES)
     got = graph_search.graph_beam_search_iterative(*args, **kw)
     after = dict(_build.LAUNCHES)

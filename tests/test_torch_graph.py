@@ -169,6 +169,45 @@ def test_iterative_search_matches_reference(setup, case, fn):
     assert (gi >= 0).sum() > 0.5 * gi.size
 
 
+@pytest.fixture(scope="module")
+def wide_setup():
+    """setup's searches in a tree world of 1,100 roles (35 bitset words,
+    past the 1,024 roles of the first graph kernels' lane-a-word test),
+    over 1,500 documents of 2 rows."""
+    world = RefTreeGenerator(num_users=2200, num_roles=1100, num_docs=1500,
+                             h=3, b0=2, b1=2, seed=5).generate()
+    corpus, _ = ref_corpus(**{**CORPUS, "blocks_per_doc": 2})
+    ra = ref_arena(corpus, world, block_rows=1024, dtype="int8")
+    pa = arena_from_reference(ra, "cpu")
+    graphs = [ref_native.hnsw_build(ra.host_vectors[a:b], m=M,
+                                    ef_construction=32, seed=3)
+              for a, b in PARTS]
+    rng = np.random.default_rng(9)
+    qf = rng.integers(0, 256, (NQ, corpus.dim)).astype(np.float32)
+    # each query holds the roles of 40 users: a user alone reads a handful
+    # of rows in this world
+    masks = np.bitwise_or.reduce(world.user_masks[rng.integers(
+        0, world.num_users, (NQ, 40))], axis=1)
+    return dict(world=world, corpus=corpus, ra=ra, pa=pa, graphs=graphs,
+                qf=qf, masks=masks, rng=rng)
+
+
+@pytest.mark.parametrize("case", [CASES[2], CASES[4]],
+                         ids=["packed-budget", "packed-harvest"])
+def test_hybrid_plain_loop_matches_reference_past_1024_roles(wide_setup,
+                                                             case):
+    """The hybrid executor's packed search (the multi-graph slab, step
+    budgets, with and without the harvest) through its plain loop in a
+    world of 1,100 roles: equal ids and distances to the reference's."""
+    assert wide_setup["pa"].role_bits.shape[1] == 35
+    assert (wide_setup["masks"][:, 32:] != 0).any()
+    (wd, wi), (gd, gi) = _run_both(wide_setup, case,
+                                   graph_beam_search_iterative_plain)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gd, wd)
+    assert (gi >= 0).sum() > 0.15 * gi.size
+
+
 @pytest.mark.parametrize("case", [CASES[1], CASES[2], CASES[4]],
                          ids=["packed-logical", "packed-budget",
                               "packed-harvest"])
@@ -241,25 +280,29 @@ def test_only_the_packed_path_on_the_card_is_fused(packed, harvest, device,
     assert taken == ["fused" if fused else "steps"]
 
 
-@pytest.mark.parametrize("w,d_pad", [(32, 128), (4, 1152)])
+@pytest.mark.parametrize("w,d_pad", [(32, 128), (64, 128), (4, 1152)])
 @pytest.mark.parametrize("harvest", [False, True])
 def test_wide_worlds_raise_on_the_card(harvest, w, d_pad, monkeypatch):
-    """32 bitset words or more, or packed rows past d_pad 1024: no graph
-    kernel takes them (KS7 holds a word a lane and at most 8 code words a
-    lane), so the packed search on the card raises, naming the ROADMAP
-    item, and never takes a plain version."""
+    """32 bitset words or more, and packed rows past d_pad 1024, on the
+    card: nothing raises. Without the harvest, 32 and 64 words reach the
+    fused search (its role test loops past 32 words); d_pad 1152 (past the
+    fused kernel's d_pads) and the harvest take the step loop, whose KS7
+    takes any W and d_pad."""
+    taken = []
+    monkeypatch.setattr(graph_search, "graph_search_fused",
+                        lambda *a, **k: taken.append("fused"))
     monkeypatch.setattr(graph_search, "_step_loop",
-                        lambda *a, **k: pytest.fail("took the step loop"))
-    with pytest.raises(ValueError, match="ROADMAP queue 3 item 4"):
-        graph_beam_search_iterative(
-            _OnDevice("cuda", NQ, 32), None, None, None,
-            _OnDevice("cuda", 3, 2048, 16), _OnDevice("cuda", NQ, w), None,
-            K, EF, STEPS, harvest,
-            packed_rows=_OnDevice("cuda", 4096, d_pad + 4 * w + 4))
+                        lambda *a, **k: taken.append("steps"))
+    graph_beam_search_iterative(
+        _OnDevice("cuda", NQ, 32), None, None, None,
+        _OnDevice("cuda", 3, 2048, 16), _OnDevice("cuda", NQ, w), None,
+        K, EF, STEPS, harvest,
+        packed_rows=_OnDevice("cuda", 4096, d_pad + 4 * w + 4))
+    assert taken == ["steps" if harvest or d_pad > 768 else "fused"]
 
 
 @pytest.mark.parametrize("name,value,ok", [
-    ("w", 31, True), ("w", 32, False), ("w", 0, False),
+    ("w", 31, True), ("w", 32, True), ("w", 0, False),
     ("d_pad", 768, True), ("d_pad", 512, False), ("d_pad", 1024, False),
     ("m0", 64, True), ("m0", 65, False),
     ("ef", 512, True), ("ef", 513, False),

@@ -322,8 +322,6 @@ def test_merge_topk_host_identical():
 def test_unported_strategies_and_metrics_raise(mine):
     mc, mw, ma = mine
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_searcher("qdtree", mc, mw, ma, cfg)
     cfg.index.kind = "ivf"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_searcher("dynamic", mc, mw, ma, cfg)

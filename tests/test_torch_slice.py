@@ -202,6 +202,41 @@ def test_rls_ids_match_reference_past_256_roles():
     assert_same_up_to_ties(corpus, workload.vectors, got, want)
 
 
+@pytest.mark.parametrize("strategy", ["rls", "role"])
+def test_rls_ids_match_reference_past_1024_roles(strategy):
+    """A 1,100-role tree world (35 bitset words, past the 32 of the wide
+    kernel forms) on a small corpus through RLS (the global scan) and ROLE
+    (the chunk engine): the port's ids equal the reference's on the same
+    arena."""
+    kw = dict(num_users=2200, num_roles=1100, h=7, b0=2, b1=3, seed=0)
+    corpus, _ = ref_corpus(num_vectors=4096, blocks_per_doc=2, seed=0)
+    w = RefTreeGenerator(num_docs=corpus.num_docs, **kw).generate()
+    cfg = RefFrameworkConfig(seed=0)
+    p_cfg = port.FrameworkConfig(seed=0)
+    for c in (cfg, p_cfg):
+        c.index.kind = "flat_approx"
+        c.search.batch_size = N_QUERIES
+        c.search.block_rows = 4096
+        c.search.wire_dist = "ids" if strategy == "rls" else "f32"
+    workload = ref_workload(corpus, w, num_queries=N_QUERIES, topk=K,
+                            zipf_param=0, seed=1)
+    ra = ref_arena(corpus, w, block_rows=4096, dtype="int8")
+    _, want = ref_searcher(strategy, corpus, w, ra, cfg).search_batch(
+        workload.vectors, workload.user_ids, w.user_masks, K)
+    p_corpus, _ = port.sift_like_corpus(num_vectors=4096, blocks_per_doc=2,
+                                        seed=0)
+    p_w = port.TreeRBACGenerator(num_docs=p_corpus.num_docs, **kw).generate()
+    assert p_w.words == 35
+    np.testing.assert_array_equal(p_w.user_masks, w.user_masks)
+    searcher = build_searcher(strategy, p_corpus, p_w,
+                              arena_from_reference(ra, "cpu"), p_cfg)
+    _, got = searcher.search_batch(workload.vectors, workload.user_ids,
+                                   p_w.user_masks, K)
+    assert got.shape == want.shape == (N_QUERIES, K)
+    assert (got >= 0).sum() > 0.5 * got.size
+    assert_same_up_to_ties(corpus, workload.vectors, got, want)
+
+
 @pytest.mark.parametrize("wire", ["u8", "bf16", "f32"])
 def test_rls_wires_match_reference(world, port_world, wire):
     """The global path's result wires against the reference's on the same
@@ -417,9 +452,9 @@ def test_bench_entry_refuses_unported_and_cpu(capsys):
     assert parse_args([]).strategy == "rls"
     args = parse_args(["--dataset", "cohere", "--metric", "cosine"])
     assert (args.dataset, args.metric) == ("cohere", "cosine")
-    for name in ("role", "user", "dynamic"):
+    for name in ("role", "user", "dynamic", "qdtree"):
         assert parse_args(["--strategy", name]).strategy == name
-    for off in (["--strategy", "qdtree"], ["--dataset", "synthetic"],
+    for off in (["--dataset", "synthetic"],
                 ["--metric", "l1"], ["--dtype", "float32"],
                 ["--strategy", "role", "--metric", "cosine"]):
         with pytest.raises(SystemExit):

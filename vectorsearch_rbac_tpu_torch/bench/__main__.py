@@ -7,11 +7,13 @@ same defaults and the same single JSON line on stdout:
   {"metric": ..., "value": N, "unit": "qps", "vs_baseline": N}
 The port serves --index flat_approx --dtype int8 with --strategy rls over
 --dataset sift1m or cohere and --metric l2, ip or cosine, and --strategy
-role, user or dynamic (AnonySys, the planner at cfg.optimizer's defaults)
-over l2; any other combination is refused (qdtree and the ip/cosine
-partitions are ROADMAP slice 3 items; --index hnsw needs graphs above
-200,000 rows, hence IVF, ROADMAP queue 1 item 10). It needs a CUDA device and exits
-non-zero without one.
+role, user, dynamic (AnonySys, the planner at cfg.optimizer's defaults)
+or qdtree (built as bench.py builds it: no workload, so the tree samples
+the first 64 role combinations and routes by the margin rule) over l2;
+any other combination is refused (the ip/cosine partitions are a ROADMAP
+slice 3 item; --index hnsw needs graphs above 200,000 rows, hence IVF,
+ROADMAP queue 1 item 10). It needs a CUDA device and exits non-zero
+without one.
 
 Scenario: by default a SIFT1M-shaped corpus (1M x 128-d, 100 blocks/doc);
 with --dataset cohere the cohere-like 1M x 768 unit-normalized corpus,
@@ -30,11 +32,10 @@ import sys
 import time
 
 BASELINE_QPS = 1000.0 / 0.118  # ~8474 QPS, physical role partition, CPU
-PORTED = {"strategy": ("rls", "role", "user", "dynamic"),
+PORTED = {"strategy": ("rls", "role", "user", "dynamic", "qdtree"),
           "index": ("flat_approx",), "dtype": ("int8",),
           "dataset": ("sift1m", "cohere"), "metric": ("l2", "ip", "cosine")}
-_ROADMAP = {"qdtree": "QDTree is ROADMAP slice 3 (queue 1 item 9)",
-            "hnsw": "an HNSW graph over every partition needs one over the "
+_ROADMAP = {"hnsw": "an HNSW graph over every partition needs one over the "
                     "alpha remainder's 660,000 rows, and graphs above "
                     "200,000 rows need the IVF-assisted kNN, ROADMAP queue 1 "
                     "item 10; the hybrid executor (graphs where selectivity "

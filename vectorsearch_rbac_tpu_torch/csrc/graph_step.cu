@@ -43,8 +43,11 @@
 // warp's shared memory (beam values and ids, window and results, each in
 // two buffers that the merges alternate; the history as a list of the
 // expanded nodes, which is the reference's history exactly; the step's
-// candidates; a stage for packed rows), its query floats and mask word in
-// registers. At the hybrid cell's shapes (ef 64, kk 18, M0 32, max_steps
+// candidates; a stage for packed rows), its query floats and its first 32
+// mask words (a lane a word) in registers; past 32 words the role test
+// loops over the lanes and reads the query's other words from L1
+// (row_tail's kMany form, in instantiations of their own at 4 blocks an SM:
+// below 32 words the forms are the ones before), so any role count runs. At the hybrid cell's shapes (ef 64, kk 18, M0 32, max_steps
 // 128, d_pad 128) a warp takes 6.9 KB, so 8 blocks of 4 warps share an SM
 // and a 4096-query chunk runs in one wave on 132 SMs. A step: the done test
 // (warp-uniform reads), the pop, one coalesced read of the neighbour row (a
@@ -95,8 +98,10 @@
 // the row's code as 32 consecutive 4-byte words (one coalesced 128-byte
 // request at d_pad 128; rows are only 4-byte aligned at 148 bytes), each
 // lane holding the matching 4 query floats in registers for all of the
-// query's candidates, then the W + 1 tail words; a shuffle reduction sums
-// the dot and a ballot ORs the bitset test.
+// query's candidates (up to d_pad 1024; wider rows, the kWords 0 form,
+// read the floats from L1 at each use), then the W + 1 tail words, a lane
+// a word and, from 32 words on, a loop over the lanes (row_tail); a
+// shuffle reduction sums the dot and a ballot ORs the bitset test.
 //
 // ---------------------------------------------------------------------------
 // graph_merge_step_kernel replaces the TPU kernel
@@ -137,7 +142,33 @@ constexpr int kScoreWarps = 4;   // warps (candidates in flight) per query
 constexpr int kMergeWarps = 4;   // queries per block
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <int kWords>  // code words per lane: d_pad / 128
+// A packed row's role test and norm from its W + 1 tail words (t: the row's
+// first bitset word): the warp's "any word meets the query's mask". Below
+// 32 words (kMany false) a lane holds a word and the norm's word is among
+// them (lane w); from 32 words on (kMany: worlds of 1,024 roles and more)
+// the words past the first 32 are tested in a loop over the lanes, with
+// the query's words read from L1 (qmask: the query's W words), and the
+// norm is word w. my_mask: the query's word `lane`.
+template <bool kMany>
+__device__ __forceinline__ bool row_tail(const uint32_t* t, int w,
+                                         uint32_t my_mask,
+                                         const int32_t* qmask, int lane,
+                                         float& norm) {
+  const uint32_t tail = lane <= w ? t[lane] : 0u;
+  bool hit = lane < w && (tail & my_mask) != 0u;
+  if constexpr (kMany) {
+    for (int m = lane + kWarp; m < w; m += kWarp)
+      hit |= (t[m] & (uint32_t)__ldg(qmask + m)) != 0u;
+    norm = __uint_as_float(t[w]);
+  } else {
+    norm = __uint_as_float(__shfl_sync(kFull, tail, w));
+  }
+  return __ballot_sync(kFull, hit) != 0u;
+}
+
+// kWords: code words per lane, d_pad / 128 (0: any d_pad, the query's
+// floats read from memory, L1); kMany: 32 bitset words or more
+template <int kWords, bool kMany>
 __global__ void __launch_bounds__(kScoreWarps * kWarp)
 graph_score_packed_kernel(const int32_t* __restrict__ ids,      // (Q, C)
                           const int32_t* __restrict__ row_map,  // or null
@@ -153,13 +184,13 @@ graph_score_packed_kernel(const int32_t* __restrict__ ids,      // (Q, C)
   const int q = blockIdx.x;
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
-  const int code_words = kWords * kWarp;
-  float qv[kWords][4];
+  const int code_words = kWords ? kWords * kWarp : unit_words - w - 1;
+  const float* qrow = qf + (size_t)q * code_words * 4;
+  float qv[kWords ? kWords : 1][4];
 #pragma unroll
   for (int j = 0; j < kWords; ++j)
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      qv[j][b] = qf[(size_t)q * code_words * 4 + (lane + j * kWarp) * 4 + b];
+    for (int b = 0; b < 4; ++b) qv[j][b] = qrow[(lane + j * kWarp) * 4 + b];
   const uint32_t my_mask =
       lane < w ? (uint32_t)qmask[(size_t)q * w + lane] : 0u;
   const float center_dot = qcd[q];
@@ -179,24 +210,33 @@ graph_score_packed_kernel(const int32_t* __restrict__ ids,      // (Q, C)
     }
     const uint32_t* r = packed + (size_t)row * unit_words;
     float part = 0.f;
+    if (kWords) {
 #pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      const uint32_t word = r[lane + j * kWarp];
+      for (int j = 0; j < kWords; ++j) {
+        const uint32_t word = r[lane + j * kWarp];
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
-        part += (float)(int8_t)((word >> (8 * b)) & 0xFFu) * qv[j][b];
+        for (int b = 0; b < 4; ++b)
+          part += (float)(int8_t)((word >> (8 * b)) & 0xFFu) * qv[j][b];
+      }
+    } else {
+      for (int j = lane; j < code_words; j += kWarp) {
+        const uint32_t word = r[j];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          part += (float)(int8_t)((word >> (8 * b)) & 0xFFu) *
+                  __ldg(qrow + 4 * j + b);
+      }
     }
-    const uint32_t tail = lane <= w ? r[code_words + lane] : 0u;
-    const bool hit = lane < w && (tail & my_mask) != 0u;
-    const unsigned any = __ballot_sync(kFull, hit);
-    const float norm = __uint_as_float(__shfl_sync(kFull, tail, w));
+    float norm;
+    const bool any = row_tail<kMany>(r + code_words, w, my_mask,
+                                     qmask + (size_t)q * w, lane, norm);
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1)
       part += __shfl_xor_sync(kFull, part, off);
     if (lane == 0) {
       const float dots = __fadd_rn(__fmul_rn(part, dq_scale), center_dot);
       out_s[o] = __fsub_rn(norm, __fmul_rn(2.f, dots));
-      out_ok[o] = any != 0u;
+      out_ok[o] = any;
     }
   }
 }
@@ -383,11 +423,11 @@ __device__ __forceinline__ void merge_sorted(const float* ad,
 // batch's rows are in flight together), then the warp scores each staged
 // row as graph_score_packed_kernel does (same products, same shuffle tree,
 // same rounding of the dequant steps) into cd / cok.
-template <int kWords>
+template <int kWords, bool kMany>
 __device__ __forceinline__ void score_rows(
     const SearchArgs& a, int n, const int32_t* crow, uint32_t* stage,
     float* cd, int32_t* cok, const float (&qv)[kWords][4], uint32_t my_mask,
-    float center_dot, int lane) {
+    int q, float center_dot, int lane) {
   constexpr int code_words = kWords * kWarp;
   for (int k0 = 0; k0 < n; k0 += a.stage_rows) {
     const int nb = min(a.stage_rows, n - k0);
@@ -397,8 +437,12 @@ __device__ __forceinline__ void score_rows(
 #pragma unroll
       for (int j = 0; j < kWords; ++j)
         cp_async4(s + 4 * (lane + j * kWarp), r + lane + j * kWarp, 4);
-      if (lane <= a.w)
+      if (kMany) {  // the W words and the norm, a lane a word in turns
+        for (int m = lane; m <= a.w; m += kWarp)
+          cp_async4(s + 4 * (code_words + m), r + code_words + m, 4);
+      } else if (lane <= a.w) {
         cp_async4(s + 4 * (code_words + lane), r + code_words + lane, 4);
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -413,25 +457,28 @@ __device__ __forceinline__ void score_rows(
         for (int b = 0; b < 4; ++b)
           part += (float)(int8_t)((word >> (8 * b)) & 0xFFu) * qv[j][b];
       }
-      const uint32_t tail = lane <= a.w ? r[code_words + lane] : 0u;
-      const bool hit = lane < a.w && (tail & my_mask) != 0u;
-      const unsigned any = __ballot_sync(kFull, hit);
-      const float norm = __uint_as_float(__shfl_sync(kFull, tail, a.w));
+      float norm;
+      const bool any = row_tail<kMany>(r + code_words, a.w, my_mask,
+                                       a.qmask + (size_t)q * a.w, lane, norm);
 #pragma unroll
       for (int off = kWarp / 2; off > 0; off >>= 1)
         part += __shfl_xor_sync(kFull, part, off);
       if (lane == 0) {
         const float dots = __fadd_rn(__fmul_rn(part, a.dq_scale), center_dot);
         cd[k0 + k] = __fsub_rn(norm, __fmul_rn(2.f, dots));
-        cok[k0 + k] = any != 0u;
+        cok[k0 + k] = any;
       }
     }
     __syncwarp();   // scores visible; the stage may be refilled
   }
 }
 
-template <int kWords, int kPer>  // kPer: neighbours a lane (M0 <= 32 kPer)
-__global__ void __launch_bounds__(kSearchWarps * kWarp, kWords <= 2 ? 8 : 4)
+// kPer: neighbours a lane (M0 <= 32 kPer); kMany: 32 bitset words or more
+// (at most 4 blocks an SM there, so the words' loop has registers: the
+// 64 a thread of 8 blocks spill)
+template <int kWords, int kPer, bool kMany>
+__global__ void __launch_bounds__(kSearchWarps * kWarp,
+                                  kWords <= 2 && !kMany ? 8 : 4)
 graph_search_fused_kernel(const __grid_constant__ SearchArgs a) {
   extern __shared__ __align__(16) uint32_t search_smem[];
   const int lane = threadIdx.x & (kWarp - 1);
@@ -481,8 +528,8 @@ graph_search_fused_kernel(const __grid_constant__ SearchArgs a) {
   __syncwarp();
   int cnt = 0, wcnt = 0, rcnt = 0;
   if (entry_row >= 0) {
-    score_rows<kWords>(a, 1, is + l.crow, sm + l.stage, fs + l.cd,
-                       is + l.cok, qv, my_mask, center_dot, lane);
+    score_rows<kWords, kMany>(a, 1, is + l.crow, sm + l.stage, fs + l.cd,
+                              is + l.cok, qv, my_mask, q, center_dot, lane);
     const float e_d = fs[l.cd];
     if (lane == 0) {
       fs[l.bd] = e_d;
@@ -558,8 +605,8 @@ graph_search_fused_kernel(const __grid_constant__ SearchArgs a) {
     }
     __syncwarp();
     scored += n;
-    score_rows<kWords>(a, n, is + l.crow, sm + l.stage, fs + l.cd,
-                       is + l.cok, qv, my_mask, center_dot, lane);
+    score_rows<kWords, kMany>(a, n, is + l.crow, sm + l.stage, fs + l.cd,
+                              is + l.cok, qv, my_mask, q, center_dot, lane);
     // sort the candidates by (value, row order): rank by counting
     for (int k = lane; k < n; k += kWarp) {
       const float v = fs[l.cd + k];
@@ -620,10 +667,11 @@ extern "C" int vsr_graph_score_packed(const void* ids, const void* row_map,
                                       void* out_s, void* out_ok, int nq,
                                       int c_width, int d_pad, int w,
                                       void* stream) {
-  if (nq < 1 || c_width < 1 || w < 1 || w >= kWarp ||
-      d_pad % 128 != 0 || unit_bytes != d_pad + 4 * w + 4)
+  if (nq < 1 || c_width < 1 || w < 1 || d_pad < 128 || d_pad % 128 != 0 ||
+      unit_bytes != d_pad + 4 * w + 4)
     return (int)cudaErrorInvalidValue;
   const int unit_words = unit_bytes / 4;
+  const bool many = w >= kWarp;
   const auto s = static_cast<cudaStream_t>(stream);
   const dim3 grid(nq), block(kScoreWarps * kWarp);
 #define VSR_SCORE_ARGS                                                        \
@@ -633,11 +681,20 @@ extern "C" int vsr_graph_score_packed(const void* ids, const void* row_map,
       static_cast<const float*>(qf), static_cast<const int32_t*>(qmask),      \
       static_cast<const float*>(qcd), dq_scale, static_cast<float*>(out_s),   \
       static_cast<uint8_t*>(out_ok), c_width, w
+#define VSR_SCORE_LAUNCH(N_)                                                  \
+  do {                                                                        \
+    if (many)                                                                 \
+      graph_score_packed_kernel<N_, true><<<grid, block, 0, s>>>(             \
+          VSR_SCORE_ARGS);                                                    \
+    else                                                                      \
+      graph_score_packed_kernel<N_, false><<<grid, block, 0, s>>>(            \
+          VSR_SCORE_ARGS);                                                    \
+  } while (0)
 #define VSR_SCORE_CASE(N_)                                                    \
   case N_:                                                                    \
-    graph_score_packed_kernel<N_><<<grid, block, 0, s>>>(VSR_SCORE_ARGS);     \
+    VSR_SCORE_LAUNCH(N_);                                                     \
     break;
-  switch (d_pad / 128) {  // every d_pad the step loop takes: 128 .. 1024
+  switch (d_pad / 128) {  // 128 .. 1024 in registers, wider from memory
     VSR_SCORE_CASE(1)
     VSR_SCORE_CASE(2)
     VSR_SCORE_CASE(3)
@@ -647,9 +704,10 @@ extern "C" int vsr_graph_score_packed(const void* ids, const void* row_map,
     VSR_SCORE_CASE(7)
     VSR_SCORE_CASE(8)
     default:
-      return (int)cudaErrorInvalidValue;
+      VSR_SCORE_LAUNCH(0);
   }
 #undef VSR_SCORE_CASE
+#undef VSR_SCORE_LAUNCH
 #undef VSR_SCORE_ARGS
   return (int)cudaGetLastError();
 }
@@ -685,7 +743,7 @@ extern "C" int vsr_graph_search_fused(
     const void* row_map, const void* pids, int n_class, const void* entries,
     const void* step_budget, void* out_d, void* out_i, void* stats, int nq,
     int d_pad, int w, int ef, int kk, int max_steps, void* stream) {
-  if (nq < 1 || w < 1 || w >= kWarp || unit_bytes != d_pad + 4 * w + 4 ||
+  if (nq < 1 || w < 1 || unit_bytes != d_pad + 4 * w + 4 ||
       m0 < 1 || m0 > kMaxSearchM0 || kk < 1 || kk > ef ||
       ef > kMaxSearchEf || max_steps < 0 || max_steps > kMaxSearchSteps ||
       (pids != nullptr && (row_map == nullptr || n_class < 1)))
@@ -729,13 +787,15 @@ extern "C" int vsr_graph_search_fused(
   const auto s = static_cast<cudaStream_t>(stream);
 #define VSR_SEARCH_LAUNCH(W_, P_)                                            \
   do {                                                                       \
-    auto kern = graph_search_fused_kernel<W_, P_>;                           \
+    auto kern = many ? graph_search_fused_kernel<W_, P_, true>               \
+                     : graph_search_fused_kernel<W_, P_, false>;             \
     cudaError_t e = cudaFuncSetAttribute(                                    \
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);       \
     if (e != cudaSuccess) return (int)e;                                     \
     kern<<<grid, block, smem, s>>>(a);                                       \
   } while (0)
   const bool two = m0 > kWarp;
+  const bool many = w >= kWarp;
   switch (d_pad) {
     case 128:
       if (two) VSR_SEARCH_LAUNCH(1, 2); else VSR_SEARCH_LAUNCH(1, 1);

@@ -135,6 +135,21 @@
 // the tile's own accumulators, then one admit bit a pair; it spilled and
 // was 1.33x slower at W 10 (PERF.md).
 //
+// The huge forms (kHugeWords, any W past 32: worlds past 1,024 roles, any
+// mask layout). A warp's A fragments for all W words would take W / 2
+// registers a thread, and a stage's planes W / 2 KB: neither fits for
+// every W. So the ring stages no words (it keeps 6 stages at d_pad 128, 3
+// at 256), and each consumer warpgroup tests its 64 queries against a tile
+// 32 words at a time (huge_tile_bits in tma_wgmma.cuh): its 128 threads
+// copy the chunk's words of the tile's rows and of its queries into the
+// warpgroup's own 25 KB of shared memory (cp.async, named barrier 1 + g),
+// and each warp runs 4 binary products a slice, one admit bit a pair; a
+// pair is then the multiply-add and the minimum predicated on its bit, as
+// in the wide forms. The producer flags every tile (it keeps no union of
+// the words), so the huge forms skip only the slices no pair of a warp
+// admits. A first design read the words past 32 from L2 in every warp and
+// took 19-50 ms at W 64-128 (PERF.md).
+//
 // The dp4a kernel (scan_int8_kernel below) is the first port's design of
 // K1, kept for the kernel lab only (vsr_scan_int8_lab variant dp4a, per-query
 // masks): the old design's time beside K1's. The TPU lab's unroll and chunk
@@ -150,6 +165,8 @@ namespace {
 
 constexpr int kMaxWords = 8;    // bitset words of the W <= 8 forms
 constexpr int kWideWords = 32;  // of the wide-world forms: 1,024 roles
+constexpr int kHugeWords = 64;  // the huge forms' tag: any W past 32
+constexpr int kAnyWords = 1 << 24;  // the served scan's bound on W: none
 constexpr int32_t kMasked = 0x7F000000;
 // how an accumulator becomes a packed key (pack<kPack> below): K1's fold at
 // score shift 0, K1's shifted form otherwise, and the reference's chain
@@ -168,29 +185,36 @@ constexpr int kTcThreads = 32 * (kProducer + 1);
 template <int D, int kWords>
 struct Ring {
   static constexpr bool kWide = kWords > kMaxWords;
+  // the huge forms stage no words in the ring: each consumer warpgroup
+  // copies them 32 at a time into its own scratch (huge_tile_bits)
+  static constexpr bool kHuge = kWords > kWideWords;
   static constexpr int kChunks = D / 128;  // 128-byte d-chunks
-  // the ring's stages: as many as fit beside the wide forms' planes
-  static constexpr int kStages = D == 128 ? (kWords <= 16 ? 6 : 5)
+  // the ring's stages: as many as fit beside the wide forms' planes, or
+  // the huge forms' scratch
+  static constexpr int kStages = D == 128 ? (kWords <= 16 || kHuge ? 6 : 5)
                                  : kWords <= kMaxWords ? 4
-                                 : kWords <= 16        ? 3
-                                                       : 2;
+                                 : kWords <= 16 || kHuge ? 3
+                                                         : 2;
   static constexpr int kQBytes = kQueries * D;
   static constexpr int kRowBytes = kRows * D;
   // a stage's row data: planes of (kRows, 4) words (two where W <= 8),
   // the bases, the flags
-  static constexpr int kPlanes = kWide ? kWords / 4 : 2;
+  static constexpr int kPlanes = kHuge ? 0 : kWide ? kWords / 4 : 2;
   static constexpr int kPlaneBytes = kPlanes * kRows * 16;
   static constexpr int kAuxBytes = kPlaneBytes + kRows * 4 + 16;
   // the producer's staging of one tile's raw words (a row every kPitch
   // words: 4 x an odd number in the wide forms) and norms (two buffers)
-  static constexpr int kPitch = kWide ? kWords + 4 : kMaxWords;
+  static constexpr int kPitch = kHuge ? 0 : kWide ? kWords + 4 : kMaxWords;
   static constexpr int kStagingBytes = kRows * (kPitch + 1) * 4;
+  static constexpr int kScratchBytes =
+      kHuge ? kConsumers * HugeChunk<64>::kBytes : 0;
   static constexpr int kSmem =
       1024  // slack to align to 1024 bytes
-      + kQBytes + kStages * (kRowBytes + kAuxBytes) + 2 * kStagingBytes +
-      (2 * kStages + 1) * 8;  // mbarriers
+      + kQBytes + kStages * (kRowBytes + kAuxBytes) + kScratchBytes +
+      2 * kStagingBytes + (2 * kStages + 1) * 8;  // mbarriers
   static_assert(kSmem <= 232448, "a block's shared memory");
-  static_assert(!kWide || (kPitch / 4) % 2 == 1, "odd pitch in 16 bytes");
+  static_assert(!kWide || kHuge || (kPitch / 4) % 2 == 1,
+                "odd pitch in 16 bytes");
 };
 
 struct ScanArgs {
@@ -209,6 +233,7 @@ struct Smem {
   using R = Ring<D, kWords>;
   uint32_t qtile;  // the query tile (1024-aligned: swizzle atoms)
   uint32_t rows;   // the ring's row tiles
+  uint8_t* scratch;  // the huge forms' chunks, one a consumer warpgroup
   uint8_t* aux;    // the ring's row data
   uint8_t* staging;
   uint32_t bars;
@@ -217,7 +242,8 @@ struct Smem {
     uint8_t* p = smem_raw + (((raw + 1023u) & ~1023u) - raw);
     qtile = smem_addr(p);
     rows = qtile + R::kQBytes;
-    aux = p + R::kQBytes + R::kStages * R::kRowBytes;
+    scratch = p + R::kQBytes + R::kStages * R::kRowBytes;
+    aux = scratch + R::kScratchBytes;
     staging = aux + R::kStages * R::kAuxBytes;
     bars = smem_addr(staging + 2 * R::kStagingBytes);
   }
@@ -263,6 +289,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
                                         const Smem<D, kWords>& sm, int q0,
                                         int t_begin, int t_end) {
   using R = Ring<D, kWords>;
+  constexpr int kU = R::kHuge ? 1 : kWords;  // the unions' words
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
     mbar_expect(sm.qfull(), R::kQBytes);
@@ -271,14 +298,15 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
       tma_load(sm.qtile + c * kQueries * 128, q_map, c * 128, q0, sm.qfull());
   }
   // lane g < kConsumers keeps the union of warpgroup g's masks (the floor
-  // skips nothing and needs none)
-  uint32_t uni[kWords];
+  // skips nothing and needs none; nor do the huge forms, which flag every
+  // tile)
+  uint32_t uni[kU];
 #pragma unroll
-  for (int m = 0; m < kWords; ++m) uni[m] = 0;
+  for (int m = 0; m < kU; ++m) uni[m] = 0;
 #pragma unroll 1
-  for (int g = 0; g < (kFloor ? 0 : kConsumers); ++g)
+  for (int g = 0; g < (kFloor || R::kHuge ? 0 : kConsumers); ++g)
 #pragma unroll
-    for (int m = 0; m < kWords; ++m) {
+    for (int m = 0; m < kU; ++m) {
       uint32_t u = 0;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -303,7 +331,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
       const uint32_t dst = smem_addr(sm.staging + b * R::kStagingBytes);
       const int32_t* words = a.row_bits + (size_t)tile * kRows * a.w;
       const int32_t* norms = a.norms + (size_t)tile * kRows;
-      if (R::kWide) {
+      if (R::kHuge) {
+        // no words: the consumers copy them
+      } else if (R::kWide) {
         for (uint32_t e = lane; e < kRows * pieces; e += 32) {
           const uint32_t r = __umulhi(e, recip), j = e - r * pieces;
           if (wide16)
@@ -358,7 +388,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
       // against the unions. Words past W are left as they are: the query
       // words and the unions are 0 there.
 #pragma unroll
-      for (int p = 0; p < kWords / 4; ++p) {
+      for (int p = 0; p < R::kPlanes; ++p) {
         if (4 * p >= a.w) break;
         uint32_t any4[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
@@ -408,8 +438,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* q_map,
 #pragma unroll
       for (int m = 0; m < (R::kWide ? 0 : kWords); ++m)
         hit |= __reduce_or_sync(0xffffffffu, any[m]) & uni[m];
-      const uint32_t flags = __ballot_sync(0xffffffffu, hit != 0) &
-                             ((1u << kConsumers) - 1);
+      const uint32_t flags =
+          R::kHuge ? (1u << kConsumers) - 1
+                   : __ballot_sync(0xffffffffu, hit != 0) &
+                         ((1u << kConsumers) - 1);
       if (lane == 0) *sm.flags(s) = flags;
     }
     mbar_arrive(sm.full(s));
@@ -650,6 +682,36 @@ __device__ __forceinline__ void half_wide(const int32_t (&acc)[32],
   }
 }
 
+// The huge forms' epilogue of one 64-row half (W > 32): as half_wide, with
+// the pair's shared-role bit from huge_tile_bits (adm: bit 4 n + 2 i + j)
+// in the place of its count.
+template <int kHalf, int kPack>
+__device__ __forceinline__ void half_huge(const int32_t (&acc)[32],
+                                          uint32_t adm,
+                                          const int32_t* __restrict__ base,
+                                          Epi& e) {
+  const int cl = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int n8 = 8 * kHalf + n;
+    const uint32_t mine = (adm >> (4 * n)) & 15u;
+    if (__any_sync(0xffffffffu, mine)) {  // uniform
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int rr = 8 * n8 + cl + j;
+        const uint32_t bs = (uint32_t)base[rr];
+        const uint32_t rank = kPack == kFold ? 0u : (uint32_t)(rr & e.gm);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          min_if(e.best[i], (int32_t)((mine >> (2 * i + j)) & 1u),
+                 pack<kPack>(acc[4 * n + 2 * i + j], e.mul, bs, e.down,
+                             rank));
+      }
+    }
+    if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
+  }
+}
+
 // The dots of one row tile, one m64n128 product into lo (rows 0-63) and hi
 // (rows 64-127), committed as one wgmma group.
 template <int D>
@@ -685,6 +747,7 @@ __device__ __forceinline__ void consume(const ScanArgs& a,
                                         int t_begin, int t_end) {
   using R = Ring<D, kWords>;
   constexpr bool kWide = R::kWide;
+  constexpr int kFrag = kWide && !R::kHuge ? kWords / 8 : 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4;
   const int qw0 = q0 + 64 * wg + 16 * (warp % 4);  // the warp's first query
@@ -707,13 +770,13 @@ __device__ __forceinline__ void consume(const ScanArgs& a,
   uint32_t sw[kMaxWords];  // the warp-slot path: the slot's words
   uint32_t qf[4];          // the floor: the binary product's A fragment
   // the wide forms: the A fragments of the binary products, 256 roles each
-  uint32_t qa_bits[kWide ? kWords / 8 : 1][4];
+  uint32_t qa_bits[kFrag][4];
 #pragma unroll
-  for (int c = 0; c < (kWide ? kWords / 8 : 1); ++c)
+  for (int c = 0; c < kFrag; ++c)
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int q = qa + 8 * (k & 1), m = 8 * c + lane % 4 + 4 * (k >> 1);
-      qa_bits[c][k] = (kWide && m < a.w && q < a.nq)
+      qa_bits[c][k] = (kWide && !R::kHuge && m < a.w && q < a.nq)
                           ? (uint32_t)a.q_bits[(size_t)mask_row(a, q) * a.w +
                                                m]
                           : 0u;
@@ -760,6 +823,25 @@ __device__ __forceinline__ void consume(const ScanArgs& a,
         half_counts<1, kWords>(hi, qf, sm.planes(s));
         half_floor<0>(lo, e);
         half_floor<1>(hi, e);
+      } else if constexpr (R::kHuge) {
+        // the warpgroup's 64 queries against the tile, 32 words at a time
+        // (16-byte copies where the words allow them)
+        uint32_t adm[2];
+        const int q_wg = q0 + 64 * wg;
+        const bool huge16 = ((uintptr_t)a.row_bits | (uintptr_t)a.q_bits) %
+                                    16 == 0 &&
+                            a.w % 4 == 0;
+        huge_tile_bits<128, 64>(
+            adm, sm.scratch + wg * HugeChunk<64>::kBytes,
+            a.row_bits + (size_t)t * kRows * a.w, a.w, huge16,
+            threadIdx.x % 128, 1 + wg, 16 * (warp % 4),
+            [&](int qi) -> const int32_t* {
+              const int q = q_wg + qi;
+              return q < a.nq ? a.q_bits + (size_t)mask_row(a, q) * a.w
+                              : nullptr;
+            });
+        half_huge<0, kPack>(lo, adm[0], sm.base(s), e);
+        half_huge<1, kPack>(hi, adm[1], sm.base(s), e);
       } else if constexpr (kWide) {
         half_wide<0, kWords, kPack>(lo, qa_bits, sm.planes(s), sm.base(s),
                                     e);
@@ -827,7 +909,11 @@ cudaError_t launch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
 template <int D, int kPack>
 cudaError_t dispatch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
                         const ScanArgs& a, int blocks, cudaStream_t stream) {
-  // more than 256 roles: the wide-world forms, every mask layout
+  // more than 256 roles: the wide-world forms, every mask layout; past
+  // 1,024 the huge forms
+  if (a.w > kWideWords)
+    return launch_tc<D, kHugeWords, kPack, false>(q_map, x_map, a, blocks,
+                                                  stream);
   if (a.w > 16)
     return launch_tc<D, 32, kPack, false>(q_map, x_map, a, blocks, stream);
   if (a.w > kMaxWords)
@@ -992,7 +1078,7 @@ int scan_tc(const void* q8, const void* x8, const void* norms,
             const void* row_bits, const void* q_bits, void* out, int nq,
             int npad, int d_pad, int w, int group, int l2, int score_shift,
             int mask_sb, int slot_tile, int lab, void* stream) {
-  if (!shapes_ok(nq, npad, d_pad, w, lab == kLabTrim ? kWideWords : kMaxWords,
+  if (!shapes_ok(nq, npad, d_pad, w, lab == kLabTrim ? kAnyWords : kMaxWords,
                  group, score_shift, mask_sb, slot_tile))
     return (int)cudaErrorInvalidValue;
   ScanArgs a;

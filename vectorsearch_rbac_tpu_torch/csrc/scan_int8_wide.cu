@@ -79,6 +79,15 @@
 // fragment (kWords / 2 registers), not 2 W words. At kWords 32 the ring
 // has 2 stages, so that two blocks still fit an SM beside the 16 KB of
 // planes.
+//
+// The huge forms (kHugeWords: any W past 32, worlds past 1,024 roles)
+// stage no words before the epilogue; it tests a pair 32 words at a time
+// (huge_tile_bits in tma_wgmma.cuh): the block's 256 threads copy the
+// chunk's words of the tile's rows and of its 128 queries into the planes'
+// place, and each warp runs 4 binary products a slice, one admit bit a
+// pair; the pair is then scored and kept where its bit is set. A first
+// design read the row words past 32 from L2 in every warp, spilled, and
+// took 18-41 ms at W 64-128 (PERF.md).
 
 #include "tma_wgmma.cuh"
 
@@ -90,6 +99,7 @@ constexpr int kThreads = 256;    // two warpgroups
 constexpr int kChunk = 128;      // d bytes per stage: one swizzled line
 constexpr int kMaxWords = 8;     // bitset words of the W <= 8 forms
 constexpr int kWideWords = 32;   // of the wide-world forms: 1,024 roles
+constexpr int kHugeWords = 64;   // the huge forms' tag: any W past 32
 constexpr int32_t kMasked = 0x7F000000;
 constexpr int kTileBytes = kRows * kChunk;   // 16 KB, also kQueries * kChunk
 constexpr int kStageBytes = 2 * kTileBytes;  // the query tile, then the rows
@@ -101,9 +111,14 @@ static_assert(kQueries * kChunk == kTileBytes, "tile bytes");
 template <int kWords>
 struct Geo {
   static constexpr bool kWide = kWords > kMaxWords;
+  // the huge forms stage no words before the epilogue: it copies them 32
+  // at a time into the planes' place (huge_tile_bits)
+  static constexpr bool kHuge = kWords > kWideWords;
   static constexpr int kStages = kWords <= 16 ? 3 : 2;
-  static constexpr int kPlanes = kWide ? kWords / 4 : 2;
-  static constexpr int kRowDataBytes = kPlanes * kRows * 16 + kRows * 4;
+  static constexpr int kPlanes = kHuge ? 0 : kWide ? kWords / 4 : 2;
+  static constexpr int kPlaneBytes =
+      kHuge ? HugeChunk<kQueries>::kBytes : kPlanes * kRows * 16;
+  static constexpr int kRowDataBytes = kPlaneBytes + kRows * 4;
   static constexpr int kSmemBytes = 1024  // slack to align the ring
                                     + kStages * kStageBytes + kRowDataBytes
                                     + 2 * kStages * 8;  // full and empty
@@ -228,6 +243,53 @@ __device__ __forceinline__ void tile_epilogue_wide(
   }
 }
 
+// The huge forms' epilogue of the tile (W > 32): as tile_epilogue_wide,
+// with each pair's shared-role bit from huge_tile_bits (adm[h]: bit 4 n +
+// 2 i + j of slice 8 h + n) in the place of its count.
+template <bool kDown>
+__device__ __forceinline__ void tile_epilogue_huge(
+    const int32_t (&acc)[64], const uint32_t (&adm)[2],
+    const int32_t* __restrict__ ns, int32_t* __restrict__ out, size_t row0,
+    int qa, int nq, int group, int l2, int score_shift) {
+  const int lane = threadIdx.x % 32;
+  const int lane_mask = group - 1;
+  const int span = group / 8;
+  const int up = kDown ? 0 : 7 - score_shift;
+  const int down = kDown ? score_shift - 7 : 0;
+  const uint32_t mul = (uint32_t)(l2 ? -2 : -1) << up;
+  int32_t best[2] = {kMasked, kMasked};
+#pragma unroll
+  for (int n8 = 0; n8 < kRows / 8; ++n8) {
+    const uint32_t mine = (adm[n8 / 8] >> (4 * (n8 % 8))) & 15u;
+    if (__any_sync(0xffffffffu, mine)) {  // uniform
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = n8 * 8 + (lane % 4) * 2 + j;
+        const uint32_t base = l2 ? (uint32_t)ns[n] << up : 0u;
+        const uint32_t rank = (uint32_t)(n & lane_mask);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          uint32_t v = (uint32_t)acc[4 * n8 + 2 * i + j] * mul + base;
+          if (kDown) v = (uint32_t)((int32_t)v >> down);
+          const int32_t packed = (int32_t)((v & ~127u) | rank);
+          if ((mine >> (2 * i + j)) & 1u) best[i] = min(best[i], packed);
+        }
+      }
+    }
+    if (((n8 + 1) & (span - 1)) == 0) {  // slice n8 closes a group
+      const size_t g = (row0 + n8 * 8) / group;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        best[i] = min(best[i], __shfl_xor_sync(0xffffffffu, best[i], 1));
+        best[i] = min(best[i], __shfl_xor_sync(0xffffffffu, best[i], 2));
+        const int q = qa + 8 * i;
+        if (lane % 4 == 0 && q < nq) out[g * (size_t)nq + q] = best[i];
+        best[i] = kMasked;
+      }
+    }
+  }
+}
+
 template <bool kSlots, int kWords>
 __global__ void __launch_bounds__(kThreads, 2)
 scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
@@ -275,14 +337,14 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
   }
   // the row tile's words (zero past w; as many planes as the form reads)
   // and norms, waited for before the epilogue
-  constexpr int kStaged = G::kWide ? kWords : kMaxWords;
+  constexpr int kStaged = G::kHuge ? 0 : G::kWide ? kWords : kMaxWords;
   for (int i = tid; i < kRows * kStaged; i += kThreads) {
     const int r = i / kStaged, m = i % kStaged;
     cp_async4(smem_addr(row_data + (m / 4) * kRows * 16 + r * 16 + m % 4 * 4),
               row_bits + (row0 + r) * w + (m < w ? m : 0), m < w ? 4 : 0);
   }
   for (int i = tid; i < kRows; i += kThreads)
-    cp_async4(smem_addr(row_data + G::kPlanes * kRows * 16 + i * 4),
+    cp_async4(smem_addr(row_data + G::kPlaneBytes + i * 4),
               norms + row0 + i, 4);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   __syncthreads();  // the barriers are initialised
@@ -322,7 +384,8 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
   int32_t qw[2][kMaxWords];
   // the wide forms: the binary products' A fragments, words 8c + lane % 4
   // and + 4 of queries qa (k even) and qa + 8 (k odd)
-  uint32_t qf[G::kWide ? kWords / 8 : 1][4];
+  constexpr int kFrag = G::kWide && !G::kHuge ? kWords / 8 : 1;
+  uint32_t qf[kFrag][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int q = qa + 8 * i;
@@ -335,7 +398,7 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
     for (int m = 0; m < kMaxWords; ++m)
       qw[i][m] = (!G::kWide && m < w && q < nq) ? q_bits[(size_t)row * w + m]
                                                  : 0;
-    if constexpr (G::kWide) {
+    if constexpr (G::kWide && !G::kHuge) {
 #pragma unroll
       for (int c = 0; c < kWords / 8; ++c)
 #pragma unroll
@@ -350,9 +413,33 @@ scan_int8_wide_kernel(const __grid_constant__ CUtensorMap q_map,  // q8
   __syncthreads();  // every thread's row words and norms landed
   const int4* planes = reinterpret_cast<const int4*>(row_data);
   const int32_t* ns =
-      reinterpret_cast<const int32_t*>(row_data + G::kPlanes * kRows * 16);
+      reinterpret_cast<const int32_t*>(row_data + G::kPlaneBytes);
   const bool down = score_shift > 7;
-  if constexpr (G::kWide) {
+  if constexpr (G::kHuge) {
+    // the block's 128 queries against the tile, 32 words at a time, in
+    // the planes' place
+    uint32_t adm[2];
+    const bool huge16 =
+        ((uintptr_t)row_bits | (uintptr_t)q_bits) % 16 == 0 && w % 4 == 0;
+    huge_tile_bits<kThreads, kQueries>(
+        adm, row_data, row_bits + row0 * w, w, huge16, tid, 0,
+        16 * (tid / 32), [&](int qi) -> const int32_t* {
+          const int q = q0 + qi;
+          int row = q;
+          if (kSlots) {
+            const int nsb = slot_tile / mask_sb;
+            row = slot_tile > 0 ? (q / slot_tile) * nsb + q % nsb
+                                : q / mask_sb;
+          }
+          return q < nq ? q_bits + (size_t)row * w : nullptr;
+        });
+    if (!down)
+      tile_epilogue_huge<false>(acc, adm, ns, out, row0, qa, nq, group, l2,
+                                score_shift);
+    else
+      tile_epilogue_huge<true>(acc, adm, ns, out, row0, qa, nq, group, l2,
+                               score_shift);
+  } else if constexpr (G::kWide) {
     if (!down)
       tile_epilogue_wide<kWords, false>(acc, qf, planes, ns, out, row0, qa,
                                         nq, group, l2, score_shift);
@@ -412,7 +499,7 @@ extern "C" int vsr_scan_int8_wide(const void* q8, const void* x8,
        (slot_tile == 0 ||
         (slot_tile > 0 && slot_tile % mask_sb == 0 && nq % slot_tile == 0)));
   if (nq < 1 || npad < kRows || npad % kRows != 0 || d_pad < kChunk ||
-      d_pad % kChunk != 0 || !group_ok || w < 1 || w > kWideWords ||
+      d_pad % kChunk != 0 || !group_ok || w < 1 ||
       score_shift < 0 || score_shift > 31 || !slots_ok)
     return (int)cudaErrorInvalidValue;
   const long long n_qtiles = (nq + kQueries - 1) / kQueries;
@@ -423,8 +510,12 @@ extern "C" int vsr_scan_int8_wide(const void* q8, const void* x8,
   if (err == cudaSuccess) err = box_map(&x_map, x8, npad, d_pad, kRows);
   if (err != cudaSuccess) return (int)err;
   const bool slots = mask_sb > 0;
-  // W <= 8: the forms of before; 9-16 and 17-32: the wide-world forms
-  const int words = w <= kMaxWords ? kMaxWords : w <= 16 ? 16 : kWideWords;
+  // W <= 8: the forms of before; 9-16 and 17-32: the wide-world forms;
+  // past 32: the huge forms
+  const int words = w <= kMaxWords    ? kMaxWords
+                    : w <= 16         ? 16
+                    : w <= kWideWords ? kWideWords
+                                      : kHugeWords;
 #define VSR_WIDE(S_, W_)                                                      \
   launch_wide<S_, W_>(q_map, x_map, (unsigned)blocks,                        \
                       static_cast<cudaStream_t>(stream),                     \
@@ -437,8 +528,10 @@ extern "C" int vsr_scan_int8_wide(const void* q8, const void* x8,
     err = slots ? VSR_WIDE(true, kMaxWords) : VSR_WIDE(false, kMaxWords);
   else if (words == 16)
     err = slots ? VSR_WIDE(true, 16) : VSR_WIDE(false, 16);
-  else
+  else if (words == kWideWords)
     err = slots ? VSR_WIDE(true, kWideWords) : VSR_WIDE(false, kWideWords);
+  else
+    err = slots ? VSR_WIDE(true, kHugeWords) : VSR_WIDE(false, kHugeWords);
 #undef VSR_WIDE
   return (int)err;
 }

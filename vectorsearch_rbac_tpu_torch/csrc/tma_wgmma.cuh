@@ -2,8 +2,8 @@
 // scan_int8_wide.cu): mbarriers, TMA box loads in the 128-byte swizzle, the
 // wgmma shared-memory descriptor and the m64n128k32 s32.s8.s8 product, the
 // binary m16n8k256 AND.POPC product that counts shared roles in the same
-// accumulator places, and the tensor maps the C entry points encode per
-// call.
+// accumulator places (and, past 32 bitset words, the role test built on
+// it), and the tensor maps the C entry points encode per call.
 //
 // Each source that includes this header compiles it on its own (the build
 // runs one nvcc per .cu); ops/_build.py hashes the header with the sources.
@@ -181,6 +181,114 @@ __device__ __forceinline__ void bmma_and_popc(int32_t& d0, int32_t& d1,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d0), "+r"(d1), "+r"(d2), "+r"(d3)
       : "r"(qf[0]), "r"(qf[1]), "r"(qf[2]), "r"(qf[3]), "r"(b0), "r"(b1));
+}
+
+// Worlds past 1,024 roles (W > 32 bitset words): the scans' huge forms
+// test a pair's shared roles 32 words at a time. For each chunk of 32
+// words the kThreads threads that share a tile (a consumer warpgroup of
+// K1, K2's block) copy the chunk's words of the tile's 128 rows and of
+// their kQueries queries into shared memory together (cp.async, 16-byte
+// pieces where W % 4 == 0 and the arrays are 16-byte aligned; zeros past
+// W and past the batch), then each warp runs 4 binary products an 8-row
+// slice (mma.sync m16n8k256 b1 AND.POPC, bmma_and_popc's places) and keeps
+// one bit a pair. The rows' words lie as 8 planes of (128, 4) words, B
+// fragments in conflict-free reads as in the wide forms; the queries'
+// words at a pitch of 36 words, so a warp's A fragment reads hit 32
+// distinct banks: HugeChunk<kQueries>::kBytes of shared memory a group.
+constexpr int kHugeWordsStep = 32;   // words a chunk
+constexpr int kHugeQPitch = 36;      // words a staged query row
+template <int kQueries>
+struct HugeChunk {
+  static constexpr int kRowBytes = 128 * kHugeWordsStep * 4;   // 16 KB
+  static constexpr int kBytes = kRowBytes + kQueries * kHugeQPitch * 4;
+};
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Copy 4 words (a 16-byte piece) of a bitset row to shared memory: valid
+// words past the row's end (valid < 4) and missing rows (src null) are
+// zero-filled. src must be 16-byte aligned where vec16.
+__device__ __forceinline__ void huge_piece(uint32_t dst, const int32_t* src,
+                                           int valid, bool vec16,
+                                           const int32_t* dummy) {
+  if (src != nullptr && vec16 && valid >= 4) {
+    cp_async16(dst, src);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool ok = src != nullptr && j < valid;
+    cp_async4(dst + 4 * j, ok ? src + j : dummy, ok ? 4 : 0);
+  }
+}
+
+// Each pair's shared-role bit for a warp's 16 queries (lane / 4 and lane /
+// 4 + 8 of queries wq0 .. wq0 + 15 of the group's kQueries) against a
+// 128-row tile: adm[h] bit 4 n + 2 i + j for query lane / 4 + 8 i and row
+// 64 h + 8 n + 2 (lane % 4) + j. tid is the thread's index in the group,
+// barrier (id, kThreads) the group's barrier; qrow(qi) the mask row of
+// the group's query qi (null past the batch), tile_bits the tile's (128,
+// W) words. Every thread of the group calls it.
+template <int kThreads, int kQueries, typename QRow>
+__device__ __forceinline__ void huge_tile_bits(uint32_t (&adm)[2],
+                                               uint8_t* scratch,
+                                               const int32_t* tile_bits,
+                                               int w, bool vec16, int tid,
+                                               int barrier_id, int wq0,
+                                               QRow qrow) {
+  constexpr int kPieces = kHugeWordsStep / 4;   // 16-byte pieces a row
+  const uint32_t rows_s = smem_addr(scratch);
+  const uint32_t qs_s = rows_s + HugeChunk<kQueries>::kRowBytes;
+  const int32_t* planes = reinterpret_cast<const int32_t*>(scratch);
+  const int32_t* qs = reinterpret_cast<const int32_t*>(
+      scratch + HugeChunk<kQueries>::kRowBytes);
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  adm[0] = adm[1] = 0;
+#pragma unroll 1
+  for (int m0 = 0; m0 < w; m0 += kHugeWordsStep) {
+    named_barrier(barrier_id, kThreads);   // the last chunk's reads are done
+#pragma unroll 2
+    for (int e = tid; e < 128 * kPieces; e += kThreads) {
+      const int r = e / kPieces, p = e % kPieces, m = m0 + 4 * p;
+      huge_piece(rows_s + 16 * (p * 128 + r), tile_bits + (size_t)r * w + m,
+                 w - m, vec16, tile_bits);
+    }
+#pragma unroll 2
+    for (int e = tid; e < kQueries * kPieces; e += kThreads) {
+      const int qi = e / kPieces, p = e % kPieces, m = m0 + 4 * p;
+      const int32_t* row = qrow(qi);
+      huge_piece(qs_s + 4 * (qi * kHugeQPitch + 4 * p),
+                 row != nullptr ? row + m : nullptr, w - m, vec16, tile_bits);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    named_barrier(barrier_id, kThreads);   // the chunk is in
+    uint32_t qf[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        qf[k][h] = (uint32_t)qs[(wq0 + lane / 4 + 8 * (h & 1)) * kHugeQPitch +
+                                8 * k + t + 4 * (h >> 1)];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+#pragma unroll 2
+      for (int n = 0; n < 8; ++n) {
+        const int r = 64 * h2 + 8 * n + lane / 4;
+        int32_t c[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          bmma_and_popc(c[0], c[1], c[2], c[3], qf[k],
+                        (uint32_t)planes[4 * (2 * k * 128 + r) + t],
+                        (uint32_t)planes[4 * ((2 * k + 1) * 128 + r) + t]);
+        adm[h2] |= (uint32_t)((c[0] != 0) | ((c[1] != 0) << 1) |
+                              ((c[2] != 0) << 2) | ((c[3] != 0) << 3))
+                   << (4 * n);
+      }
+    }
+  }
 }
 
 // The tensor map of a (rows, d_pad) int8 matrix, read in 128-byte x

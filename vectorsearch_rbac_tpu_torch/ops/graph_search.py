@@ -59,24 +59,15 @@ FUSED_D_PAD = (128, 256, 768)
 FUSED_MAX_M0 = 64
 FUSED_MAX_EF = 512
 FUSED_MAX_STEPS = 4096
-# the packed-row score kernel's (KS7: csrc/graph_step.cu
-# vsr_graph_score_packed) shapes: bitset words below a warp's 32 lanes,
-# d_pad a multiple of 128 up to 1024
-STEP_MAX_WORDS = 31
-STEP_MAX_D_PAD = 1024
-_NO_KERNEL = ("ROADMAP queue 3 item 4: no graph kernel takes more than "
-              f"{STEP_MAX_WORDS} bitset words ({32 * STEP_MAX_WORDS} roles) "
-              f"or packed rows wider than d_pad {STEP_MAX_D_PAD}")
 
 
 def fused_shape_problems(w: int, d_pad: int, d: int, m0: int, k: int,
                          ef: int, max_steps: int) -> list:
     """What the fused kernel does not take of a search's shape (empty if
-    it takes it): 1-31 bitset words, d_pad 128, 256 or 768 (at least d),
-    M0 <= 64, 1 <= k <= ef <= 512, max_steps <= 4096."""
+    it takes it): any number of bitset words, d_pad 128, 256 or 768 (at
+    least d), M0 <= 64, 1 <= k <= ef <= 512, max_steps <= 4096."""
     return [msg for bad, msg in (
-        (not 1 <= w <= STEP_MAX_WORDS,
-         f"{w} bitset words (1-{STEP_MAX_WORDS})"),
+        (w < 1, f"{w} bitset words (at least 1)"),
         (d_pad not in FUSED_D_PAD or d > d_pad,
          f"d_pad {d_pad} for d {d} (one of {FUSED_D_PAD})"),
         (not 1 <= m0 <= FUSED_MAX_M0, f"M0 {m0} (1-{FUSED_MAX_M0})"),
@@ -212,16 +203,11 @@ def graph_beam_search_iterative(
     the fused kernel takes (`fused_shape_problems`), the whole search is
     one launch of it (`graph_search_fused`). Every other combination, and
     every CPU call, runs the step loop, whose score and merge launch KS7
-    and KS6 on the card and take their plain versions on the CPU. On the
-    card no graph kernel takes packed rows of 32 bitset words or more, or
-    of d_pad above 1024: those raise."""
+    and KS6 on the card and take their plain versions on the CPU."""
     _check_metric(metric)
     if packed_rows is not None and queries.device.type == "cuda":
         w = query_masks.shape[1]
         d_pad = packed_rows.shape[1] - 4 * w - 4
-        if w > STEP_MAX_WORDS or d_pad % 128 or d_pad > STEP_MAX_D_PAD:
-            raise ValueError(f"graph search over {w} bitset words at d_pad "
-                             f"{d_pad}: " + _NO_KERNEL)
         if not harvest_2hop and not fused_shape_problems(
                 w, d_pad, queries.shape[1], graph.shape[-1], k, ef,
                 max_steps):

@@ -95,8 +95,8 @@ def graph_score_packed(ids: torch.Tensor, packed_rows: torch.Tensor,
     W) int32 bitset words; qcd (Q,) float32 query . quant center; row_map
     None, (n_local,) or, with pids (Q,), a (P, n_class) slab, int32. CPU
     tensors take the plain version; CUDA tensors launch csrc/graph_step.cu
-    graph_score_packed_kernel, which takes 1-31 bitset words and d_pad a
-    multiple of 128 up to 1024 (the launch is refused otherwise)."""
+    graph_score_packed_kernel, which takes any number of bitset words and
+    any d_pad that is a multiple of 128 (the launch is refused otherwise)."""
     dev = _same_device(ids, packed_rows, qf, qmask, qcd, row_map, pids)
     nq, c = ids.shape
     w = qmask.shape[1]

@@ -15,8 +15,9 @@ W words per pair (in the index's slot layout once per row and warp),
 which is the same predicate as the TPU kernel's one-hot matmul
 (core.bits_to_onehot8 is a bit-for-bit expansion). Past 8 words (256
 roles) both kernels switch to their wide-world forms, which count a
-pair's shared roles on the binary tensor cores: the same predicate again,
-up to MAX_WORDS words; a wider world raises.
+pair's shared roles on the binary tensor cores: the same predicate again;
+past 32 words (1,024 roles) to their huge forms, which count 32 words at
+a time. Any role count runs in one launch.
 
 The admit-dedup slot form of the narrow scan (`mask_sub_block`: one mask
 row per slot of `mask_sub_block` queries, ROADMAP queue 2's S2) takes
@@ -39,7 +40,7 @@ the reference's byte for byte in its four codings: ids, f32, bf16, u8.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +53,6 @@ LANE_MASK = 0x7F
 MASKED_I32 = 0x7F000000  # > any packed score (|score| << 7 < 2^30)
 EMPTY_I32 = 0x7E000000
 TILE_ROWS = 128          # the kernels stage 128-row tiles
-MAX_WORDS = 32           # role bitset words the scan kernels take (1,024
-                         # roles: 1-8 in the first forms, 9-32 in the
-                         # wide-world forms, chosen by W)
 NARROW_MAX_D = 256       # wider rows take the wide kernel
 _CHUNK_ELEMS = 1 << 27   # plain version: elements per (rows, Q) temporary
 _EXACT_D = 768           # plain version: columns per float32 partial dot
@@ -170,19 +168,17 @@ def exact_dots(vectors_q: torch.Tensor, qf: torch.Tensor) -> torch.Tensor:
 int8_group_minima_wide_plain = int8_group_minima_plain
 
 
-def _check_kernel_tensors(tensors, w: int, max_words: int = MAX_WORDS
+def _check_kernel_tensors(tensors, w: int, max_words: Optional[int] = None
                           ) -> None:
-    """What both scan kernels take: contiguous int8 / int32 tensors on one
-    device, int8 rows 16-byte aligned, 128-row tiles, at most `max_words`
-    bitset words (a wider world raises, naming its ROADMAP item)."""
+    """What the scan kernels take: contiguous int8 / int32 tensors on one
+    device, int8 rows 16-byte aligned, 128-row tiles, and any number of
+    bitset words, or at most `max_words` (the kernel lab's forms)."""
     npad = tensors[1].shape[0]
     if npad % TILE_ROWS:
         raise ValueError(f"npad {npad} must be a multiple of {TILE_ROWS}")
-    if w > max_words:
-        raise ValueError(f"W {w}: the scan kernels take at most {max_words} "
-                         "bitset words" + (
-                             f" ({32 * max_words} roles; ROADMAP queue 3 "
-                             "item 4)" if max_words == MAX_WORDS else ""))
+    if max_words is not None and w > max_words:
+        raise ValueError(f"W {w}: these scan forms take at most {max_words} "
+                         "bitset words")
     dtypes = (torch.int8, torch.int8, torch.int32, torch.int32, torch.int32)
     for t, dt in zip(tensors, dtypes):
         if t.device != tensors[0].device or t.dtype != dt \

@@ -1,5 +1,6 @@
 from .base import BuiltPartition, PartitionedSearcher, make_partition_index
 from .graph_batch import GraphProbeBatcher
+from .qdtree import QDTree, build_qd_tree, build_qdtree_searcher
 from .strategies import (STRATEGIES, build_comb_searcher,
                          build_global_searcher, build_role_searcher,
                          build_searcher)
@@ -8,6 +9,9 @@ from .tiled import TiledSearcher
 __all__ = [
     "BuiltPartition",
     "GraphProbeBatcher",
+    "QDTree",
+    "build_qd_tree",
+    "build_qdtree_searcher",
     "PartitionedSearcher",
     "TiledSearcher",
     "make_partition_index",

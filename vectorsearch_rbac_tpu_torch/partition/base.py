@@ -73,7 +73,13 @@ class BuiltPartition:
 class PartitionedSearcher:
     """A strategy instance: partitions + a user -> partitions router.
     router None (the global strategy) sends every query to the one
-    partition without a per-query routing loop."""
+    partition without a per-query routing loop.
+
+    A strategy that routes by query vector as well (QDTree) sets
+    `batch_router(queries, user_ids)` -> one tuple of partition ids a
+    query, and `vector_router(uid, qvec)` -> a query's tuple; a pass asks
+    the batch router first, then the vector router, then the user
+    router, as the reference's TiledSearcher does."""
 
     def __init__(self, arena: DeviceArena,
                  partitions: Dict[int, BuiltPartition],
@@ -86,6 +92,8 @@ class PartitionedSearcher:
         self.partitions = partitions
         self.router = router
         self.name = name
+        self.batch_router: Optional[Callable] = None
+        self.vector_router: Optional[Callable] = None
 
     def search_batch(self, queries: np.ndarray, user_ids: np.ndarray,
                      user_masks: np.ndarray,
@@ -120,8 +128,8 @@ class PartitionedSearcher:
         pid_to_queries: Dict[int, List[int]] = {}
         per_query_pids: List[Sequence[int]] = []
         with record_function("partitioned.route"):
-            for qi in range(nq):
-                pids = self.router(int(user_ids[qi]))
+            routed = route_batch(self, queries, user_ids)
+            for qi, pids in enumerate(routed):
                 per_query_pids.append(pids)
                 for pid in pids:
                     pid_to_queries.setdefault(pid, []).append(qi)
@@ -206,6 +214,19 @@ class PartitionedSearcher:
                          + gb["graph_slabs"] + gb["packed_rows"]) / mb,
             "num_partitions": len(self.partitions),
         }
+
+
+def route_batch(searcher, queries: np.ndarray, user_ids: np.ndarray
+                ) -> List[Sequence[int]]:
+    """Each query's partition ids: the searcher's batch_router where it
+    has one, else its vector_router query by query, else its user
+    router."""
+    if searcher.batch_router is not None:
+        return list(searcher.batch_router(queries, user_ids))
+    if searcher.vector_router is not None:
+        return [searcher.vector_router(int(u), q)
+                for u, q in zip(user_ids, queries)]
+    return [searcher.router(int(u)) for u in user_ids]
 
 
 def _merge_partitions(part_results, per_query_pids, nq: int, k: int):

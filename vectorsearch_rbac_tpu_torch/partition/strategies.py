@@ -10,10 +10,11 @@ Counterpart of vectorsearch_rbac_tpu/partition/strategies.py:
 - USER (comb): a partition per distinct role combination; a query hits
   exactly one partition.
 
-AnonySys (`dynamic`) lives in partition/dynamic/. On an int8 l2 arena
-ROLE, USER and AnonySys serve through the TiledSearcher; their ip/cosine
-counterpart (the reference's PackedSearcher) and QDTree are ROADMAP
-slice 3 items still to port, and raise NotImplementedError.
+AnonySys (`dynamic`) lives in partition/dynamic/, QDTree in
+partition/qdtree.py. On an int8 l2 arena ROLE, USER, AnonySys and QDTree
+serve through the TiledSearcher; their ip/cosine counterpart (the
+reference's PackedSearcher) is a ROADMAP slice 3 item still to port, and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -119,14 +120,15 @@ STRATEGIES = {
 def build_searcher(name: str, corpus: Corpus, world: RBACWorld,
                    arena: DeviceArena, cfg: FrameworkConfig, **kwargs):
     """Build a strategy by name; dynamic (AnonySys) takes the planner's
-    kwargs (plan, inputs, comb_weights, single_role_weights, packed)."""
+    kwargs (plan, inputs, comb_weights, single_role_weights, packed),
+    qdtree build_qdtree_searcher's (workload, min_leaf, max_depth,
+    radius_scale, tree, packed, ...)."""
     if name in STRATEGIES:
         return STRATEGIES[name](corpus, world, arena, cfg)
     if name in ("dynamic", "anonysys"):
         from .dynamic import build_dynamic_searcher
         return build_dynamic_searcher(corpus, world, arena, cfg, **kwargs)
     if name == "qdtree":
-        raise NotImplementedError(
-            "strategy 'qdtree' is ROADMAP slice 3 (queue 1 item 9: "
-            "partition/qdtree.py), not ported yet")
+        from .qdtree import build_qdtree_searcher
+        return build_qdtree_searcher(corpus, world, arena, cfg, **kwargs)
     raise ValueError(f"unknown strategy {name}")

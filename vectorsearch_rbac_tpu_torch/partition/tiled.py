@@ -29,7 +29,7 @@ and tiled.merge (the host's fan-out merge).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ from ..index.flat_int8 import Int8FlatIndex
 from ..ops.tiled_scan import tiled_bucket_topk
 from ..ops.topk import merge_topk_host
 from ..rbac import query_masks_for
+from .base import route_batch
 
 logger = get_logger("partition.tiled")
 
@@ -102,6 +103,10 @@ class TiledSearcher:
                 "slice 3 (queue 1 item 8)")
         self.arena = arena
         self.router = router
+        # a strategy that routes by query vector as well (QDTree) sets
+        # these; see base.PartitionedSearcher
+        self.batch_router: Optional[Callable] = None
+        self.vector_router: Optional[Callable] = None
         self.name = name
         self.chunk_rows = chunk_rows
         self.q_tile = q_tile
@@ -249,8 +254,9 @@ class TiledSearcher:
         with record_function("tiled.route"):
             pid_queries: Dict[int, List[int]] = {}
             n_pids = np.zeros(nq, dtype=np.int32)
-            for qi in range(nq):
-                pids = [p for p in self.router(int(user_ids[qi]))
+            for qi, routed in enumerate(route_batch(self, queries,
+                                                    user_ids)):
+                pids = [p for p in routed
                         if p in self.part_chunks or p in self._big]
                 n_pids[qi] = len(pids)
                 for pid in pids:
