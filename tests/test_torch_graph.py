@@ -9,6 +9,7 @@ SIFT-like (integer-valued, lossless) data every distance is exact, so ids
 and distances must be equal; where a comparison crosses the host merge of
 several partitions, ids are compared as sets among equal distances."""
 
+import copy
 import os
 
 import jax
@@ -494,10 +495,30 @@ def test_hnsw_index_matches_reference(setup, builder):
 
 
 def test_hnsw_index_refuses_what_is_not_ported(setup, monkeypatch):
+    """Above KNN_MAX_ROWS (patched down to 1,000) the "tpu" builder takes
+    the IVF-assisted kNN (queue 1 item 10, no longer refused) and the
+    graph serves: every row in the graph, the self-search of the rows
+    finds most rows themselves; the ACORN builder and traversal, and ip
+    graph scoring, still name item 11."""
     rows = np.arange(0, 1200)
     monkeypatch.setattr(hnsw_mod, "KNN_MAX_ROWS", 1000)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        HNSWIndex(setup["pa"], rows, m=M, builder="tpu")
+    calls = []
+    ivf_knn = hnsw_mod._device_knn_graph_ivf
+
+    def spy(vec, k, device, **kw):
+        calls.append(len(vec))
+        return ivf_knn(vec, k, device, **kw)
+
+    monkeypatch.setattr(hnsw_mod, "_device_knn_graph_ivf", spy)
+    ix = HNSWIndex(setup["pa"], rows, m=M, builder="tpu")
+    assert calls == [len(rows)] and ix.builder == "tpu"
+    nbr = ix.graph_state()["neighbors"]
+    assert nbr.shape[0] == len(rows) and (nbr >= 0).sum(1).min() > 0
+    q = setup["pa"].host_vectors[rows[:64]]
+    masks = np.full((64, setup["pa"].role_bits.shape[1]), 0xFFFFFFFF,
+                    np.uint32)
+    _, ids = ix.search(q, masks, 1, iterative=True, ef_search=EF)
+    assert (ids[:, 0] == rows[:64]).mean() > 0.9
     with pytest.raises(NotImplementedError, match="item 11"):
         HNSWIndex(setup["pa"], rows, m=M, builder="acorn")
     ix = HNSWIndex(setup["pa"], rows[:300], m=M)
@@ -538,7 +559,8 @@ def hybrid():
     got_s = build_searcher("dynamic", pc, pw, arena_from_reference(ra, "cpu"),
                            cfgs[1], plan=plan_from_reference(want_s.plan),
                            packed=False)
-    return dict(want=want_s, got=got_s, wl=wl, world=world, pw=pw, pc=pc)
+    return dict(want=want_s, got=got_s, wl=wl, world=world, pw=pw, pc=pc,
+                corpus=corpus, ra=ra, cfgs=cfgs)
 
 
 def test_hybrid_searcher_matches_reference(hybrid):
@@ -595,3 +617,55 @@ def test_hybrid_storage_counts_the_batcher(hybrid):
                                  "partition_vectors_mb",
                                  "partition_index_mb"))
     assert rep["total_mb"] == pytest.approx(parts + (slabs + packed) / mb)
+
+
+def test_dynamic_hnsw_matches_reference_at_top100(hybrid):
+    """AnonySys with an HNSW graph on every partition (the bench's
+    `--strategy dynamic --index hnsw`) at top-100, on the hybrid plan: the
+    port returns the reference's distances and ids (ties as sets), so its
+    recall is the reference's. Recall is split by whether a query's user
+    routes to the remainder (the largest partition, a few percent of whose
+    rows the user can read): the filtered graph search there is what
+    loses recall, in both packages."""
+    k = 100
+    ref_cfg, port_cfg = (copy.deepcopy(c) for c in hybrid["cfgs"])
+    ref_cfg.index.kind = port_cfg.index.kind = "hnsw"
+    want_s = ref_searcher("dynamic", hybrid["corpus"], hybrid["world"],
+                          hybrid["ra"], ref_cfg, packed=False)
+    got_s = build_searcher("dynamic", hybrid["pc"], hybrid["pw"],
+                           arena_from_reference(hybrid["ra"], "cpu"),
+                           port_cfg, plan=plan_from_reference(want_s.plan),
+                           packed=False)
+    assert all(type(p.index).__name__ == "HNSWIndex"
+               for p in got_s.partitions.values())
+    wl, pw, pc = hybrid["wl"], hybrid["pw"], hybrid["pc"]
+    wd, wi = want_s.search_batch(wl.vectors, wl.user_ids,
+                                 hybrid["world"].user_masks, k)
+    gd, gi = got_s.search_batch(wl.vectors, wl.user_ids, pw.user_masks, k)
+    np.testing.assert_array_equal(gd, wd)
+    for q in range(len(gi)):
+        for v in np.unique(wd[q]):
+            assert set(gi[q][gd[q] == v]) == set(wi[q][wd[q] == v]), (q, v)
+    bits = pc.vector_role_bits(pw)
+    masks = pw.user_masks[wl.user_ids]
+    readable = (bits[np.maximum(gi, 0)] & masks[:, None, :]).any(-1)
+    assert (readable | (gi < 0)).all()
+    vec = pc.vectors.astype(np.float32)
+    recall = np.empty(len(gi))
+    for q in range(len(gi)):
+        dist = ((vec - wl.vectors[q]) ** 2).sum(1)
+        dist[~(bits & masks[q]).any(-1)] = np.inf
+        truth = np.argsort(dist, kind="stable")[:k]
+        truth = set(truth[np.isfinite(dist[truth])])
+        recall[q] = len(truth & set(gi[q][gi[q] >= 0])) / len(truth)
+    big = max(got_s.partitions, key=lambda p: len(got_s.partitions[p].rows))
+    routed = np.array([big in got_s.router(int(u)) for u in wl.user_ids])
+    rows = got_s.partitions[big].rows
+    sel = (bits[rows][None] & masks[routed][:, None, :]).any(-1).mean(1)
+    print(f"dynamic hnsw top-{k}: recall {recall.mean()}, "
+          f"{routed.mean()} of the queries routed to the remainder "
+          f"({len(rows)} of {pc.n} rows, {sel.mean()} of them readable by "
+          f"the user on average): recall {recall[routed].mean()} there, "
+          f"{recall[~routed].mean()} elsewhere")
+    assert routed.any() and (~routed).any()
+    assert recall[routed].mean() < recall[~routed].mean()

@@ -319,12 +319,31 @@ def test_merge_topk_host_identical():
         assert len(ok) == sum(len(set(r[r >= 0])) for r in got[1])
 
 
-def test_unported_strategies_and_metrics_raise(mine):
+def test_unported_strategies_and_metrics_raise(mine, queries):
+    """Index kind ivf (queue 1 item 10) now builds and serves AnonySys, an
+    IVFIndex a partition (the unpacked layout), every row readable; HNSW
+    still serves only under AnonySys's graph executor."""
+    from vectorsearch_rbac_tpu_torch.index.ivf import IVFIndex
+
     mc, mw, ma = mine
+    qf, users = queries
     _, cfg = _cfgs()
     cfg.index.kind = "ivf"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_searcher("dynamic", mc, mw, ma, cfg)
+    cfg.index.ivf_nlist = 8
+    cfg.search.nprobe = 8
+    s = build_searcher("dynamic", mc, mw, ma, cfg)
+    assert all(isinstance(p.index, IVFIndex) for p in s.partitions.values())
+    _, ids = s.search_batch(qf, users, mw.user_masks, K)
+    assert (ids >= 0).sum() > 0.5 * ids.size
+    assert_readable(mc, mw, ids, users)
+    # at full probe each partition's IVF scan is exact: the flat-scan
+    # AnonySys of the same plan returns the same rows
+    cfg.index.kind = "flat_approx"
+    cfg.search.scan_group = 0
+    flat = build_searcher("dynamic", mc, mw, ma, cfg, plan=s.plan)
+    np.testing.assert_array_equal(
+        np.sort(ids, 1), np.sort(flat.search_batch(qf, users, mw.user_masks,
+                                                   K)[1], 1))
     # HNSW serves only under AnonySys's graph executor: the other
     # strategies refuse it before building any graph
     for kind in ("hnsw", "hybrid"):

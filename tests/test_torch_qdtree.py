@@ -256,15 +256,54 @@ def test_validate_catches_a_dropped_row(qd):
 
 
 def test_non_l2_arena_is_refused_before_any_tree(qd, monkeypatch):
-    """A cosine arena: QDTree raises naming the PackedSearcher's ROADMAP
-    item before it builds a tree."""
-    def no_tree(*a, **k):
-        raise AssertionError("a tree was built")
+    """A cosine arena, once refused (queue 1 item 8), now serves through
+    the PackedSearcher: the tree is built on unit vectors, so its route
+    radius and leaves equal the reference's built from the unit corpus and
+    unit workload vectors, and its ids equal that reference searcher's
+    (its packed scan given the cosine metric, the reference defect the
+    port fixes), every row readable."""
+    import dataclasses
 
-    monkeypatch.setattr(qdtree, "build_qd_tree", no_tree)
+    import jax
+
+    from vectorsearch_rbac_tpu.core import Corpus as RefCorpus
+    from vectorsearch_rbac_tpu.ops.ivf_scan import probed_topk as ref_probed
+    from vectorsearch_rbac_tpu.partition import packed as ref_packed
+    from vectorsearch_rbac_tpu_torch.partition.packed import PackedSearcher
+
+    fn = jax.jit(lambda q, s, v, n, b, r, m, k, mode: ref_probed(
+        q, s, v, n, b, r, m, k, mode=mode, metric="cosine"),
+        static_argnums=(7, 8))
+    monkeypatch.setattr(
+        ref_packed, "_packed_search_fn",
+        lambda q, s, v, n, b, r, m, k, mode="approx": fn(q, s, v, n, b, r, m,
+                                                         k, mode))
     ra = ref_arena(qd["rc"], qd["rw"], block_rows=128, dtype="int8",
                    metric="cosine")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        build_searcher("qdtree", qd["pc"], qd["pw"],
-                       arena_from_reference(ra, "cpu"), qd["pcfg"],
-                       workload=qd["wl"])
+    unit = qdtree.unit_rows
+    rc = RefCorpus(vectors=unit(qd["rc"].vectors), doc_ids=qd["rc"].doc_ids,
+                   block_ids=qd["rc"].block_ids)
+    wl = dataclasses.replace(qd["wl"], vectors=unit(qd["wl"].vectors))
+    kw = dict(min_leaf=16, max_depth=6)
+    want_s = ref_searcher("qdtree", rc, qd["rw"], ra, qd["rcfg"],
+                          workload=wl, **kw)
+    got_s = build_searcher("qdtree", qd["pc"], qd["pw"],
+                           arena_from_reference(ra, "cpu"), qd["pcfg"],
+                           workload=qd["wl"], **kw)
+    assert isinstance(got_s, PackedSearcher)
+    assert want_s.tree.route_radius is not None
+    assert got_s.tree.route_radius == pytest.approx(
+        want_s.tree.route_radius, rel=1e-6)
+    for g, w in zip(got_s.tree.leaf_rows, want_s.tree.leaf_rows):
+        np.testing.assert_array_equal(g, w)
+    q, users = _queries(qd, 30, seed=12)
+    got = got_s.search_batch(q, users, qd["pw"].user_masks, K)
+    want = want_s.search_batch(unit(q), users, qd["rw"].user_masks, K)
+    np.testing.assert_array_equal(got[1] < 0, want[1] < 0)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for qi in range(len(q)):
+        assert set(got[1][qi]) == set(want[1][qi]), qi
+    bits = qd["pc"].vector_role_bits(qd["pw"])
+    for qi, u in enumerate(users):
+        for r in got[1][qi][got[1][qi] >= 0]:
+            assert (bits[r] & qd["pw"].user_masks[u]).any()

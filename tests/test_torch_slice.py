@@ -454,9 +454,16 @@ def test_bench_entry_refuses_unported_and_cpu(capsys):
     assert (args.dataset, args.metric) == ("cohere", "cosine")
     for name in ("role", "user", "dynamic", "qdtree"):
         assert parse_args(["--strategy", name]).strategy == name
+    # served since the PackedSearcher and IVF: float32 arenas and
+    # partitioned strategies on ip/cosine (tests/test_torch_packed.py has
+    # the rest of the flags)
+    assert parse_args(["--dtype", "float32", "--index", "flat"]).dtype == \
+        "float32"
+    assert parse_args(["--strategy", "role", "--metric",
+                       "cosine"]).metric == "cosine"
     for off in (["--dataset", "synthetic"],
-                ["--metric", "l1"], ["--dtype", "float32"],
-                ["--strategy", "role", "--metric", "cosine"]):
+                ["--metric", "l1"], ["--dtype", "bfloat16"],
+                ["--strategy", "role", "--index", "hnsw"]):
         with pytest.raises(SystemExit):
             parse_args(off)
     assert "ROADMAP" in capsys.readouterr().err

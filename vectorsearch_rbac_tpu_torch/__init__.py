@@ -2,13 +2,15 @@
 
 A port of `vectorsearch_rbac_tpu` (JAX/Pallas, written for a TPU), which
 stays beside it as the reference. This package serves the RLS strategy over
-the int8 arena for l2, ip and cosine, and the partitioned strategies ROLE,
-USER and AnonySys (`dynamic`) over the int8 l2 arena, AnonySys also with
-its hybrid executor (HNSW graphs where selectivity holds, the int8 scan on
-the remainder): the global masked scan (narrow and wide rows, and the
-admit-dedup slot form), the group-minima merge, the float32 rerank, the
-result wire, the chunk engine of the partitions and the HNSW graph step
-run on the card, in CUDA C++ kernels written for sm_90a (`csrc/`, built
+the int8 arena for l2, ip and cosine, the partitioned strategies ROLE,
+USER, AnonySys (`dynamic`) and QDTree on every arena (the chunk engine on
+an int8 l2 arena, the PackedSearcher elsewhere), the IVF index, and
+AnonySys's graph executors (HNSW graphs where selectivity holds and the
+int8 scan on the remainder, or a graph on every partition): the global
+masked scan (narrow and wide rows, and the admit-dedup slot form), the
+group-minima merge, the float32 rerank, the result wire, the chunk engine
+of the partitions, the packed and IVF probed scans and the HNSW graph
+step run on the card, in CUDA C++ kernels written for sm_90a (`csrc/`, built
 with nvcc at first use) wherever the reference runs a Pallas kernel, and
 in PyTorch where it leaves the work to XLA. The HNSW graphs are built by
 a copy of the reference's native builder (`native/`, g++ at first use). The
@@ -25,11 +27,13 @@ Layer map:
     models      the planner's cost models        (reference models/)
     ops/        oracle scan, int8 scans, merge,  (reference ops/)
                 rerank, chunk engine, graph
-                search and step, host merge
+                search and step, k-means, IVF
+                probed scan, host merge
     csrc/       the CUDA kernels                 (reference Pallas kernels)
     native/     the HNSW graph builder (C++)     (reference native/)
-    index/      exact flat, int8 flat, HNSW      (reference index/)
-    partition/  RLS, ROLE, USER, AnonySys        (reference partition/)
+    index/      exact flat, int8 flat, HNSW, IVF (reference index/)
+    partition/  RLS, ROLE, USER, AnonySys,       (reference partition/)
+                QDTree, tiled and packed
     bench/      workload, oracle, harness, CLI   (reference bench/, bench.py)
 """
 

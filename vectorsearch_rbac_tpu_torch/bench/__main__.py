@@ -5,15 +5,17 @@
 The counterpart of the repository's bench.py, with the same flags, the
 same defaults and the same single JSON line on stdout:
   {"metric": ..., "value": N, "unit": "qps", "vs_baseline": N}
-The port serves --index flat_approx --dtype int8 with --strategy rls over
---dataset sift1m or cohere and --metric l2, ip or cosine, and --strategy
-role, user, dynamic (AnonySys, the planner at cfg.optimizer's defaults)
-or qdtree (built as bench.py builds it: no workload, so the tree samples
-the first 64 role combinations and routes by the margin rule) over l2;
-any other combination is refused (the ip/cosine partitions are a ROADMAP
-slice 3 item; --index hnsw needs graphs above 200,000 rows, hence IVF,
-ROADMAP queue 1 item 10). It needs a CUDA device and exits non-zero
-without one.
+The port serves --strategy rls, role, user, dynamic (AnonySys, the
+planner at cfg.optimizer's defaults) and qdtree (built as bench.py builds
+it: no workload, so the tree samples the first 64 role combinations and
+routes by the margin rule) over --dataset sift1m or cohere, --metric l2,
+ip or cosine and --dtype int8 or float32, with --index flat_approx, flat
+or ivf (the partitioned strategies' flat kinds take the TiledSearcher on
+an int8 l2 arena and the PackedSearcher on any other; ivf builds an
+IVFIndex a partition), and --index hnsw for --strategy dynamic on l2 (an
+HNSW graph a partition, the IVF-assisted kNN above 200,000 rows). What
+is left is refused, naming its ROADMAP queue 1 item. It needs a CUDA
+device and exits non-zero without one.
 
 Scenario: by default a SIFT1M-shaped corpus (1M x 128-d, 100 blocks/doc);
 with --dataset cohere the cohere-like 1M x 768 unit-normalized corpus,
@@ -33,16 +35,41 @@ import time
 
 BASELINE_QPS = 1000.0 / 0.118  # ~8474 QPS, physical role partition, CPU
 PORTED = {"strategy": ("rls", "role", "user", "dynamic", "qdtree"),
-          "index": ("flat_approx",), "dtype": ("int8",),
+          "index": ("flat", "flat_approx", "ivf", "hnsw"),
+          "dtype": ("int8", "float32"),
           "dataset": ("sift1m", "cohere"), "metric": ("l2", "ip", "cosine")}
-_ROADMAP = {"hnsw": "an HNSW graph over every partition needs one over the "
-                    "alpha remainder's 660,000 rows, and graphs above "
-                    "200,000 rows need the IVF-assisted kNN, ROADMAP queue 1 "
-                    "item 10; the hybrid executor (graphs where selectivity "
-                    "holds, the int8 scan on the remainder) runs in "
-                    "chip_smoke.py and bench.profile --index hybrid",
-            "partitions": "ip/cosine partitions need the PackedSearcher, "
-                          "ROADMAP slice 3 (queue 1 item 8)"}
+# what is still refused, and the ROADMAP queue 1 item that ports it
+_ROADMAP = {"binary": "the binary index is ROADMAP queue 1 item 12",
+            "bfloat16": "the bfloat16 arena is ROADMAP queue 1 item 15",
+            "l1": "the l1 metric is ROADMAP queue 1 item 15",
+            "synthetic": "the float synthetic corpus is ROADMAP queue 1 "
+                         "item 15",
+            "sift10m": "the 10M cell is ROADMAP queue 1 item 14"}
+
+
+def refusal(args):
+    """Why the port cannot serve these flags (naming the ROADMAP queue 1
+    item), or None."""
+    off = {f: getattr(args, f) for f, v in PORTED.items()
+           if getattr(args, f) not in v}
+    if off:
+        why = "; ".join(_ROADMAP[v] for v in off.values() if v in _ROADMAP)
+        return (f"not ported: {off}; the port serves "
+                + " ".join(f"--{f} {'|'.join(v)}" for f, v in PORTED.items())
+                + (f" ({why})" if why else ""))
+    if args.index == "hnsw" and args.strategy != "dynamic":
+        return (f"not ported: --index hnsw under --strategy {args.strategy}"
+                "; HNSW serves under AnonySys's graph executor only (HNSW "
+                "for RLS, ROLE, USER and QDTree is ROADMAP queue 1 item 11)")
+    if args.index == "hnsw" and args.metric != "l2":
+        return (f"not ported: --index hnsw --metric {args.metric}; the "
+                "graph step scores l2 only (ROADMAP queue 1 item 11)")
+    if (args.strategy, args.index, args.dtype) == ("rls", "flat_approx",
+                                                  "float32"):
+        return ("not ported: --strategy rls --index flat_approx --dtype "
+                "float32; FlatIndex's approx mode is ROADMAP queue 1 item 15 "
+                "(--index flat serves the exact scan)")
+    return None
 
 
 def log(msg):
@@ -77,18 +104,9 @@ def parse_args(argv=None):
     ap.add_argument("--per-query", default="",
                     help="write per-query JSON records to this path")
     args = ap.parse_args(argv)
-    off = {f: getattr(args, f) for f, v in PORTED.items()
-           if getattr(args, f) not in v}
-    if off:
-        why = "; ".join(_ROADMAP[v] for v in (off.get("strategy"),
-                                               off.get("index"))
-                        if v in _ROADMAP)
-        ap.error(f"not ported: {off}; the port serves "
-                 + " ".join(f"--{f} {'|'.join(v)}" for f, v in PORTED.items())
-                 + (f" ({why})" if why else ""))
-    if args.strategy != "rls" and args.metric != "l2":
-        ap.error(f"not ported: --strategy {args.strategy} --metric "
-                 f"{args.metric} ({_ROADMAP['partitions']})")
+    why = refusal(args)
+    if why:
+        ap.error(why)
     if args.smoke:
         args.n = min(args.n, 100_000)
         args.queries = min(args.queries, 256)
@@ -142,7 +160,7 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase B: the int8 serving arena
+    # phase B: the serving arena
     t0 = time.perf_counter()
     arena = build_device_arena(corpus, world, device=device,
                                block_rows=args.block_rows, dtype=args.dtype,

@@ -2,12 +2,13 @@
 
     python -m vectorsearch_rbac_tpu_torch.bench.profile [--n N] [--queries Q]
         [--dataset sift1m|cohere] [--metric l2|ip|cosine]
-        [--strategy rls|role|user|dynamic] [--index flat_approx|hybrid]
+        [--strategy rls|role|user|dynamic|qdtree]
+        [--index flat_approx|flat|ivf|hybrid] [--dtype int8|float32]
         [--alpha A] [--topk K] [--batch B]
 
 Builds bench's world for the dataset and metric (tree RBAC with 100 roles
-and 10k users, int8 arena) and the strategy at bench's serving
-configuration, runs two warm passes, times three untraced passes, then
+and 10k users, an int8 or float32 arena) and the strategy at bench's
+serving configuration, runs two warm passes, times three untraced passes, then
 traces one pass with torch.profiler. It prints the untraced and traced
 pass walls (their difference is the tracing cost), the spans of the
 searcher and index layers with their host time and the device time of
@@ -18,10 +19,16 @@ which run one after another on the one stream). The spans split a pass:
 
 - rls: flat_int8.dedup, .quantize_upload, .enqueue (per batch .scan,
   .merge, .rerank, .wire) and .fetch_unpack;
-- role, user, dynamic: tiled.route (host), tiled.big_enqueue (the big
-  tier's scans and merges, flat_int8.* inside), tiled.chunk_scan (the
-  chunk engine), tiled.big_fetch and tiled.merge (the host's fan-out
-  merge);
+- role, user, dynamic, qdtree on an int8 l2 arena: tiled.route (host),
+  tiled.big_enqueue (the big tier's scans and merges, flat_int8.*
+  inside), tiled.chunk_scan (the chunk engine), tiled.big_fetch and
+  tiled.merge (the host's fan-out merge);
+- the same on any other arena (the PackedSearcher): packed.route (host),
+  packed.scan (every bucket's probed scan, enqueue and fetch) and
+  packed.merge (the host's fan-out merge);
+- --index ivf: partitioned.route, partitioned.enqueue (every IVF index's
+  routing and probed scans) and partitioned.merge; rls's one index has no
+  span of its own (the pass is its scan);
 - dynamic --index hybrid (the hybrid executor: HNSW graphs where the
   combs' selectivity holds, the int8 scan on the remainder):
   partitioned.route, partitioned.enqueue (the flat partitions' scans,
@@ -39,7 +46,8 @@ import argparse
 import sys
 import time
 
-SPAN_PREFIXES = ("flat_int8.", "tiled.", "partitioned.", "graph.")
+SPAN_PREFIXES = ("flat_int8.", "tiled.", "packed.", "partitioned.",
+                 "graph.")
 
 
 def profile_pass(one_pass):
@@ -105,16 +113,20 @@ def main(argv=None) -> int:
     ap.add_argument("--metric", default="l2",
                     choices=["l2", "ip", "cosine"])
     ap.add_argument("--strategy", default="rls",
-                    choices=["rls", "role", "user", "dynamic"])
+                    choices=["rls", "role", "user", "dynamic", "qdtree"])
     ap.add_argument("--index", default="flat_approx",
-                    choices=["flat_approx", "hybrid"],
+                    choices=["flat_approx", "flat", "ivf", "hybrid"],
                     help="hybrid: the dynamic strategy's hybrid executor")
+    ap.add_argument("--dtype", default="int8", choices=["int8", "float32"])
     ap.add_argument("--alpha", type=float, default=0.0,
                     help="AnonySys storage budget (0 = the config's 1.5)")
     args = ap.parse_args(argv)
     if args.index == "hybrid" and (args.strategy, args.metric) != (
             "dynamic", "l2"):
         ap.error("--index hybrid is the dynamic strategy's executor, on l2")
+    if (args.strategy, args.index, args.dtype) == ("rls", "flat_approx",
+                                                  "float32"):
+        ap.error("rls over a float32 arena serves --index flat or ivf")
 
     import torch
 
@@ -137,8 +149,8 @@ def main(argv=None) -> int:
     if args.alpha:
         cfg.optimizer.storage_alpha = args.alpha
     arena = build_device_arena(corpus, world, device=device,
-                               block_rows=cfg.search.block_rows, dtype="int8",
-                               metric=args.metric)
+                               block_rows=cfg.search.block_rows,
+                               dtype=args.dtype, metric=args.metric)
     t0 = time.perf_counter()
     searcher = build_searcher(args.strategy, corpus, world, arena, cfg,
                               **({"packed": False} if args.index == "hybrid"
@@ -150,10 +162,23 @@ def main(argv=None) -> int:
         shape = (f"{n_graph} graph + {rep['num_partitions'] - n_graph} flat "
                  f"partitions, {rep['total_mb']:.1f} MB, build "
                  f"{build_s:.2f} s (graphs {searcher.graph_build_s:.2f} s)")
+    elif args.index == "ivf":
+        ivfs = [p.index for p in searcher.partitions.values()]
+        shape = (f"{len(ivfs)} IVF indexes, nlist "
+                 f"{sorted({ix.nlist for ix in ivfs})[-1]}, nprobe "
+                 f"{ivfs[0].nprobe}, l_pad {max(ix.l_pad for ix in ivfs)}, "
+                 f"build {build_s:.2f} s")
     elif args.strategy == "rls":
         index = searcher.partitions[0].index
-        shape = (f"group {index.group}, rerank "
-                 f"{index.rerank_mode if index.rerank else None}")
+        shape = (f"{type(index).__name__}"
+                 + (f", group {index.group}, rerank "
+                    f"{index.rerank_mode if index.rerank else None}"
+                    if hasattr(index, "group") else ""))
+    elif hasattr(searcher, "buckets"):
+        rep = searcher.storage_report()
+        shape = (f"{rep['num_partitions']} partitions in buckets (P, L_pad) "
+                 f"{searcher.bucket_shapes}, {rep['total_mb']:.1f} MB, build "
+                 f"{build_s:.2f} s")
     else:
         rep = searcher.storage_report()
         shape = (f"{rep['num_partitions']} partitions "
@@ -175,8 +200,9 @@ def main(argv=None) -> int:
     untraced_ms = sum(walls) / len(walls)
     wall_ms, spans, rows, busy_ms = profile_pass(one_pass)
     print(f"{torch.cuda.get_device_name(device)}: {args.dataset} "
-          f"{args.metric} {args.strategy}, pass of {args.queries} queries x "
-          f"{arena.n_padded} rows x d_pad {arena.quant.d_pad}, top-"
+          f"{args.metric} {args.dtype} {args.strategy}, pass of "
+          f"{args.queries} queries x {arena.n_padded} rows x d {arena.dim}, "
+          f"top-"
           f"{args.topk}, {shape}; wall untraced {untraced_ms:.3f}"
           f" ms (passes {', '.join(f'{w:.3f}' for w in walls)}), traced "
           f"{wall_ms:.3f} ms; device busy {busy_ms:.3f} ms, idle share of "
@@ -193,7 +219,9 @@ def main(argv=None) -> int:
               f"{dev.get('graph.merge', 0.0):.3f}, dedup "
               f"{dev.get('graph.dedup', 0.0):.3f}), flat remainder "
               f"{flat:.3f} ms")
-    elif args.strategy != "rls":
+    elif hasattr(searcher, "buckets"):
+        print(f"  device: packed scan {dev.get('packed.scan', 0.0):.3f} ms")
+    elif args.strategy != "rls" and args.index != "ivf":
         chunk = dev.get("tiled.chunk_scan", 0.0)
         big = dev.get("tiled.big_enqueue", 0.0) + dev.get("tiled.big_fetch",
                                                           0.0)

@@ -3,8 +3,8 @@
 The fields of vectorsearch_rbac_tpu/utils/config.py `FrameworkConfig` that
 the ported paths read, with the reference's defaults and the same nesting
 (`cfg.search.*`, `cfg.index.*`, `cfg.optimizer.*`), so that a reference
-config object works here too. The other knobs (ACORN, IVF, binary) come
-with the slices that read them. The reference's `index.hnsw_logical` is
+config object works here too. The other knobs (ACORN, binary) come with
+the slices that read them. The reference's `index.hnsw_logical` is
 not here: the port's HNSW graphs always serve from the shared arena.
 """
 
@@ -21,6 +21,7 @@ from typing import Optional
 class SearchConfig:
     topk: int = 10
     ef_search: int = 40          # HNSW beam width (pgvector hnsw.ef_search)
+    nprobe: int = 16             # IVF probes (pgvector ivfflat.probes)
     batch_size: int = 256        # queries per device dispatch
     block_rows: int = 16384      # arena rows per scan block
     dtype: str = "float32"       # arena dtype: "float32" | "int8"
@@ -35,9 +36,12 @@ class SearchConfig:
 
 @dataclass
 class IndexConfig:
-    kind: str = "flat"           # "flat" | "flat_approx" | "hnsw" | "hybrid"
+    kind: str = "flat"           # "flat" | "flat_approx" | "ivf" | "hnsw"
+                                 # | "hybrid"
     hnsw_m: int = 16
     hnsw_ef_construction: int = 64
+    ivf_nlist: int = 1024        # IVF lists (k-means centroids)
+    ivf_kmeans_iters: int = 10   # Lloyd iterations of the IVF build
     # hybrid (dynamic partitions): a partition serves from an HNSW graph
     # only when every comb routed to it keeps within-partition selectivity
     # >= this threshold; mixed partitions take the int8 flat scan

@@ -318,10 +318,12 @@ def build_device_arena(corpus: Corpus, world: RBACWorld, *, device,
     dtype "int8" adds the quantized serving copy (ArenaQuant). metric
     "l2" | "ip" | "cosine"; cosine rows are L2-normalized here, once."""
     if dtype not in ("float32", "int8"):
-        raise NotImplementedError(f"arena dtype {dtype!r} is not ported")
+        raise NotImplementedError(f"arena dtype {dtype!r} is not ported "
+                                  "(ROADMAP queue 1 item 15)")
     if metric not in METRICS:
         raise NotImplementedError(f"metric {metric!r}: the port serves "
-                                  f"{METRICS}")
+                                  f"{METRICS} (l1 is ROADMAP queue 1 item "
+                                  "15)")
     n, d = corpus.n, corpus.dim
     npad = pad_rows(max(n, 1), block_rows)
     vecs = np.zeros((npad, d), dtype=np.float32)
@@ -387,7 +389,8 @@ def arena_from_reference(ref, device) -> DeviceArena:
     compute on the same state."""
     if ref.metric not in METRICS:
         raise NotImplementedError(f"metric {ref.metric!r}: the port serves "
-                                  f"{METRICS}")
+                                  f"{METRICS} (l1 is ROADMAP queue 1 item "
+                                  "15)")
     q = ref.quant
     quant_parts = None if q is None else (
         q.host_vectors_q, q.host_norms_q, q.scale, q.center, q.lossless,

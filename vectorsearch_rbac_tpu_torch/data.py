@@ -83,5 +83,5 @@ def resolve_dataset(name: str, num_vectors: int = 1_000_000,
     if name in ("cohere", "wikipedia"):
         return cohere_like_corpus(num_vectors=num_vectors, seed=seed)
     raise NotImplementedError(
-        f"dataset {name!r}: the float synthetic corpus is not ported; "
-        "dataset files are not read")
+        f"dataset {name!r}: the float synthetic corpus is not ported "
+        "(ROADMAP queue 1 item 15); dataset files are not read (item 17)")

@@ -1,5 +1,7 @@
 from .flat import FlatIndex
 from .flat_int8 import Int8FlatIndex
 from .hnsw import HNSWIndex
+from .ivf import IVFIndex, ivf_from_reference
 
-__all__ = ["FlatIndex", "Int8FlatIndex", "HNSWIndex"]
+__all__ = ["FlatIndex", "Int8FlatIndex", "HNSWIndex", "IVFIndex",
+           "ivf_from_reference"]

@@ -10,15 +10,15 @@ reference picks them ("auto"):
 
 - "classic" (up to 50,000 rows): the native Malkov-Yashunin construction
   (native/hnsw_builder.cpp vsr_hnsw_build);
-- "tpu" (up to 200,000 rows; the reference's name for its device-assisted
-  builder): the exact kNN graph from blockwise float32 matmuls on the
-  device (TF32 off), each row's k + 1 nearest taken in (distance, index)
-  order as lax.top_k takes them, random long-range edges, the native
-  alpha-RNG prune (vsr_rng_prune), then one search-based refinement pass
-  (`_vamana_refine`) over the device beam search. Above 200,000 rows the
-  reference switches to an IVF-assisted kNN (ops/kmeans.py,
-  ops/ivf_scan.py), which is ROADMAP queue 1 item 10: the port raises
-  there.
+- "tpu" (above 50,000 rows; the reference's name for its
+  device-assisted builder): a kNN graph on the device, random long-range
+  edges, the native alpha-RNG prune (vsr_rng_prune), then one
+  search-based refinement pass (`_vamana_refine`) over the device beam
+  search. Up to 200,000 rows the kNN is exact, from blockwise float32
+  matmuls (TF32 off), each row's k + 1 nearest taken in (distance, index)
+  order as lax.top_k takes them; above, it is the reference's
+  IVF-assisted kNN (`_device_knn_graph_ivf`: the device k-means and the
+  probed scan of ops/kmeans.py and ops/ivf_scan.py).
 
 A failed native build raises (native/__init__.py): the reference's
 pure-Python stand-in for a missing compiler is not carried over.
@@ -43,13 +43,18 @@ from .. import native
 from ..config import get_logger
 from ..core import DeviceArena, build_packed_graph_rows, packed_query_operands
 from ..ops.graph_search import graph_beam_search, graph_beam_search_iterative
+from ..ops.ivf_scan import ivf_search_fn
+from ..ops.kmeans import assign_clusters_blocked, kmeans_fit, kmeans_init
 from ..ops.scan import exact_f32_matmul
 from ..ops.topk import merge_topk_host
+from .ivf import TRAIN_SAMPLE, bucket_rows, padded_row_map
 
 logger = get_logger("index.hnsw")
 
 CLASSIC_MAX_ROWS = 50_000   # "auto" builds larger graphs with the kNN builder
-KNN_MAX_ROWS = 200_000      # the exact kNN's limit (the reference's :366)
+KNN_MAX_ROWS = 200_000      # above, the IVF-assisted kNN (the reference's
+                            # :366)
+KNN_IVF_CHUNK = 4096        # rows a probed scan of the IVF-assisted kNN
 
 
 def _device_knn_graph(vec: np.ndarray, k: int, device,
@@ -76,6 +81,62 @@ def _device_knn_graph(vec: np.ndarray, k: int, device,
                               float("inf"))
             order = torch.sort(val, dim=1, stable=True).indices[:, :k + 1]
             out[s:s + block] = pos.gather(1, order).cpu().numpy()
+    return out
+
+
+def _device_knn_graph_ivf(vec: np.ndarray, k: int, device, seed: int = 0,
+                          centroids: Optional[np.ndarray] = None
+                          ) -> np.ndarray:
+    """(n, k + 1) int32 approximate kNN lists from IVF probing (the
+    reference's :62): nlist max(16, sqrt n) centroids fitted by 8 Lloyd
+    iterations on a sample of at most 200,000 rows (or `centroids` as
+    given), every row in its nearest list or, past a full one (l_pad the
+    0.99 quantile of the list sizes), its nearest list with space: no row
+    is dropped. Each row then searches its 6 nearest lists for its k + 1
+    nearest by squared L2, in chunks of 4096 queries through the probed
+    scan: bfloat16 lists, one all-admitting role word, pad norms 3e37."""
+    n, d = vec.shape
+    nlist = max(16, int(np.sqrt(n)))
+    nprobe = 6
+    if centroids is None:
+        rng = np.random.default_rng(seed)
+        sample = vec if n <= TRAIN_SAMPLE else vec[
+            rng.choice(n, TRAIN_SAMPLE, replace=False)]
+        cents, _ = kmeans_fit(
+            torch.from_numpy(np.ascontiguousarray(sample)).to(device),
+            torch.from_numpy(kmeans_init(sample, nlist, seed)).to(device),
+            iters=8)
+    else:
+        cents = torch.from_numpy(np.array(centroids, np.float32)).to(
+            device)
+    assign = assign_clusters_blocked(vec, cents)
+    counts = np.bincount(assign, minlength=nlist)
+    l_pad = max(8, int(np.quantile(counts, 0.99)) // 8 * 8 + 8)
+    lists, l_pad = bucket_rows(assign, vec, cents.cpu().numpy(), l_pad)
+    if sum(len(x) for x in lists) != n:
+        raise RuntimeError("the IVF graph lists lost rows")
+    rmap = torch.from_numpy(padded_row_map(
+        lists, np.arange(n, dtype=np.int64), l_pad)).to(device)
+    flat = rmap.reshape(-1).to(torch.int64)
+    pad = flat < 0
+    v = torch.from_numpy(np.ascontiguousarray(vec)).to(device)
+    norms = torch.from_numpy(
+        np.einsum("nd,nd->n", vec, vec).astype(np.float32)).to(device)
+    inv_vec = v.index_select(0, flat.clamp_min(0)).to(torch.bfloat16)
+    inv_vec[pad] = 0
+    inv_norm = norms.index_select(0, flat.clamp_min(0))
+    inv_norm[pad] = 3e37
+    inv_bits = (~pad).to(torch.int32)
+    shape = (nlist, l_pad)
+    inv_vec, inv_norm = inv_vec.view(*shape, d), inv_norm.view(shape)
+    inv_bits = inv_bits.view(*shape, 1)
+    masks = torch.ones((KNN_IVF_CHUNK, 1), dtype=torch.int32, device=device)
+    out = np.empty((n, k + 1), dtype=np.int32)
+    for s in range(0, n, KNN_IVF_CHUNK):
+        e = min(s + KNN_IVF_CHUNK, n)
+        _, ids = ivf_search_fn(v[s:e], cents, inv_vec, inv_norm, inv_bits,
+                               rmap, masks[:e - s], k + 1, nprobe)
+        out[s:e] = ids.cpu().numpy()
     return out
 
 
@@ -159,12 +220,9 @@ class HNSWIndex:
             nbr, _, entry, _ = native.hnsw_build(
                 vec, m=m, ef_construction=ef_construction, seed=seed)
         elif builder == "tpu":
-            if n > KNN_MAX_ROWS:
-                raise NotImplementedError(
-                    f"an HNSW graph over {n} rows needs the IVF-assisted kNN "
-                    f"above {KNN_MAX_ROWS} rows (ops/kmeans.py, "
-                    "ops/ivf_scan.py): ROADMAP queue 1 item 10, not ported")
-            knn = _device_knn_graph(vec, knn_k, dev)
+            knn = (_device_knn_graph_ivf(vec, knn_k, dev, seed=seed)
+                   if n > KNN_MAX_ROWS else
+                   _device_knn_graph(vec, knn_k, dev))
             rng = np.random.default_rng(seed)
             rand_edges = rng.integers(0, n, size=(n, 16), dtype=np.int64)
             cand0 = np.concatenate([knn[:, 1:], rand_edges.astype(np.int32)],

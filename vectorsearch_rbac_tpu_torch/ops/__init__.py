@@ -1,5 +1,6 @@
 """Device ops: the exact oracle scan, the fused int8 scans, the merge, the
-float32 rerank, and the HNSW graph search with its step's kernels.
+float32 rerank, the HNSW graph search with its step's kernels, and the IVF
+path's k-means and probed scan.
 
 The CUDA kernels behind them (csrc/) are built and loaded on first use by
 `_build`; importing these modules needs neither nvcc nor a GPU."""
@@ -7,6 +8,8 @@ The CUDA kernels behind them (csrc/) are built and loaded on first use by
 from ._build import LAUNCHES, reset_launches
 from .graph_search import graph_beam_search, graph_beam_search_iterative
 from .graph_step import graph_merge_step, graph_score_packed
+from .ivf_scan import ivf_search_fn, probed_topk
+from .kmeans import assign_clusters, kmeans_fit, kmeans_init
 from .merge import merge_supported, merge_topk
 from .scan import masked_scan_topk
 from .rerank import rebuild_query, rerank_topk
@@ -17,6 +20,8 @@ from .scan_int8 import (int8_group_minima, int8_group_minima_wide,
 __all__ = [
     "LAUNCHES", "reset_launches", "graph_beam_search",
     "graph_beam_search_iterative", "graph_merge_step", "graph_score_packed",
+    "ivf_search_fn", "probed_topk", "assign_clusters", "kmeans_fit",
+    "kmeans_init",
     "merge_supported", "merge_topk",
     "masked_scan_topk", "rebuild_query", "rerank_topk",
     "int8_group_minima", "int8_group_minima_wide", "int8_masked_topk",

@@ -1,5 +1,6 @@
 from .base import BuiltPartition, PartitionedSearcher, make_partition_index
 from .graph_batch import GraphProbeBatcher
+from .packed import PackedSearcher
 from .qdtree import QDTree, build_qd_tree, build_qdtree_searcher
 from .strategies import (STRATEGIES, build_comb_searcher,
                          build_global_searcher, build_role_searcher,
@@ -9,6 +10,7 @@ from .tiled import TiledSearcher
 __all__ = [
     "BuiltPartition",
     "GraphProbeBatcher",
+    "PackedSearcher",
     "QDTree",
     "build_qd_tree",
     "build_qdtree_searcher",

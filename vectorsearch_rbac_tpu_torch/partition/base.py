@@ -36,9 +36,11 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
     rows: "flat_approx" on a quantized arena is the int8 fused scan (the
     configured wire on the global index; "f32" on partitions, whose
     results are merged across partitions and must keep their distances),
-    "flat" over the whole arena the exact f32 scan. HNSW partitions are
-    built by the AnonySys graph executor (partition/dynamic/materialize.py)
-    and refused here, before any build."""
+    "flat" over the whole arena the exact f32 scan, "ivf" an IVFIndex over
+    the rows (cfg.index.ivf_nlist lists, cfg.search.nprobe probes). HNSW
+    partitions are built by the AnonySys graph executor
+    (partition/dynamic/materialize.py) and refused here, before any
+    build."""
     kind = cfg.index.kind
     if kind == "flat_approx" and arena.quant is not None:
         return Int8FlatIndex(arena, rows, query_batch=cfg.search.batch_size,
@@ -48,6 +50,12 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
     if kind == "flat" and rows is None:
         return FlatIndex(arena, block_rows=cfg.search.block_rows,
                          query_batch=cfg.search.batch_size)
+    if kind == "ivf":
+        from ..index.ivf import IVFIndex
+        return IVFIndex(arena, rows, nlist=cfg.index.ivf_nlist,
+                        nprobe=cfg.search.nprobe,
+                        kmeans_iters=cfg.index.ivf_kmeans_iters,
+                        query_batch=cfg.search.batch_size, seed=cfg.seed)
     if kind in ("hnsw", "hybrid"):
         # an HNSW partition needs the probe parameters and the graph batcher
         # that only the dynamic strategy's graph executor sets up
@@ -58,8 +66,8 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
     raise NotImplementedError(
         f"index kind {kind!r} (dtype {'int8' if arena.quant else 'float32'}"
         f"{', over a row subset' if rows is not None else ''}) is not "
-        "ported: the exact and f32 approx scans over partitions, IVF and "
-        "binary indexes are ROADMAP slice 4 (queue 1 items 10 and 12)")
+        "ported: FlatIndex over partitions and its approx mode on a float32 "
+        "arena are ROADMAP queue 1 item 15, the binary index item 12")
 
 
 @dataclass

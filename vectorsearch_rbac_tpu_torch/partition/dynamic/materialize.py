@@ -5,8 +5,10 @@ planning (greedy split, heavy-partition refinement, renumbering, the
 coverage check), then the plan's partitions over the shared arena with the
 comb -> partitions router. Every partition scan checks permissions in the
 fused scan, so a partition that also holds rows a comb may not read needs
-nothing more. On an int8 l2 arena the packed layout is the TiledSearcher;
-packed=False builds one Int8FlatIndex per partition.
+nothing more. The packed layout (index kind flat or flat_approx) is the
+TiledSearcher on an int8 l2 arena and the PackedSearcher on any other;
+packed=False, or index kind "ivf", builds one index per partition
+(make_partition_index: an Int8FlatIndex, or an IVFIndex).
 
 Index kind "hybrid" (the reference's hybrid executor) serves a partition
 from a logical HNSW graph when every comb routed to it keeps

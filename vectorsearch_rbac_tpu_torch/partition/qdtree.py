@@ -3,10 +3,11 @@ tree.
 
 Counterpart of vectorsearch_rbac_tpu/partition/qdtree.py, host numpy as
 the reference's is (no kernel of its own: its leaves serve through the
-TiledSearcher's chunk engine and big tier, or through one Int8FlatIndex a
-leaf). Rows are split recursively by predicates, role membership ("doc
-readable by role r") or vector-space side (2-means centroids of the block
-vectors), each node taking the split that minimises the sampled
+TiledSearcher's chunk engine and big tier on an int8 l2 arena, through
+the PackedSearcher on any other, or through one index a leaf). Rows are
+split recursively by predicates, role membership ("doc readable by role
+r") or vector-space side (2-means centroids of the block vectors), each
+node taking the split that minimises the sampled
 workload's expected scan cost; leaves become partitions, and a query
 visits the leaves its user can read, pruned along the centroid predicates
 by its vector's side under the hyperplane-margin rule.
@@ -22,9 +23,12 @@ queue 3, "Intentional divergences"):
 - The batch router's doc -> leaf map is CSR (`doc_ptr`, `doc_cols`), not
   a dense (num_docs, n_leaves) bool matrix; its decisions are the same.
 - The kNN-radius estimate drops the reference's unused `kth` list.
-- QDTree is refused on any arena that is not int8 l2, before a tree is
-  built: the route radius is an L2 estimate, and ip/cosine partitions
-  need the PackedSearcher (ROADMAP queue 1 item 8).
+- The route radius follows the arena's metric (the reference estimates it
+  in L2 on the raw vectors whatever the metric): on a cosine arena the
+  tree is built and routes on unit vectors (rows and queries normalized),
+  so the radius is the chord distance it routes by; on an ip arena, where
+  no L2 ball bounds the nearest rows, the tree keeps no radius and routes
+  by the margin rule.
 
 Also: trees are always row-level (`leaf_rows` is required); the
 reference's doc-level layout served only its old pickles, and the port
@@ -195,6 +199,7 @@ def build_qd_tree(
     prune_margin: float = 0.25,
     visit_rows: Optional[float] = None,
     radius_scale: float = 0.3,
+    metric: str = "l2",
 ) -> QDTree:
     """The row-level qd-tree of the reference's build_qd_tree, decision for
     decision on the same seed: role predicates split at document
@@ -202,10 +207,14 @@ def build_qd_tree(
     scored by the tiled engine's expected cost over the sampled workload
     (rows scanned with chunk-class padding, plus `visit_rows` a leaf
     entered, centroid entry by the query VECTOR's side), and a node stays
-    a leaf when no predicate beats serving it whole."""
+    a leaf when no predicate beats serving it whole. metric "cosine"
+    builds on unit rows and unit query vectors; "ip" estimates no route
+    radius (the margin rule routes)."""
     rng = np.random.default_rng(seed)
     n_rows = corpus.n
     doc_ids = corpus.doc_ids.astype(np.int64)
+    vectors = unit_rows(corpus.vectors) if metric == "cosine" \
+        else corpus.vectors
     rows_per_doc = max(corpus.avg_blocks_per_doc, 1.0)
     min_rows = min_leaf * rows_per_doc
     if visit_rows is None:
@@ -220,6 +229,8 @@ def build_qd_tree(
         qd_mat[i, idx[idx < corpus.num_docs]] = True
     if query_vecs is not None:
         query_vecs = np.asarray(query_vecs, dtype=np.float32)
+        if metric == "cosine":
+            query_vecs = unit_rows(query_vecs)
         if len(query_vecs) != len(query_docsets):
             raise ValueError(f"{len(query_vecs)} query vectors for "
                              f"{len(query_docsets)} query docsets")
@@ -229,12 +240,12 @@ def build_qd_tree(
     # the p90 over queries, times radius_scale
     route_radius: Optional[float] = None
     radius_k = 10
-    if query_vecs is not None and n_rows > 0:
+    if query_vecs is not None and n_rows > 0 and metric != "ip":
         qn = (query_vecs ** 2).sum(1)[:, None]
         cand = [np.full((len(query_vecs), 0), np.inf)]
         for s0 in range(0, n_rows, 131072):
             blk = slice(s0, min(s0 + 131072, n_rows))
-            bv = corpus.vectors[blk].astype(np.float32)
+            bv = vectors[blk].astype(np.float32)
             d2 = (-2.0 * (query_vecs @ bv.T)
                   + (bv ** 2).sum(1)[None, :] + qn)
             d2 = np.where(qd_mat[:, doc_ids[blk]], d2, np.inf)
@@ -322,7 +333,7 @@ def build_qd_tree(
             qv = query_vecs[qidx] if query_vecs is not None else None
             fit = rows if len(rows) <= 4096 else rng.choice(
                 rows, 4096, replace=False)
-            pts = corpus.vectors[fit]
+            pts = vectors[fit]
             for _restart in range(3):
                 c = pts[rng.choice(len(pts), 2, replace=False)].copy()
                 for _ in range(8):
@@ -363,7 +374,7 @@ def build_qd_tree(
                 sel = _role_mask(pred[1])[nd]
             else:
                 _, c0, c1 = pred
-                v = corpus.vectors[rows]
+                v = vectors[rows]
                 sel = (((v - c0[None, :]) ** 2).sum(1)
                        <= ((v - c1[None, :]) ** 2).sum(1))
             if sel.all() or not sel.any():
@@ -381,6 +392,17 @@ def build_qd_tree(
                 f"{route_radius:.1f}" if route_radius else "none")
     return QDTree(root=root, leaf_docs=leaf_docs, leaf_rows=leaf_rows,
                   route_radius=route_radius)
+
+
+def unit_rows(x: np.ndarray, block: int = 65536) -> np.ndarray:
+    """Rows scaled to unit L2 norm (the arena's cosine ingest), a block of
+    rows at a time."""
+    out = np.empty(x.shape, dtype=np.float32)
+    for s in range(0, len(x), block):
+        xb = np.asarray(x[s:s + block], dtype=np.float32)
+        out[s:s + block] = xb / np.maximum(
+            np.linalg.norm(xb, axis=1, keepdims=True), 1e-30)
+    return out
 
 
 def validate_qdtree_partitions(tree: QDTree, world: RBACWorld,
@@ -444,18 +466,13 @@ def build_qdtree_searcher(
 ):
     """The QDTree strategy over the arena: a tree (built from `workload`'s
     sampled queries, or from the first 64 role combinations without one,
-    or `tree` as given) whose leaves are partitions. On an int8 l2 arena
-    with packed=True (and index kind flat or flat_approx) the leaves serve
-    through the TiledSearcher; with packed=False each leaf is its own
-    index (make_partition_index). Any other arena raises before a tree is
-    built."""
-    if arena.quant is None or arena.metric != "l2":
-        raise NotImplementedError(
-            f"QDTree on a {arena.metric} "
-            f"{'int8' if arena.quant is not None else 'float32'} arena: its "
-            "route radius is an L2 estimate and its ip/cosine leaves need "
-            "the PackedSearcher, ROADMAP slice 3, queue 1 item 8: not "
-            "ported")
+    or `tree` as given) whose leaves are partitions. With packed=True (and
+    index kind flat or flat_approx) the leaves serve through
+    packed_searcher (the TiledSearcher on an int8 l2 arena, the
+    PackedSearcher on any other); with packed=False each leaf is its own
+    index (make_partition_index). On a cosine arena the tree is built and
+    routes on unit vectors."""
+    cosine = arena.metric == "cosine"
     if tree is None:
         query_vecs = None
         if workload is not None:
@@ -480,7 +497,7 @@ def build_qdtree_searcher(
                              seed=cfg.seed, query_vecs=query_vecs,
                              prune_margin=prune_margin,
                              radius_scale=radius_scale,
-                             visit_rows=visit_rows)
+                             visit_rows=visit_rows, metric=arena.metric)
     validate_qdtree_partitions(tree, world, corpus.n)
 
     partition_rows: Dict[int, np.ndarray] = {
@@ -492,6 +509,8 @@ def build_qdtree_searcher(
     def vector_router(uid: int, qvec: Optional[np.ndarray]):
         if uid not in user_docs_cache:
             user_docs_cache[uid] = set(world.user_docs(uid))
+        if cosine and qvec is not None:
+            qvec = unit_rows(qvec[None, :])[0]
         pids = tree.route(user_docs_cache[uid], qvec, prune_by_centroid,
                           prune_margin=prune_margin)
         return tuple(p for p in pids if p in partition_rows)
@@ -525,6 +544,8 @@ def build_qdtree_searcher(
         reach = np.ones((nq, len(leaf_ids)), dtype=bool)
         if C.size and prune_by_centroid:
             q = np.asarray(queries, dtype=np.float32)
+            if cosine:
+                q = unit_rows(q)
             d2 = (-2.0 * (q @ C.T)
                   + np.einsum("kd,kd->k", C, C)[None, :])  # ||q||^2 cancels
             dl, dr = d2[:, 0::2], d2[:, 1::2]

@@ -11,10 +11,9 @@ Counterpart of vectorsearch_rbac_tpu/partition/strategies.py:
   exactly one partition.
 
 AnonySys (`dynamic`) lives in partition/dynamic/, QDTree in
-partition/qdtree.py. On an int8 l2 arena ROLE, USER, AnonySys and QDTree
-serve through the TiledSearcher; their ip/cosine counterpart (the
-reference's PackedSearcher) is a ROADMAP slice 3 item still to port, and
-raises NotImplementedError.
+partition/qdtree.py. The packed layout of ROLE, USER, AnonySys and QDTree
+is the TiledSearcher on an int8 l2 arena and the PackedSearcher on every
+other (ip and cosine arenas, float32 arenas).
 """
 
 from __future__ import annotations
@@ -40,18 +39,19 @@ def build_global_searcher(corpus: Corpus, world: RBACWorld,
 
 
 def packed_searcher(arena: DeviceArena, partition_rows, router, name: str,
-                    cfg: FrameworkConfig, **kwargs):
-    """The packed layout of a partitioned strategy: the TiledSearcher on an
-    int8 l2 arena; the reference's PackedSearcher elsewhere, not ported."""
+                    cfg: FrameworkConfig, **tiled_kwargs):
+    """The packed layout of a partitioned strategy: the TiledSearcher (with
+    tiled_kwargs) on an int8 l2 arena; the PackedSearcher elsewhere, exact
+    for index kind flat and approx for flat_approx."""
     if arena.quant is not None and arena.metric == "l2":
         from .tiled import TiledSearcher
         return TiledSearcher(arena, partition_rows, router, name=name,
-                             scan_group=cfg.search.scan_group, **kwargs)
-    raise NotImplementedError(
-        f"strategy {name!r} on a {arena.metric} "
-        f"{'int8' if arena.quant is not None else 'float32'} arena needs "
-        "the PackedSearcher (ip/cosine and float32 partitions), ROADMAP "
-        "slice 3, queue 1 item 8: not ported")
+                             scan_group=cfg.search.scan_group,
+                             **tiled_kwargs)
+    from .packed import PackedSearcher
+    return PackedSearcher(
+        arena, partition_rows, router, name=name,
+        mode="exact" if cfg.index.kind == "flat" else "approx")
 
 
 def unpacked_searcher(arena: DeviceArena, partition_rows, router,

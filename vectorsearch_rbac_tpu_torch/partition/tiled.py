@@ -99,8 +99,9 @@ class TiledSearcher:
         if arena.metric != "l2":
             raise NotImplementedError(
                 f"metric {arena.metric!r}: the chunk engine scores squared "
-                "L2; ip/cosine partitions go to PackedSearcher, ROADMAP "
-                "slice 3 (queue 1 item 8)")
+                "L2; ip/cosine partitions are served by the PackedSearcher "
+                "(partition/packed.py), which strategies.packed_searcher "
+                "picks for them")
         self.arena = arena
         self.router = router
         # a strategy that routes by query vector as well (QDTree) sets
