@@ -128,6 +128,27 @@ without a CUDA device or without the port's package beside it. Phases:
    build seconds, its kNN recall against the exact kNN on 1,024 sampled
    rows; every row must be in the kNN lists and have 32 distinct
    neighbours other than itself;
+4h. the flat family, binary and sparse (no CUDA kernel: PyTorch, as the
+   reference leaves these scans to XLA): (a) on the SIFT corpus, rls
+   through FlatIndex in approx mode (the augmented layout) and exact, on
+   a bfloat16 and a float32 arena, 8192 queries, top-100, recall >= 0.95
+   against the exact float32 oracle, readable rows, pass walls and QPS,
+   and the augmented and plain score forms timed in turns on the same
+   arena and queries; (c) the binary index (median sign bits, hamming,
+   rerank multiplier 4) on the float32 arena, its recall printed (not
+   held), its scan without rerank (hamming and jaccard) equal to a numpy
+   recomputation on 16 queries from the arena's rows and their medians
+   (distances equal, ids up to ties); (b) the
+   synthetic corpus (1M x 128 float32) on an l1 arena: rls flat exact
+   over 1,024 queries, top-100, equal to a float64 numpy recomputation on
+   16 queries (rtol 1e-5, ids up to ties), and ROLE through the
+   PackedSearcher equal to ROLE's packed=False layout (a FlatIndex a
+   partition) on every query; (d) the sparse corpus (250,000 documents x
+   4 blocks, dim 4096, nnz 16-48) under a tree world over its documents,
+   1,024 sparse queries, top-100, l2 and ip, equal to a dense float32
+   recomputation on 16 queries whose rows are densified from the corpus's
+   own CSR (not the index's padded arrays or norms). The sparse corpus is drawn in a spawned
+   worker process while (a)-(c) run;
 3b. the wide scan against its plain version at the 768-d path's geometry
    (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
    metric, score shift 3, group 128), bit-identical, beside a dots-only
@@ -172,6 +193,7 @@ bounds it, and the time of one PyTorch call computing the same function
 where there is one (`library_ms`, else null; the port never calls it).
 """
 
+import copy
 import gc
 import hashlib
 import json
@@ -213,6 +235,10 @@ IVF_FULL_QUERIES = 256       # 4g's full-probe check
 KNN_ROWS = 262_144           # 4g's IVF-assisted kNN graph (above 200,000)
 KNN_K = 32                   # the "tpu" builder's knn_k
 KNN_SAMPLE = 1024            # rows whose kNN lists are held to the exact
+L1_QUERIES = 1024            # 4h(b)'s l1 workload
+CHECK_QUERIES = 16           # 4h's numpy and dense recomputations
+SPARSE_DOCS, SPARSE_BLOCKS = 250_000, 4   # 4h(d): 1M sparse rows
+SPARSE_QUERIES = 1024
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, dense int8
 # tensor-core ops/s, float32 ops/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1556,6 +1582,393 @@ def drive_knn_graph(arena, device, smi) -> None:
              "other neighbours")
 
 
+def same_topk(got, want, rtol: float = 1e-5) -> int:
+    """The number of queries whose top-k differs beyond ties: empty slots
+    must match, finite distances agree within rtol of the query's
+    largest, and the ids strictly inside the k-th distance (less that
+    tolerance) must be equal as sets."""
+    import numpy as np
+
+    gd, gi = got
+    wd, wi = want
+    bad = 0
+    for q in range(len(wd)):
+        ok = np.isfinite(wd[q])
+        if not np.array_equal(ok, np.isfinite(gd[q])) \
+                or not np.array_equal(wi[q] < 0, gi[q] < 0):
+            bad += 1
+            continue
+        if not ok.any():
+            continue
+        tol = rtol * max(1.0, float(np.abs(wd[q][ok]).max()))
+        last = wd[q][ok].max()
+        if np.abs(gd[q][ok] - wd[q][ok]).max() > tol or (
+                set(gi[q][ok & (gd[q] < last - tol)])
+                != set(wi[q][ok & (wd[q] < last - tol)])):
+            bad += 1
+    return bad
+
+
+def start_sparse_corpus():
+    """Phase 4h(d)'s sparse corpus (the reference's generator draws it row
+    by row: about a minute at 1M rows) in a worker process of its own,
+    started before the phase's other legs; returns (executor, future)."""
+    import concurrent.futures
+    import multiprocessing
+
+    ex = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return ex, ex.submit(make_sparse_corpus)
+
+
+def make_sparse_corpus():
+    from vectorsearch_rbac_tpu_torch.data import synthetic_sparse_corpus
+
+    t0 = time.perf_counter()
+    corpus = synthetic_sparse_corpus(num_docs=SPARSE_DOCS,
+                                     blocks_per_doc=SPARSE_BLOCKS, seed=0)
+    return corpus, time.perf_counter() - t0
+
+
+def drive_flat_family(corpus, world, workload, truth, device, smi) -> None:
+    """Phase 4h (a) and (c) on the SIFT corpus: rls through FlatIndex in
+    approx mode (the augmented layout) and exact on bfloat16 and float32
+    arenas, recall >= 0.95 against the exact float32 oracle and readable
+    rows, the augmented and plain score forms timed in turns on the same
+    arena and queries; then the binary index (rerank multiplier 4) on the
+    float32 arena, its recall printed, and its scan without rerank
+    (hamming and jaccard) against a numpy recomputation on 16 queries."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench import (run_benchmark,
+                                                   serving_config)
+    from vectorsearch_rbac_tpu_torch.core import build_device_arena
+    from vectorsearch_rbac_tpu_torch.index.binary import BinaryQuantIndex
+    from vectorsearch_rbac_tpu_torch.index.flat import FlatIndex
+    from vectorsearch_rbac_tpu_torch.partition import build_searcher
+
+    q, users = workload.vectors, workload.user_ids
+    masks = world.user_masks[users]
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        arena = build_device_arena(corpus, world, device=device,
+                                   block_rows=BLOCK_ROWS, dtype=dtype)
+        build_s = time.perf_counter() - t0
+        indexes = {}
+        for kind in ("flat_approx", "flat"):
+            cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, batch=BATCH,
+                                 topk=TOPK, index=kind, dtype=dtype)
+            searcher = build_searcher("rls", corpus, world, arena, cfg)
+            ix = searcher.partitions[0].index
+            if not isinstance(ix, FlatIndex) \
+                    or (ix._vectors_aug is not None) != (kind != "flat"):
+                fail(f"4h {dtype} {kind}: built {type(ix).__name__}, "
+                     "not the FlatIndex with its score form")
+            indexes[kind] = ix
+            res = run_benchmark(searcher, corpus, world, workload, None,
+                                k=TOPK, warmup_runs=1, timed_batches=8,
+                                timed_passes=2, recall_sample=None,
+                                truth=truth)
+            _, ids = searcher.search_batch(q[:BATCH], users[:BATCH],
+                                           world.user_masks, TOPK)
+            name = f"4h rls FlatIndex {kind} ({dtype}, 1M x 128, l2)"
+            check_readable(name, ids, users[:BATCH], TOPK, corpus, world,
+                           arena)
+            say(f"{name} ({smi}): recall@{TOPK} {res.avg_recall}, "
+                f"{res.qps} QPS over {workload.num_queries} queries (pass "
+                f"walls ms {[round(w, 3) for w in res.extra['pass_walls_ms']]}"
+                f"), batch-1 p50 {res.p50_ms} ms p95 {res.p95_ms} ms, arena "
+                f"{build_s:.2f} s, {res.storage['total_mb']:.1f} MB")
+            if res.avg_recall < RECALL_FLOOR:
+                fail(f"{name}: recall {res.avg_recall} < {RECALL_FLOOR}")
+        walls = {"augmented": [], "plain": []}
+        for form in ("augmented", "plain", "plain", "augmented",
+                     "augmented", "plain"):
+            ix = indexes["flat_approx" if form == "augmented" else "flat"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ix.search(q, masks, TOPK)
+            walls[form].append(round((time.perf_counter() - t0) * 1e3, 3))
+        say(f"4h score forms in turns on the {dtype} arena, "
+            f"{workload.num_queries} queries, top-{TOPK}, batch {BATCH} "
+            f"({smi}): pass walls ms augmented {walls['augmented']}, plain "
+            f"{walls['plain']}")
+        if dtype == "bfloat16":
+            del indexes, searcher, arena
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # (c) the binary index on the float32 arena
+    cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, batch=BATCH,
+                         topk=TOPK, index="binary", dtype="float32")
+    t0 = time.perf_counter()
+    searcher = build_searcher("rls", corpus, world, arena, cfg)
+    build_s = time.perf_counter() - t0
+    ix = searcher.partitions[0].index
+    if not isinstance(ix, BinaryQuantIndex) or ix.rerank_mult != 4:
+        fail(f"4h binary: built {type(ix).__name__}")
+    res = run_benchmark(searcher, corpus, world, workload, None, k=TOPK,
+                        warmup_runs=1, timed_batches=8, timed_passes=2,
+                        recall_sample=None, truth=truth)
+    _, ids = searcher.search_batch(q[:BATCH], users[:BATCH],
+                                   world.user_masks, TOPK)
+    check_readable("4h binary", ids, users[:BATCH], TOPK, corpus, world,
+                   arena)
+    say(f"4h rls BinaryQuantIndex (float32 arena, hamming, rerank x4, "
+        f"{smi}): recall@{TOPK} {res.avg_recall} (printed, not held), "
+        f"{res.qps} QPS over {workload.num_queries} queries (pass walls ms "
+        f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 p50 "
+        f"{res.p50_ms} ms, build {build_s:.2f} s, "
+        f"{res.storage['total_mb']:.1f} MB")
+    nq = CHECK_QUERIES
+    # the per-dimension median pivot, taken here from the arena's rows
+    thr = np.median(arena.host_vectors[:corpus.n], axis=0).astype(np.float32)
+    xb = arena.host_vectors[:corpus.n] > thr
+    qb = q[:nq] > thr
+    readable = (arena.host_bits[:corpus.n, None, :]
+                & masks[None, :nq]).any(axis=2)
+    for metric in ("hamming", "jaccard"):
+        # the same index's bits, read without rerank
+        raw = copy.copy(ix)
+        raw.rerank, raw.bit_metric = False, metric
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i = raw.search(q[:BATCH], masks[:BATCH], TOPK)
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        bad = 0
+        for qi in range(nq):
+            if metric == "hamming":
+                dist = (xb != qb[qi]).sum(axis=1).astype(np.float32)
+            else:
+                inter = (xb & qb[qi]).sum(axis=1).astype(np.float32)
+                union = np.maximum((xb | qb[qi]).sum(axis=1), 1).astype(
+                    np.float32)
+                dist = np.where(inter > 0, np.float32(1.0) - inter / union,
+                                np.float32(1.0))
+            dist[~readable[:, qi]] = np.inf
+            want = np.sort(dist)[:TOPK]
+            ok = i[qi] >= 0
+            if not (np.array_equal(d[qi], want)
+                    and np.array_equal(dist[i[qi][ok]], d[qi][ok])):
+                bad += 1
+        say(f"4h binary scan without rerank, {metric} ({smi}): "
+            f"{BATCH} queries in {pass_ms:.1f} ms; against "
+            f"numpy on {nq} queries (distances equal, ids equal up to ties):"
+            f" {nq - bad} of {nq} equal")
+        if bad:
+            fail(f"4h binary {metric}: {bad} of {nq} queries differ from "
+                 "the numpy recomputation")
+    del searcher, ix, raw, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_l1(device, smi) -> None:
+    """Phase 4h (b): the synthetic corpus (1M x 128 float32) on an l1
+    arena: rls flat exact over 1,024 queries, top-100, against a float64
+    numpy recomputation on 16 queries; ROLE through the PackedSearcher
+    against ROLE's packed=False layout (a FlatIndex a partition)."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench import (
+        GroundTruthOracle, compute_truth_sample, make_scenario,
+        run_benchmark, serving_config)
+    from vectorsearch_rbac_tpu_torch.core import build_device_arena
+    from vectorsearch_rbac_tpu_torch.partition import build_searcher
+    from vectorsearch_rbac_tpu_torch.partition.packed import PackedSearcher
+    from vectorsearch_rbac_tpu_torch.partition.strategies import \
+        build_role_searcher
+
+    t0 = time.perf_counter()
+    corpus, world, workload = make_scenario(
+        n=N_ROWS, num_queries=L1_QUERIES, topk=TOPK, seed=0,
+        dataset="synthetic")
+    arena = build_device_arena(corpus, world, device=device,
+                               block_rows=BLOCK_ROWS, dtype="float32",
+                               metric="l1")
+    say(f"4h synthetic data: {corpus.n} x {corpus.dim}, l1 float32 arena, "
+        f"{workload.num_queries} queries: {time.perf_counter() - t0:.1f} s;"
+        f" workload hash {digest(workload.vectors, workload.user_ids)}")
+    q, users = workload.vectors, workload.user_ids
+    masks = world.user_masks[users]
+    cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, batch=BATCH,
+                         topk=TOPK, index="flat", dtype="float32")
+    searcher = build_searcher("rls", corpus, world, arena, cfg)
+    t0 = time.perf_counter()
+    truth = compute_truth_sample(GroundTruthOracle(arena,
+                                                   block_rows=BLOCK_ROWS,
+                                                   query_batch=1024),
+                                 corpus, world, workload, TOPK,
+                                 recall_sample=None)
+    oracle_s = time.perf_counter() - t0
+    res = run_benchmark(searcher, corpus, world, workload, None, k=TOPK,
+                        warmup_runs=1, timed_batches=8, timed_passes=2,
+                        recall_sample=None, truth=truth)
+    d, i = searcher.search_batch(q, users, world.user_masks, TOPK)
+    check_readable("4h l1 rls", i, users, TOPK, corpus, world, arena)
+    nq = CHECK_QUERIES
+    readable = (arena.host_bits[:corpus.n, None, :]
+                & masks[None, :nq]).any(axis=2)
+    dist = np.empty((nq, corpus.n))
+    q64 = q[:nq].astype(np.float64)
+    for r0 in range(0, corpus.n, 65536):
+        x64 = corpus.vectors[r0:r0 + 65536].astype(np.float64)
+        for qi in range(nq):
+            dist[qi, r0:r0 + 65536] = np.abs(x64 - q64[qi]).sum(axis=1)
+    dist[~readable.T] = np.inf
+    want_i = np.argsort(dist, axis=1, kind="stable")[:, :TOPK]
+    want_d = np.take_along_axis(dist, want_i, axis=1)
+    bad = same_topk((d[:nq], i[:nq]), (want_d, want_i))
+    say(f"4h l1 rls FlatIndex exact (1M x 128, {smi}): "
+        f"{res.qps} QPS over {workload.num_queries} queries (pass walls ms "
+        f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 "
+        f"p50 {res.p50_ms} ms; oracle {oracle_s:.1f} s; against float64 "
+        f"numpy on {nq} queries (rtol 1e-5, ids up to ties): {nq - bad} of "
+        f"{nq} equal")
+    if bad:
+        fail(f"4h l1: {bad} of {nq} queries differ from numpy")
+    del searcher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    packed = build_searcher("role", corpus, world, arena, cfg)
+    packed_s = time.perf_counter() - t0
+    if not isinstance(packed, PackedSearcher):
+        fail(f"4h l1 role: built {type(packed).__name__}")
+    t0 = time.perf_counter()
+    got = packed.search_batch(q, users, world.user_masks, TOPK)
+    packed_ms = (time.perf_counter() - t0) * 1e3
+    check_readable("4h l1 role packed", got[1], users, TOPK, corpus, world,
+                   arena)
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    unpacked = build_role_searcher(corpus, world, arena, cfg, packed=False)
+    unpacked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = unpacked.search_batch(q, users, world.user_masks, TOPK)
+    unpacked_ms = (time.perf_counter() - t0) * 1e3
+    bad = same_topk(got, want)
+    say(f"4h l1 role ({smi}): PackedSearcher build {packed_s:.2f} s, a "
+        f"{workload.num_queries}-query pass {packed_ms:.1f} ms (first); "
+        f"packed=False ({len(unpacked.partitions)} FlatIndex partitions) "
+        f"build {unpacked_s:.2f} s, pass {unpacked_ms:.1f} ms (first); "
+        f"{workload.num_queries - bad} of {workload.num_queries} queries "
+        "equal (rtol 1e-5, ids up to ties)")
+    if bad:
+        fail(f"4h l1 role: {bad} queries differ between the packed and "
+             "unpacked layouts")
+    del unpacked, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_sparse(sparse_job, device, smi) -> None:
+    """Phase 4h (d): the sparse corpus (250,000 documents x 4 blocks, dim
+    4096, nnz 16-48) under a tree world over its documents: 1,024 sparse
+    queries (perturbed corpus rows), top-100, l2 and ip through
+    SparseFlatIndex, against a dense float32 recomputation on 16
+    queries."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.index.sparse import SparseFlatIndex
+    from vectorsearch_rbac_tpu_torch.rbac import TreeRBACGenerator
+
+    ex, fut = sparse_job
+    t0 = time.perf_counter()
+    corpus, gen_s = fut.result()
+    ex.shutdown(wait=True)
+    wait_s = time.perf_counter() - t0
+    world = TreeRBACGenerator(num_users=10_000, num_roles=100,
+                              num_docs=corpus.num_docs, h=4, b0=3, b1=4,
+                              seed=0).generate()
+    rng = np.random.default_rng(1)
+    nq = SPARSE_QUERIES
+    q_cols = np.full((nq, 32), corpus.dim, np.int32)
+    q_vals = np.zeros((nq, 32), np.float32)
+    for j, r in enumerate(rng.integers(0, corpus.n, nq)):
+        s, e = corpus.indptr[r], corpus.indptr[r + 1]
+        take = min(e - s, 32)
+        q_cols[j, :take] = corpus.indices[s:s + take]
+        q_vals[j, :take] = corpus.data[s:s + take] * (
+            1.0 + 0.1 * rng.standard_normal(take)).astype(np.float32)
+    users = rng.integers(0, world.num_users, nq)
+    masks = world.user_masks[users]
+    bits = corpus.vector_role_bits(world)
+    say(f"4h sparse data: {corpus.n} rows ({corpus.num_docs} documents), "
+        f"dim {corpus.dim}, {len(corpus.data)} non-zeros, generated in "
+        f"{gen_s:.1f} s beside the other legs (waited {wait_s:.1f} s); "
+        f"{nq} queries, hash {digest(q_cols, q_vals, users)}")
+    nc = CHECK_QUERIES
+    readable = (bits[:, None, :] & masks[None, :nc]).any(axis=2)
+    qd = np.zeros((nc, corpus.dim + 1), np.float32)
+    qd[np.arange(nc)[:, None], q_cols[:nc]] = q_vals[:nc]
+    qd_t = torch.from_numpy(qd[:, :corpus.dim]).to(device)
+    indptr = torch.from_numpy(corpus.indptr.astype(np.int64)).to(device)
+    indices = torch.from_numpy(corpus.indices.astype(np.int64)).to(device)
+    data = torch.from_numpy(corpus.data.astype(np.float32)).to(device)
+    for metric in ("l2", "ip"):
+        t0 = time.perf_counter()
+        ix = SparseFlatIndex(corpus, world, device=device, metric=metric,
+                             block_rows=16384, query_batch=1024)
+        build_s = time.perf_counter() - t0
+        ix.search_sparse(q_cols[:64], q_vals[:64], masks[:64], TOPK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i = ix.search_sparse(q_cols, q_vals, masks, TOPK)
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        name = f"4h sparse {metric}"
+        if i.shape != (nq, TOPK) or i.max() >= corpus.n:
+            fail(f"{name}: ids out of range")
+        ok = i >= 0
+        if not (bits[np.maximum(i, 0)] & masks[:, None, :]).any(
+                axis=2)[ok].all():
+            fail(f"{name}: returned rows a user cannot read")
+        # the dense float32 recomputation, rows densified in chunks from
+        # the corpus's own CSR (not the index's padded arrays or norms)
+        dist = torch.empty((nc, corpus.n), device=device)
+        with torch.no_grad():
+            prev = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("highest")
+            for r0 in range(0, corpus.n, 65536):
+                r1 = min(r0 + 65536, corpus.n)
+                s0, s1 = int(indptr[r0]), int(indptr[r1])
+                rows = torch.repeat_interleave(
+                    torch.arange(r1 - r0, device=device),
+                    indptr[r0 + 1:r1 + 1] - indptr[r0:r1])
+                x = torch.zeros((r1 - r0, corpus.dim), device=device)
+                x.index_put_((rows, indices[s0:s1]), data[s0:s1],
+                             accumulate=True)
+                dots = qd_t @ x.T
+                dist[:, r0:r1] = ((x * x).sum(dim=1)[None] - 2.0 * dots
+                                  + (qd_t * qd_t).sum(dim=1, keepdim=True)
+                                  if metric == "l2" else -dots)
+            torch.set_float32_matmul_precision(prev)
+        dist = dist.cpu().numpy().astype(np.float64)
+        dist[~readable.T] = np.inf
+        order = np.argsort(dist, axis=1, kind="stable")[:, :TOPK]
+        want = (np.take_along_axis(dist, order, axis=1), order)
+        if metric == "l2":
+            want = (np.maximum(want[0], 0.0), order)
+        bad = same_topk((d[:nc], i[:nc]), want)
+        say(f"{name} ({smi}): build {build_s:.2f} s (nnz_pad "
+            f"{ix.nnz_pad}, {ix.storage_bytes()['vectors'] / 2**20:.1f} MB "
+            f"padded CSR), {nq} queries top-{TOPK} in {pass_ms:.1f} ms "
+            f"({nq / pass_ms * 1e3:.1f} QPS); against the dense float32 "
+            f"recomputation on {nc} queries (rtol 1e-5, ids up to ties): "
+            f"{nc - bad} of {nc} equal")
+        if bad:
+            fail(f"{name}: {bad} of {nc} queries differ from the dense "
+                 "recomputation")
+        del ix
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     try:
         import torch
@@ -1833,10 +2246,22 @@ def main() -> None:
     drive_knn_graph(arena, device, smi)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- phase 4h: the flat family's breadth (FlatIndex approx and exact
+    # on bfloat16 and float32 arenas), the binary index, l1 on the
+    # synthetic corpus, and the sparse index; the sparse corpus is drawn
+    # in a worker process meanwhile
+    t4h = time.perf_counter()
+    sparse_job = start_sparse_corpus()
+    drive_flat_family(corpus, world, workload, truth, device, smi)
     # free the SIFT arrays before the 768-d corpus (3 GB of float32)
     del corpus, world, workload, arena, truth, part_truth, scan_args
     gc.collect()
     torch.cuda.empty_cache()
+    drive_l1(device, smi)
+    drive_sparse(sparse_job, device, smi)
+    say(f"phase 4h: {time.perf_counter() - t4h:.1f} s ({smi})")
+    gc.collect()
 
     # ---- the 768-d path: data, phase 3b, phase 4b
     t0 = time.perf_counter()

@@ -251,8 +251,70 @@ def test_resolve_dataset():
     want, want_pool = ref_cohere_like(num_vectors=1_000, seed=3)
     assert np.array_equal(got.vectors, want.vectors)
     assert np.array_equal(pool, want_pool)
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        port.resolve_dataset("synthetic", num_vectors=1_000)
+    from vectorsearch_rbac_tpu.data import resolve_dataset as ref_resolve
+    got, pool = port.resolve_dataset("synthetic", num_vectors=1_000, seed=3)
+    want, want_pool = ref_resolve("synthetic", num_vectors=1_000, seed=3)
+    assert np.array_equal(got.vectors, want.vectors)
+    assert np.array_equal(got.doc_ids, want.doc_ids)
+    assert np.array_equal(pool, want_pool)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        port.resolve_dataset("arxiv", num_vectors=1_000)
+
+
+@pytest.mark.parametrize("dist", ["normal", "uniform"])
+def test_synthetic_corpus_identical(dist):
+    from vectorsearch_rbac_tpu.data import synthetic_corpus as ref_synthetic
+    from vectorsearch_rbac_tpu_torch.data import synthetic_corpus
+    kw = dict(num_docs=30, blocks_per_doc=7, dim=24, seed=5,
+              distribution=dist)
+    got, want = synthetic_corpus(**kw), ref_synthetic(**kw)
+    for f in ("vectors", "doc_ids", "block_ids"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def test_sparse_corpus_identical():
+    """The sparse corpus's CSR arrays, ids, norms, a dense row and its role
+    bitsets equal the reference's for the same seeds."""
+    from vectorsearch_rbac_tpu.data.sparse import (
+        synthetic_sparse_corpus as ref_sparse)
+    from vectorsearch_rbac_tpu_torch.data import synthetic_sparse_corpus
+    kw = dict(num_docs=40, blocks_per_doc=3, dim=300, nnz_low=5,
+              nnz_high=20, num_topics=6, seed=9)
+    got, want = synthetic_sparse_corpus(**kw), ref_sparse(**kw)
+    for f in ("indptr", "indices", "data", "doc_ids", "block_ids", "norms"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert (got.n, got.dim, got.num_docs) == (want.n, want.dim,
+                                              want.num_docs)
+    np.testing.assert_array_equal(got.row_dense(7), want.row_dense(7))
+    pw = port.TreeRBACGenerator(num_users=20, num_roles=8, num_docs=40,
+                                seed=2).generate()
+    rw = RefTreeGenerator(num_users=20, num_roles=8, num_docs=40,
+                          seed=2).generate()
+    np.testing.assert_array_equal(got.vector_role_bits(pw),
+                                  want.vector_role_bits(rw))
+
+
+def test_augment_with_norms_identical():
+    """The augmented layout [x | norm_hi | norm_lo | 0-pad to 8] and the
+    l2 query side [-2q | 1 | 1 | 0] equal the reference's on a seed; ip's
+    query side zeroes the norm columns."""
+    rng = np.random.default_rng(12)
+    for d in (5, 32, 126):
+        x = (rng.standard_normal((50, d)) * 40).astype(np.float32)
+        nrm = np.einsum("nd,nd->n", x, x, dtype=np.float64).astype(
+            np.float32)
+        got = core.augment_with_norms(torch.from_numpy(x),
+                                      torch.from_numpy(nrm))
+        np.testing.assert_array_equal(got.numpy(),
+                                      ref_core.augment_with_norms(x, nrm))
+        q = rng.standard_normal((9, d)).astype(np.float32)
+        d_aug = got.shape[1]
+        np.testing.assert_array_equal(
+            core.augment_queries(torch.from_numpy(q), d_aug).numpy(),
+            ref_core.augment_queries(q, d_aug))
+        ip = core.augment_queries(torch.from_numpy(q), d_aug, "ip").numpy()
+        np.testing.assert_array_equal(ip[:, :d], -q)
+        assert not ip[:, d:].any()
 
 
 # ---- the planner's host layer: world and corpus helpers, cost model,

@@ -21,6 +21,7 @@ compare as sets (the ROADMAP tie rule)."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 import vectorsearch_rbac_tpu_torch as port
 from vectorsearch_rbac_tpu.bench.queries import (
@@ -46,6 +47,9 @@ WORLD = dict(num_users=80, num_roles=16, num_docs=120, h=3, b0=2, b1=2,
              seed=5)
 CORPUS = dict(num_vectors=1200, dim=32, blocks_per_doc=10, seed=4)
 NQ, K = 40, 8
+# the bench flags' searchers: the fewest rows (100 documents of 100 blocks)
+# the bench's 100-role world accepts
+N_BENCH = 10_000
 RTOL = 1e-5
 ARENAS = [("int8", "cosine"), ("int8", "ip"), ("float32", "l2")]
 
@@ -228,6 +232,18 @@ def test_qdtree_workload_tree_on_ip_serves(worlds, monkeypatch):
     assert_readable(w["pc"], w["pw"], got[1], w["users"])
 
 
+@pytest.fixture
+def one_thread():
+    """torch's CPU ops on one thread for the test: the bench's searchers
+    (IVF lists a role partition, the planner) run many small ops, which
+    stall on a contended intra-op pool when other test workers share the
+    cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.mark.parametrize("flags", [
     ["--strategy", "role", "--dataset", "cohere", "--metric", "cosine"],
     ["--strategy", "user", "--metric", "ip"],
@@ -237,29 +253,52 @@ def test_qdtree_workload_tree_on_ip_serves(worlds, monkeypatch):
     ["--strategy", "role", "--index", "ivf", "--dtype", "float32"],
     ["--strategy", "dynamic", "--index", "hnsw"],
     ["--index", "flat", "--dtype", "float32"],
+    ["--strategy", "rls", "--dtype", "float32"],
+    ["--dtype", "bfloat16"],
+    ["--metric", "l1", "--dtype", "float32"],
+    ["--dataset", "synthetic", "--dtype", "float32", "--metric", "l1",
+     "--index", "flat"],
+    ["--index", "binary", "--dtype", "float32"],
 ])
-def test_bench_serves_the_packed_and_ivf_flags(flags):
+def test_bench_serves_the_packed_and_ivf_flags(flags, one_thread):
+    """The bench parses the flags, and (but for the HNSW executor, whose
+    graphs tests/test_torch_graph.py builds) the searcher it builds for
+    them at N_BENCH rows on the CPU answers 8 queries with readable rows."""
+    from vectorsearch_rbac_tpu_torch.bench import make_scenario, serving_config
     from vectorsearch_rbac_tpu_torch.bench.__main__ import parse_args
 
     args = parse_args(flags)
     for f, v in zip(flags[::2], flags[1::2]):
         assert getattr(args, f[2:]) == v
+    if args.index == "hnsw":
+        return
+    corpus, world, wl = make_scenario(n=N_BENCH, num_queries=8, topk=K,
+                                      dataset=args.dataset)
+    cfg = serving_config(block_rows=1024, topk=K, index=args.index,
+                         dtype=args.dtype, strategy=args.strategy)
+    arena = port.build_device_arena(corpus, world, device="cpu",
+                                    block_rows=1024, dtype=args.dtype,
+                                    metric=args.metric)
+    searcher = build_searcher(args.strategy, corpus, world, arena, cfg)
+    _, ids = searcher.search_batch(wl.vectors, wl.user_ids,
+                                   world.user_masks, K)
+    assert ids.shape == (8, K) and (ids >= 0).sum() > ids.size // 2
+    assert_readable(corpus, world, ids, wl.user_ids)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--strategy", "rls", "--dtype", "float32"], 15),
-    (["--dtype", "bfloat16"], 15),
-    (["--metric", "l1"], 15),
-    (["--dataset", "synthetic"], 15),
-    (["--index", "binary"], 12),
-    (["--dataset", "sift10m"], 14),
-    (["--index", "hnsw"], 11),
-    (["--strategy", "qdtree", "--index", "hnsw"], 11),
-    (["--strategy", "dynamic", "--index", "hnsw", "--metric", "cosine"], 11),
+@pytest.mark.parametrize("flags,why", [
+    (["--dataset", "sift10m"], "ROADMAP queue 1 item 14"),
+    (["--index", "hnsw"], "ROADMAP queue 1 item 11"),
+    (["--strategy", "qdtree", "--index", "hnsw"], "ROADMAP queue 1 item 11"),
+    (["--strategy", "dynamic", "--index", "hnsw", "--metric", "cosine"],
+     "ROADMAP queue 1 item 11"),
+    (["--metric", "l1"], "l1 cannot ride the int8 path"),
 ])
-def test_bench_refusals_name_their_item(flags, item, capsys):
+def test_bench_refusals_name_their_item(flags, why, capsys):
+    """What the bench refuses names the ROADMAP item that ports it, or the
+    reference's reason where no item will (l1 on the int8 arena)."""
     from vectorsearch_rbac_tpu_torch.bench.__main__ import parse_args
 
     with pytest.raises(SystemExit):
         parse_args(flags)
-    assert f"ROADMAP queue 1 item {item}" in capsys.readouterr().err
+    assert why in capsys.readouterr().err

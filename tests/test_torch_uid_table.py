@@ -11,6 +11,7 @@ table, or the index would keep serving the old masks."""
 
 import numpy as np
 import pytest
+import torch
 
 from vectorsearch_rbac_tpu_torch import (FrameworkConfig, build_device_arena,
                                          build_searcher)
@@ -118,8 +119,19 @@ def test_table_beyond_u16_falls_back_to_mask_rows(small):
         index.search_deferred(q, None, K, user_ids=users)
 
 
+@pytest.fixture
+def one_thread():
+    """torch's CPU ops on one thread for the test: the u8 and bf16 wires
+    run many small ops, which stall on a contended intra-op pool when
+    other test workers share the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.mark.parametrize("kind", ["flat", "flat_approx"])
-def test_default_config_serves_rls(small, kind):
+def test_default_config_serves_rls(small, kind, one_thread):
     """FrameworkConfig()'s defaults (the u8 wire on the global index) build
     and serve rls, exact or on the int8 scan; the u8 and bf16 wires return
     the ids wire's ids, with distances within each wire's precision of

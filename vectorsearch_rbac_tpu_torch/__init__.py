@@ -2,9 +2,11 @@
 
 A port of `vectorsearch_rbac_tpu` (JAX/Pallas, written for a TPU), which
 stays beside it as the reference. This package serves the RLS strategy over
-the int8 arena for l2, ip and cosine, the partitioned strategies ROLE,
-USER, AnonySys (`dynamic`) and QDTree on every arena (the chunk engine on
-an int8 l2 arena, the PackedSearcher elsewhere), the IVF index, and
+int8 arenas for l2, ip and cosine and over float32 and bfloat16 arenas for
+those and l1 (the flat index, exact or on the augmented layout), the
+partitioned strategies ROLE, USER, AnonySys (`dynamic`) and QDTree on every
+arena (the chunk engine on an int8 l2 arena, the PackedSearcher elsewhere,
+or a flat index a partition), the IVF, binary and sparse indexes, and
 AnonySys's graph executors (HNSW graphs where selectivity holds and the
 int8 scan on the remainder, or a graph on every partition): the global
 masked scan (narrow and wide rows, and the admit-dedup slot form), the
@@ -22,16 +24,19 @@ the reference by tests.
 Layer map:
     config      serving config + logger          (reference utils/)
     rbac        RBAC world + tree generator      (reference rbac/)
-    data        SIFT-like, cohere-like corpora   (reference data/)
+    data        SIFT-like, cohere-like,          (reference data/)
+                synthetic and sparse corpora
     core        corpus, quantizers, device arena (reference core.py)
     models      the planner's cost models        (reference models/)
-    ops/        oracle scan, int8 scans, merge,  (reference ops/)
+    ops/        flat scans, int8 scans, merge,   (reference ops/)
                 rerank, chunk engine, graph
                 search and step, k-means, IVF
-                probed scan, host merge
+                probed scan, binary and sparse
+                scans, host merge
     csrc/       the CUDA kernels                 (reference Pallas kernels)
     native/     the HNSW graph builder (C++)     (reference native/)
-    index/      exact flat, int8 flat, HNSW, IVF (reference index/)
+    index/      flat, int8 flat, HNSW, IVF,      (reference index/)
+                binary, sparse
     partition/  RLS, ROLE, USER, AnonySys,       (reference partition/)
                 QDTree, tiled and packed
     bench/      workload, oracle, harness, CLI   (reference bench/, bench.py)

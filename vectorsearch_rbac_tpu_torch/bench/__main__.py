@@ -8,14 +8,15 @@ same defaults and the same single JSON line on stdout:
 The port serves --strategy rls, role, user, dynamic (AnonySys, the
 planner at cfg.optimizer's defaults) and qdtree (built as bench.py builds
 it: no workload, so the tree samples the first 64 role combinations and
-routes by the margin rule) over --dataset sift1m or cohere, --metric l2,
-ip or cosine and --dtype int8 or float32, with --index flat_approx, flat
-or ivf (the partitioned strategies' flat kinds take the TiledSearcher on
+routes by the margin rule) over --dataset sift1m, cohere or synthetic,
+--metric l2, ip, cosine or l1 (l1 not on --dtype int8, as bench.py) and
+--dtype int8, bfloat16 or float32, with --index flat_approx, flat, ivf or
+binary (the partitioned strategies' flat kinds take the TiledSearcher on
 an int8 l2 arena and the PackedSearcher on any other; ivf builds an
-IVFIndex a partition), and --index hnsw for --strategy dynamic on l2 (an
-HNSW graph a partition, the IVF-assisted kNN above 200,000 rows). What
-is left is refused, naming its ROADMAP queue 1 item. It needs a CUDA
-device and exits non-zero without one.
+IVFIndex a partition, binary a BinaryQuantIndex), and --index hnsw for
+--strategy dynamic on l2 (an HNSW graph a partition, the IVF-assisted kNN
+above 200,000 rows). What is left is refused, naming its ROADMAP queue 1
+item. It needs a CUDA device and exits non-zero without one.
 
 Scenario: by default a SIFT1M-shaped corpus (1M x 128-d, 100 blocks/doc);
 with --dataset cohere the cohere-like 1M x 768 unit-normalized corpus,
@@ -35,21 +36,17 @@ import time
 
 BASELINE_QPS = 1000.0 / 0.118  # ~8474 QPS, physical role partition, CPU
 PORTED = {"strategy": ("rls", "role", "user", "dynamic", "qdtree"),
-          "index": ("flat", "flat_approx", "ivf", "hnsw"),
-          "dtype": ("int8", "float32"),
-          "dataset": ("sift1m", "cohere"), "metric": ("l2", "ip", "cosine")}
+          "index": ("flat", "flat_approx", "ivf", "hnsw", "binary"),
+          "dtype": ("int8", "bfloat16", "float32"),
+          "dataset": ("sift1m", "cohere", "synthetic"),
+          "metric": ("l2", "ip", "cosine", "l1")}
 # what is still refused, and the ROADMAP queue 1 item that ports it
-_ROADMAP = {"binary": "the binary index is ROADMAP queue 1 item 12",
-            "bfloat16": "the bfloat16 arena is ROADMAP queue 1 item 15",
-            "l1": "the l1 metric is ROADMAP queue 1 item 15",
-            "synthetic": "the float synthetic corpus is ROADMAP queue 1 "
-                         "item 15",
-            "sift10m": "the 10M cell is ROADMAP queue 1 item 14"}
+_ROADMAP = {"sift10m": "the 10M cell is ROADMAP queue 1 item 14"}
 
 
 def refusal(args):
     """Why the port cannot serve these flags (naming the ROADMAP queue 1
-    item), or None."""
+    item where one ports them), or None."""
     off = {f: getattr(args, f) for f, v in PORTED.items()
            if getattr(args, f) not in v}
     if off:
@@ -57,6 +54,9 @@ def refusal(args):
         return (f"not ported: {off}; the port serves "
                 + " ".join(f"--{f} {'|'.join(v)}" for f, v in PORTED.items())
                 + (f" ({why})" if why else ""))
+    if args.metric == "l1" and args.dtype == "int8":
+        return ("--metric l1 --dtype int8: l1 cannot ride the int8 path (it "
+                "has no dot-product form); use --dtype float32 or bfloat16")
     if args.index == "hnsw" and args.strategy != "dynamic":
         return (f"not ported: --index hnsw under --strategy {args.strategy}"
                 "; HNSW serves under AnonySys's graph executor only (HNSW "
@@ -64,11 +64,6 @@ def refusal(args):
     if args.index == "hnsw" and args.metric != "l2":
         return (f"not ported: --index hnsw --metric {args.metric}; the "
                 "graph step scores l2 only (ROADMAP queue 1 item 11)")
-    if (args.strategy, args.index, args.dtype) == ("rls", "flat_approx",
-                                                  "float32"):
-        return ("not ported: --strategy rls --index flat_approx --dtype "
-                "float32; FlatIndex's approx mode is ROADMAP queue 1 item 15 "
-                "(--index flat serves the exact scan)")
     return None
 
 

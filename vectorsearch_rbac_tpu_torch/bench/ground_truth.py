@@ -1,9 +1,9 @@
 """Exact ground-truth oracle with a disk cache, and recall.
 
 Counterpart of vectorsearch_rbac_tpu/bench/ground_truth.py: an exact
-masked scan over the whole arena on the port's FlatIndex (float32, TF32
-off), cached on disk under the reference's content-hash key of (corpus,
-world, workload, k, metric).
+masked scan over the whole arena on the port's FlatIndex (a float32
+arena: TF32 off; l1 by the scan's l1 form), cached on disk under the
+reference's content-hash key of (corpus, world, workload, k, metric).
 """
 
 from __future__ import annotations

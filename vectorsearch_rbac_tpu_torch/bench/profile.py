@@ -1,13 +1,15 @@
 """Where a serving pass spends its time, on the card.
 
     python -m vectorsearch_rbac_tpu_torch.bench.profile [--n N] [--queries Q]
-        [--dataset sift1m|cohere] [--metric l2|ip|cosine]
+        [--dataset sift1m|cohere|synthetic] [--metric l2|ip|cosine|l1]
         [--strategy rls|role|user|dynamic|qdtree]
-        [--index flat_approx|flat|ivf|hybrid] [--dtype int8|float32]
+        [--index flat_approx|flat|ivf|hybrid|binary]
+        [--dtype int8|bfloat16|float32]
         [--alpha A] [--topk K] [--batch B]
 
 Builds bench's world for the dataset and metric (tree RBAC with 100 roles
-and 10k users, an int8 or float32 arena) and the strategy at bench's
+and 10k users, an int8, bfloat16 or float32 arena) and the strategy at
+bench's
 serving configuration, runs two warm passes, times three untraced passes, then
 traces one pass with torch.profiler. It prints the untraced and traced
 pass walls (their difference is the tracing cost), the spans of the
@@ -18,7 +20,9 @@ the untraced pass (busy = the summed device time of kernels and copies,
 which run one after another on the one stream). The spans split a pass:
 
 - rls: flat_int8.dedup, .quantize_upload, .enqueue (per batch .scan,
-  .merge, .rerank, .wire) and .fetch_unpack;
+  .merge, .rerank, .wire) and .fetch_unpack; on a bfloat16 or float32
+  arena (the flat index) or with --index binary no span: the pass is the
+  index's scan, split by device op;
 - role, user, dynamic, qdtree on an int8 l2 arena: tiled.route (host),
   tiled.big_enqueue (the big tier's scans and merges, flat_int8.*
   inside), tiled.chunk_scan (the chunk engine), tiled.big_fetch and
@@ -109,24 +113,26 @@ def main(argv=None) -> int:
                     help="serving query batch (0 = the strategy's default)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dataset", default="sift1m",
-                    choices=["sift1m", "cohere"])
+                    choices=["sift1m", "cohere", "synthetic"])
     ap.add_argument("--metric", default="l2",
-                    choices=["l2", "ip", "cosine"])
+                    choices=["l2", "ip", "cosine", "l1"])
     ap.add_argument("--strategy", default="rls",
                     choices=["rls", "role", "user", "dynamic", "qdtree"])
     ap.add_argument("--index", default="flat_approx",
-                    choices=["flat_approx", "flat", "ivf", "hybrid"],
+                    choices=["flat_approx", "flat", "ivf", "hybrid",
+                             "binary"],
                     help="hybrid: the dynamic strategy's hybrid executor")
-    ap.add_argument("--dtype", default="int8", choices=["int8", "float32"])
+    ap.add_argument("--dtype", default="int8",
+                    choices=["int8", "bfloat16", "float32"])
     ap.add_argument("--alpha", type=float, default=0.0,
                     help="AnonySys storage budget (0 = the config's 1.5)")
     args = ap.parse_args(argv)
     if args.index == "hybrid" and (args.strategy, args.metric) != (
             "dynamic", "l2"):
         ap.error("--index hybrid is the dynamic strategy's executor, on l2")
-    if (args.strategy, args.index, args.dtype) == ("rls", "flat_approx",
-                                                  "float32"):
-        ap.error("rls over a float32 arena serves --index flat or ivf")
+    if args.metric == "l1" and args.dtype == "int8":
+        ap.error("l1 cannot ride the int8 path; use --dtype float32 or "
+                 "bfloat16")
 
     import torch
 

@@ -2,8 +2,9 @@
 
 One place for what bench.py builds, so the port's bench entry, its profile
 and chip_smoke.py run the same scenario: the dataset's seeded twin
-(`sift_like_corpus` for sift1m, `cohere_like_corpus` for cohere, as the
-reference resolves them when no file is present), the tree RBAC world of
+(`sift_like_corpus` for sift1m, `cohere_like_corpus` for cohere,
+`synthetic_corpus` for synthetic, as the reference resolves them when no
+file is present), the tree RBAC world of
 bench.py:128 (100 roles, 10k users), uniform queries drawn from the
 corpus's held-out pool, and bench.py's serving configuration: flat_approx
 over the int8 arena, batch 2048 and the ids wire for rls, batch 1024 and

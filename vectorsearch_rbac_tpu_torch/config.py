@@ -3,9 +3,11 @@
 The fields of vectorsearch_rbac_tpu/utils/config.py `FrameworkConfig` that
 the ported paths read, with the reference's defaults and the same nesting
 (`cfg.search.*`, `cfg.index.*`, `cfg.optimizer.*`), so that a reference
-config object works here too. The other knobs (ACORN, binary) come with
-the slices that read them. The reference's `index.hnsw_logical` is
-not here: the port's HNSW graphs always serve from the shared arena.
+config object works here too. The ACORN knob (`index.hnsw_m_beta`) comes
+with the slice that reads it. The reference's `index.hnsw_logical` is
+not here: the port's HNSW graphs always serve from the shared arena. Nor
+is `search.recall_target`, the target of the reference's approximate
+per-block top-k: every scan of the port takes the exact top-k.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ class SearchConfig:
     nprobe: int = 16             # IVF probes (pgvector ivfflat.probes)
     batch_size: int = 256        # queries per device dispatch
     block_rows: int = 16384      # arena rows per scan block
-    dtype: str = "float32"       # arena dtype: "float32" | "int8"
+    dtype: str = "float32"       # arena dtype: "float32" | "bfloat16" |
+                                 # "int8"
     scan_group: int = 32         # tiled chunk engine: packed group-min
                                  # width (0 = exact per-chunk top-k)
     wire_dist: str = "u8"        # the global index's result wire: "u8" (a
@@ -37,7 +40,7 @@ class SearchConfig:
 @dataclass
 class IndexConfig:
     kind: str = "flat"           # "flat" | "flat_approx" | "ivf" | "hnsw"
-                                 # | "hybrid"
+                                 # | "hybrid" | "binary"
     hnsw_m: int = 16
     hnsw_ef_construction: int = 64
     ivf_nlist: int = 1024        # IVF lists (k-means centroids)
@@ -46,6 +49,12 @@ class IndexConfig:
     # only when every comb routed to it keeps within-partition selectivity
     # >= this threshold; mixed partitions take the int8 flat scan
     hybrid_sel_threshold: float = 0.5
+    # the binary index (index/binary.py): an exact rerank from the shared
+    # arena over rerank_mult * k bit-distance candidates, or the bit
+    # distance itself ("hamming" or "jaccard") without it
+    binary_rerank: bool = True
+    binary_rerank_mult: int = 4
+    binary_bit_metric: str = "hamming"
     big_logical: bool = False    # tiled big tier: gather the partition's
                                  # rows from the shared arena per pass
                                  # instead of keeping a contiguous copy

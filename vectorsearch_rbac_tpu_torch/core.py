@@ -5,8 +5,16 @@ Counterpart of vectorsearch_rbac_tpu/core.py. The host half (`Corpus`,
 the cosine normalization at ingest) is a copy of the reference's numpy
 code, so that the port runs where the JAX package is absent;
 tests/test_torch_host.py holds it equal to the reference. The device half
-(`DeviceArena`, `build_device_arena`) puts the tensors on an explicit
-torch device.
+(`DeviceArena`, `build_device_arena`, the augmented layout's
+`augment_with_norms` and `augment_queries`) puts the tensors on an
+explicit torch device. The arena holds no augmented layout (the
+reference's `vectors_aug`): FlatIndex builds it in approx mode, the one
+scan that reads it (index/flat.py).
+
+An arena stores its rows as float32, bfloat16 (pgvector's halfvec) or
+int8 with a bfloat16 mirror, for squared L2, negative inner product,
+cosine distance or l1 (the sum of |x - q|; not on int8 arenas, as in the
+reference).
 
 Role bitsets stay (Npad, W) on the device as an int32 view of the uint32
 words (torch's uint32 support for bitwise ops is thin). The int8 role
@@ -252,7 +260,8 @@ class DeviceArena:
     """Device-resident arena padded to a block multiple. Padding rows have
     zero role bits, so every query rejects them."""
 
-    vectors: torch.Tensor     # (Npad, d) float32; bfloat16 on int8 arenas
+    vectors: torch.Tensor     # (Npad, d) float32 or bfloat16 (the int8
+                              # arenas' mirror is bfloat16)
     norms: torch.Tensor       # (Npad,) float32 squared L2 norms
     role_bits: torch.Tensor   # (Npad, W) int32 view of the uint32 bitsets
     n: int
@@ -260,12 +269,15 @@ class DeviceArena:
     block_ids: np.ndarray
     host_bits: np.ndarray     # (Npad, W) uint32 host mirror of role_bits
     quant: Optional[ArenaQuant] = None
-    # "l2" squared L2, "ip" negative inner product, "cosine" 1 - cos: the
-    # rows are L2-normalized at ingest, so cosine scores on the ip path
+    # "l2" squared L2, "ip" negative inner product, "cosine" 1 - cos (the
+    # rows are L2-normalized at ingest, so cosine scores on the ip path),
+    # "l1" the sum of |x - q|
     metric: str = "l2"
     # (Npad, d) float32 host mirror of the full-precision rows (cosine rows
-    # normalized): the HNSW builders read it, as the reference's do
+    # normalized): the HNSW builders and the binary index read it, as the
+    # reference's do; host_norms its (Npad,) squared norms
     host_vectors: Optional[np.ndarray] = None
+    host_norms: Optional[np.ndarray] = None
 
     @property
     def n_padded(self) -> int:
@@ -289,11 +301,46 @@ def _bits_tensor(bits: np.ndarray, device) -> torch.Tensor:
                 device)
 
 
-METRICS = ("l2", "ip", "cosine")
+METRICS = ("l2", "ip", "cosine", "l1")
+_STORE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.bfloat16}   # int8 arenas keep a bfloat16 mirror
+
+
+def augment_with_norms(vecs: torch.Tensor, norms: torch.Tensor
+                       ) -> torch.Tensor:
+    """(N, d) float32 rows and their (N,) float32 squared norms -> (N,
+    d_aug) float32 [x | norm_hi | norm_lo | 0-pad to 8], so that a query
+    row [-2q | 1 | 1 | 0] dotted with it gives ||x||^2 - 2 q.x in one
+    product. hi is the norm rounded to bfloat16 and lo the rest: a
+    bfloat16 arena keeps ~1e-5 relative norm precision (bfloat16 alone
+    has ~0.4%, enough to reorder close neighbours). The reference's
+    numpy function, on tensors."""
+    n, d = vecs.shape
+    hi = norms.to(torch.bfloat16).to(torch.float32)
+    d_aug = ((d + 2 + 7) // 8) * 8
+    out = torch.zeros((n, d_aug), dtype=torch.float32, device=vecs.device)
+    out[:, :d] = vecs
+    out[:, d] = hi
+    out[:, d + 1] = norms - hi
+    return out
+
+
+def augment_queries(q: torch.Tensor, d_aug: int, metric: str = "l2"
+                    ) -> torch.Tensor:
+    """(Q, d) float32 queries -> (Q, d_aug) [w_q q | w | w | 0-pad], the
+    query side of augment_with_norms: [-2q | 1 | 1 | 0] for l2 (the
+    reference's augment_queries), [-q | 0 | 0 | 0] for ip and cosine,
+    whose scores drop the norm term."""
+    nq, d = q.shape
+    l2 = metric == "l2"
+    out = torch.zeros((nq, d_aug), dtype=torch.float32, device=q.device)
+    out[:, :d] = (-2.0 if l2 else -1.0) * q
+    out[:, d:d + 2] = 1.0 if l2 else 0.0
+    return out
 
 
 def _assemble(vecs, norms, bits, n, doc_ids, block_ids, quant_parts,
-              metric, device) -> DeviceArena:
+              metric, device, store: torch.dtype) -> DeviceArena:
     quant = None
     if quant_parts is not None:
         xq, nq_, scale, center, lossless, qclip = quant_parts
@@ -301,29 +348,29 @@ def _assemble(vecs, norms, bits, n, doc_ids, block_ids, quant_parts,
             vectors_q=_put(xq, device), norms_q=_put(nq_, device),
             scale=float(scale), center=np.asarray(center, np.float32),
             lossless=bool(lossless), qclip=int(qclip))
-    # int8 arenas keep a bfloat16 full-precision mirror, as the reference does
-    store = torch.bfloat16 if quant is not None else torch.float32
     return DeviceArena(
-        vectors=_put(vecs, device).to(store),
-        norms=_put(norms, device),
+        vectors=_put(vecs, device).to(store), norms=_put(norms, device),
         role_bits=_bits_tensor(bits, device),
         n=int(n), doc_ids=doc_ids, block_ids=block_ids, host_bits=bits,
-        quant=quant, metric=metric, host_vectors=vecs)
+        quant=quant, metric=metric, host_vectors=vecs, host_norms=norms)
 
 
 def build_device_arena(corpus: Corpus, world: RBACWorld, *, device,
                        block_rows: int = 16384, dtype: str = "float32",
                        metric: str = "l2") -> DeviceArena:
     """Upload the corpus once, padded to pad_rows(n, block_rows) rows.
-    dtype "int8" adds the quantized serving copy (ArenaQuant). metric
-    "l2" | "ip" | "cosine"; cosine rows are L2-normalized here, once."""
-    if dtype not in ("float32", "int8"):
-        raise NotImplementedError(f"arena dtype {dtype!r} is not ported "
-                                  "(ROADMAP queue 1 item 15)")
+    dtype "float32" | "bfloat16" stores the rows so; "int8" adds the
+    quantized serving copy (ArenaQuant) beside a bfloat16 mirror. metric
+    "l2" | "ip" | "cosine" | "l1"; cosine rows are L2-normalized here,
+    once."""
+    if dtype not in _STORE:
+        raise ValueError(f"arena dtype {dtype!r}: one of {tuple(_STORE)}")
     if metric not in METRICS:
-        raise NotImplementedError(f"metric {metric!r}: the port serves "
-                                  f"{METRICS} (l1 is ROADMAP queue 1 item "
-                                  "15)")
+        raise ValueError(f"metric {metric!r}: one of {METRICS}")
+    if dtype == "int8" and metric == "l1":
+        # the reference's rule (core.py build_device_arena)
+        raise ValueError("l1 cannot ride the int8 path (it has no dot-"
+                         "product form); use dtype float32 or bfloat16")
     n, d = corpus.n, corpus.dim
     npad = pad_rows(max(n, 1), block_rows)
     vecs = np.zeros((npad, d), dtype=np.float32)
@@ -337,7 +384,7 @@ def build_device_arena(corpus: Corpus, world: RBACWorld, *, device,
     bits[:n] = corpus.vector_role_bits(world)
     quant_parts = quantize_corpus(vecs[:n], npad) if dtype == "int8" else None
     return _assemble(vecs, norms, bits, n, corpus.doc_ids, corpus.block_ids,
-                     quant_parts, metric, device)
+                     quant_parts, metric, device, _STORE[dtype])
 
 
 def build_packed_graph_rows(arena: DeviceArena) -> torch.Tensor:
@@ -385,16 +432,14 @@ def packed_query_operands(arena: DeviceArena, queries: np.ndarray
 def arena_from_reference(ref, device) -> DeviceArena:
     """Build the port's arena from a reference DeviceArena's numpy mirrors
     (host_vectors, host_norms, host_bits and the quant's host_vectors_q,
-    host_norms_q, scale, center, lossless, qclip), so that both packages
-    compute on the same state."""
-    if ref.metric not in METRICS:
-        raise NotImplementedError(f"metric {ref.metric!r}: the port serves "
-                                  f"{METRICS} (l1 is ROADMAP queue 1 item "
-                                  "15)")
+    host_norms_q, scale, center, lossless, qclip), in the reference's
+    storage dtype, so that both packages compute on the same state."""
     q = ref.quant
     quant_parts = None if q is None else (
         q.host_vectors_q, q.host_norms_q, q.scale, q.center, q.lossless,
         q.qclip)
+    store = (torch.bfloat16 if str(ref.vectors.dtype) == "bfloat16"
+             else torch.float32)
     return _assemble(ref.host_vectors, ref.host_norms, ref.host_bits, ref.n,
                      ref.doc_ids, ref.block_ids, quant_parts, ref.metric,
-                     device)
+                     device, store)

@@ -108,6 +108,9 @@ class IVFIndex:
     def __init__(self, arena: DeviceArena, rows: Optional[np.ndarray] = None,
                  nlist: int = 1024, nprobe: int = 16, kmeans_iters: int = 10,
                  query_batch: int = 256, seed: int = 0):
+        if arena.metric == "l1":
+            # pgvector's ivfflat has l2, ip and cosine opclasses only
+            raise ValueError("IVF has no l1 form (use flat or hnsw)")
         self.query_batch = query_batch
         self.metric = arena.metric
         dev = arena.device

@@ -17,6 +17,12 @@ on TF32 tensor cores, whose 10-bit operands hold a bfloat16 value exactly
 TF32 off. A bfloat16 product's bfloat16 output would round the scores and
 change ids. Only the order of summation differs from the reference.
 
+The reference's probed scan has no l1 form (its IVF refuses l1, and its
+PackedSearcher ranks every arena by squared L2). Here l1 scores are the
+sum of |x - q| over the float32 rows and the float32 query, as the flat
+scan's, by `torch.cdist(p=1)`: the PackedSearcher serves an l1 arena in
+its own metric (ROADMAP queue 3, "Intentional divergences").
+
 `probed_topk` takes a (Q, nprobe) list id a query (the PackedSearcher's
 is one partition slot a query). It does not gather a (Q, L_pad, d) block
 of rows a probe as the reference's scan does: the (query, probe) pairs
@@ -32,44 +38,28 @@ divergences").
 
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from .scan import exact_f32_matmul
+from .scan import exact_f32_matmul, products
 
 _GATHER_BYTES = 1 << 30   # device bytes of one scoring step's temporaries
 
 
-@contextlib.contextmanager
-def _products(dtype: torch.dtype):
-    """Float32 products of operands upcast from `dtype`: TF32 allowed for
-    bfloat16 operands (exact in TF32), full float32 otherwise."""
-    if dtype != torch.bfloat16:
-        with exact_f32_matmul():
-            yield
-        return
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("high")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def _prepare(queries: torch.Tensor, metric: str, dtype: torch.dtype):
     """(the query as the lists' dtype sees it, in float32; ||q||^2 (Q, 1))
-    after cosine's normalization."""
+    after cosine's normalization. l1 takes the float32 query unrounded, as
+    the flat scan's l1 does."""
     q = queries.to(torch.float32)
     if metric == "cosine":
         q = q / torch.clamp_min(
             torch.linalg.vector_norm(q, dim=1, keepdim=True), 1e-30)
-    elif metric not in ("l2", "ip"):
-        raise NotImplementedError(f"metric {metric!r}: the IVF scan serves "
-                                  "l2, ip and cosine")
-    return q.to(dtype).to(torch.float32), (q * q).sum(dim=1, keepdim=True)
+    elif metric not in ("l2", "ip", "l1"):
+        raise ValueError(f"unknown metric {metric!r}")
+    qc = q if metric == "l1" else q.to(dtype).to(torch.float32)
+    return qc, (q * q).sum(dim=1, keepdim=True)
 
 
 def _score_lists(qb: torch.Tensor, mb: torch.Tensor, lists: torch.Tensor,
@@ -79,13 +69,17 @@ def _score_lists(qb: torch.Tensor, mb: torch.Tensor, lists: torch.Tensor,
     (S,) the list each row of queries scores -> each query's kk smallest
     scores (S, m, kk) and their row ids; inadmissible slots score +inf."""
     xb = inv_vectors.index_select(0, lists).to(torch.float32)   # (S, L, d)
-    with _products(inv_vectors.dtype):
-        dots = torch.bmm(qb, xb.transpose(1, 2))                # (S, m, L)
-    del xb
-    if metric == "l2":
-        scores = inv_norms.index_select(0, lists)[:, None, :] - 2.0 * dots
+    if metric == "l1":
+        scores = torch.cdist(qb, xb, p=1.0)                     # (S, m, L)
     else:
-        scores = -dots
+        with products(inv_vectors.dtype):
+            dots = torch.bmm(qb, xb.transpose(1, 2))            # (S, m, L)
+        if metric == "l2":
+            scores = (inv_norms.index_select(0, lists)[:, None, :]
+                      - 2.0 * dots)
+        else:
+            scores = -dots
+    del xb
     bits = inv_bits.index_select(0, lists)                      # (S, L, W)
     allowed = torch.zeros(scores.shape, dtype=torch.bool,
                           device=scores.device)
@@ -102,7 +96,7 @@ def _finish(cand_vals: torch.Tensor, cand_ids: torch.Tensor,
             qn: torch.Tensor, k: int, metric: str
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k smallest of each query's candidates, as distances: squared L2
-    (clamped at 0), -q.x, or cosine distance in [0, 2]; empty slots
+    (clamped at 0), -q.x, cosine distance in [0, 2], or l1; empty slots
     +inf / -1."""
     nq, c = cand_vals.shape
     if c < k:

@@ -33,22 +33,24 @@ from ..rbac import query_masks_for
 def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
                          cfg: FrameworkConfig):
     """Index factory over the whole arena (rows=None) or a partition's
-    rows: "flat_approx" on a quantized arena is the int8 fused scan (the
-    configured wire on the global index; "f32" on partitions, whose
-    results are merged across partitions and must keep their distances),
-    "flat" over the whole arena the exact f32 scan, "ivf" an IVFIndex over
-    the rows (cfg.index.ivf_nlist lists, cfg.search.nprobe probes). HNSW
-    partitions are built by the AnonySys graph executor
-    (partition/dynamic/materialize.py) and refused here, before any
-    build."""
+    rows, the reference's: "flat_approx" on a quantized arena is the int8
+    fused scan (the configured wire on the global index; "f32" on
+    partitions, whose results are merged across partitions and must keep
+    their distances); "flat" and "flat_approx" otherwise a FlatIndex in
+    exact or approx mode; "ivf" an IVFIndex over the rows
+    (cfg.index.ivf_nlist lists, cfg.search.nprobe probes); "binary" a
+    BinaryQuantIndex (cfg.index.binary_*). HNSW partitions are built by
+    the AnonySys graph executor (partition/dynamic/materialize.py) and
+    refused here, before any build."""
     kind = cfg.index.kind
     if kind == "flat_approx" and arena.quant is not None:
         return Int8FlatIndex(arena, rows, query_batch=cfg.search.batch_size,
                              block_rows=min(cfg.search.block_rows, 8192),
                              wire=cfg.search.wire_dist if rows is None
                              else "f32")
-    if kind == "flat" and rows is None:
-        return FlatIndex(arena, block_rows=cfg.search.block_rows,
+    if kind in ("flat", "flat_approx"):
+        return FlatIndex(arena, rows, block_rows=cfg.search.block_rows,
+                         mode="exact" if kind == "flat" else "approx",
                          query_batch=cfg.search.batch_size)
     if kind == "ivf":
         from ..index.ivf import IVFIndex
@@ -56,6 +58,13 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
                         nprobe=cfg.search.nprobe,
                         kmeans_iters=cfg.index.ivf_kmeans_iters,
                         query_batch=cfg.search.batch_size, seed=cfg.seed)
+    if kind == "binary":
+        from ..index.binary import BinaryQuantIndex
+        return BinaryQuantIndex(arena, rows,
+                                query_batch=cfg.search.batch_size,
+                                rerank_mult=cfg.index.binary_rerank_mult,
+                                rerank=cfg.index.binary_rerank,
+                                bit_metric=cfg.index.binary_bit_metric)
     if kind in ("hnsw", "hybrid"):
         # an HNSW partition needs the probe parameters and the graph batcher
         # that only the dynamic strategy's graph executor sets up
@@ -63,11 +72,7 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
             f"index kind {kind!r} serves only under the AnonySys strategy "
             "(build_searcher('dynamic', ..., packed=False)); HNSW for RLS, "
             "ROLE and USER is ROADMAP queue 1 item 11: not ported")
-    raise NotImplementedError(
-        f"index kind {kind!r} (dtype {'int8' if arena.quant else 'float32'}"
-        f"{', over a row subset' if rows is not None else ''}) is not "
-        "ported: FlatIndex over partitions and its approx mode on a float32 "
-        "arena are ROADMAP queue 1 item 15, the binary index item 12")
+    raise ValueError(f"unknown index kind {kind!r}")
 
 
 @dataclass

@@ -7,7 +7,7 @@ size bucket stack into (P, L_pad, ...) arrays, the IVF inverted-file
 shape, and a query scores the rows of its partition's slot with the
 probed scan's function (ops/ivf_scan.py) in the arena's metric. It serves
 ROLE, USER, AnonySys and QDTree on every arena the TiledSearcher does not
-take: ip and cosine arenas, and float32 ones.
+take: ip and cosine arenas, and float32 and bfloat16 ones, l1 included.
 
 Two things differ from the reference in how, not in what:
 
@@ -23,7 +23,7 @@ Two things differ from the reference in how, not in what:
 
 The reference's PackedSearcher scores every arena in squared L2 (its
 `_packed_search_fn` calls the probed scan without the metric), which on
-an ip arena ranks by the wrong distance; here the arena's metric is
+an ip or l1 arena ranks by the wrong distance; here the arena's metric is
 passed (ROADMAP queue 3, "Intentional divergences").
 
 Routing is the other searchers': `batch_router`, then `vector_router`,

@@ -13,7 +13,9 @@ Counterpart of vectorsearch_rbac_tpu/partition/strategies.py:
 AnonySys (`dynamic`) lives in partition/dynamic/, QDTree in
 partition/qdtree.py. The packed layout of ROLE, USER, AnonySys and QDTree
 is the TiledSearcher on an int8 l2 arena and the PackedSearcher on every
-other (ip and cosine arenas, float32 arenas).
+other (ip and cosine arenas, float32 and bfloat16 arenas of any metric);
+packed=False, and every index kind but flat and flat_approx, builds one
+index a partition (make_partition_index).
 """
 
 from __future__ import annotations
