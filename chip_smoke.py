@@ -53,7 +53,8 @@ without a CUDA device or without the port's package beside it. Phases:
    hybrid path's geometry: 4096 queries (the graph batcher's chunk) with
    M0 32 candidates each, mapped through a 40 x 65,536 row-map slab onto
    the 1M arena's packed rows (scores bit-identical on the SIFT-like
-   queries), and the step's merges at ef 64, kk 18 (bit-identical); beside
+   queries, in the l2 and the inner-product form, timed side by side),
+   and the step's merges at ef 64, kk 18 (bit-identical); beside
    the score kernel, index_select's time for the same row gather, printed
    as a gather-only yardstick (the kernel also scores the rows, so it is
    not the kernel's library_ms), and the score kernel on the same
@@ -123,11 +124,39 @@ without a CUDA device or without the port's package beside it. Phases:
    printed and not held to 0.95: only to a regression floor of 0.5,
    which was set under its first measured value (0.573 on an H100) after
    that run;
-   then an HNSW graph over the first 262,144 rows by the "tpu" builder
-   (M 16), whose kNN is the IVF-assisted one above 200,000 rows: its
-   build seconds, its kNN recall against the exact kNN on 1,024 sampled
-   rows; every row must be in the kNN lists and have 32 distinct
-   neighbours other than itself;
+4i. HNSW everywhere (after 4g; (c) after 4b, (d) in 4h): (a) rls over
+   one HNSW graph of the whole SIFT arena (index kind hnsw: the "tpu"
+   builder, M 16, through the IVF-assisted kNN: its build seconds, its
+   kNN recall against the exact kNN on 1,024 sampled rows; every row has
+   32 distinct neighbours other than itself; a row misses its own list
+   exactly when the reference's placement put it in a list outside its
+   6 probed ones, every other row lists itself first, and a row that no
+   kNN list holds has an edge into it in the graph), 8192 queries,
+   top-100, served
+   three ways: the fixed-budget beam (through run_benchmark, as bench
+   --index hnsw), the ACORN filtered traversal and the sampled entries
+   (the fused search, l2; one 4096-query chunk equal to the plain loop);
+   (b) an int8 ip arena of the same corpus (lossless: packed rows), a
+   graph on the MIPS lift over its first 262,144 rows, the sampled
+   entries through the fused search's ip form (launched; a chunk equal to
+   the plain loop, timed beside it), then the same chunk with the 2-hop
+   harvest (KS6 and KS7's ip form launched, equal to its plain loop);
+   (c) cosine on the first 131,072 rows of the 768-d arena and (d) l1 on
+   the first 131,072 rows of 4h(b)'s synthetic arena (the exact device
+   kNN), each the fixed beam and the sampled entries (the unpacked step
+   loop: KS6 launched); (e) on a 131,072-row SIFT-like corpus under the
+   100-role world, ROLE, USER and QDTree over HNSW through run_benchmark
+   (top-10, 1,024 queries), and the ACORN builder (m 16, m_beta 64)
+   beside the classic one over 65,536 rows (built in threads beside
+   (a)-(b), so their build times, and (a)'s, are concurrent): layer-0
+   lists 64 wide and over 1.5x the classic build's
+   edges, the filtered traversal's recall and the unfiltered top-1 found
+   printed beside the reference contract's floors. Each leg's recall
+   (against the exact oracle of its rows and metric), build seconds and
+   QPS print beside the prediction written before the phase first ran
+   (HNSW_PREDICTED); every returned row must be readable, and the first
+   16 queries' distances equal a float64 numpy recomputation within
+   1e-3 relative;
 4h. the flat family, binary and sparse (no CUDA kernel: PyTorch, as the
    reference leaves these scans to XLA): (a) on the SIFT corpus, rls
    through FlatIndex in approx mode (the augmented layout) and exact, on
@@ -140,8 +169,8 @@ without a CUDA device or without the port's package beside it. Phases:
    recomputation on 16 queries from the arena's rows and their medians
    (distances equal, ids up to ties); (b) the
    synthetic corpus (1M x 128 float32) on an l1 arena: rls flat exact
-   over 1,024 queries, top-100, equal to a float64 numpy recomputation on
-   16 queries (rtol 1e-5, ids up to ties), and ROLE through the
+   over 1,024 queries, top-100, equal to a float64 recomputation on the
+   card on 16 queries (rtol 1e-5, ids up to ties), and ROLE through the
    PackedSearcher equal to ROLE's packed=False layout (a FlatIndex a
    partition) on every query; (d) the sparse corpus (250,000 documents x
    4 blocks, dim 4096, nnz 16-48) under a tree world over its documents,
@@ -170,7 +199,9 @@ without a CUDA device or without the port's package beside it. Phases:
    packed.scan and packed.merge host and device times; every returned row
    readable. No CUDA kernel of the port is on this path (the slot scan is
    PyTorch), so it adds no launches.
-On each path but 4g's nprobe-16 pass recall must reach 0.95; on each
+On each path but 4g's nprobe-16 pass and 4i's graphs (a post-filtered
+graph's recall is the paper's point: printed, not held) recall must
+reach 0.95; on each
 path every returned row must be readable by its user, and each kernel of
 the path must have launched while it ran
 (the counts are set to 0 just before it; "scan_int8" counts every launch
@@ -193,6 +224,7 @@ bounds it, and the time of one PyTorch call computing the same function
 where there is one (`library_ms`, else null; the port never calls it).
 """
 
+import concurrent.futures
 import copy
 import gc
 import hashlib
@@ -232,9 +264,31 @@ PACKED_TREE_QUERIES = 1024   # 4f's QDTree is built from the first 1,024
 IVF_NLIST, IVF_NPROBE = 1024, 16   # 4g: the config's IVF defaults
 IVF_WIDE_PROBE = 64          # 4g's second recall
 IVF_FULL_QUERIES = 256       # 4g's full-probe check
-KNN_ROWS = 262_144           # 4g's IVF-assisted kNN graph (above 200,000)
 KNN_K = 32                   # the "tpu" builder's knn_k
+KNN_NPROBE = 6               # the IVF-assisted kNN's probed lists a row
 KNN_SAMPLE = 1024            # rows whose kNN lists are held to the exact
+HNSW_CHUNK = 4096            # 4i: HNSWIndex's query batch (a search chunk)
+HNSW_IP_ROWS = 262_144       # 4i(b): the ip graph's rows (a cut)
+HNSW_CUT_ROWS = 131_072      # 4i(c), (d) and (e)'s rows (cuts)
+HNSW_ACORN_ROWS = 65_536     # 4i(e)'s ACORN graph
+HNSW_PART_QUERIES = 1024     # 4i(e)'s workload
+HNSW_ACORN_EF = 48           # 4i(e)'s ACORN legs search at the ef of the
+                             # reference's contract (tests/test_hnsw.py:222)
+HNSW_DIST_RTOL = 1e-3        # 4i's distances against float64 numpy
+# phase 4i's predictions, written before its first run on the card
+HNSW_PREDICTED = {
+    "4i(a) build s": 150.0, "4i(a) fixed": 0.30, "4i(a) fixed QPS": 40000.0,
+    "4i(a) filtered": 0.60, "4i(a) sampled": 0.55,
+    "4i(b) build s": 35.0, "4i(b) sampled": 0.60,
+    "4i(c) cosine build s": 40.0, "4i(c) cosine fixed": 0.40,
+    "4i(c) cosine sampled": 0.60,
+    "4i(d) l1 build s": 25.0, "4i(d) l1 fixed": 0.20,
+    "4i(d) l1 sampled": 0.30,
+    "4i(e) role build s": 15.0, "4i(e) role": 0.90,
+    "4i(e) user build s": 15.0, "4i(e) user": 0.95,
+    "4i(e) qdtree build s": 15.0, "4i(e) qdtree": 0.70,
+    "4i(e) acorn filtered": 0.80, "4i(a)-(b) s": 260.0,
+}
 L1_QUERIES = 1024            # 4h(b)'s l1 workload
 CHECK_QUERIES = 16           # 4h's numpy and dense recomputations
 SPARSE_DOCS, SPARSE_BLOCKS = 250_000, 4   # 4h(d): 1M sparse rows
@@ -978,6 +1032,21 @@ def check_graph_step(arena, workload, world, device, smi):
         torch.equal(sc, sc_p) and torch.equal(ok, ok_p), score_err,
         cuda_ms(lambda: graph_step.graph_score_packed(*sargs), 20),
         cuda_ms(lambda: graph_step.graph_score_packed_plain(*sargs), 5))}
+    # the inner-product form (ip and cosine arenas) on the same rows and
+    # candidates: the same bytes, the same operations
+    sc_ip, ok_ip = graph_step.graph_score_packed(*sargs, metric="ip")
+    sc_ip_p, ok_ip_p = graph_step.graph_score_packed_plain(*sargs,
+                                                           metric="ip")
+    torch.cuda.synchronize()
+    out["graph_score_ip"] = (
+        torch.equal(sc_ip, sc_ip_p) and torch.equal(ok_ip, ok_ip_p)
+        and torch.equal(ok_ip, ok),
+        float((sc_ip - sc_ip_p)[fin].abs().max()) if fin.any() else 0.0,
+        cuda_ms(lambda: graph_step.graph_score_packed(*sargs, metric="ip"),
+                20),
+        cuda_ms(lambda: graph_step.graph_score_packed_plain(*sargs,
+                                                            metric="ip"), 5))
+    del sc_ip, ok_ip, sc_ip_p, ok_ip_p
     # index_select gathers the same rows but does not score them: a
     # yardstick for a part of the kernel's function, not its library call
     gather_ms = cuda_ms(lambda: torch.index_select(packed, 0, gather_rows),
@@ -985,6 +1054,7 @@ def check_graph_step(arena, workload, world, device, smi):
     extra = {"graph_score": (
         *bound_ms(s_bytes, 2.0 * arena.quant.d_pad * valid, F32_OPS_S),
         None)}
+    extra["graph_score_ip"] = extra["graph_score"]
     # past 1,024 roles and past d_pad 1024: the same candidates on rows
     # with 36 sparse random words appended (W 40: the role test loops past
     # 32 words) and on rows with 1,024 random code columns appended (d_pad
@@ -1515,73 +1585,6 @@ def drive_ivf(corpus, world, arena, workload, truth, smi) -> None:
              f"whose users can read {TOPK} rows ({wrong[:5]})")
 
 
-def drive_knn_graph(arena, device, smi) -> None:
-    """Phase 4g's graph: an HNSW graph over the first 262,144 rows by the
-    "tpu" builder (M 16), whose kNN is the IVF-assisted one above 200,000
-    rows. Its kNN lists must cover every row, and every row must have k
-    distinct neighbours other than itself; their recall against the exact
-    kNN on 1,024 sampled rows is printed."""
-    import numpy as np
-    import torch
-
-    from vectorsearch_rbac_tpu_torch.index import hnsw as hnsw_mod
-    from vectorsearch_rbac_tpu_torch.ops.scan import exact_f32_matmul
-
-    rows = np.arange(KNN_ROWS, dtype=np.int64)
-    caught = {}
-    ivf_knn = hnsw_mod._device_knn_graph_ivf
-
-    def spy(vec, k, dev, **kw):
-        t0 = time.perf_counter()
-        caught["knn"] = ivf_knn(vec, k, dev, **kw)
-        caught["s"] = time.perf_counter() - t0
-        return caught["knn"]
-
-    hnsw_mod._device_knn_graph_ivf = spy
-    try:
-        t0 = time.perf_counter()
-        graph = hnsw_mod.HNSWIndex(arena, rows, m=16, builder="tpu",
-                                   knn_k=KNN_K)
-        build_s = time.perf_counter() - t0
-    finally:
-        hnsw_mod._device_knn_graph_ivf = ivf_knn
-    if "knn" not in caught:
-        fail("the tpu builder above 200,000 rows did not take the "
-             "IVF-assisted kNN")
-    knn = caught["knn"]
-    n = len(rows)
-    if knn.shape != (n, KNN_K + 1) or knn.min() < 0 or knn.max() >= n:
-        fail(f"IVF kNN: shape {knn.shape}, ids [{knn.min()}, {knn.max()}]")
-    srt = np.sort(knn, axis=1)
-    repeats = int((srt[:, 1:] == srt[:, :-1]).any(axis=1).sum())
-    others = KNN_K + 1 - (knn == rows[:, None]).sum(axis=1)
-    covered = len(np.unique(knn))
-    sample = np.random.default_rng(0).choice(n, KNN_SAMPLE, replace=False)
-    vec = torch.from_numpy(arena.host_vectors[:n]).to(device)
-    with exact_f32_matmul():
-        sc = (vec * vec).sum(1)[None, :] - 2.0 * (vec[sample] @ vec.T)
-    sc[torch.arange(KNN_SAMPLE), torch.from_numpy(sample).to(device)] = \
-        torch.inf
-    exact = torch.topk(sc, KNN_K, dim=1, largest=False).indices.cpu().numpy()
-    rec = np.mean([len(set(exact[j]) & (set(knn[s]) - {s})) / KNN_K
-                   for j, s in enumerate(sample)])
-    nbr = graph.graph_state()["neighbors"]
-    say(f"IVF-assisted kNN graph ({n} rows x 128, M 16, knn_k {KNN_K}, "
-        f"{smi}): HNSW build {build_s:.2f} s, of it the IVF kNN "
-        f"{caught['s']:.2f} s; kNN recall@{KNN_K} against the exact kNN on "
-        f"{KNN_SAMPLE} sampled rows {rec}; {covered} of {n} rows in the kNN "
-        f"lists, rows with a repeated id {repeats}, rows with fewer than "
-        f"{KNN_K} other neighbours {int((others < KNN_K).sum())}, own id "
-        f"first {float((knn[:, 0] == rows).mean())}; graph M0 {nbr.shape[1]}"
-        f", mean degree {float((nbr >= 0).sum(1).mean()):.2f}")
-    if covered != n:
-        fail(f"IVF kNN: {n - covered} rows are in no kNN list")
-    if repeats or (others < KNN_K).any():
-        fail(f"IVF kNN: {repeats} rows repeat an id, "
-             f"{int((others < KNN_K).sum())} have fewer than {KNN_K} "
-             "other neighbours")
-
-
 def same_topk(got, want, rtol: float = 1e-5) -> int:
     """The number of queries whose top-k differs beyond ties: empty slots
     must match, finite distances agree within rtol of the query's
@@ -1764,11 +1767,12 @@ def drive_flat_family(corpus, world, workload, truth, device, smi) -> None:
     torch.cuda.empty_cache()
 
 
-def drive_l1(device, smi) -> None:
+def drive_l1(device, smi):
     """Phase 4h (b): the synthetic corpus (1M x 128 float32) on an l1
     arena: rls flat exact over 1,024 queries, top-100, against a float64
     numpy recomputation on 16 queries; ROLE through the PackedSearcher
-    against ROLE's packed=False layout (a FlatIndex a partition)."""
+    against ROLE's packed=False layout (a FlatIndex a partition); then
+    phase 4i (d), HNSW on the same arena. Returns 4i (d)'s launches."""
     import numpy as np
     import torch
 
@@ -1811,24 +1815,29 @@ def drive_l1(device, smi) -> None:
     nq = CHECK_QUERIES
     readable = (arena.host_bits[:corpus.n, None, :]
                 & masks[None, :nq]).any(axis=2)
-    dist = np.empty((nq, corpus.n))
-    q64 = q[:nq].astype(np.float64)
-    for r0 in range(0, corpus.n, 65536):
-        x64 = corpus.vectors[r0:r0 + 65536].astype(np.float64)
-        for qi in range(nq):
-            dist[qi, r0:r0 + 65536] = np.abs(x64 - q64[qi]).sum(axis=1)
-    dist[~readable.T] = np.inf
-    want_i = np.argsort(dist, axis=1, kind="stable")[:, :TOPK]
-    want_d = np.take_along_axis(dist, want_i, axis=1)
+    # the float64 recomputation from the corpus's rows, on the card (a
+    # numpy pass over the 1M rows took ~17 s of host time)
+    dist = torch.empty((nq, corpus.n), dtype=torch.float64, device=device)
+    q64 = torch.from_numpy(q[:nq]).to(device).double()
+    for r0 in range(0, corpus.n, 8192):
+        x64 = torch.from_numpy(corpus.vectors[r0:r0 + 8192]).to(
+            device).double()
+        dist[:, r0:r0 + 8192] = (x64[None] - q64[:, None]).abs().sum(-1)
+    dist[torch.from_numpy(~readable.T).to(device)] = torch.inf
+    want_d, want_i = (t.cpu().numpy() for t in torch.sort(
+        dist, dim=1, stable=True))
+    want_d, want_i = want_d[:, :TOPK], want_i[:, :TOPK]
+    del dist, x64
     bad = same_topk((d[:nq], i[:nq]), (want_d, want_i))
     say(f"4h l1 rls FlatIndex exact (1M x 128, {smi}): "
         f"{res.qps} QPS over {workload.num_queries} queries (pass walls ms "
         f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 "
-        f"p50 {res.p50_ms} ms; oracle {oracle_s:.1f} s; against float64 "
-        f"numpy on {nq} queries (rtol 1e-5, ids up to ties): {nq - bad} of "
-        f"{nq} equal")
+        f"p50 {res.p50_ms} ms; oracle {oracle_s:.1f} s; against a float64 "
+        f"recomputation on {nq} queries (rtol 1e-5, ids up to ties): "
+        f"{nq - bad} of {nq} equal")
     if bad:
-        fail(f"4h l1: {bad} of {nq} queries differ from numpy")
+        fail(f"4h l1: {bad} of {nq} queries differ from the float64 "
+             "recomputation")
     del searcher
     gc.collect()
     torch.cuda.empty_cache()
@@ -1862,9 +1871,17 @@ def drive_l1(device, smi) -> None:
     if bad:
         fail(f"4h l1 role: {bad} queries differ between the packed and "
              "unpacked layouts")
-    del unpacked, arena
+    del unpacked
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = drive_hnsw_cut("4i(d) l1", arena, HNSW_CUT_ROWS, "l1",
+                              workload, world, corpus, device, smi)
+    say(f"phase 4i (d): {time.perf_counter() - t0:.1f} s ({smi})")
+    del arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def drive_sparse(sparse_job, device, smi) -> None:
@@ -1967,6 +1984,634 @@ def drive_sparse(sparse_job, device, smi) -> None:
                  "recomputation")
         del ix
         torch.cuda.empty_cache()
+
+
+# ---- phase 4i: HNSW everywhere
+
+def hnsw_predicted(key: str) -> str:
+    return f"(predicted {HNSW_PREDICTED[key]})"
+
+
+def subset_truth(arena, rows, q, masks, metric, k, device):
+    """Exact top-k arena rows of each query over `rows` of the arena's
+    float32 host rows (unit rows on a cosine arena), readable rows only,
+    -1 past the readable ones: float32 matmuls (TF32 off) on the card, l1
+    by torch.cdist."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops.scan import exact_f32_matmul
+
+    x = torch.from_numpy(np.ascontiguousarray(
+        arena.host_vectors[rows], np.float32)).to(device)
+    bits = torch.from_numpy(np.ascontiguousarray(
+        arena.host_bits[rows]).view(np.int32)).to(device)
+    nrm = (x * x).sum(1)
+    chunk = max(1, (1 << 26) // len(rows))
+    out = np.full((len(q), k), -1, np.int64)
+    rows_t = torch.from_numpy(np.asarray(rows, np.int64)).to(device)
+    with exact_f32_matmul():
+        for s in range(0, len(q), chunk):
+            qc = torch.from_numpy(np.ascontiguousarray(
+                q[s:s + chunk], np.float32)).to(device)
+            if metric == "cosine":
+                qc = qc / torch.linalg.vector_norm(qc, dim=1, keepdim=True)
+            if metric == "l1":
+                sc = torch.cdist(qc, x, p=1)
+            elif metric == "l2":
+                sc = nrm[None, :] - 2.0 * (qc @ x.T)
+            else:
+                sc = -(qc @ x.T)
+            mk = torch.from_numpy(np.ascontiguousarray(
+                masks[s:s + chunk]).view(np.int32)).to(device)
+            ok = torch.zeros(sc.shape, dtype=torch.bool, device=device)
+            for w in range(bits.shape[1]):
+                ok |= (bits[None, :, w] & mk[:, w, None]) != 0
+            sc = torch.where(ok, sc, torch.inf)
+            v, i = torch.topk(sc, k, dim=1, largest=False)
+            out[s:s + chunk] = torch.where(torch.isfinite(v), rows_t[i],
+                                           -1).cpu().numpy()
+    return out
+
+
+def hnsw_distances_ok(name, arena, metric, q, ids, dists) -> None:
+    """The first CHECK_QUERIES queries' returned distances against a
+    float64 numpy recomputation from the rows the search reads (the arena's
+    stored rows: the bfloat16 mirror of an int8 arena, exact on SIFT's
+    integers; float32 rows) and the query as the search rounds it, within
+    HNSW_DIST_RTOL relative."""
+    import numpy as np
+    import torch
+
+    n = CHECK_QUERIES
+    ids, dists = ids[:n], dists[:n]
+    x = arena.vectors[torch.from_numpy(np.maximum(ids, 0)).to(
+        arena.vectors.device)].double().cpu().numpy()
+    qt = torch.from_numpy(np.ascontiguousarray(q[:n], np.float32))
+    if metric == "cosine":
+        qt = qt / torch.linalg.vector_norm(qt, dim=1, keepdim=True)
+    if metric != "l1":
+        qt = qt.to(arena.vectors.dtype)
+    qr = qt.double().numpy()[:, None, :]
+    if metric == "l2":
+        want = ((x - qr) ** 2).sum(-1)
+    elif metric == "ip":
+        want = -(x * qr).sum(-1)
+    elif metric == "cosine":
+        want = np.clip(1.0 - (x * qr).sum(-1), 0.0, 2.0)
+    else:
+        want = np.abs(x - qr).sum(-1)
+    got = ids >= 0
+    bad = int((got & ~np.isclose(dists, want, rtol=HNSW_DIST_RTOL,
+                                 atol=1e-6)).sum())
+    if bad or not got.any():
+        fail(f"{name}: {bad} of {int(got.sum())} distances on {n} queries "
+             f"differ from float64 numpy beyond {HNSW_DIST_RTOL} relative")
+
+
+def hnsw_recorder(hnsw_mod):
+    """Record the iterative searches an HNSWIndex runs (their args and
+    kwargs), calling through; returns (calls, restore)."""
+    real = hnsw_mod.graph_beam_search_iterative
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    hnsw_mod.graph_beam_search_iterative = record
+
+    def restore():
+        hnsw_mod.graph_beam_search_iterative = real
+    return calls, restore
+
+
+def hnsw_ways(name, ix, arena, metric, q, users, world, corpus, k, truth,
+              ways, smi):
+    """Serve q through HNSWIndex `ix` each of `ways` (fixed, filtered,
+    sampled), the launch counts set to 0 just before each and read just
+    after; every returned row readable, distances against numpy, recall
+    against `truth` printed beside its prediction. Returns {way: (recall,
+    QPS, launches, recorded iterative calls)}."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench.ground_truth import \
+        per_query_recall
+    from vectorsearch_rbac_tpu_torch.index import hnsw as hnsw_mod
+    from vectorsearch_rbac_tpu_torch.ops import _build
+
+    masks = world.user_masks[users]
+    kw_of = {"fixed": {}, "filtered": dict(filtered_traversal=True),
+             "sampled": dict(sampled_entry=True)}
+    out = {}
+    for way in ways:
+        calls, restore = hnsw_recorder(hnsw_mod)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            d, i = ix.search(q, masks, k, **kw_of[way])
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        launches = {key: v for key, v in _build.LAUNCHES.items() if v}
+        rec = float(np.mean(per_query_recall(i, truth)))
+        check_readable(f"{name} {way}", i, users, k, corpus, world, arena)
+        hnsw_distances_ok(f"{name} {way}", arena, metric, q, i, d)
+        say(f"{name} {way} ({smi}): recall@{k} {rec} "
+            f"{hnsw_predicted(name + ' ' + way)}, {len(q) / wall:.1f} QPS "
+            f"({len(q)} queries, one pass {wall * 1e3:.1f} ms, query batch "
+            f"{ix.query_batch}), {int((i >= 0).sum())} rows returned; "
+            f"launches {launches}")
+        out[way] = (rec, len(q) / wall, launches, calls)
+    return out
+
+
+def fused_chunk(name, calls, smi):
+    """The first recorded iterative search of an HNSWIndex pass (one chunk)
+    through the fused search and its plain loop: equal ids and distances,
+    the same expansions and scored candidates; both timed, the bound from
+    the kernel's counts. Returns ((ok, err, ms, plain ms), (bound ms,
+    bound_by, None), the call)."""
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    args, kw = calls[0]
+    q, graph, masks, entries, kk, ef, max_steps = (
+        args[0], args[4], args[5], args[6], args[7], args[8], args[9])
+    fused_kw = dict(dq_scale=kw["dq_scale"], q_center_dot=kw["q_center_dot"],
+                    row_map=kw["row_map"], metric=kw["metric"])
+    stats = torch.zeros(2, dtype=torch.int64, device=q.device)
+    stats_p = torch.zeros_like(stats)
+    packed = kw["packed_rows"]
+    got = graph_search.graph_search_fused(
+        q, graph, masks, entries, kk, ef, max_steps, packed, stats=stats,
+        **fused_kw)
+    want = graph_search.graph_beam_search_iterative_plain(
+        *args[:10], **kw, stats=stats_p)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want)) \
+        and torch.equal(stats, stats_p)
+    fin = torch.isfinite(want[0])
+    err = float((got[0] - want[0])[fin].abs().max()) if fin.any() else 0.0
+    ms = cuda_ms(lambda: graph_search.graph_search_fused(
+        q, graph, masks, entries, kk, ef, max_steps, packed, **fused_kw), 5)
+    plain_ms = cuda_ms(lambda: graph_search.graph_beam_search_iterative_plain(
+        *args[:10], **kw), 1)
+    expansions, scored = (int(v) for v in stats.tolist())
+    nq, m0 = q.shape[0], graph.shape[-1]
+    d_pad = packed.shape[1] - 4 * masks.shape[1] - 4
+    s_bytes = (nbytes(q, masks, entries, kw["q_center_dot"], *got)
+               + nq * (4 + packed.shape[1]) + expansions * 4 * m0
+               + scored * (4 + packed.shape[1]))
+    bound = bound_ms(s_bytes, 2.0 * d_pad * (scored + nq), F32_OPS_S)
+    say(f"{name}: fused search ({kw['metric']} form) vs its plain loop on "
+        f"one {nq}-query chunk, ef {ef}, kk {kk}, max_steps {max_steps} "
+        f"({smi}); tolerance 0: identical={same} kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; {expansions} expansions, {scored} scored; bound"
+        f" {bound[0]:.6f} ms ({bound[1]})")
+    if not same:
+        fail(f"{name}: the fused search disagrees with its plain loop")
+    return (same, err, ms, plain_ms), (*bound, None), (args, kw)
+
+
+def knn_checks(caught, nbr, arena, device, smi):
+    """The "tpu" builder's IVF-assisted kNN lists (caught by spies on the
+    kNN and on its list placement): KNN_K distinct neighbours other than
+    itself in each, their recall against the exact kNN on KNN_SAMPLE rows
+    printed. Every row lists itself first unless the reference's placement
+    keeps it from itself: a row that spills past a full list into one
+    outside its own KNN_NPROBE probed lists never scans its own list.
+    Held: the rows that miss their own list are exactly those; every other
+    row lists itself first (SIFT's integer rows score exactly in the
+    probed scan, and the corpus has no twins); a row in no list is one of
+    them and has an edge into it in the final graph `nbr`."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops.scan import exact_f32_matmul
+
+    if "knn" not in caught:
+        fail("the tpu builder above 200,000 rows did not take the "
+             "IVF-assisted kNN")
+    knn, lists, cents = caught["knn"], caught["lists"], caught["cents"]
+    n = nbr.shape[0]
+    rows = np.arange(n)
+    if knn.shape != (n, KNN_K + 1) or knn.min() < 0 or knn.max() >= n:
+        fail(f"IVF kNN: shape {knn.shape}, ids [{knn.min()}, {knn.max()}]")
+    srt = np.sort(knn, axis=1)
+    repeats = int((srt[:, 1:] == srt[:, :-1]).any(axis=1).sum())
+    has_self = (knn == rows[:, None]).any(axis=1)
+    others = KNN_K + 1 - has_self
+    missing = np.setdiff1d(rows, knn)
+    home = np.empty(n, np.int64)            # the list each row was put in
+    for c, members in enumerate(lists):
+        home[members] = c
+    vec = torch.from_numpy(arena.host_vectors[:n]).to(device)
+    ct = torch.from_numpy(np.asarray(cents, np.float32)).to(device)
+    probes = []
+    with exact_f32_matmul():                # the probed scan's routing
+        for s in range(0, n, 65536):
+            q = vec[s:s + 65536]
+            cd = ((q * q).sum(1, keepdim=True) + (ct * ct).sum(1)[None]
+                  - 2.0 * (q @ ct.T))
+            probes.append(torch.topk(cd, KNN_NPROBE, dim=1,
+                                     largest=False).indices.cpu())
+    probes = torch.cat(probes).numpy()
+    nearest = probes[:, 0]
+    unprobed = ~(probes == home[:, None]).any(axis=1)
+    sample = np.random.default_rng(0).choice(n, KNN_SAMPLE, replace=False)
+    with exact_f32_matmul():
+        sc = (vec * vec).sum(1)[None, :] - 2.0 * (vec[sample] @ vec.T)
+    sc[torch.arange(KNN_SAMPLE), torch.from_numpy(sample).to(device)] = \
+        torch.inf
+    exact = torch.topk(sc, KNN_K, dim=1, largest=False).indices.cpu().numpy()
+    indeg = np.bincount(nbr[nbr >= 0], minlength=n)
+    del vec, sc
+    rec = np.mean([len(set(exact[j]) & (set(knn[s]) - {s})) / KNN_K
+                   for j, s in enumerate(sample)])
+    not_first = has_self & (knn[:, 0] != rows)
+    show = [(int(r), int(home[r]), int(nearest[r]), probes[r].tolist())
+            for r in missing[:4]]
+    say(f"  IVF-assisted kNN ({n} rows, knn_k {KNN_K}, {len(lists)} lists, "
+        f"{KNN_NPROBE} probed, {smi}): {caught['s']:.2f} s; "
+        f"recall@{KNN_K} against the exact kNN on {KNN_SAMPLE} sampled rows "
+        f"{rec}; rows put past their nearest list {int((home != nearest).sum())}"
+        f", of them outside their own probed lists {int(unprobed.sum())}; "
+        f"rows missing from their own list {int((~has_self).sum())} (all "
+        f"of them outside their probed lists: "
+        f"{np.array_equal(~has_self, unprobed)}); rows listing another row "
+        f"first {int(not_first.sum())}; {n - len(missing)} of {n} rows in "
+        f"the kNN lists, the others' (row, its list, its nearest list, its "
+        f"probed lists) {show}... and in-edges in the final graph "
+        f"{sorted(set(indeg[missing].tolist()))}; rows with a repeated id "
+        f"{repeats}, rows with fewer than {KNN_K} other neighbours "
+        f"{int((others < KNN_K).sum())}; rows without an in-edge in the "
+        f"final graph {int((indeg == 0).sum())}")
+    if not np.array_equal(~has_self, unprobed) or not_first.any():
+        fail(f"IVF kNN: {int((~has_self).sum())} rows miss their own list "
+             f"against {int(unprobed.sum())} placed outside their probed "
+             f"lists; {int(not_first.sum())} list another row first")
+    if (indeg[missing] == 0).any():
+        fail(f"IVF kNN: {int((indeg[missing] == 0).sum())} rows are in no "
+             "kNN list and have no edge into them in the graph")
+    if repeats or (others < KNN_K).any():
+        fail(f"IVF kNN: {repeats} rows repeat an id, "
+             f"{int((others < KNN_K).sum())} have fewer than {KNN_K} "
+             "other neighbours")
+
+
+def drive_hnsw_sift(corpus, world, arena, workload, truth, device, smi):
+    """Phase 4i (a) and (b) on the SIFT corpus. (a) rls over one HNSW graph
+    of the whole 1M-row l2 arena (build_searcher("rls") with index kind
+    hnsw: the "tpu" builder through the IVF-assisted kNN), its kNN lists
+    checked, then 8192 queries, top-100, the fixed-budget beam (through
+    run_benchmark: bench --index hnsw), the ACORN filtered traversal and
+    the sampled entries (the fused search, l2), a chunk of the last equal
+    to the plain loop. (b) an int8 ip arena of the same corpus (lossless:
+    packed rows), a graph on the MIPS lift over its first 262,144 rows,
+    the sampled entries (the fused search's ip form) against an exact ip
+    oracle over those rows, a chunk equal to the plain loop, then the same
+    chunk with the 2-hop harvest (KS6 and KS7's ip form) equal to its plain
+    loop. Returns (the launches of the legs, {kernel: row}, {kernel:
+    bound})."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench import (run_benchmark,
+                                                   serving_config)
+    from vectorsearch_rbac_tpu_torch.core import build_device_arena
+    from vectorsearch_rbac_tpu_torch.index import hnsw as hnsw_mod
+    from vectorsearch_rbac_tpu_torch.ops import _build, graph_search
+    from vectorsearch_rbac_tpu_torch.partition import build_searcher
+
+    t4i = time.perf_counter()
+    launches = {k: 0 for k in _build.LAUNCHES}
+
+    def add(counts):
+        for key, v in counts.items():
+            launches[key] += v
+
+    cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, batch=HNSW_CHUNK,
+                         topk=TOPK, index="hnsw")
+    caught = {}
+    ivf_knn, bucket_rows = hnsw_mod._device_knn_graph_ivf, hnsw_mod.bucket_rows
+
+    def spy(vec, k, dev, **kw):
+        t0 = time.perf_counter()
+        caught["knn"] = ivf_knn(vec, k, dev, **kw)
+        caught["s"] = time.perf_counter() - t0
+        return caught["knn"]
+
+    def spy_lists(assign, vec, cent, l_pad):
+        out = bucket_rows(assign, vec, cent, l_pad)
+        caught["lists"], caught["cents"] = out[0], cent
+        return out
+
+    hnsw_mod._device_knn_graph_ivf = spy
+    hnsw_mod.bucket_rows = spy_lists
+    try:
+        t0 = time.perf_counter()
+        searcher = build_searcher("rls", corpus, world, arena, cfg)
+        build_s = time.perf_counter() - t0
+    finally:
+        hnsw_mod._device_knn_graph_ivf = ivf_knn
+        hnsw_mod.bucket_rows = bucket_rows
+    ix = searcher.partitions[0].index
+    nbr = ix.graph_state()["neighbors"]
+    say(f"4i(a) rls HNSW over {ix.n_rows} rows x 128 (l2, M 16, builder "
+        f"{ix.builder}, {smi}): build {build_s:.2f} s, concurrent (4i(e)'s "
+        f"ACORN and classic builds run beside it in two threads) "
+        f"{hnsw_predicted('4i(a) build s')}; graph M0 {nbr.shape[1]}, mean "
+        f"degree {float((nbr >= 0).sum(1).mean()):.2f}, entry {ix.entry}")
+    if ix.builder != "tpu" or ix.n_rows != corpus.n:
+        fail(f"4i(a): built {ix.builder} over {ix.n_rows} rows")
+    knn_checks(caught, nbr, arena, device, smi)
+    del caught
+    gc.collect()
+
+    _build.reset_launches()
+    res = run_benchmark(searcher, corpus, world, workload, None, k=TOPK,
+                        warmup_runs=1, timed_batches=16, timed_passes=3,
+                        recall_sample=None, truth=truth)
+    fixed_launches = dict(_build.LAUNCHES)
+    say(f"4i(a) rls HNSW fixed beam through run_benchmark ({smi}): "
+        f"recall@{TOPK} {res.avg_recall} {hnsw_predicted('4i(a) fixed')}, "
+        f"{res.qps} QPS {hnsw_predicted('4i(a) fixed QPS')} over "
+        f"{workload.num_queries} queries (pass walls ms "
+        f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 p50 "
+        f"{res.p50_ms} ms p95 {res.p95_ms} ms, storage "
+        f"{res.storage['total_mb']:.1f} MB; launches "
+        f"{ {k: v for k, v in fixed_launches.items() if v} }")
+    q, users = workload.vectors, workload.user_ids
+    ways = hnsw_ways("4i(a)", ix, arena, "l2", q, users, world, corpus, TOPK,
+                     truth, ("fixed", "filtered", "sampled"), smi)
+    for way, (_, _, counts, _) in ways.items():
+        add(counts)
+    if not ways["sampled"][2].get("graph_search"):
+        fail("4i(a): the sampled entries did not launch the fused search")
+    fused_chunk("4i(a) sampled", ways["sampled"][3], smi)
+    del searcher, ix, ways
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the inner-product form on an int8 ip arena of the same corpus
+    t0 = time.perf_counter()
+    ip_arena = build_device_arena(corpus, world, device=device,
+                                  block_rows=BLOCK_ROWS, dtype="int8",
+                                  metric="ip")
+    if not ip_arena.quant.lossless:
+        fail("4i(b): the SIFT ip arena's int8 mirror is not lossless")
+    rows = np.arange(HNSW_IP_ROWS, dtype=np.int64)
+    arena_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix = hnsw_mod.HNSWIndex(ip_arena, rows, m=16, query_batch=HNSW_CHUNK)
+    build_s = time.perf_counter() - t0
+    say(f"4i(b) ip HNSW on the MIPS lift over the first {len(rows)} rows "
+        f"(builder {ix.builder}, packed rows {ix.use_packed}, {smi}): arena "
+        f"{arena_s:.1f} s, build {build_s:.2f} s (concurrent with 4i(e)'s "
+        f"builds where they still run) "
+        f"{hnsw_predicted('4i(b) build s')}")
+    if not ix.use_packed:
+        fail("4i(b): the lossless ip arena does not take packed rows")
+    ip_truth = subset_truth(ip_arena, rows, q, world.user_masks[users], "ip",
+                            TOPK, device)
+    ways = hnsw_ways("4i(b)", ix, ip_arena, "ip", q, users, world, corpus,
+                     TOPK, ip_truth, ("sampled",), smi)
+    counts = ways["sampled"][2]
+    add(counts)
+    if not counts.get("graph_search") or not counts.get("graph_search_ip"):
+        fail(f"4i(b): the fused search's ip form did not launch: {counts}")
+    row, bound, (args, kw) = fused_chunk("4i(b) sampled",
+                                         ways["sampled"][3], smi)
+    _build.reset_launches()
+    got_h = graph_search.graph_beam_search_iterative(*args[:10], True, **kw)
+    counts = dict(_build.LAUNCHES)
+    want_h = graph_search.graph_beam_search_iterative_plain(*args[:10], True,
+                                                            **kw)
+    torch.cuda.synchronize()
+    add(counts)
+    same_h = all(torch.equal(a, b) for a, b in zip(got_h, want_h))
+    say(f"4i(b) harvest leg (one {args[0].shape[0]}-query chunk, 2-hop "
+        f"harvest, the step loop, ip) ({smi}): equal to its plain loop "
+        f"{same_h}; launches { {k: v for k, v in counts.items() if v} }")
+    idle = [k for k in ("graph_score", "graph_score_ip", "graph_merge")
+            if not counts[k]]
+    if not same_h or idle or counts["graph_search"]:
+        fail(f"4i(b) harvest: equal {same_h}, launches {counts}")
+    del ix, ip_arena, ways, args, kw, got_h, want_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 4i (a)-(b): {time.perf_counter() - t4i:.1f} s "
+        f"{hnsw_predicted('4i(a)-(b) s')} ({smi})")
+    return launches, {"graph_search_ip": row}, {"graph_search_ip": bound}
+
+
+def drive_hnsw_cut(name, arena, n_rows, metric, workload, world, corpus,
+                   device, smi):
+    """Phase 4i (c) and (d): an HNSW graph over the first n_rows of an
+    arena (the "tpu" builder with the exact device kNN), the fixed beam and
+    the sampled entries (the unpacked step loop: KS6 on the card) over the
+    workload, top-100, against an exact oracle over those rows. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+    from vectorsearch_rbac_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    rows = np.arange(n_rows, dtype=np.int64)
+    ix = HNSWIndex(arena, rows, m=16, query_batch=HNSW_CHUNK)
+    build_s = time.perf_counter() - t0
+    say(f"{name} HNSW over the first {n_rows} rows x {arena.dim} ({metric}, "
+        f"builder {ix.builder}, packed rows {ix.use_packed}, {smi}): build "
+        f"{build_s:.2f} s {hnsw_predicted(name + ' build s')}")
+    q, users = workload.vectors, workload.user_ids
+    truth = subset_truth(arena, rows, q, world.user_masks[users], metric,
+                         TOPK, device)
+    ways = hnsw_ways(name, ix, arena, metric, q, users, world, corpus, TOPK,
+                     truth, ("fixed", "sampled"), smi)
+    if ix.use_packed or not ways["sampled"][2].get("graph_merge"):
+        fail(f"{name}: the sampled entries did not take the unpacked step "
+             f"loop: {ways['sampled'][2]}")
+    launches = {k: 0 for k in _build.LAUNCHES}
+    for _, _, counts, _ in ways.values():
+        for key, v in counts.items():
+            launches[key] += v
+    del ix, ways
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def start_hnsw_partitioned(device):
+    """Phase 4i (e)'s data (a 131,072-row SIFT-like corpus under the
+    100-role tree world, 1,024 queries, its int8 arena and exact top-10)
+    and its two single-graph builds over the first 65,536 rows, the ACORN
+    builder (m 16, m_beta 64) and the classic one, started in two threads
+    (the native builders release the GIL) so that they run beside phase
+    4i (a)-(b). Returns the job for drive_hnsw_partitioned."""
+    import numpy as np
+
+    from vectorsearch_rbac_tpu_torch.bench import (
+        GroundTruthOracle, compute_truth_sample, make_scenario)
+    from vectorsearch_rbac_tpu_torch.core import build_device_arena
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+
+    t0 = time.perf_counter()
+    corpus, world, workload = make_scenario(
+        n=HNSW_CUT_ROWS, num_queries=HNSW_PART_QUERIES, topk=PART_TOPK,
+        seed=0)
+    arena = build_device_arena(corpus, world, device=device,
+                               block_rows=BLOCK_ROWS, dtype="int8")
+    gt = build_device_arena(corpus, world, device=device, block_rows=65536,
+                            dtype="float32")
+    truth = compute_truth_sample(GroundTruthOracle(gt, block_rows=65536,
+                                                   query_batch=1024),
+                                 corpus, world, workload, PART_TOPK,
+                                 recall_sample=None)
+    del gt
+    data_s = time.perf_counter() - t0
+    rows = np.arange(HNSW_ACORN_ROWS, dtype=np.int64)
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    kw = dict(m=16, ef_search=HNSW_ACORN_EF, query_batch=HNSW_PART_QUERIES)
+    return dict(corpus=corpus, world=world, workload=workload, arena=arena,
+                truth=truth, data_s=data_s, rows=rows, pool=pool,
+                t_builds=time.perf_counter(),
+                acorn=pool.submit(HNSWIndex, arena, rows, builder="acorn",
+                                  m_beta=64, **kw),
+                classic=pool.submit(HNSWIndex, arena, rows,
+                                    builder="classic", **kw))
+
+
+def drive_hnsw_partitioned(job, device, smi):
+    """Phase 4i (e) on start_hnsw_partitioned's data: ROLE, USER and
+    QDTree with index kind hnsw (a graph a partition, the native builders
+    in a thread pool) through run_benchmark, top-10, 1,024 queries; then
+    the reference's ACORN contract on the two graphs built beside 4i
+    (a)-(b): layer-0 lists m_beta wide and more than 1.5x the classic
+    build's edges (held); the filtered traversal's recall on both graphs
+    and the unfiltered top-1 found, each printed beside the reference
+    test's floors, which it shows at 8,192 rows of 32 dimensions (both
+    recalls above 0.75 and within 0.15 of each other, top-1 found on
+    0.85 of the queries). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench import (run_benchmark,
+                                                   serving_config)
+    from vectorsearch_rbac_tpu_torch.bench.ground_truth import \
+        per_query_recall
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+    from vectorsearch_rbac_tpu_torch.ops import _build
+    from vectorsearch_rbac_tpu_torch.partition import build_searcher
+
+    corpus, world, workload = job["corpus"], job["world"], job["workload"]
+    arena, truth = job["arena"], job["truth"]
+    say(f"4i(e) data: {corpus.n} x {corpus.dim}, {world.num_roles} roles, "
+        f"{workload.num_queries} queries: {job['data_s']:.1f} s; workload "
+        f"hash {digest(workload.vectors, workload.user_ids)}, truth hash "
+        f"{digest(truth)}")
+    launches = {k: 0 for k in _build.LAUNCHES}
+    for name in ("role", "user", "qdtree"):
+        cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, topk=PART_TOPK,
+                             strategy=name, index="hnsw")
+        kw = (dict(workload=workload, min_leaf=QD_MIN_LEAF,
+                   max_depth=QD_MAX_DEPTH, radius_scale=QD_RADIUS_SCALE)
+              if name == "qdtree" else {})
+        t0 = time.perf_counter()
+        searcher = build_searcher(name, corpus, world, arena, cfg, **kw)
+        build_s = time.perf_counter() - t0
+        if not all(isinstance(p.index, HNSWIndex)
+                   for p in searcher.partitions.values()):
+            fail(f"4i(e) {name}: not every partition serves a graph")
+        # the timed pass's ids, kept for the readable check
+        full, search_batch = {}, searcher.search_batch
+
+        def keep_full(qv, uids, umasks, k, search_batch=search_batch,
+                      full=full):
+            out = search_batch(qv, uids, umasks, k)
+            if len(qv) == workload.num_queries:
+                full["ids"] = out[1]
+            return out
+
+        searcher.search_batch = keep_full
+        _build.reset_launches()
+        # one timed pass: ROLE's and USER's run 100 graphs' fixed beams
+        # one after another, seconds a pass
+        res = run_benchmark(searcher, corpus, world, workload, None,
+                            k=PART_TOPK, warmup_runs=0, timed_batches=8,
+                            timed_passes=1, recall_sample=None, truth=truth)
+        for key, v in _build.LAUNCHES.items():
+            launches[key] += v
+        ids = full["ids"]
+        check_readable(f"4i(e) {name}", ids, workload.user_ids, PART_TOPK,
+                       corpus, world, arena)
+        sizes = [len(p.rows) for p in searcher.partitions.values()]
+        say(f"4i(e) {name} over HNSW ({corpus.n} x 128, l2, top-{PART_TOPK},"
+            f" {smi}): build {build_s:.2f} s "
+            f"{hnsw_predicted('4i(e) ' + name + ' build s')}, "
+            f"{len(sizes)} graphs of {min(sizes)}-{max(sizes)} rows "
+            f"({sum(sizes)} in all); recall@{PART_TOPK} {res.avg_recall} "
+            f"{hnsw_predicted('4i(e) ' + name)}, {res.qps} QPS over "
+            f"{workload.num_queries} queries (pass walls ms "
+            f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 "
+            f"p50 {res.p50_ms} ms")
+        del searcher
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the ACORN builder against the classic one over the first 65,536 rows
+    t0 = time.perf_counter()
+    acorn, classic = job["acorn"].result(), job["classic"].result()
+    job["pool"].shutdown()
+    waited = time.perf_counter() - t0
+    rows = job["rows"]
+    na = acorn.graph_state()["neighbors"]
+    nc = classic.graph_state()["neighbors"]
+    q, users = workload.vectors, workload.user_ids
+    masks = world.user_masks[users]
+    sub = subset_truth(arena, rows, q, masks, "l2", PART_TOPK, device)
+    ones = np.full_like(masks, 0xFFFFFFFF)
+    top1 = subset_truth(arena, rows, q, ones, "l2", 1, device)[:, 0]
+    rec, hit = {}, {}
+    for label, ix in (("acorn", acorn), ("classic", classic)):
+        _build.reset_launches()
+        d, i = ix.search(q, masks, PART_TOPK, filtered_traversal=True)
+        for key, v in _build.LAUNCHES.items():
+            launches[key] += v
+        check_readable(f"4i(e) {label} filtered", i, users, PART_TOPK,
+                       corpus, world, arena)
+        hnsw_distances_ok(f"4i(e) {label} filtered", arena, "l2", q, i, d)
+        rec[label] = float(np.mean(per_query_recall(i, sub)))
+        _, i_all = ix.search(q, ones, PART_TOPK)
+        hit[label] = float(np.mean([t in set(r)
+                                    for t, r in zip(top1, i_all)]))
+    band = (min(rec.values()) > 0.75
+            and abs(rec["acorn"] - rec["classic"]) < 0.15)
+    say(f"4i(e) ACORN builder (m 16, m_beta 64) over {len(rows)} rows "
+        f"({smi}): builds, concurrent, {acorn.build_time_s:.2f} s (classic "
+        f"{classic.build_time_s:.2f} s; both in threads beside 4i (a)-(b) "
+        f"and each other, so neither time is the builder's alone; "
+        f"waited {waited:.2f} s after ROLE/USER/QDTree); layer-0 width "
+        f"{na.shape[1]}, edges {int((na >= 0).sum())} against the classic "
+        f"build's {int((nc >= 0).sum())} ({nc.shape[1]} wide); at ef "
+        f"{HNSW_ACORN_EF} the filtered traversal's recall@{PART_TOPK} "
+        f"{rec['acorn']} {hnsw_predicted('4i(e) acorn filtered')} (classic "
+        f"graph {rec['classic']}; within the reference's floors, above "
+        f"0.75 and 0.15 apart: {band}); unfiltered top-1 found {hit['acorn']} on the dense graph "
+        f"(classic {hit['classic']}; the reference's floor 0.85: "
+        f"{hit['acorn'] >= 0.85})")
+    if na.shape[1] != 64 or (na >= 0).sum() <= 1.5 * (nc >= 0).sum():
+        fail(f"4i(e) ACORN: layer-0 width {na.shape[1]}, "
+             f"{int((na >= 0).sum())} edges against {int((nc >= 0).sum())}")
+    del acorn, classic, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -2238,14 +2883,26 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- phase 4g: the IVF index (rls, nlist 1024, nprobe 16) and the
-    # IVF-assisted kNN graph, on the same corpus and arena
+    # ---- phase 4g: the IVF index (rls, nlist 1024, nprobe 16), on the
+    # same corpus and arena
     drive_ivf(corpus, world, arena, workload, truth, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    drive_knn_graph(arena, device, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
+
+    # ---- phase 4i (a), (b), (e): HNSW under rls over the whole arena, the
+    # ip form on an ip arena of the same corpus, and ROLE, USER, QDTree and
+    # the ACORN builder on a 131,072-row corpus (its two graph builds run
+    # in threads beside (a) and (b))
+    hnsw_job = start_hnsw_partitioned(device)
+    launches_4i, hnsw_rows, hnsw_extra = drive_hnsw_sift(
+        corpus, world, arena, workload, truth, device, smi)
+    result.update(hnsw_rows)
+    extra.update(hnsw_extra)
+    t0 = time.perf_counter()
+    for key, v in drive_hnsw_partitioned(hnsw_job, device, smi).items():
+        launches_4i[key] += v
+    del hnsw_job
+    say(f"phase 4i (e): {time.perf_counter() - t0:.1f} s ({smi})")
 
     # ---- phase 4h: the flat family's breadth (FlatIndex approx and exact
     # on bfloat16 and float32 arenas), the binary index, l1 on the
@@ -2258,7 +2915,8 @@ def main() -> None:
     del corpus, world, workload, arena, truth, part_truth, scan_args
     gc.collect()
     torch.cuda.empty_cache()
-    drive_l1(device, smi)
+    for key, v in drive_l1(device, smi).items():
+        launches_4i[key] += v
     drive_sparse(sparse_job, device, smi)
     say(f"phase 4h: {time.perf_counter() - t4h:.1f} s ({smi})")
     gc.collect()
@@ -2360,6 +3018,12 @@ def main() -> None:
     del searcher
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for key, v in drive_hnsw_cut("4i(c) cosine", arena, HNSW_CUT_ROWS,
+                                 "cosine", workload, world, corpus, device,
+                                 smi).items():
+        launches_4i[key] += v
+    say(f"phase 4i (c): {time.perf_counter() - t0:.1f} s ({smi})")
 
     # ---- phase 4f: ROLE, USER, AnonySys (4c's plan: the same world at
     # alpha 2.0) and QDTree (built from the first 1,024 queries) through the
@@ -2398,7 +3062,7 @@ def main() -> None:
     del plan
     paths = (launches_sift, launches_wide_world, launches_part, launches_wide,
              launches_hybrid, launches_harvest, launches_lab,
-             launches_wide_lab)
+             launches_wide_lab, launches_4i)
     launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules
@@ -2428,6 +3092,16 @@ def main() -> None:
                         "scripts/pallas_merge_probe.py:107"),
         "graph_score": ("vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",
                         "scripts/r5_graph_fused_probe.py:233"),
+        "graph_search_ip": (
+            "vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",
+            "vectorsearch_rbac_tpu/ops/graph_search.py:343 in its ip and "
+            "cosine score form (:476-493, s = -dots), with scripts/"
+            "pallas_merge_probe.py:107 and scripts/r5_graph_fused_probe.py:"
+            "233"),
+        "graph_score_ip": (
+            "vectorsearch_rbac_tpu_torch/csrc/graph_step.cu",
+            "scripts/r5_graph_fused_probe.py:233 in the ip and cosine score "
+            "form of vectorsearch_rbac_tpu/ops/graph_search.py:476-493"),
         "scan_int8_wide_slots": (
             "vectorsearch_rbac_tpu_torch/csrc/scan_int8_wide.cu",
             "vectorsearch_rbac_tpu/ops/pallas_scan_int8.py:343 (the mask_sb "

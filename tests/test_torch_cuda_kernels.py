@@ -668,6 +668,30 @@ def test_graph_score_kernel_against_plain(dev, nq, c, d, w, integer, multi):
         assert ((s - s_p).abs()[fin] <= tol[fin]).all()
 
 
+@pytest.mark.parametrize("w", [4, 10, 40])
+@pytest.mark.parametrize("d", [128, 768])
+@pytest.mark.parametrize("metric", ["ip", "cosine"])
+def test_graph_score_kernel_ip_form_against_plain(dev, metric, d, w):
+    """KS7's inner-product form (ip and cosine arenas: -dots) bit-identical
+    to its plain version on integer data at 4, 10 and 40 bitset words and
+    d_pad 128 and 768; -1 ids give +inf / False; the l2 form on the same
+    inputs differs."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_step
+
+    args = _score_inputs(np.random.default_rng(d + w), dev, 200, 32, 4096,
+                         d, w, True, w != 10)
+    before = _build.LAUNCHES["graph_score"]
+    s, ok = graph_step.graph_score_packed(*args, metric=metric)
+    assert _build.LAUNCHES["graph_score"] == before + 1
+    s_p, ok_p = graph_step.graph_score_packed_plain(*args, metric=metric)
+    s_l2, _ = graph_step.graph_score_packed(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, ok_p) and torch.equal(s, s_p)
+    assert torch.isinf(s[0]).all() and not ok[0].any()
+    fin = torch.isfinite(s)
+    assert fin.any() and not torch.equal(s[fin], s_l2[fin])
+
+
 @pytest.mark.parametrize("nq,ef,c,kk,cr,fill", [
     (1, 64, 32, 18, 32, "ties"),
     (4096, 64, 32, 18, 32, "ties"),
@@ -860,6 +884,57 @@ def test_graph_search_fused_against_plain(dev, nq, ef, kk, m0, max_steps, w,
     graph_search.graph_search_fused(args[0], *args[4:], **kw, stats=stats)
     want = graph_search.graph_beam_search_iterative_plain(*args, **kw,
                                                           stats=stats_p)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(stats, stats_p), (stats, stats_p)
+    assert (want[1][2:] >= 0).any()
+    assert (want[1][0] < 0).all()                # the padded entry
+
+
+@pytest.mark.parametrize("nq,ef,kk,m0,max_steps,w,d_pad,mode,metric", [
+    (300, 64, 18, 32, 128, 4, 128, "multi", "ip"),       # hybrid cell
+    (4096, 64, 18, 32, 128, 4, 128, "multi", "ip"),      # one wave
+    (40, 512, 512, 64, 4096, 8, 768, "multi", "ip"),
+    (100, 64, 18, 32, 128, 40, 256, "logical", "ip"),
+    (64, 16, 1, 8, 4096, 1, 128, "none", "ip"),
+    (300, 64, 18, 32, 128, 4, 768, "multi", "cosine"),   # unit queries
+    (100, 64, 64, 64, 128, 40, 128, "logical", "cosine"),
+])
+def test_graph_search_fused_ip_form_against_plain(dev, nq, ef, kk, m0,
+                                                  max_steps, w, d_pad, mode,
+                                                  metric):
+    """The fused search's inner-product form (through
+    graph_beam_search_iterative, one launch, no step kernel) bit-equal in
+    distances and ids to its plain loop, with the same expansions and
+    scored candidates. Cosine's queries are unit vectors of four entries
+    of +-0.5 (their normalisation is exact), so every score is exact and
+    ties are frequent; the finish maps them to clip(1 + s, 0, 2)."""
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    rng = np.random.default_rng(nq + ef + m0 + w)
+    kw = _search_inputs(rng, dev, nq, m0, d_pad, w, mode, 3 if metric ==
+                        "cosine" else 20, budget_max=max_steps)
+    if metric == "cosine":
+        q = np.zeros(tuple(kw["queries"].shape), np.float32)
+        cols = np.argsort(rng.random(q.shape), axis=1)[:, :4]
+        np.put_along_axis(q, cols, rng.choice([-0.5, 0.5], (nq, 4)), 1)
+        kw["queries"] = torch.from_numpy(q).to(dev)
+    args = (kw.pop("queries"), None, None, None, kw.pop("graph"),
+            kw.pop("query_masks"), kw.pop("entries"), kk, ef, max_steps)
+    before = dict(_build.LAUNCHES)
+    got = graph_search.graph_beam_search_iterative(*args, metric=metric,
+                                                   **kw)
+    after = dict(_build.LAUNCHES)
+    assert after["graph_search"] == before["graph_search"] + 1
+    assert after["graph_score"] == before["graph_score"]
+    assert after["graph_merge"] == before["graph_merge"]
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    stats_p = torch.zeros_like(stats)
+    graph_search.graph_search_fused(args[0], *args[4:], **kw, stats=stats,
+                                    metric=metric)
+    want = graph_search.graph_beam_search_iterative_plain(
+        *args, metric=metric, **kw, stats=stats_p)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])

@@ -376,3 +376,30 @@ def test_ivf_knn_graph_matches_reference():
     assert own.shape == (len(vec), k + 1) and (own >= 0).all()
     assert all(len(set(r)) == k + 1 for r in own)
     assert (own[:, 0] == np.arange(len(vec))).mean() > 0.99
+
+
+def test_ivf_knn_graph_coverage_gaps_are_the_references():
+    """Rows that no kNN list holds are the reference's own: on a corpus with
+    a hot spot of 400 near-duplicate rows (their bfloat16 distances tie),
+    the reference's lists leave rows out of every list, and the port's
+    lists on the reference's centroids leave out the same rows, and miss
+    the same rows in their own lists."""
+    rng = np.random.default_rng(11)
+    vec = rng.normal(0, 1, (3000, 32)).astype(np.float32)
+    hot = rng.choice(len(vec), 400, replace=False)
+    vec[hot] = vec[hot[0]] + rng.normal(0, 0.01, (400, 32)).astype(
+        np.float32)
+    k = 8
+    want = ref_hnsw._device_knn_graph_ivf(vec, k=k, seed=0)
+    nlist = max(16, int(np.sqrt(len(vec))))
+    cents, _ = ref_kmeans.kmeans_fit(
+        jnp.asarray(vec), jnp.asarray(ref_kmeans.kmeans_init(vec, nlist, 0)),
+        iters=8)
+    got = hnsw_mod._device_knn_graph_ivf(vec, k, "cpu", seed=0,
+                                         centroids=np.asarray(cents))
+    rows = np.arange(len(vec))
+    gaps = np.setdiff1d(rows, want)
+    assert len(gaps) > 0
+    np.testing.assert_array_equal(np.setdiff1d(rows, got), gaps)
+    np.testing.assert_array_equal((got == rows[:, None]).any(1),
+                                  (want == rows[:, None]).any(1))

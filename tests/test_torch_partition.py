@@ -31,6 +31,7 @@ from vectorsearch_rbac_tpu_torch.index.flat_int8 import Int8FlatIndex
 from vectorsearch_rbac_tpu_torch.ops.topk import merge_topk_host
 from vectorsearch_rbac_tpu_torch.partition import TiledSearcher
 from vectorsearch_rbac_tpu_torch.partition.dynamic import plan_from_reference
+from test_torch_packed import one_thread  # noqa: F401
 
 WORLD = dict(num_users=80, num_roles=16, num_docs=120, h=3, b0=2, b1=2,
              seed=5)
@@ -319,10 +320,12 @@ def test_merge_topk_host_identical():
         assert len(ok) == sum(len(set(r[r >= 0])) for r in got[1])
 
 
-def test_unported_strategies_and_metrics_raise(mine, queries):
+def test_unported_strategies_and_metrics_raise(mine, queries, one_thread):
     """Index kind ivf (queue 1 item 10) now builds and serves AnonySys, an
     IVFIndex a partition (the unpacked layout), every row readable; HNSW
-    still serves only under AnonySys's graph executor."""
+    (queue 1 item 11) now builds under RLS, ROLE and USER too, and kind
+    "hybrid", the AnonySys graph executor's, is an unknown index kind
+    there, as in the reference."""
     from vectorsearch_rbac_tpu_torch.index.ivf import IVFIndex
 
     mc, mw, ma = mine
@@ -344,10 +347,17 @@ def test_unported_strategies_and_metrics_raise(mine, queries):
     np.testing.assert_array_equal(
         np.sort(ids, 1), np.sort(flat.search_batch(qf, users, mw.user_masks,
                                                    K)[1], 1))
-    # HNSW serves only under AnonySys's graph executor: the other
-    # strategies refuse it before building any graph
-    for kind in ("hnsw", "hybrid"):
-        cfg.index.kind = kind
-        for name in ("rls", "role", "user"):
-            with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-                build_searcher(name, mc, mw, ma, cfg)
+    # HNSW builds a graph over the arena or each partition and serves;
+    # "hybrid" outside AnonySys is refused before any build
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+    for name in ("rls", "role", "user"):
+        cfg.index.kind = "hnsw"
+        s = build_searcher(name, mc, mw, ma, cfg)
+        assert all(isinstance(p.index, HNSWIndex)
+                   for p in s.partitions.values())
+        _, ids = s.search_batch(qf, users, mw.user_masks, K)
+        assert (ids >= 0).sum() > 0.5 * ids.size
+        assert_readable(mc, mw, ids, users)
+        cfg.index.kind = "hybrid"
+        with pytest.raises(ValueError, match="unknown index kind"):
+            build_searcher(name, mc, mw, ma, cfg)

@@ -465,8 +465,10 @@ def test_bench_entry_refuses_unported_and_cpu(capsys):
     # bfloat16 arena; l1 on the int8 default stays refused, as bench.py's
     assert parse_args(["--dataset", "synthetic"]).dataset == "synthetic"
     assert parse_args(["--dtype", "bfloat16"]).dtype == "bfloat16"
-    for off in (["--metric", "l1"],
-                ["--strategy", "role", "--index", "hnsw"]):
+    # served since HNSW's remaining paths: HNSW under every strategy
+    assert parse_args(["--strategy", "role", "--index", "hnsw"]).index == \
+        "hnsw"
+    for off in (["--metric", "l1"], ["--dataset", "sift10m"]):
         with pytest.raises(SystemExit):
             parse_args(off)
     assert "ROADMAP" in capsys.readouterr().err

@@ -10,11 +10,11 @@ planner at cfg.optimizer's defaults) and qdtree (built as bench.py builds
 it: no workload, so the tree samples the first 64 role combinations and
 routes by the margin rule) over --dataset sift1m, cohere or synthetic,
 --metric l2, ip, cosine or l1 (l1 not on --dtype int8, as bench.py) and
---dtype int8, bfloat16 or float32, with --index flat_approx, flat, ivf or
-binary (the partitioned strategies' flat kinds take the TiledSearcher on
-an int8 l2 arena and the PackedSearcher on any other; ivf builds an
-IVFIndex a partition, binary a BinaryQuantIndex), and --index hnsw for
---strategy dynamic on l2 (an HNSW graph a partition, the IVF-assisted kNN
+--dtype int8, bfloat16 or float32, with --index flat_approx, flat, ivf,
+binary or hnsw (the partitioned strategies' flat kinds take the
+TiledSearcher on an int8 l2 arena and the PackedSearcher on any other;
+ivf builds an IVFIndex a partition, binary a BinaryQuantIndex, hnsw an
+HNSW graph over the arena (rls) or a partition, the IVF-assisted kNN
 above 200,000 rows). What is left is refused, naming its ROADMAP queue 1
 item. It needs a CUDA device and exits non-zero without one.
 
@@ -57,13 +57,6 @@ def refusal(args):
     if args.metric == "l1" and args.dtype == "int8":
         return ("--metric l1 --dtype int8: l1 cannot ride the int8 path (it "
                 "has no dot-product form); use --dtype float32 or bfloat16")
-    if args.index == "hnsw" and args.strategy != "dynamic":
-        return (f"not ported: --index hnsw under --strategy {args.strategy}"
-                "; HNSW serves under AnonySys's graph executor only (HNSW "
-                "for RLS, ROLE, USER and QDTree is ROADMAP queue 1 item 11)")
-    if args.index == "hnsw" and args.metric != "l2":
-        return (f"not ported: --index hnsw --metric {args.metric}; the "
-                "graph step scores l2 only (ROADMAP queue 1 item 11)")
     return None
 
 

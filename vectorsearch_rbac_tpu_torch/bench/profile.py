@@ -3,7 +3,7 @@
     python -m vectorsearch_rbac_tpu_torch.bench.profile [--n N] [--queries Q]
         [--dataset sift1m|cohere|synthetic] [--metric l2|ip|cosine|l1]
         [--strategy rls|role|user|dynamic|qdtree]
-        [--index flat_approx|flat|ivf|hybrid|binary]
+        [--index flat_approx|flat|ivf|hnsw|hybrid|binary] [--filtered]
         [--dtype int8|bfloat16|float32]
         [--alpha A] [--topk K] [--batch B]
 
@@ -33,6 +33,14 @@ which run one after another on the one stream). The spans split a pass:
 - --index ivf: partitioned.route, partitioned.enqueue (every IVF index's
   routing and probed scans) and partitioned.merge; rls's one index has no
   span of its own (the pass is its scan);
+- --index hnsw (an HNSW graph over the arena or each partition; the
+  bench's default search, the fixed-budget beam): per expansion
+  graph.beam.expand (pop, neighbour gather, dedup against beam and
+  history), graph.beam.score (the candidates' rows and scores) and
+  graph.beam.merge (beam and results); with --filtered (rls only) a
+  second pass follows, the ACORN filtered traversal, per expansion
+  graph.filtered.navigate (the one-hop beam update) and
+  graph.filtered.harvest (the 2-hop ring's scores and the result merge);
 - dynamic --index hybrid (the hybrid executor: HNSW graphs where the
   combs' selectivity holds, the int8 scan on the remainder):
   partitioned.route, partitioned.enqueue (the flat partitions' scans,
@@ -119,9 +127,13 @@ def main(argv=None) -> int:
     ap.add_argument("--strategy", default="rls",
                     choices=["rls", "role", "user", "dynamic", "qdtree"])
     ap.add_argument("--index", default="flat_approx",
-                    choices=["flat_approx", "flat", "ivf", "hybrid",
+                    choices=["flat_approx", "flat", "ivf", "hnsw", "hybrid",
                              "binary"],
                     help="hybrid: the dynamic strategy's hybrid executor")
+    ap.add_argument("--filtered", action="store_true",
+                    help="rls --index hnsw: after the fixed-budget beam's "
+                         "pass, time and trace the ACORN filtered "
+                         "traversal's over the same queries")
     ap.add_argument("--dtype", default="int8",
                     choices=["int8", "bfloat16", "float32"])
     ap.add_argument("--alpha", type=float, default=0.0,
@@ -130,6 +142,8 @@ def main(argv=None) -> int:
     if args.index == "hybrid" and (args.strategy, args.metric) != (
             "dynamic", "l2"):
         ap.error("--index hybrid is the dynamic strategy's executor, on l2")
+    if args.filtered and (args.strategy, args.index) != ("rls", "hnsw"):
+        ap.error("--filtered is the rls HNSW index's traversal")
     if args.metric == "l1" and args.dtype == "int8":
         ap.error("l1 cannot ride the int8 path; use --dtype float32 or "
                  "bfloat16")
@@ -168,6 +182,12 @@ def main(argv=None) -> int:
         shape = (f"{n_graph} graph + {rep['num_partitions'] - n_graph} flat "
                  f"partitions, {rep['total_mb']:.1f} MB, build "
                  f"{build_s:.2f} s (graphs {searcher.graph_build_s:.2f} s)")
+    elif args.index == "hnsw":
+        ixs = [p.index for p in searcher.partitions.values()]
+        shape = (f"{len(ixs)} HNSW graphs of {min(ix.n_rows for ix in ixs)}"
+                 f"-{max(ix.n_rows for ix in ixs)} rows (builders "
+                 f"{sorted({ix.builder for ix in ixs})}), ef_search "
+                 f"{ixs[0].ef_search}, build {build_s:.2f} s")
     elif args.index == "ivf":
         ivfs = [p.index for p in searcher.partitions.values()]
         shape = (f"{len(ivfs)} IVF indexes, nlist "
@@ -191,49 +211,67 @@ def main(argv=None) -> int:
                  f"({len(searcher._big)} big tier), "
                  f"{rep['total_mb']:.1f} MB, build {build_s:.2f} s")
 
+    def report(label, run):
+        for _ in range(2):
+            run()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1000.0)
+        untraced_ms = sum(walls) / len(walls)
+        wall_ms, spans, rows, busy_ms = profile_pass(run)
+        print(f"{torch.cuda.get_device_name(device)}: {label}"
+              f"{args.dataset} {args.metric} {args.dtype} {args.strategy}, "
+              f"pass of {args.queries} queries x {arena.n_padded} rows x d "
+              f"{arena.dim}, top-{args.topk}, {shape}; wall untraced "
+              f"{untraced_ms:.3f} ms (passes "
+              f"{', '.join(f'{w:.3f}' for w in walls)}), traced "
+              f"{wall_ms:.3f} ms; device busy {busy_ms:.3f} ms, idle share "
+              f"of the untraced pass "
+              f"{max(0.0, 1 - busy_ms / untraced_ms):.3f}")
+        for key, (host, dev) in sorted(spans.items(),
+                                       key=lambda kv: -kv[1][0]):
+            print(f"  span {key:26s} host {host:10.3f} ms, device "
+                  f"{dev:10.3f} ms")
+        dev = {k: v[1] for k, v in spans.items()}
+        if args.index == "hybrid":
+            flat = (dev.get("partitioned.enqueue", 0.0)
+                    + dev.get("flat_int8.fetch_unpack", 0.0))
+            print(f"  device: graph {dev.get('partitioned.graph', 0.0):.3f}"
+                  f" ms (fused search {dev.get('graph.search', 0.0):.3f}; "
+                  f"step loop: score {dev.get('graph.score', 0.0):.3f}, "
+                  f"merge {dev.get('graph.merge', 0.0):.3f}, dedup "
+                  f"{dev.get('graph.dedup', 0.0):.3f}), flat remainder "
+                  f"{flat:.3f} ms")
+        elif hasattr(searcher, "buckets"):
+            print(f"  device: packed scan {dev.get('packed.scan', 0.0):.3f}"
+                  " ms")
+        elif args.strategy != "rls" and args.index not in ("ivf", "hnsw"):
+            chunk = dev.get("tiled.chunk_scan", 0.0)
+            big = (dev.get("tiled.big_enqueue", 0.0)
+                   + dev.get("tiled.big_fetch", 0.0))
+            print(f"  device: chunk engine {chunk:.3f} ms, big tier "
+                  f"{big:.3f} ms")
+        for ms, count, key in rows[:20]:
+            print(f"  device {ms:10.3f} ms {count:6d}x  {key[:80]}")
+
     def one_pass():
         searcher.search_batch(workload.vectors, workload.user_ids,
                               world.user_masks, args.topk)
         torch.cuda.synchronize()
 
-    for _ in range(2):
-        one_pass()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        one_pass()
-        walls.append((time.perf_counter() - t0) * 1000.0)
-    untraced_ms = sum(walls) / len(walls)
-    wall_ms, spans, rows, busy_ms = profile_pass(one_pass)
-    print(f"{torch.cuda.get_device_name(device)}: {args.dataset} "
-          f"{args.metric} {args.dtype} {args.strategy}, pass of "
-          f"{args.queries} queries x {arena.n_padded} rows x d {arena.dim}, "
-          f"top-"
-          f"{args.topk}, {shape}; wall untraced {untraced_ms:.3f}"
-          f" ms (passes {', '.join(f'{w:.3f}' for w in walls)}), traced "
-          f"{wall_ms:.3f} ms; device busy {busy_ms:.3f} ms, idle share of "
-          f"the untraced pass {max(0.0, 1 - busy_ms / untraced_ms):.3f}")
-    for key, (host, dev) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
-        print(f"  span {key:26s} host {host:10.3f} ms, device {dev:10.3f} ms")
-    dev = {k: v[1] for k, v in spans.items()}
-    if args.index == "hybrid":
-        flat = (dev.get("partitioned.enqueue", 0.0)
-                + dev.get("flat_int8.fetch_unpack", 0.0))
-        print(f"  device: graph {dev.get('partitioned.graph', 0.0):.3f}"
-              f" ms (fused search {dev.get('graph.search', 0.0):.3f}; step "
-              f"loop: score {dev.get('graph.score', 0.0):.3f}, merge "
-              f"{dev.get('graph.merge', 0.0):.3f}, dedup "
-              f"{dev.get('graph.dedup', 0.0):.3f}), flat remainder "
-              f"{flat:.3f} ms")
-    elif hasattr(searcher, "buckets"):
-        print(f"  device: packed scan {dev.get('packed.scan', 0.0):.3f} ms")
-    elif args.strategy != "rls" and args.index != "ivf":
-        chunk = dev.get("tiled.chunk_scan", 0.0)
-        big = dev.get("tiled.big_enqueue", 0.0) + dev.get("tiled.big_fetch",
-                                                          0.0)
-        print(f"  device: chunk engine {chunk:.3f} ms, big tier {big:.3f} ms")
-    for ms, count, key in rows[:20]:
-        print(f"  device {ms:10.3f} ms {count:6d}x  {key[:80]}")
+    def filtered_pass():
+        searcher.partitions[0].index.search(
+            workload.vectors, world.user_masks[workload.user_ids],
+            args.topk, filtered_traversal=True)
+        torch.cuda.synchronize()
+
+    passes = [("", one_pass)]
+    if args.filtered:
+        passes.append(("the filtered traversal's ", filtered_pass))
+    for label, run in passes:
+        report(label, run)
     return 0
 
 

@@ -3,8 +3,7 @@
 The fields of vectorsearch_rbac_tpu/utils/config.py `FrameworkConfig` that
 the ported paths read, with the reference's defaults and the same nesting
 (`cfg.search.*`, `cfg.index.*`, `cfg.optimizer.*`), so that a reference
-config object works here too. The ACORN knob (`index.hnsw_m_beta`) comes
-with the slice that reads it. The reference's `index.hnsw_logical` is
+config object works here too. The reference's `index.hnsw_logical` is
 not here: the port's HNSW graphs always serve from the shared arena. Nor
 is `search.recall_target`, the target of the reference's approximate
 per-block top-k: every scan of the port takes the exact top-k.
@@ -43,6 +42,9 @@ class IndexConfig:
                                  # | "hybrid" | "binary"
     hnsw_m: int = 16
     hnsw_ef_construction: int = 64
+    hnsw_m_beta: int = 0         # > 0: the ACORN builder, dense layer-0
+                                 # lists of this width (the reference's
+                                 # gamma 12, M_beta 64) for filtered search
     ivf_nlist: int = 1024        # IVF lists (k-means centroids)
     ivf_kmeans_iters: int = 10   # Lloyd iterations of the IVF build
     # hybrid (dynamic partitions): a partition serves from an HNSW graph

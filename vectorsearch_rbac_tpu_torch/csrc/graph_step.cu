@@ -16,8 +16,9 @@
 // at least the window's ef-th with the results full, or the step budget
 // spent), the pop of the beam's nearest, the neighbour row
 // (graph[pids[q], node] or graph[node]), the dedup against the beam and the
-// expansion history, the packed-row score and admit test (as
-// graph_score_packed_kernel below, bit for bit), and the three stable merges
+// expansion history, the packed-row score (l2, or the inner-product form of
+// ip and cosine arenas) and admit test (as graph_score_packed_kernel below,
+// bit for bit), and the three stable merges
 // (beam ef, window ef, results kk; ties to the lower position of the
 // concatenation: the list before the candidates, the candidates in
 // neighbour-row order: lax.top_k's order and torch.sort(stable=True)'s).
@@ -83,6 +84,8 @@
 //   the packed row is [int8 code (d_pad) | W uint32 bitset words | f32 norm]
 //   dots  = (sum_d qf[q, d] * code[d]) * dq_scale + qcd[q]
 //   score = norm - 2 * dots                   (l2)
+//         | -dots                             (ip and cosine: the kIp form;
+//                                              cosine queries come unit)
 //   admit = any_w (bits[w] & qmask[q, w]) != 0
 // An id < 0 (or a row map entry < 0) gives score +inf and admit false. The
 // dequant steps are rounded one at a time (__fmul_rn, __fadd_rn), as the
@@ -166,9 +169,21 @@ __device__ __forceinline__ bool row_tail(const uint32_t* t, int w,
   return __ballot_sync(kFull, hit) != 0u;
 }
 
+// The score of a packed row from its dot's parts: the dequant steps rounded
+// one at a time as the plain version's PyTorch ops round them, then l2's
+// norm - 2 dots or the inner-product form's -dots (kIp: ip and cosine
+// arenas). The norm word is read with the bitset words in either form.
+template <bool kIp>
+__device__ __forceinline__ float packed_score(float part, float dq_scale,
+                                              float center_dot, float norm) {
+  const float dots = __fadd_rn(__fmul_rn(part, dq_scale), center_dot);
+  return kIp ? -dots : __fsub_rn(norm, __fmul_rn(2.f, dots));
+}
+
 // kWords: code words per lane, d_pad / 128 (0: any d_pad, the query's
-// floats read from memory, L1); kMany: 32 bitset words or more
-template <int kWords, bool kMany>
+// floats read from memory, L1); kMany: 32 bitset words or more; kIp: the
+// inner-product score form
+template <int kWords, bool kMany, bool kIp>
 __global__ void __launch_bounds__(kScoreWarps * kWarp)
 graph_score_packed_kernel(const int32_t* __restrict__ ids,      // (Q, C)
                           const int32_t* __restrict__ row_map,  // or null
@@ -234,8 +249,7 @@ graph_score_packed_kernel(const int32_t* __restrict__ ids,      // (Q, C)
     for (int off = kWarp / 2; off > 0; off >>= 1)
       part += __shfl_xor_sync(kFull, part, off);
     if (lane == 0) {
-      const float dots = __fadd_rn(__fmul_rn(part, dq_scale), center_dot);
-      out_s[o] = __fsub_rn(norm, __fmul_rn(2.f, dots));
+      out_s[o] = packed_score<kIp>(part, dq_scale, center_dot, norm);
       out_ok[o] = any;
     }
   }
@@ -422,8 +436,8 @@ __device__ __forceinline__ void merge_sorted(const float* ad,
 // into the stage at once (every lane its words of each row, so all the
 // batch's rows are in flight together), then the warp scores each staged
 // row as graph_score_packed_kernel does (same products, same shuffle tree,
-// same rounding of the dequant steps) into cd / cok.
-template <int kWords, bool kMany>
+// same rounding of the dequant steps, the same score form) into cd / cok.
+template <int kWords, bool kMany, bool kIp>
 __device__ __forceinline__ void score_rows(
     const SearchArgs& a, int n, const int32_t* crow, uint32_t* stage,
     float* cd, int32_t* cok, const float (&qv)[kWords][4], uint32_t my_mask,
@@ -464,8 +478,7 @@ __device__ __forceinline__ void score_rows(
       for (int off = kWarp / 2; off > 0; off >>= 1)
         part += __shfl_xor_sync(kFull, part, off);
       if (lane == 0) {
-        const float dots = __fadd_rn(__fmul_rn(part, a.dq_scale), center_dot);
-        cd[k0 + k] = __fsub_rn(norm, __fmul_rn(2.f, dots));
+        cd[k0 + k] = packed_score<kIp>(part, a.dq_scale, center_dot, norm);
         cok[k0 + k] = any;
       }
     }
@@ -475,8 +488,8 @@ __device__ __forceinline__ void score_rows(
 
 // kPer: neighbours a lane (M0 <= 32 kPer); kMany: 32 bitset words or more
 // (at most 4 blocks an SM there, so the words' loop has registers: the
-// 64 a thread of 8 blocks spill)
-template <int kWords, int kPer, bool kMany>
+// 64 a thread of 8 blocks spill); kIp: the inner-product score form
+template <int kWords, int kPer, bool kMany, bool kIp>
 __global__ void __launch_bounds__(kSearchWarps * kWarp,
                                   kWords <= 2 && !kMany ? 8 : 4)
 graph_search_fused_kernel(const __grid_constant__ SearchArgs a) {
@@ -528,7 +541,7 @@ graph_search_fused_kernel(const __grid_constant__ SearchArgs a) {
   __syncwarp();
   int cnt = 0, wcnt = 0, rcnt = 0;
   if (entry_row >= 0) {
-    score_rows<kWords, kMany>(a, 1, is + l.crow, sm + l.stage, fs + l.cd,
+    score_rows<kWords, kMany, kIp>(a, 1, is + l.crow, sm + l.stage, fs + l.cd,
                               is + l.cok, qv, my_mask, q, center_dot, lane);
     const float e_d = fs[l.cd];
     if (lane == 0) {
@@ -605,7 +618,7 @@ graph_search_fused_kernel(const __grid_constant__ SearchArgs a) {
     }
     __syncwarp();
     scored += n;
-    score_rows<kWords, kMany>(a, n, is + l.crow, sm + l.stage, fs + l.cd,
+    score_rows<kWords, kMany, kIp>(a, n, is + l.crow, sm + l.stage, fs + l.cd,
                               is + l.cok, qv, my_mask, q, center_dot, lane);
     // sort the candidates by (value, row order): rank by counting
     for (int k = lane; k < n; k += kWarp) {
@@ -665,7 +678,7 @@ extern "C" int vsr_graph_score_packed(const void* ids, const void* row_map,
                                       const void* qf, const void* qmask,
                                       const void* qcd, float dq_scale,
                                       void* out_s, void* out_ok, int nq,
-                                      int c_width, int d_pad, int w,
+                                      int c_width, int d_pad, int w, int ip,
                                       void* stream) {
   if (nq < 1 || c_width < 1 || w < 1 || d_pad < 128 || d_pad % 128 != 0 ||
       unit_bytes != d_pad + 4 * w + 4)
@@ -683,12 +696,11 @@ extern "C" int vsr_graph_score_packed(const void* ids, const void* row_map,
       static_cast<uint8_t*>(out_ok), c_width, w
 #define VSR_SCORE_LAUNCH(N_)                                                  \
   do {                                                                        \
-    if (many)                                                                 \
-      graph_score_packed_kernel<N_, true><<<grid, block, 0, s>>>(             \
-          VSR_SCORE_ARGS);                                                    \
-    else                                                                      \
-      graph_score_packed_kernel<N_, false><<<grid, block, 0, s>>>(            \
-          VSR_SCORE_ARGS);                                                    \
+    auto kern = many ? (ip ? graph_score_packed_kernel<N_, true, true>        \
+                           : graph_score_packed_kernel<N_, true, false>)      \
+                     : (ip ? graph_score_packed_kernel<N_, false, true>       \
+                           : graph_score_packed_kernel<N_, false, false>);    \
+    kern<<<grid, block, 0, s>>>(VSR_SCORE_ARGS);                              \
   } while (0)
 #define VSR_SCORE_CASE(N_)                                                    \
   case N_:                                                                    \
@@ -742,7 +754,7 @@ extern "C" int vsr_graph_search_fused(
     const void* packed, int unit_bytes, const void* graph, int m0,
     const void* row_map, const void* pids, int n_class, const void* entries,
     const void* step_budget, void* out_d, void* out_i, void* stats, int nq,
-    int d_pad, int w, int ef, int kk, int max_steps, void* stream) {
+    int d_pad, int w, int ef, int kk, int max_steps, int ip, void* stream) {
   if (nq < 1 || w < 1 || unit_bytes != d_pad + 4 * w + 4 ||
       m0 < 1 || m0 > kMaxSearchM0 || kk < 1 || kk > ef ||
       ef > kMaxSearchEf || max_steps < 0 || max_steps > kMaxSearchSteps ||
@@ -787,8 +799,11 @@ extern "C" int vsr_graph_search_fused(
   const auto s = static_cast<cudaStream_t>(stream);
 #define VSR_SEARCH_LAUNCH(W_, P_)                                            \
   do {                                                                       \
-    auto kern = many ? graph_search_fused_kernel<W_, P_, true>               \
-                     : graph_search_fused_kernel<W_, P_, false>;             \
+    auto kern =                                                              \
+        many ? (ip ? graph_search_fused_kernel<W_, P_, true, true>           \
+                   : graph_search_fused_kernel<W_, P_, true, false>)         \
+             : (ip ? graph_search_fused_kernel<W_, P_, false, true>          \
+                   : graph_search_fused_kernel<W_, P_, false, false>);       \
     cudaError_t e = cudaFuncSetAttribute(                                    \
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);       \
     if (e != cudaSuccess) return (int)e;                                     \

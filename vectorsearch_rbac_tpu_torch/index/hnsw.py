@@ -4,9 +4,8 @@ Counterpart of vectorsearch_rbac_tpu/index/hnsw.py `HNSWIndex`, in the
 reference's logical mode only: the graph addresses the partition's rows,
 and vectors live once, in the shared arena, read through the row map (the
 graph and the row map are the index's only storage; the reference's
-per-partition copy is not carried over). Two builders, picked by row count
-as the
-reference picks them ("auto"):
+per-partition copy is not carried over). Three builders; "auto" picks
+between the first two by row count as the reference does:
 
 - "classic" (up to 50,000 rows): the native Malkov-Yashunin construction
   (native/hnsw_builder.cpp vsr_hnsw_build);
@@ -18,17 +17,25 @@ reference picks them ("auto"):
   matmuls (TF32 off), each row's k + 1 nearest taken in (distance, index)
   order as lax.top_k takes them; above, it is the reference's
   IVF-assisted kNN (`_device_knn_graph_ivf`: the device k-means and the
-  probed scan of ops/kmeans.py and ops/ivf_scan.py).
+  probed scan of ops/kmeans.py and ops/ivf_scan.py);
+- "acorn": the native construction with ACORN-gamma dense layer-0 lists
+  of m_beta columns (native/hnsw_builder.cpp vsr_hnsw_build_acorn), for
+  the filtered traversal at low selectivity.
+
+Every builder works in L2, on the metric's build vectors (the
+reference's :286-325): cosine rows are unit vectors, so L2 order is
+cosine order; ip rows take the MIPS lift, sqrt(max ||x||^2 - ||x||^2)
+appended as one more column, for the build only; l1 builds the L2 graph
+as a proxy. Serving scores in the arena's metric on the original rows.
 
 A failed native build raises (native/__init__.py): the reference's
 pure-Python stand-in for a missing compiler is not carried over.
 
 Search: the iterative rescan (pgvector's hnsw.iterative_scan analog) with
-per-query entries, or the fixed-budget beam, through
-ops/graph_search.py; packed-row scoring where the arena carries a lossless
-int8 mirror.
-The ACORN builder and filtered traversal, insert, delete and refine are
-ROADMAP items (queue 1 items 11 and 13) and are not here.
+per-query entries, the fixed-budget beam, or the ACORN filtered traversal
+over it, through ops/graph_search.py; packed-row scoring where an l2, ip
+or cosine arena carries a lossless int8 mirror. Insert, delete and refine
+are ROADMAP queue 1 item 13 and are not here.
 """
 
 from __future__ import annotations
@@ -42,7 +49,9 @@ import torch
 from .. import native
 from ..config import get_logger
 from ..core import DeviceArena, build_packed_graph_rows, packed_query_operands
-from ..ops.graph_search import graph_beam_search, graph_beam_search_iterative
+from ..ops.graph_search import (graph_beam_search, graph_beam_search_filtered,
+                                graph_beam_search_iterative)
+from ..ops.graph_step import PACKED_METRICS
 from ..ops.ivf_scan import ivf_search_fn
 from ..ops.kmeans import assign_clusters_blocked, kmeans_fit, kmeans_init
 from ..ops.scan import exact_f32_matmul
@@ -142,12 +151,14 @@ def _device_knn_graph_ivf(vec: np.ndarray, k: int, device, seed: int = 0,
 
 def _vamana_refine(vec: np.ndarray, nbr: np.ndarray, entry: int, m: int,
                    alpha: float, device, knn: Optional[np.ndarray] = None,
-                   ef: int = 48, batch: int = 4096,
+                   ef: int = 48, batch: int = 16384,
                    passes: int = 1) -> np.ndarray:
     """The search-based refinement pass (DiskANN's second phase, the
     reference's :146): every node's beam search on the current graph from
     the entry gives candidates along the search path, and the native prune
-    re-selects its edges from them, its current edges and its kNN list."""
+    re-selects its edges from them, its current edges and its kNN list.
+    A node's search does not depend on its batch; batches of 16,384 (the
+    reference's are 4,096) take fewer host-bound steps."""
     n, d = vec.shape
     norms = np.einsum("nd,nd->n", vec, vec).astype(np.float32)
     k_cand = min(ef, 32)
@@ -169,6 +180,18 @@ def _vamana_refine(vec: np.ndarray, nbr: np.ndarray, entry: int, m: int,
     return nbr
 
 
+def build_vectors(vec: np.ndarray, metric: str) -> np.ndarray:
+    """The rows the L2 builders see: the MIPS lift for ip (Bachrach et
+    al.: sqrt(max ||x||^2 - ||x||^2) appended, so L2 proximity in the
+    lifted space tracks inner-product order), the rows themselves
+    otherwise (cosine rows are unit; l1 takes the L2 graph as a proxy)."""
+    if metric != "ip" or not len(vec):
+        return vec
+    nrm2 = np.einsum("nd,nd->n", vec, vec)
+    lift = np.sqrt(np.maximum(float(nrm2.max()) - nrm2, 0.0))
+    return np.concatenate([vec, lift[:, None].astype(np.float32)], axis=1)
+
+
 def _bits_i32(bits: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(bits, dtype=np.uint32)
                             .view(np.int32)).to(device)
@@ -178,22 +201,20 @@ class HNSWIndex:
     def __init__(self, arena: DeviceArena, rows: Optional[np.ndarray] = None,
                  m: int = 16, ef_construction: int = 64, ef_search: int = 40,
                  query_batch: int = 256, builder: str = "auto",
-                 knn_k: int = 32, alpha: float = 1.2, seed: int = 0,
-                 graph_state: Optional[dict] = None):
+                 knn_k: int = 32, alpha: float = 1.2, m_beta: int = 64,
+                 seed: int = 0, graph_state: Optional[dict] = None):
         """graph_state: a graph_state() dict (this index's or the JAX
-        index's: neighbours and entry) to serve instead of building. The
-        iterative search scores packed rows where the arena's int8 mirror
-        is lossless."""
-        if arena.metric != "l2":
-            raise NotImplementedError(
-                f"HNSW over a {arena.metric} arena: the port's graph step "
-                "scores l2 only (ROADMAP queue 1 item 11)")
+        index's: neighbours and entry) to serve instead of building. m_beta:
+        the "acorn" builder's layer-0 width. The iterative search scores
+        packed rows where an l2, ip or cosine arena's int8 mirror is
+        lossless."""
         self.m = m
         self.ef_search = ef_search
         self.query_batch = query_batch
         self.metric = arena.metric
         dev = arena.device
         self.use_packed = bool(arena.quant is not None
+                               and arena.metric in PACKED_METRICS
                                and arena.quant.lossless)
         self._arena = arena
         self._packed = None
@@ -204,7 +225,9 @@ class HNSWIndex:
         rows = (np.arange(arena.n, dtype=np.int64) if rows is None
                 else np.asarray(rows, dtype=np.int64))
         self.n_rows = n = len(rows)
-        vec = np.ascontiguousarray(host_vec[rows], dtype=np.float32)
+        vec = build_vectors(np.ascontiguousarray(host_vec[rows],
+                                                 dtype=np.float32),
+                            self.metric)
 
         if builder == "auto":
             builder = "tpu" if n > CLASSIC_MAX_ROWS else "classic"
@@ -233,9 +256,9 @@ class HNSWIndex:
             nbr = _vamana_refine(vec, nbr, entry, m=m, alpha=alpha,
                                  device=dev, knn=knn[:, 1:])
         elif builder == "acorn":
-            raise NotImplementedError(
-                "the ACORN-gamma builder (dense layer-0 lists) is ROADMAP "
-                "queue 1 item 11, not ported")
+            nbr, _, entry, _ = native.hnsw_build_acorn(
+                vec, m=m, m_beta=m_beta, ef_construction=ef_construction,
+                seed=seed)
         else:
             raise ValueError(f"unknown builder {builder}")
         self.build_time_s = time.perf_counter() - t0
@@ -261,8 +284,11 @@ class HNSWIndex:
 
     def _sampled_entries(self, q: np.ndarray, sample: int = 1024,
                          seed: int = 0) -> np.ndarray:
-        """Per-query entry: the nearest node of a fixed random sample, from
-        one matmul (the reference's stand-in for the upper layers)."""
+        """Per-query entry: the nearest node of a fixed random sample by
+        the metric's score, from one matmul a chunk of 256 queries (l1:
+        the sum of |x - q|), the reference's stand-in for the upper
+        layers."""
+        chunk = 256
         dev = self._graph.device
         if self._entry_sample is None:
             rng = np.random.default_rng(seed)
@@ -274,83 +300,104 @@ class HNSWIndex:
                 np.ascontiguousarray(self._hrmap[ids])).to(dev).long())
         ids, trows = self._entry_sample
         arena = self._arena
-        x = arena.vectors[trows].float()
+        x = arena.vectors[trows].float()                          # (S, d)
+        qt = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
+        if self.metric == "cosine":
+            qt = qt / torch.clamp_min(
+                torch.linalg.vector_norm(qt, dim=1, keepdim=True), 1e-30)
+        best = []
         with exact_f32_matmul():
-            s = arena.norms[trows][None, :] - 2.0 * (
-                torch.from_numpy(np.ascontiguousarray(q)).to(dev) @ x.T)
-        return ids[s.argmin(dim=1).cpu().numpy()]
+            for s in range(0, len(qt), chunk):
+                qc = qt[s:s + chunk]
+                if self.metric == "l1":
+                    sc = (x[None, :, :] - qc[:, None, :]).abs().sum(-1)
+                elif self.metric == "l2":
+                    sc = arena.norms[trows][None, :] - 2.0 * (qc @ x.T)
+                else:
+                    sc = -(qc @ x.T)
+                best.append(sc.argmin(dim=1))
+        return ids[torch.cat(best).cpu().numpy()]
 
     def search(self, queries: np.ndarray, query_masks: np.ndarray, k: int,
-               ef_search: Optional[int] = None,
-               filtered_traversal: bool = False, iterative: bool = False,
-               entries: Optional[np.ndarray] = None,
-               entry_local: Optional[int] = None,
-               max_steps: Optional[int] = None, harvest_2hop: bool = False,
-               sampled_entry: bool = False
-               ) -> Tuple[np.ndarray, np.ndarray]:
-        """(dists (Q, k), arena row ids (Q, k)), the reference's search:
-        the fixed-budget beam, or the iterative rescan (iterative=True, or
+               **kwargs) -> Tuple[np.ndarray, np.ndarray]:
+        """(dists (Q, k), arena row ids (Q, k)): search_deferred's pass,
+        finalized."""
+        return self.search_deferred(queries, query_masks, k, **kwargs)()
+
+    def search_deferred(self, queries: np.ndarray, query_masks: np.ndarray,
+                        k: int, ef_search: Optional[int] = None,
+                        filtered_traversal: bool = False,
+                        iterative: bool = False,
+                        entries: Optional[np.ndarray] = None,
+                        entry_local: Optional[int] = None,
+                        max_steps: Optional[int] = None,
+                        harvest_2hop: bool = False,
+                        sampled_entry: bool = False):
+        """The reference's search, its batches enqueued without a read-back
+        (the iterative rescan reads its done test every few steps); returns
+        finalize() -> (dists (Q, k) float32, arena row ids (Q, k) int64).
+        The fixed-budget beam, or the iterative rescan (iterative=True, or
         sampled_entry) from per-query entries, entry_local or the graph's
-        entry; a small k + 8 margin is fetched and deduplicated on the
-        host."""
-        if filtered_traversal:
-            raise NotImplementedError(
-                "the ACORN filtered traversal is ROADMAP queue 1 item 11, "
-                "not ported")
+        entry, or (filtered_traversal, without the iterative rescan) the
+        ACORN two-hop harvest over the fixed beam; a small k + 8 margin is
+        fetched and deduplicated on the host. The queries and masks go to
+        the device once; a batch is a slice of them (a query's results do
+        not depend on its batch)."""
         dev = self._graph.device
         ef = max(ef_search or self.ef_search, k + 1)
         q = np.asarray(queries, dtype=np.float32)
-        mm = np.ascontiguousarray(query_masks, dtype=np.uint32)
         nq = q.shape[0]
         if sampled_entry:
             iterative = True
             if entries is None:
                 entries = self._sampled_entries(q)
         kk = min(k + 8, ef)
-        packed_kw = {}
-        if iterative and self.use_packed:
-            if self._packed is None:
-                self._packed = build_packed_graph_rows(self._arena)
-            dqs, qcd = packed_query_operands(self._arena, q)
         a = self._arena
+        q_t = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
+        m_t = _bits_i32(query_masks, dev)
+        if iterative:
+            ent = np.full(nq, self.entry if entry_local is None
+                          else int(entry_local), np.int32)
+            if entries is not None:
+                ent[:] = np.asarray(entries, dtype=np.int32)
+            ent_t = torch.from_numpy(ent).to(dev)
+            if self.use_packed:
+                if self._packed is None:
+                    self._packed = build_packed_graph_rows(a)
+                dqs, qcd = packed_query_operands(a, q)
+                qcd_t = torch.from_numpy(qcd).to(dev)
         bs = min(self.query_batch,
                  max(64, 1 << (max(nq, 1) - 1).bit_length()))
-        out_d = np.empty((nq, k), dtype=np.float32)
-        out_i = np.empty((nq, k), dtype=np.int64)
+        pending = []
         for s in range(0, nq, bs):
             e = min(s + bs, nq)
-            qb = np.zeros((bs, q.shape[1]), np.float32)
-            mb = np.zeros((bs, mm.shape[1]), np.uint32)
-            qb[:e - s], mb[:e - s] = q[s:e], mm[s:e]
-            qb_t = torch.from_numpy(qb).to(dev)
-            mb_t = _bits_i32(mb, dev)
             if iterative:
-                ent = np.full(bs, self.entry if entry_local is None
-                              else int(entry_local), np.int32)
-                if entries is not None:
-                    ent[:e - s] = np.asarray(entries[s:e], dtype=np.int32)
-                if self.use_packed:
-                    qcd_b = np.zeros(bs, np.float32)
-                    qcd_b[:e - s] = qcd[s:e]
-                    packed_kw = dict(packed_rows=self._packed,
-                                     dq_scale=float(dqs),
-                                     q_center_dot=torch.from_numpy(qcd_b)
-                                     .to(dev))
+                packed_kw = {} if not self.use_packed else dict(
+                    packed_rows=self._packed, dq_scale=float(dqs),
+                    q_center_dot=qcd_t[s:e])
                 d, i = graph_beam_search_iterative(
-                    qb_t, a.vectors, a.norms, a.role_bits,
-                    self._graph, mb_t, torch.from_numpy(ent).to(dev), kk, ef,
-                    max_steps or 4 * ef, harvest_2hop, row_map=self._row_map,
-                    metric=self.metric, **packed_kw)
+                    q_t[s:e], a.vectors, a.norms, a.role_bits, self._graph,
+                    m_t[s:e], ent_t[s:e], kk, ef, max_steps or 4 * ef,
+                    harvest_2hop, row_map=self._row_map, metric=self.metric,
+                    **packed_kw)
             else:
-                d, i = graph_beam_search(
-                    qb_t, a.vectors, a.norms, a.role_bits, self._graph,
-                    mb_t, self.entry, kk, ef, row_map=self._row_map,
-                    metric=self.metric)
-            d = d.cpu().numpy()[:e - s].astype(np.float64)
-            i = i.cpu().numpy()[:e - s].astype(np.int64)
-            i = np.where(i >= 0, self._hrmap[np.maximum(i, 0)], -1)
-            out_d[s:e], out_i[s:e] = merge_topk_host([d], [i], k)
-        return out_d, out_i
+                fn = (graph_beam_search_filtered if filtered_traversal
+                      else graph_beam_search)
+                d, i = fn(q_t[s:e], a.vectors, a.norms, a.role_bits,
+                          self._graph, m_t[s:e], self.entry, kk, ef,
+                          row_map=self._row_map, metric=self.metric)
+            pending.append((s, e, d, i))
+
+        def finalize():
+            out_d = np.empty((nq, k), dtype=np.float32)
+            out_i = np.empty((nq, k), dtype=np.int64)
+            for s, e, d, i in pending:
+                d = d.cpu().numpy().astype(np.float64)
+                i = i.cpu().numpy().astype(np.int64)
+                i = np.where(i >= 0, self._hrmap[np.maximum(i, 0)], -1)
+                out_d[s:e], out_i[s:e] = merge_topk_host([d], [i], k)
+            return out_d, out_i
+        return finalize
 
     def storage_bytes(self) -> Dict[str, int]:
         """The index's own device bytes: the graph and the row map."""

@@ -1,9 +1,11 @@
 """ctypes bindings for the native HNSW builder (native/hnsw_builder.cpp).
 
-Counterpart of vectorsearch_rbac_tpu/native/__init__.py for the two entry
-points the port's HNSW index calls: `hnsw_build` (the classic builder) and
+Counterpart of vectorsearch_rbac_tpu/native/__init__.py for the three entry
+points the port's HNSW index calls: `hnsw_build` (the classic builder),
+`hnsw_build_acorn` (the ACORN-gamma builder: dense layer-0 lists) and
 `rng_prune` (the alpha-RNG prune of the kNN builder). The library is built
-at first use with g++ and the reference's Makefile flags into
+at first use with g++ and the reference's Makefile flags (and -pthread:
+the prune's per-node pass runs in threads) into
 `<checkout>/build/native/` (git-ignored), under a name that carries a hash
 of the source, the flags and the host CPU, so an edited source, or a
 checkout copied to another machine, never loads a stale build. A failed
@@ -29,7 +31,8 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parent / "hnsw_builder.cpp"
 # <checkout>/build/native: listed in .gitignore
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall"]
+CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
+            "-pthread"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -88,6 +91,11 @@ def lib() -> ctypes.CDLL:
             handle.vsr_hnsw_build.argtypes = [
                 f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_uint64, i32p, i32p, i32p]
+            handle.vsr_hnsw_build_acorn.restype = ctypes.c_int
+            handle.vsr_hnsw_build_acorn.argtypes = [
+                f32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_uint64, i32p, i32p,
+                i32p]
             handle.vsr_rng_prune.restype = ctypes.c_int
             handle.vsr_rng_prune.argtypes = [
                 f32p, ctypes.c_int64, ctypes.c_int, i32p, ctypes.c_int,
@@ -118,6 +126,29 @@ def hnsw_build(vectors: np.ndarray, m: int = 16, ef_construction: int = 64,
                                      _i32p(entry))
     if max_level < 0:
         raise RuntimeError("vsr_hnsw_build failed")
+    return nbr, levels, int(entry[0]), int(max_level)
+
+
+def hnsw_build_acorn(vectors: np.ndarray, m: int = 16, m_beta: int = 64,
+                     ef_construction: int = 64, seed: int = 0
+                     ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """ACORN-gamma densified HNSW build (the reference's gamma 12, M_beta
+    64): layer-0 lists hold a heuristic-selected navigable core of m edges
+    plus the nearest pruned candidates up to m_beta (at least 2m), so a
+    predicate-filtered traversal keeps admissible edges at low selectivity.
+    Returns (neighbors0 (n, m_beta) int32, levels (n,), entry_point,
+    max_level)."""
+    vec = np.ascontiguousarray(vectors, dtype=np.float32)
+    n, d = vec.shape
+    m_beta = max(m_beta, 2 * m)
+    nbr = np.full((n, m_beta), -1, dtype=np.int32)
+    levels = np.zeros(n, dtype=np.int32)
+    entry = np.zeros(1, dtype=np.int32)
+    max_level = lib().vsr_hnsw_build_acorn(
+        _f32p(vec), n, d, m, m_beta, ef_construction, seed, _i32p(nbr),
+        _i32p(levels), _i32p(entry))
+    if max_level < 0:
+        raise RuntimeError("vsr_hnsw_build_acorn failed")
     return nbr, levels, int(entry[0]), int(max_level)
 
 

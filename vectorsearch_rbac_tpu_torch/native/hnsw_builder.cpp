@@ -1,23 +1,29 @@
 // HNSW graph construction and alpha-RNG pruning, the host-side native builder.
 //
 // A copy of vectorsearch_rbac_tpu/native/hnsw_builder.cpp restricted to the
-// two entry points the port's HNSW index calls: vsr_hnsw_build (the classic
+// three entry points the port's HNSW index calls: vsr_hnsw_build (the classic
 // Malkov-Yashunin construction with the neighbour-selection heuristic, the
-// "classic" builder) and vsr_rng_prune (the alpha-RNG prune that turns a kNN
-// candidate graph into a navigable one, the "tpu" builder's host half). The
-// ACORN-gamma build, the online-insert update and the exact-kNN oracle are
-// not copied. Every function that is copied is the reference's, line for
-// line, so that one seed gives the same arrays from both libraries
-// (tests/test_torch_graph.py holds them equal).
+// "classic" builder), vsr_hnsw_build_acorn (the same construction with
+// ACORN-gamma dense layer-0 lists, the "acorn" builder) and vsr_rng_prune
+// (the alpha-RNG prune that turns a kNN candidate graph into a navigable
+// one, the "tpu" builder's host half). The online-insert update and the
+// exact-kNN oracle are not copied. Every function that is copied is the
+// reference's, line for line, but one: vsr_rng_prune's per-node pass runs
+// over node ranges in threads (each node reads only the inputs and writes
+// only its own row), before the reverse-edge pass, which stays serial. One
+// seed gives the same arrays from both libraries (tests/test_torch_graph.py
+// and test_torch_hnsw_metrics.py hold them equal).
 //
-// Build: g++ -O3 -march=native -std=c++17 -fPIC -Wall -shared (the
-// reference's Makefile flags; native/__init__.py runs it at first use).
+// Build: g++ -O3 -march=native -std=c++17 -fPIC -Wall -pthread -shared
+// (the reference's Makefile flags and -pthread; native/__init__.py runs it
+// at first use).
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <queue>
 #include <random>
+#include <thread>
 #include <utility>
 #include <vector>
 
@@ -63,7 +69,8 @@ struct Graph {
   int64_t n;
   int d;
   int M;          // degree cap above layer 0
-  int M0;         // degree cap at layer 0 (2*M)
+  int M0;         // degree cap at layer 0 (2*M; M_beta when dense)
+  bool dense = false;  // ACORN-gamma layer-0 selection (see below)
   const float* vecs;
   std::vector<int32_t> levels;          // level per node
   std::vector<int32_t> nbr0;            // (n, M0)
@@ -136,6 +143,41 @@ void select_neighbors(const Graph& g, const std::vector<Cand>& cands, int M,
   }
 }
 
+// ACORN-gamma style dense selection (reference acorn_benchmark/src/
+// index_creation.cpp:105 gamma=12, M_beta=64): the heuristic keeps a
+// navigable core of M edges, then the nearest PRUNED candidates fill the
+// list up to cap_total. Predicate-filtered search discards inadmissible
+// neighbors, so the denser list keeps enough admissible edges for the
+// traversal to make progress at low selectivity.
+void select_neighbors_dense(const Graph& g, const std::vector<Cand>& cands,
+                            int M, int cap_total, std::vector<Cand>& out) {
+  out.clear();
+  std::vector<Cand> pruned;
+  for (const Cand& c : cands) {
+    if ((int)out.size() >= cap_total) break;
+    bool ok = true;
+    const float* cv = g.vecs + (int64_t)c.id * g.d;
+    if ((int)out.size() < M) {
+      for (const Cand& s : out) {
+        float d_cs = l2sq(cv, g.vecs + (int64_t)s.id * g.d, g.d);
+        if (d_cs < c.dist) {
+          ok = false;
+          break;
+        }
+      }
+    }
+    if (ok && (int)out.size() < M) {
+      out.push_back(c);
+    } else {
+      pruned.push_back(c);
+    }
+  }
+  for (const Cand& c : pruned) {
+    if ((int)out.size() >= cap_total) break;
+    out.push_back(c);
+  }
+}
+
 void link(Graph& g, int32_t a, int level, const std::vector<Cand>& sel,
           std::vector<Cand>& scratch, std::vector<Cand>& scratch2) {
   int32_t* nb = g.neighbors(a, level);
@@ -164,7 +206,11 @@ void link(Graph& g, int32_t a, int level, const std::vector<Cand>& sel,
     }
     std::sort(scratch.begin(), scratch.end(),
               [](const Cand& x, const Cand& y) { return x.dist < y.dist; });
-    select_neighbors(g, scratch, cap, scratch2);
+    if (g.dense && level == 0) {
+      select_neighbors_dense(g, scratch, g.M, cap, scratch2);
+    } else {
+      select_neighbors(g, scratch, cap, scratch2);
+    }
     int t = 0;
     for (; t < (int)scratch2.size(); ++t) bn[t] = scratch2[t].id;
     for (; t < cap; ++t) bn[t] = -1;
@@ -173,17 +219,19 @@ void link(Graph& g, int32_t a, int level, const std::vector<Cand>& sel,
 
 }  // namespace
 
-// The construction body (layer-0 adjacency of 2*M columns).
+// Shared construction body. m_beta > 2*M turns on ACORN-gamma dense
+// layer-0 lists (layer-0 adjacency then has m_beta columns).
 static int hnsw_build_impl(const float* vecs, int64_t n, int d, int M,
-                           int ef_construction, uint64_t seed,
+                           int m_beta, int ef_construction, uint64_t seed,
                            int32_t* neighbors0, int32_t* levels_out,
                            int32_t* entry_out) {
-  if (n <= 0 || d <= 0 || M < 2) return -1;
+  if (n <= 0 || d <= 0 || M < 2 || m_beta < 2 * M) return -1;
   Graph g;
   g.n = n;
   g.d = d;
   g.M = M;
-  g.M0 = 2 * M;
+  g.M0 = m_beta;
+  g.dense = m_beta > 2 * M;
   g.vecs = vecs;
   g.levels.assign(n, 0);
   g.nbr0.assign((int64_t)n * g.M0, -1);
@@ -237,8 +285,12 @@ static int hnsw_build_impl(const float* vecs, int64_t n, int d, int M,
       ++stamp;
       search_layer(g, q, ep, ep_dist, l, ef_construction, visit_stamp, stamp,
                    found);
-      select_neighbors(g, found, g.M, sel);
-      if ((int)sel.size() > g.M && l > 0) sel.resize(g.M);
+      if (g.dense && l == 0) {
+        select_neighbors_dense(g, found, g.M, g.M0, sel);
+      } else {
+        select_neighbors(g, found, g.M, sel);
+        if ((int)sel.size() > g.M && l > 0) sel.resize(g.M);
+      }
       link(g, (int32_t)i, l, sel, scratch, scratch2);
       if (!found.empty()) {
         ep = found[0].id;
@@ -268,8 +320,21 @@ extern "C" {
 int vsr_hnsw_build(const float* vecs, int64_t n, int d, int M,
                    int ef_construction, uint64_t seed, int32_t* neighbors0,
                    int32_t* levels_out, int32_t* entry_out) {
-  return hnsw_build_impl(vecs, n, d, M, ef_construction, seed, neighbors0,
-                         levels_out, entry_out);
+  return hnsw_build_impl(vecs, n, d, M, 2 * M, ef_construction, seed,
+                         neighbors0, levels_out, entry_out);
+}
+
+// ACORN-gamma densified build (reference acorn_benchmark/src/
+// index_creation.cpp:105): layer-0 lists have m_beta columns — a
+// heuristic-selected navigable core of M edges plus the nearest pruned
+// candidates — so predicate-filtered traversal keeps admissible edges
+// at low selectivity. neighbors0 must be int32 (n, m_beta).
+int vsr_hnsw_build_acorn(const float* vecs, int64_t n, int d, int M,
+                         int m_beta, int ef_construction, uint64_t seed,
+                         int32_t* neighbors0, int32_t* levels_out,
+                         int32_t* entry_out) {
+  return hnsw_build_impl(vecs, n, d, M, m_beta, ef_construction, seed,
+                         neighbors0, levels_out, entry_out);
 }
 
 // Alpha-RNG prune of a device-computed kNN graph (Vamana/DiskANN-style):
@@ -287,34 +352,51 @@ int vsr_rng_prune(const float* vecs, int64_t n, int d, const int32_t* knn,
     for (int j = 0; j < M_out; ++j) row[j] = -1;
   }
 
-  std::vector<std::pair<float, int32_t>> cands;
-  cands.reserve(K);
-  for (int64_t i = 0; i < n; ++i) {
-    const float* vi = vecs + i * (int64_t)d;
-    cands.clear();
-    for (int j = 0; j < K; ++j) {
-      int32_t v = knn[i * K + j];
-      if (v < 0 || v == (int32_t)i) continue;
-      cands.push_back({l2sq(vi, vecs + (int64_t)v * d, d), v});
-    }
-    std::sort(cands.begin(), cands.end());
-    int32_t* row = out + i * M_out;
-    int kept = 0;
-    for (const auto& [dist, v] : cands) {
-      if (kept >= M) break;
-      bool dominated = false;
-      const float* vv = vecs + (int64_t)v * d;
-      for (int t = 0; t < kept; ++t) {
-        float d_sv = l2sq(vv, vecs + (int64_t)row[t] * d, d);
-        if (d_sv * alpha < dist) {
-          dominated = true;
-          break;
-        }
+  auto select = [&](int64_t lo, int64_t hi) {
+    std::vector<std::pair<float, int32_t>> cands;
+    cands.reserve(K);
+    for (int64_t i = lo; i < hi; ++i) {
+      const float* vi = vecs + i * (int64_t)d;
+      cands.clear();
+      for (int j = 0; j < K; ++j) {
+        int32_t v = knn[i * K + j];
+        if (v < 0 || v == (int32_t)i) continue;
+        cands.push_back({l2sq(vi, vecs + (int64_t)v * d, d), v});
       }
-      if (!dominated) row[kept++] = v;
+      std::sort(cands.begin(), cands.end());
+      int32_t* row = out + i * M_out;
+      int kept = 0;
+      for (const auto& [dist, v] : cands) {
+        if (kept >= M) break;
+        bool dominated = false;
+        const float* vv = vecs + (int64_t)v * d;
+        for (int t = 0; t < kept; ++t) {
+          float d_sv = l2sq(vv, vecs + (int64_t)row[t] * d, d);
+          if (d_sv * alpha < dist) {
+            dominated = true;
+            break;
+          }
+        }
+        if (!dominated) row[kept++] = v;
+      }
+      deg[i] = kept;
     }
-    deg[i] = kept;
+  };
+  // node ranges of at least 4096 nodes, one a hardware thread
+  const int64_t threads = std::max<int64_t>(
+      1, std::min<int64_t>(std::thread::hardware_concurrency(),
+                           (n + 4095) / 4096));
+  std::vector<std::thread> pool;
+  for (int64_t t = 1; t < threads; ++t) {
+    const int64_t lo = n * t / threads, hi = n * (t + 1) / threads;
+    try {
+      pool.emplace_back(select, lo, hi);
+    } catch (...) {  // no thread to be had: this range on the caller's
+      select(lo, hi);
+    }
   }
+  select(0, n / threads);
+  for (auto& th : pool) th.join();
 
   // reverse edges (undirected navigability), capped at M_out
   for (int64_t i = 0; i < n; ++i) {

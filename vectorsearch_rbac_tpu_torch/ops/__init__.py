@@ -7,7 +7,8 @@ The CUDA kernels behind them (csrc/) are built and loaded on first use by
 `_build`; importing these modules needs neither nvcc nor a GPU."""
 
 from ._build import LAUNCHES, reset_launches
-from .graph_search import graph_beam_search, graph_beam_search_iterative
+from .graph_search import (graph_beam_search, graph_beam_search_filtered,
+                           graph_beam_search_iterative)
 from .graph_step import graph_merge_step, graph_score_packed
 from .binary_scan import masked_binary_topk, pack_bits
 from .ivf_scan import ivf_search_fn, probed_topk
@@ -22,7 +23,7 @@ from .scan_int8 import (int8_group_minima, int8_group_minima_wide,
 
 __all__ = [
     "LAUNCHES", "reset_launches", "graph_beam_search",
-    "graph_beam_search_iterative", "graph_merge_step", "graph_score_packed",
+    "graph_beam_search_filtered", "graph_beam_search_iterative", "graph_merge_step", "graph_score_packed",
     "ivf_search_fn", "probed_topk", "assign_clusters", "kmeans_fit",
     "kmeans_init",
     "merge_supported", "merge_topk",

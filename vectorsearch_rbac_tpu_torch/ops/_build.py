@@ -40,14 +40,16 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # launches of its admit-dedup slot form among them, and "scan_int8_wide" /
 # "scan_int8_wide_slots" the same for the wide scan; "graph_search" counts
 # the fused graph search (one launch a search), "graph_score" and
-# "graph_merge" the step kernels of the step loop. The kernel lab's
+# "graph_merge" the step kernels of the step loop, and "graph_search_ip" and
+# "graph_score_ip" the launches of the inner-product score form (ip and
+# cosine arenas) among those of "graph_search" and "graph_score". The kernel lab's
 # variants count on their own: the dp4a scan, the tensor-core scan's trim
 # (K1's per-query form), floor and chain forms, the y-form extraction and
 # the y-form bitonic sort in its two forms.
 LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
             "scan_int8_wide_slots": 0, "merge_extract": 0,
             "merge_bitonic": 0, "graph_search": 0, "graph_score": 0,
-            "graph_merge": 0,
+            "graph_merge": 0, "graph_search_ip": 0, "graph_score_ip": 0,
             "scan_int8_dp4a": 0, "scan_int8_trim": 0, "scan_int8_floor": 0,
             "scan_int8_chain": 0,
             "merge_y_extract": 0, "merge_y_sort": 0, "merge_y_pairs": 0}
@@ -55,17 +57,17 @@ LAUNCHES = {"scan_int8": 0, "scan_int8_slots": 0, "scan_int8_wide": 0,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # ids, row_map, pids, n_class, packed, unit_bytes, qf, qmask, qcd,
-    # dq_scale, out_s, out_ok, nq, c, d_pad, w, stream
+    # dq_scale, out_s, out_ok, nq, c, d_pad, w, ip, stream
     "vsr_graph_score_packed": [_P] * 3 + [_I, _P, _I] + [_P] * 3 + [_F]
-    + [_P] * 2 + [_I] * 4 + [_P],
+    + [_P] * 2 + [_I] * 5 + [_P],
     # beam_d, beam_i, nd, nb, w_d, res_d, res_i, cand_d, cand_i, the five
     # outputs, nq, ef, c, kk, cr, stream
     "vsr_graph_merge_step": [_P] * 14 + [_I] * 5 + [_P],
     # qf, qmask, qcd, dq_scale, packed, unit_bytes, graph, m0, row_map,
     # pids, n_class, entries, step_budget, out_d, out_i, stats, nq, d_pad,
-    # w, ef, kk, max_steps, stream
+    # w, ef, kk, max_steps, ip, stream
     "vsr_graph_search_fused": [_P] * 3 + [_F, _P, _I, _P, _I] + [_P] * 2
-    + [_I] + [_P] * 5 + [_I] * 6 + [_P],
+    + [_I] + [_P] * 5 + [_I] * 7 + [_P],
     # q8, x8, norms, row_bits, q_bits, out, nq, npad, d_pad, w, group, l2,
     # score_shift, mask_sb, slot_tile, stream
     "vsr_scan_int8": [_P] * 6 + [_I] * 9 + [_P],

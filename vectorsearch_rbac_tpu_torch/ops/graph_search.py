@@ -9,7 +9,11 @@ Traversal ignores permissions (inadmissible nodes still route); results
 admit only rows whose bitset meets the query's mask.
 
 - `graph_beam_search` (the reference's :45): the fixed-budget traversal
-  the builder's refinement pass runs.
+  the builder's refinement pass runs, and HNSWIndex's default search.
+- `graph_beam_search_filtered` (:187): the ACORN two-hop harvest over the
+  fixed-budget traversal (HNSWIndex's filtered_traversal): navigation
+  takes the unfiltered one-hop beam update, the results take the
+  admissible nodes of the expanded node's 1- and 2-hop rings.
 - `graph_beam_search_iterative` (:343): the iterative rescan the HNSW
   executor serves with: per-query termination against the ef-wide visited
   window, multi-graph slabs (`pids`), per-query step budgets, the 2-hop
@@ -34,9 +38,13 @@ popping its beam, but every candidate it adds is -1/+inf, so its results,
 its window and its done test do not move, and the outputs equal those of
 a test at every step.
 
-Metric: l2 only (the port's partitions serve l2); ip, cosine and l1 graph
-scoring raise (ROADMAP queue 1 item 11). The ACORN filtered traversal
-(`graph_beam_search_filtered`, :187) waits with the ACORN builder.
+Metric, as the reference's dist_to: l2 scores norm - 2 dots (the query
+norm is added back at the finish), ip and cosine -dots (cosine queries are
+normalised at the top; the finish maps cosine to clip(1 + s, 0, 2)), l1
+the float32 sum of |x - q| (no dot-product form: unpacked rows only).
+Packed rows serve l2, ip and cosine; l1 with packed rows raises, as the
+reference's assert does. The fixed-budget and filtered traversals stay
+PyTorch: no pallas_call lies under them in the reference.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ from torch.profiler import record_function
 from . import _build
 from .graph_step import (_same_device, candidate_rows, graph_merge_step,
                          graph_merge_step_plain, graph_score_packed,
-                         graph_score_packed_plain)
+                         graph_score_packed_plain, packed_form)
 
 INF = float("inf")
 SYNC_EVERY = 8   # steps between the host's "all done?" reads
@@ -78,12 +86,23 @@ def fused_shape_problems(w: int, d_pad: int, d: int, m0: int, k: int,
     ) if bad]
 
 
-def _check_metric(metric: str) -> None:
-    if metric != "l2":
-        raise NotImplementedError(
-            f"graph search with metric {metric!r}: the port's graph step "
-            "scores l2 only; ip, cosine and l1 graph scoring are ROADMAP "
-            "queue 1 item 11")
+METRICS = ("l2", "ip", "cosine", "l1")
+
+
+def _prepared(queries: torch.Tensor, metric: str,
+              packed: bool = False) -> torch.Tensor:
+    """float32 queries, unit rows for cosine (the reference's :69-70);
+    raises for an unknown metric, or for l1 with packed rows."""
+    if metric not in METRICS:
+        raise ValueError(f"graph search metric {metric!r} (one of "
+                         f"{METRICS})")
+    if packed:
+        packed_form(metric)
+    q = queries.float()
+    if metric == "cosine":
+        q = q / torch.clamp_min(
+            torch.linalg.vector_norm(q, dim=1, keepdim=True), 1e-30)
+    return q
 
 
 def _stable_smallest(d, width, *carried):
@@ -95,47 +114,51 @@ def _stable_smallest(d, width, *carried):
 
 
 def _unpacked_scorer(vectors, norms, role_bits, query_masks, q, row_map,
-                     pids=None):
+                     pids=None, metric="l2"):
     """(scores, admissible) of (Q, C) candidate ids from the separate
     vector, norm and bitset tables (the reference's dist_to and allowed).
-    The query is rounded to the table's dtype, as the reference's is; the
-    dots are float32 sums of products that are exact in float32 (bfloat16
-    or float32 operands)."""
+    For l2, ip and cosine the query is rounded to the table's dtype, as the
+    reference's is, and the dots are float32 sums of products that are
+    exact in float32 (bfloat16 or float32 operands); l1 sums |x - q| over
+    the rows in float32 against the float32 query."""
     qc = q.to(vectors.dtype).float()
 
     def score_admit(ids):
         rows = candidate_rows(ids, row_map, pids).clamp_min(0).long()
         valid = ids >= 0
         x = vectors[rows].float()                                 # (Q, C, d)
-        dots = torch.einsum("qd,qcd->qc", qc, x)
-        s = torch.where(valid, norms[rows] - 2.0 * dots, INF)
+        if metric == "l1":
+            s = (x - q[:, None, :]).abs().sum(dim=-1)
+        else:
+            dots = torch.einsum("qd,qcd->qc", qc, x)
+            s = norms[rows] - 2.0 * dots if metric == "l2" else -dots
+        s = torch.where(valid, s, INF)
         bits = role_bits[rows]                                    # (Q, C, W)
         ok = ((bits & query_masks[:, None, :]) != 0).any(dim=-1)
         return s, ok & valid
     return score_admit
 
 
-def _finish(res_d, res_ids, q):
-    """The reference's finalisation (:610-619, l2): squared distances with
-    the query norm added back, +inf / -1 where a slot is empty."""
+def _finish(res_d, res_ids, q, metric="l2"):
+    """The reference's finalisation (:165-173, :320-328, :610-619): l2
+    squared distances with the query norm added back and clamped at 0,
+    cosine clip(1 + s, 0, 2), ip and l1 raw; +inf / -1 where a slot is
+    empty."""
     empty = torch.isinf(res_d)
-    qn = (q * q).sum(dim=1, keepdim=True)
-    dists = torch.where(empty, INF, (res_d + qn).clamp_min(0.0))
+    if metric == "l2":
+        fin = (res_d + (q * q).sum(dim=1, keepdim=True)).clamp_min(0.0)
+    elif metric == "cosine":
+        fin = (1.0 + res_d).clamp(0.0, 2.0)
+    else:
+        fin = res_d
+    dists = torch.where(empty, INF, fin)
     return dists, torch.where(empty, -1, res_ids)
 
 
-def graph_beam_search(queries, vectors, norms, role_bits, graph, query_masks,
-                      entry: int, k: int, ef: int, row_map=None,
-                      metric: str = "l2") -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fixed-budget traversal: ef - 1 expansions from one entry node,
-    the beam keeps expanded nodes (flagged), the results admit permitted
-    rows. Returns (dists (Q, k) ascending, local ids (Q, k))."""
-    _check_metric(metric)
-    q = queries.float()
-    nq = q.shape[0]
-    dev = q.device
-    score_admit = _unpacked_scorer(vectors, norms, role_bits, query_masks, q,
-                                   row_map)
+def _fixed_start(score_admit, entry: int, nq: int, k: int, ef: int, dev):
+    """The fixed-budget traversals' state at the entry: the beam (ids,
+    values, expanded flags) holds the entry alone, unexpanded; the results
+    hold it if it is admissible; the history is empty."""
     entry_ids = torch.full((nq, 1), int(entry), dtype=torch.int32,
                            device=dev)
     entry_d, e_ok = score_admit(entry_ids)
@@ -151,27 +174,104 @@ def graph_beam_search(queries, vectors, norms, role_bits, graph, query_masks,
     res_ids[:, 0] = torch.where(e_ok[:, 0], entry_ids[:, 0], -1)
     res_d[:, 0] = torch.where(e_ok[:, 0], entry_d[:, 0], INF)
     history = torch.full((nq, ef), -1, dtype=torch.int32, device=dev)
-    rows = torch.arange(nq, device=dev)
+    return beam_ids, beam_d, beam_exp, res_ids, res_d, history
+
+
+def _fixed_expand(t, graph, beam_ids, beam_d, beam_exp, history):
+    """One expansion of the fixed-budget traversals: the nearest
+    unexpanded beam node is flagged and logged (-1 where none is left);
+    returns its neighbour row (-1 rows for -1) and that row with the nodes
+    already in the beam or the history dropped."""
+    rows = torch.arange(beam_d.shape[0], device=beam_d.device)
+    masked = torch.where(beam_exp, INF, beam_d)
+    sel = masked.argmin(dim=1)
+    active = torch.isfinite(masked[rows, sel])
+    node = torch.where(active, beam_ids[rows, sel], -1)
+    beam_exp[rows, sel] = True
+    history[:, t] = node
+    nb = graph[node.clamp_min(0).long()]
+    nb = torch.where((node >= 0)[:, None], nb, -1)
+    seen = ((nb[:, :, None] == beam_ids[:, None, :]).any(-1)
+            | (nb[:, :, None] == history[:, None, :]).any(-1))
+    return nb, torch.where(seen, -1, nb)
+
+
+def _fixed_beam_merge(beam_d, beam_ids, beam_exp, nd, nb):
+    """The beam's merge: the ef smallest of beam and candidates, the
+    candidates unexpanded."""
+    return _stable_smallest(
+        torch.cat([beam_d, nd], 1), beam_d.shape[1],
+        torch.cat([beam_ids, nb], 1),
+        torch.cat([beam_exp, torch.zeros_like(nb, dtype=torch.bool)], 1))
+
+
+def graph_beam_search(queries, vectors, norms, role_bits, graph, query_masks,
+                      entry: int, k: int, ef: int, row_map=None,
+                      metric: str = "l2") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fixed-budget traversal: ef - 1 expansions from one entry node,
+    the beam keeps expanded nodes (flagged), the results admit permitted
+    rows. Returns (dists (Q, k) ascending, local ids (Q, k))."""
+    q = _prepared(queries, metric)
+    score_admit = _unpacked_scorer(vectors, norms, role_bits, query_masks, q,
+                                   row_map, metric=metric)
+    beam_ids, beam_d, beam_exp, res_ids, res_d, history = _fixed_start(
+        score_admit, entry, q.shape[0], k, ef, q.device)
     for t in range(1, ef):
-        masked = torch.where(beam_exp, INF, beam_d)
-        sel = masked.argmin(dim=1)
-        active = torch.isfinite(masked[rows, sel])
-        node = torch.where(active, beam_ids[rows, sel], -1)
-        beam_exp[rows, sel] = True
-        history[:, t] = node
-        nb = graph[node.clamp_min(0).long()]
-        nb = torch.where((node >= 0)[:, None], nb, -1)
-        seen = ((nb[:, :, None] == beam_ids[:, None, :]).any(-1)
-                | (nb[:, :, None] == history[:, None, :]).any(-1))
-        nb = torch.where(seen, -1, nb)
-        nd, ok = score_admit(nb)
-        beam_d, beam_ids, beam_exp = _stable_smallest(
-            torch.cat([beam_d, nd], 1), ef, torch.cat([beam_ids, nb], 1),
-            torch.cat([beam_exp, torch.zeros_like(ok)], 1))
-        res_d, res_ids = _stable_smallest(
-            torch.cat([res_d, torch.where(ok, nd, INF)], 1), k,
-            torch.cat([res_ids, nb], 1))
-    return _finish(res_d, res_ids, q)
+        with record_function("graph.beam.expand"):
+            _, nb = _fixed_expand(t, graph, beam_ids, beam_d, beam_exp,
+                                  history)
+        with record_function("graph.beam.score"):
+            nd, ok = score_admit(nb)
+        with record_function("graph.beam.merge"):
+            beam_d, beam_ids, beam_exp = _fixed_beam_merge(
+                beam_d, beam_ids, beam_exp, nd, nb)
+            res_d, res_ids = _stable_smallest(
+                torch.cat([res_d, torch.where(ok, nd, INF)], 1), k,
+                torch.cat([res_ids, nb], 1))
+    return _finish(res_d, res_ids, q, metric)
+
+
+def graph_beam_search_filtered(queries, vectors, norms, role_bits, graph,
+                               query_masks, entry: int, k: int, ef: int,
+                               row_map=None, metric: str = "l2"
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ACORN two-hop harvest (the reference's :187): the fixed-budget
+    traversal's ef - 1 expansions, navigation by the unfiltered one-hop
+    beam update, while each expansion harvests the admissible nodes of the
+    expanded node's (Q, M0 + M0^2) 1- and 2-hop candidates into the
+    results: those already in the results are dropped, the k nearest taken
+    (ties in position order), and in-hop duplicates (a node reached through
+    several parents) dropped after the first. Returns (dists (Q, k)
+    ascending, local ids (Q, k))."""
+    q = _prepared(queries, metric)
+    nq, m0, dev = q.shape[0], graph.shape[1], q.device
+    score_admit = _unpacked_scorer(vectors, norms, role_bits, query_masks, q,
+                                   row_map, metric=metric)
+    beam_ids, beam_d, beam_exp, res_ids, res_d, history = _fixed_start(
+        score_admit, entry, nq, k, ef, dev)
+    tri = (torch.arange(k, device=dev)[None, :]
+           < torch.arange(k, device=dev)[:, None])[None]   # (1, k, k) j < i
+    for t in range(1, ef):
+        with record_function("graph.filtered.navigate"):
+            nb1, nav = _fixed_expand(t, graph, beam_ids, beam_d, beam_exp,
+                                     history)
+            nav_d, _ = score_admit(nav)
+            beam_d, beam_ids, beam_exp = _fixed_beam_merge(
+                beam_d, beam_ids, beam_exp, nav_d, nav)
+        with record_function("graph.filtered.harvest"):
+            nb2 = graph[nb1.clamp_min(0).long()]                 # (Q, M0, M0)
+            nb2 = torch.where((nb1 >= 0)[:, :, None], nb2, -1)
+            cand = torch.cat([nb1, nb2.reshape(nq, m0 * m0)], 1)
+            seen_res = (cand[:, :, None] == res_ids[:, None, :]).any(-1)
+            cd, ok = score_admit(cand)
+            ok = ok & ~seen_res
+            hv_d, hv_ids = _stable_smallest(torch.where(ok, cd, INF), k,
+                                            torch.where(ok, cand, -1))
+            dup = ((hv_ids[:, :, None] == hv_ids[:, None, :]) & tri).any(-1)
+            res_d, res_ids = _stable_smallest(
+                torch.cat([res_d, torch.where(dup, INF, hv_d)], 1), k,
+                torch.cat([res_ids, torch.where(dup, -1, hv_ids)], 1))
+    return _finish(res_d, res_ids, q, metric)
 
 
 def graph_beam_search_iterative(
@@ -203,8 +303,9 @@ def graph_beam_search_iterative(
     the fused kernel takes (`fused_shape_problems`), the whole search is
     one launch of it (`graph_search_fused`). Every other combination, and
     every CPU call, runs the step loop, whose score and merge launch KS7
-    and KS6 on the card and take their plain versions on the CPU."""
-    _check_metric(metric)
+    and KS6 on the card and take their plain versions on the CPU. Packed
+    rows take l2, ip and cosine (KS7's and the fused kernel's two score
+    forms); unpacked rows every metric."""
     if packed_rows is not None and queries.device.type == "cuda":
         w = query_masks.shape[1]
         d_pad = packed_rows.shape[1] - 4 * w - 4
@@ -215,11 +316,12 @@ def graph_beam_search_iterative(
                 return graph_search_fused(
                     queries, graph, query_masks, entries, k, ef, max_steps,
                     packed_rows, dq_scale, q_center_dot, row_map, pids,
-                    step_budget)
+                    step_budget, metric=metric)
     return _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
                       entries, k, ef, max_steps, harvest_2hop, row_map, pids,
                       step_budget, packed_rows, dq_scale, q_center_dot,
-                      sync_every, graph_score_packed, graph_merge_step)
+                      sync_every, graph_score_packed, graph_merge_step,
+                      metric=metric)
 
 
 def graph_beam_search_iterative_plain(
@@ -231,28 +333,28 @@ def graph_beam_search_iterative_plain(
     fused kernel's plain version (and the harvest's). `stats`, a (2,) int64
     tensor, gains the expansions and the scored 1-hop candidates, as the
     fused kernel counts them."""
-    _check_metric(metric)
     return _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
                       entries, k, ef, max_steps, harvest_2hop, row_map, pids,
                       step_budget, packed_rows, dq_scale, q_center_dot,
                       sync_every, graph_score_packed_plain,
-                      graph_merge_step_plain, stats)
+                      graph_merge_step_plain, stats, metric)
 
 
 def graph_search_fused(queries, graph, query_masks, entries, k, ef,
                        max_steps, packed_rows, dq_scale=1.0,
                        q_center_dot=None, row_map=None, pids=None,
-                       step_budget=None, stats=None):
+                       step_budget=None, stats=None, metric="l2"):
     """The packed-row iterative search without harvest, the whole loop in
     one launch of csrc/graph_step.cu graph_search_fused_kernel on CUDA
-    tensors; CPU tensors take its plain version, the step loop with the
-    plain score and merge. Arguments as graph_beam_search_iterative's;
-    `stats` as graph_beam_search_iterative_plain's.
+    tensors (its l2 form, or its inner-product form for ip and cosine);
+    CPU tensors take its plain version, the step loop with the plain score
+    and merge. Arguments as graph_beam_search_iterative's; `stats` as
+    graph_beam_search_iterative_plain's.
 
     The kernel takes the shapes `fused_shape_problems` passes, with int32
     graph, row map, slots, entries and budgets; anything else raises
     ValueError."""
-    q = queries.float()
+    q = _prepared(queries, metric, packed=True)
     nq, d = q.shape
     w = query_masks.shape[1]
     d_pad = packed_rows.shape[1] - 4 * w - 4
@@ -279,8 +381,8 @@ def graph_search_fused(queries, graph, query_masks, entries, k, ef,
     if dev.type == "cpu":
         return graph_beam_search_iterative_plain(
             queries, None, None, None, graph, query_masks, entries, k, ef,
-            max_steps, False, row_map, "l2", pids, step_budget, packed_rows,
-            dq_scale, q_center_dot, stats=stats)
+            max_steps, False, row_map, metric, pids, step_budget,
+            packed_rows, dq_scale, q_center_dot, stats=stats)
     for name, t, dt in (("graph", graph, torch.int32),
                         ("query_masks", query_masks, torch.int32),
                         ("entries", entries, torch.int32),
@@ -306,20 +408,21 @@ def graph_search_fused(queries, graph, query_masks, entries, k, ef,
         packed_rows.shape[1], graph.data_ptr(), m0, ptr(row_map), ptr(pids),
         graph.shape[1] if multi else 0, entries.data_ptr(), ptr(step_budget),
         res_d.data_ptr(), res_ids.data_ptr(), ptr(stats), nq, d_pad, w, ef,
-        k, max_steps, _build.stream_ptr(dev))
+        k, max_steps, int(metric != "l2"), _build.stream_ptr(dev))
     _build.check(err, "vsr_graph_search_fused")
     _build.LAUNCHES["graph_search"] += 1
-    return _finish(res_d, res_ids, q)
+    _build.LAUNCHES["graph_search_ip"] += metric != "l2"
+    return _finish(res_d, res_ids, q, metric)
 
 
 def _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
                entries, k, ef, max_steps, harvest_2hop, row_map, pids,
                step_budget, packed_rows, dq_scale, q_center_dot, sync_every,
-               score_packed, merge_step, stats=None):
+               score_packed, merge_step, stats=None, metric="l2"):
     """The reference's lax.while_loop as a Python loop over steps, with the
     given packed-row scorer and merge (the kernels' wrappers or their plain
     versions)."""
-    q = queries.float()
+    q = _prepared(queries, metric, packed=packed_rows is not None)
     nq, d = q.shape
     dev = q.device
     multi = pids is not None
@@ -337,10 +440,11 @@ def _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
 
         def score_admit(ids):
             return score_packed(ids.contiguous(), packed_rows, qp,
-                                query_masks, qcd, dq_scale, row_map, pids)
+                                query_masks, qcd, dq_scale, row_map, pids,
+                                metric)
     else:
         score_admit = _unpacked_scorer(vectors, norms, role_bits,
-                                       query_masks, q, row_map, pids)
+                                       query_masks, q, row_map, pids, metric)
 
     entry_ids = entries.to(torch.int32).reshape(nq, 1)
     entry_d, e_ok = score_admit(entry_ids)
@@ -399,7 +503,7 @@ def _step_loop(queries, vectors, norms, role_bits, graph, query_masks,
                 beam_d, beam_ids, w_d, res_d, res_ids = merge_step(
                     beam_d, beam_ids, nd, nb, w_d, res_d, res_ids,
                     cand_d.contiguous(), cand_ids.contiguous())
-    return _finish(res_d, res_ids, q)
+    return _finish(res_d, res_ids, q, metric)
 
 
 def _harvest(graph, pids, nb, nd, nb_ok, res_ids, score_admit, k, m0, tri):

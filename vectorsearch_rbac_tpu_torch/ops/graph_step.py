@@ -10,7 +10,9 @@ Counterparts of the two TPU kernels of the HNSW step
 - `graph_score_packed` computes what scripts/r5_graph_fused_probe.py
   pallas_dma_gather serves: one gather of a candidate's packed row
   (core.build_packed_graph_rows: int8 code, bitset words, float32 norm)
-  and its l2 score and admissibility;
+  and its score and admissibility: l2's norm - 2 dots, or the
+  inner-product form -dots on ip and cosine arenas (the reference's
+  packed score_admit, graph_search.py:476-493; cosine queries come unit);
 - `graph_merge_step` is scripts/pallas_merge_probe.py merge_step: the
   beam, window and result merges of one step.
 
@@ -38,6 +40,16 @@ import torch
 from . import _build
 
 INF = float("inf")
+PACKED_METRICS = ("l2", "ip", "cosine")   # l1 has no packed-row form
+
+
+def packed_form(metric: str) -> bool:
+    """True for the inner-product score form (ip, cosine), False for l2's;
+    l1, which has no dot-product form, raises."""
+    if metric not in PACKED_METRICS:
+        raise ValueError(f"packed-row graph scoring has no {metric!r} form "
+                         f"(one of {PACKED_METRICS})")
+    return metric != "l2"
 
 
 def _same_device(*tensors) -> torch.device:
@@ -64,11 +76,13 @@ def candidate_rows(ids: torch.Tensor, row_map: Optional[torch.Tensor] = None,
 
 
 def graph_score_packed_plain(ids, packed_rows, qf, qmask, qcd, dq_scale,
-                             row_map=None, pids=None):
-    """Plain version of the score kernel: ((Q, C) float32 l2 scores, (Q, C)
-    bool admissible), +inf and False where a candidate is -1. The
-    reference's packed score_admit (graph_search.py:475-493), with the
-    bitset words in place of the TPU row's role one-hot."""
+                             row_map=None, pids=None, metric="l2"):
+    """Plain version of the score kernel: ((Q, C) float32 scores in the
+    metric's form, (Q, C) bool admissible), +inf and False where a
+    candidate is -1. The reference's packed score_admit
+    (graph_search.py:475-493), with the bitset words in place of the TPU
+    row's role one-hot."""
+    ip = packed_form(metric)
     rows = candidate_rows(ids, row_map, pids)
     valid = rows >= 0
     w = qmask.shape[1]
@@ -79,16 +93,19 @@ def graph_score_packed_plain(ids, packed_rows, qf, qmask, qcd, dq_scale,
     nrm = r[..., d_pad + 4 * w:].contiguous().view(torch.float32)[..., 0]
     bits = r[..., d_pad:d_pad + 4 * w].contiguous().view(torch.int32)
     admit = ((bits & qmask[:, None, :]) != 0).any(dim=-1)
-    return torch.where(valid, nrm - 2.0 * dots, INF), admit & valid
+    return (torch.where(valid, -dots if ip else nrm - 2.0 * dots, INF),
+            admit & valid)
 
 
 def graph_score_packed(ids: torch.Tensor, packed_rows: torch.Tensor,
                        qf: torch.Tensor, qmask: torch.Tensor,
                        qcd: torch.Tensor, dq_scale: float,
                        row_map: Optional[torch.Tensor] = None,
-                       pids: Optional[torch.Tensor] = None
+                       pids: Optional[torch.Tensor] = None,
+                       metric: str = "l2"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Score and admit (Q, C) candidates from their packed rows.
+    """Score and admit (Q, C) candidates from their packed rows, in l2 or,
+    on ip and cosine arenas (cosine queries unit), the inner-product form.
 
     ids (Q, C) int32 local ids (-1 pads); packed_rows (Npad, d_pad + 4W +
     4) int8; qf (Q, d_pad) float32 queries zero-padded to d_pad; qmask (Q,
@@ -97,6 +114,7 @@ def graph_score_packed(ids: torch.Tensor, packed_rows: torch.Tensor,
     tensors take the plain version; CUDA tensors launch csrc/graph_step.cu
     graph_score_packed_kernel, which takes any number of bitset words and
     any d_pad that is a multiple of 128 (the launch is refused otherwise)."""
+    ip = packed_form(metric)
     dev = _same_device(ids, packed_rows, qf, qmask, qcd, row_map, pids)
     nq, c = ids.shape
     w = qmask.shape[1]
@@ -110,7 +128,7 @@ def graph_score_packed(ids: torch.Tensor, packed_rows: torch.Tensor,
                          "pids need a (P, n_class) row map")
     if dev.type == "cpu":
         return graph_score_packed_plain(ids, packed_rows, qf, qmask, qcd,
-                                        dq_scale, row_map, pids)
+                                        dq_scale, row_map, pids, metric)
     for name, t, dt in (("ids", ids, torch.int32), ("packed_rows",
                         packed_rows, torch.int8), ("qf", qf, torch.float32),
                         ("qmask", qmask, torch.int32),
@@ -127,10 +145,11 @@ def graph_score_packed(ids: torch.Tensor, packed_rows: torch.Tensor,
         ids.data_ptr(), ptr(row_map), ptr(pids), n_class,
         packed_rows.data_ptr(), packed_rows.shape[1], qf.data_ptr(),
         qmask.data_ptr(), qcd.data_ptr(), ctypes.c_float(dq_scale),
-        out_s.data_ptr(), out_ok.data_ptr(), nq, c, d_pad, w,
+        out_s.data_ptr(), out_ok.data_ptr(), nq, c, d_pad, w, int(ip),
         _build.stream_ptr(dev))
     _build.check(err, "vsr_graph_score_packed")
     _build.LAUNCHES["graph_score"] += 1
+    _build.LAUNCHES["graph_score_ip"] += ip
     return out_s, out_ok
 
 

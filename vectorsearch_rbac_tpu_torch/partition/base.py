@@ -16,6 +16,8 @@ partitions in slab dispatches.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -39,9 +41,10 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
     their distances); "flat" and "flat_approx" otherwise a FlatIndex in
     exact or approx mode; "ivf" an IVFIndex over the rows
     (cfg.index.ivf_nlist lists, cfg.search.nprobe probes); "binary" a
-    BinaryQuantIndex (cfg.index.binary_*). HNSW partitions are built by
-    the AnonySys graph executor (partition/dynamic/materialize.py) and
-    refused here, before any build."""
+    BinaryQuantIndex (cfg.index.binary_*); "hnsw" an HNSWIndex over the
+    rows (the ACORN builder where cfg.index.hnsw_m_beta is set). "hybrid"
+    is the AnonySys graph executor's (partition/dynamic/materialize.py),
+    an unknown kind here, as in the reference."""
     kind = cfg.index.kind
     if kind == "flat_approx" and arena.quant is not None:
         return Int8FlatIndex(arena, rows, query_batch=cfg.search.batch_size,
@@ -65,14 +68,45 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
                                 rerank_mult=cfg.index.binary_rerank_mult,
                                 rerank=cfg.index.binary_rerank,
                                 bit_metric=cfg.index.binary_bit_metric)
-    if kind in ("hnsw", "hybrid"):
-        # an HNSW partition needs the probe parameters and the graph batcher
-        # that only the dynamic strategy's graph executor sets up
-        raise NotImplementedError(
-            f"index kind {kind!r} serves only under the AnonySys strategy "
-            "(build_searcher('dynamic', ..., packed=False)); HNSW for RLS, "
-            "ROLE and USER is ROADMAP queue 1 item 11: not ported")
+    if kind == "hnsw":
+        from ..index.hnsw import HNSWIndex
+        return HNSWIndex(arena, rows, m=cfg.index.hnsw_m,
+                         ef_construction=cfg.index.hnsw_ef_construction,
+                         ef_search=cfg.search.ef_search,
+                         query_batch=cfg.search.batch_size,
+                         builder="acorn" if cfg.index.hnsw_m_beta else "auto",
+                         m_beta=cfg.index.hnsw_m_beta or 64)
     raise ValueError(f"unknown index kind {kind!r}")
+
+
+def build_partition_indexes(arena: DeviceArena,
+                            partition_rows: Dict[int, np.ndarray],
+                            cfg: FrameworkConfig) -> Dict[int, object]:
+    """make_partition_index over each partition's rows, in partition_rows'
+    order: the strategies' and the graph executor's one builder. HNSW
+    partitions that the native builders build (the classic one up to
+    CLASSIC_MAX_ROWS rows, or the ACORN one) build in a thread pool: each
+    build is seeded and independent and the native call releases the GIL,
+    so the graphs equal a one-thread build. Every other index builds in
+    turn, device-built HNSW graphs included: their kNN runs inside
+    exact_f32_matmul, which sets and restores torch's process-wide matmul
+    precision, so two such builds in threads could restore each other's
+    setting mid-build."""
+    from ..index.hnsw import CLASSIC_MAX_ROWS
+
+    def build(pid):
+        return make_partition_index(arena, partition_rows[pid], cfg)
+
+    native = [pid for pid, rows in partition_rows.items()
+              if cfg.index.kind == "hnsw" and (
+                  cfg.index.hnsw_m_beta or len(rows) <= CLASSIC_MAX_ROWS)]
+    out = {}
+    if len(native) > 1:
+        workers = min(len(native), os.cpu_count() or 1)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            out = dict(zip(native, pool.map(build, native)))
+    return {pid: out[pid] if pid in out else build(pid)
+            for pid in partition_rows}
 
 
 @dataclass

@@ -26,9 +26,7 @@ update (apply_plan_update) is ROADMAP slice 5.
 from __future__ import annotations
 
 import copy
-import os
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
@@ -37,7 +35,8 @@ from ...config import FrameworkConfig, get_logger
 from ...core import Corpus, DeviceArena
 from ...models.cost import CostModelParams
 from ...rbac import Comb, RBACWorld
-from ..base import BuiltPartition, PartitionedSearcher, make_partition_index
+from ..base import (BuiltPartition, PartitionedSearcher,
+                    build_partition_indexes, make_partition_index)
 from ..strategies import packed_searcher, unpacked_searcher
 from .optimizer import PartitionPlan, PlannerInputs, split_comb_roles
 from .refine import rebalance_heavy_partition
@@ -199,10 +198,6 @@ def _graph_searcher(corpus, world, arena, cfg, plan, partition_rows, router):
     from ...index.hnsw import HNSWIndex
     from ..graph_batch import GraphProbeBatcher
 
-    if getattr(cfg.index, "hnsw_m_beta", 0):
-        raise NotImplementedError(
-            "hnsw_m_beta > 0 asks for the ACORN-gamma builder, ROADMAP "
-            "queue 1 item 11: not ported")
     hybrid = cfg.index.kind == "hybrid"
     cfg_flat = copy.deepcopy(cfg)
     cfg_flat.index.kind = "flat_approx"
@@ -214,16 +209,12 @@ def _graph_searcher(corpus, world, arena, cfg, plan, partition_rows, router):
                     "comb sel >= %.2f)", len(graph_pids),
                     len(partition_rows), cfg.index.hybrid_sel_threshold)
 
+    cfg_graph = copy.deepcopy(cfg)
+    cfg_graph.index.kind = "hnsw"
     t0 = time.perf_counter()
-    workers = max(1, min(len(graph_pids), os.cpu_count() or 1))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        built = dict(zip(sorted(graph_pids), pool.map(
-            lambda pid: HNSWIndex(
-                arena, partition_rows[pid], m=cfg.index.hnsw_m,
-                ef_construction=cfg.index.hnsw_ef_construction,
-                ef_search=cfg.search.ef_search,
-                query_batch=cfg.search.batch_size),
-            sorted(graph_pids))))
+    built = build_partition_indexes(
+        arena, {pid: partition_rows[pid] for pid in sorted(graph_pids)},
+        cfg_graph)
     graph_build_s = time.perf_counter() - t0
     partitions = {
         pid: BuiltPartition(

@@ -46,7 +46,8 @@ import numpy as np
 from ..config import FrameworkConfig, get_logger
 from ..core import Corpus, DeviceArena
 from ..rbac import RBACWorld
-from .base import BuiltPartition, PartitionedSearcher, make_partition_index
+from .base import (BuiltPartition, PartitionedSearcher,
+                   build_partition_indexes)
 from .tiled import _SMALL_CHUNKS, chunk_class
 
 logger = get_logger("partition.qdtree")
@@ -573,9 +574,9 @@ def build_qdtree_searcher(
         searcher = packed_searcher(arena, partition_rows, router, "qdtree",
                                    cfg)
     else:
+        indexes = build_partition_indexes(arena, partition_rows, cfg)
         partitions = {
-            pid: BuiltPartition(pid=pid, rows=rows,
-                                index=make_partition_index(arena, rows, cfg),
+            pid: BuiltPartition(pid=pid, rows=rows, index=indexes[pid],
                                 label=f"qdtree_{pid}")
             for pid, rows in partition_rows.items()}
         searcher = PartitionedSearcher(arena, partitions, router,

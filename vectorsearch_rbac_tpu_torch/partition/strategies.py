@@ -27,7 +27,8 @@ import numpy as np
 from ..config import FrameworkConfig
 from ..core import Corpus, DeviceArena
 from ..rbac import RBACWorld
-from .base import BuiltPartition, PartitionedSearcher, make_partition_index
+from .base import (BuiltPartition, PartitionedSearcher,
+                   build_partition_indexes, make_partition_index)
 
 
 def build_global_searcher(corpus: Corpus, world: RBACWorld,
@@ -59,9 +60,9 @@ def packed_searcher(arena: DeviceArena, partition_rows, router, name: str,
 def unpacked_searcher(arena: DeviceArena, partition_rows, router,
                       name: str, cfg: FrameworkConfig) -> PartitionedSearcher:
     """One index per partition (the packed=False layout)."""
+    indexes = build_partition_indexes(arena, partition_rows, cfg)
     partitions = {
-        pid: BuiltPartition(pid=pid, rows=rows,
-                            index=make_partition_index(arena, rows, cfg),
+        pid: BuiltPartition(pid=pid, rows=rows, index=indexes[pid],
                             label=f"{name}_{pid}")
         for pid, rows in partition_rows.items()
     }
