@@ -157,6 +157,39 @@ without a CUDA device or without the port's package beside it. Phases:
    (HNSW_PREDICTED); every returned row must be readable, and the first
    16 queries' distances equal a float64 numpy recomputation within
    1e-3 relative;
+4j. online maintenance (after 4i(e), while the SIFT corpus is alive): (d)
+   first, on 4c's corpus, world and plan: one role inserted by the reference
+   CLI's sampling rule (1/num_roles of each role's documents, granted to
+   1% of the users, seed 0; insert_role with every comb holding it), the
+   int8 arena rebuilt for the new world, the old plan materialized on it
+   and apply_plan_update'd (the TiledSearcher rebuilt whole), a
+   4,096-query top-10 pass whose every fourth user holds the new role
+   (every returned row readable under the new world, recall@10 against
+   the exact oracle >= 0.95, the narrow scan and the merge kernels
+   launched where a partition takes the big tier), then delete_role of
+   the role with the most orphaned documents, its orphaned rows
+   tombstoned, and an rls Int8FlatIndex pass over the tombstoned arena
+   with that role's users' old masks on queries at the orphaned rows: no
+   orphaned row comes back (the same pass before the tombstone returns
+   some), and the narrow scan and the merge kernels launch; then
+   bench.online's cell at its size (scripts/online_insert_scale.py:
+   sift_like_corpus 300,000 x 128, 30 roles, 512 queries with
+   full-access masks, top-10): (a) on a float32 arena, a "tpu" HNSW graph
+   (m 16, ef 64) over rows [0, 200,000), one insert_rows of the other
+   100,000 and refine_rows of them, the sampled-entry search (the
+   unpacked step loop: KS6 launched) before, after and after refine, and
+   IVF (nlist 512, nprobe 48) on the same split; seconds, rows/s and
+   recalls printed beside the reference's TPU record
+   (results/online_insert_scale.json) and the predictions written before
+   the phase first ran (ONLINE_PREDICTED), not held; (b) the refined
+   graph carried to a lossless int8 arena of the same corpus, its
+   sampled-entry search through the fused kernel (launched), one
+   4,096-query chunk of it bit-equal to its plain loop; (c) 1,000 random
+   inserted rows tombstoned and deleted from both graphs (the repair
+   timed, its nodes counted) and from IVF, then each searched: no deleted
+   row returned, every returned row live in the tombstoned arena, recall
+   against the exact oracle over the remaining rows printed, and the
+   fused chunk check again on the repaired graph (-1 row-map entries);
 4h. the flat family, binary and sparse (no CUDA kernel: PyTorch, as the
    reference leaves these scans to XLA): (a) on the SIFT corpus, rls
    through FlatIndex in approx mode (the augmented layout) and exact, on
@@ -288,6 +321,23 @@ HNSW_PREDICTED = {
     "4i(e) user build s": 15.0, "4i(e) user": 0.95,
     "4i(e) qdtree build s": 15.0, "4i(e) qdtree": 0.70,
     "4i(e) acorn filtered": 0.80, "4i(a)-(b) s": 260.0,
+}
+ONLINE_DELETE = 1000         # 4j(c): inserted rows deleted
+ONLINE_CHUNK_SEED = 2        # 4j(b): the fused check's 4,096-query chunk
+# phase 4j's predictions, written before its first run on the card
+ONLINE_PREDICTED = {
+    "hnsw build_s": 7.0, "hnsw insert_s": 38.0, "hnsw refine_s": 32.0,
+    "hnsw recall_before": 0.8984, "hnsw recall_after": 0.8307,
+    "hnsw recall_inserted_region": 0.75,
+    "hnsw recall_after_refine": 0.9549,
+    "hnsw recall_inserted_region_after_refine": 0.9498,
+    "ivf build_s": 3.0, "ivf insert_s": 6.0, "ivf recall_before": 1.0,
+    "ivf recall_after": 1.0, "ivf recall_inserted_region": 1.0,
+    "4j(b) recall": 0.9549, "4j(b) fused chunk ms": 3.0,
+    "4j(c) delete_s": 12.0, "4j(c) repaired_nodes": 20000,
+    "4j(c) recall": 0.95, "4j(d) arena_s": 8.0, "4j(d) old_plan_s": 9.0,
+    "4j(d) apply_plan_update_s": 9.0, "4j(d) recall": 0.99,
+    "4j(d) s": 45.0, "4j s": 200.0,
 }
 L1_QUERIES = 1024            # 4h(b)'s l1 workload
 CHECK_QUERIES = 16           # 4h's numpy and dense recomputations
@@ -2614,6 +2664,219 @@ def drive_hnsw_partitioned(job, device, smi):
     return launches
 
 
+# ---- phase 4j: online maintenance
+
+def online_predicted(key: str) -> str:
+    return (f"(predicted {ONLINE_PREDICTED[key]})" if key in ONLINE_PREDICTED
+            else "")
+
+
+def check_live(name, ids, arena, deleted) -> None:
+    """Every returned row in range, none of `deleted`, and each still
+    holding a role bit in `arena` (a tombstoned row holds none)."""
+    import numpy as np
+
+    got = ids[ids >= 0]
+    if ids.min() < -1 or (len(got) and got.max() >= arena.n):
+        fail(f"{name}: result ids out of range [{ids.min()}, {ids.max()}]")
+    back = np.intersect1d(got, deleted)
+    if len(back):
+        fail(f"{name}: {len(back)} deleted rows returned, e.g. "
+             f"{back[:5].tolist()}")
+    dead = ~(arena.host_bits[got] != 0).any(axis=1)
+    if dead.any():
+        fail(f"{name}: {int(dead.sum())} returned rows hold no role bit")
+    say(f"{name}: none of the {len(deleted)} deleted rows among the "
+        f"{len(got)} returned, every one live")
+
+
+def check_repaired(name, ix) -> None:
+    """After delete_rows: the device graph and row map equal the host
+    mirrors, the deleted nodes have empty lists and row map -1, and no live
+    list holds one."""
+    import numpy as np
+
+    g, rm = ix._graph.cpu().numpy(), ix._row_map.cpu().numpy()
+    dead = np.flatnonzero(ix._deleted_local)
+    live = ~ix._deleted_local
+    bad = [msg for ok, msg in (
+        (np.array_equal(g, ix._hgraph), "device graph != host mirror"),
+        (np.array_equal(rm, ix._hrmap), "device row map != host mirror"),
+        ((g[dead] < 0).all(), "a deleted node keeps edges"),
+        ((rm[dead] == -1).all(), "a deleted node keeps its row"),
+        (not np.isin(g[live], dead).any(), "a live list holds a deleted "
+                                           "node")) if not ok]
+    if bad:
+        fail(f"{name}: {bad}")
+    say(f"{name}: {len(dead)} deleted nodes unreachable; device graph and "
+        "row map equal the host mirrors")
+
+
+def online_chunk(name, ix, queries, masks, smi):
+    """A sampled-entry search of `ix` over `queries`, recorded, and its
+    first chunk through the fused search and its plain loop
+    (fused_chunk)."""
+    from vectorsearch_rbac_tpu_torch.index import hnsw as hnsw_mod
+
+    calls, restore = hnsw_recorder(hnsw_mod)
+    try:
+        ix.search(queries, masks, PART_TOPK, sampled_entry=True)
+    finally:
+        restore()
+    return fused_chunk(name, calls, smi)
+
+
+def drive_roles(corpus, world, plan, part_workload, device, smi):
+    """Phase 4j (d): bench.online's role cycle on 4c's corpus, world and
+    plan. Returns the launches of its two passes."""
+    from vectorsearch_rbac_tpu_torch.bench import online, serving_config
+    from vectorsearch_rbac_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    cfg = serving_config(seed=0, block_rows=BLOCK_ROWS, topk=PART_TOPK,
+                         strategy="dynamic")
+    cfg.optimizer.storage_alpha = PART_ALPHA
+    cfg.optimizer.topk = PART_TOPK
+    try:
+        rep, served = online.role_cycle(corpus, world, plan, cfg, device,
+                                        part_workload.vectors,
+                                        part_workload.user_ids, PART_TOPK,
+                                        block_rows=BLOCK_ROWS)
+    except RuntimeError as e:
+        fail(f"4j(d): {e}")
+    check_readable("4j(d) after the role insert", served["ids"],
+                   served["users"], PART_TOPK, corpus, served["world"],
+                   served["arena"])
+    wall = time.perf_counter() - t0
+    say(f"4j(d) role cycle on 4c's plan ({smi}): " + ", ".join(
+        f"{key} {v} {online_predicted('4j(d) ' + key)}".rstrip()
+        for key, v in rep.items()) + f"; {wall:.1f} s "
+        f"{online_predicted('4j(d) s')}")
+    if rep["recall"] < RECALL_FLOOR:
+        fail(f"4j(d): recall@{PART_TOPK} {rep['recall']:.4f} < "
+             f"{RECALL_FLOOR} after the role insert")
+    merged = ("scan_int8", "merge_extract", "merge_bitonic")
+    idle = [k for k in merged if not rep["launches_tombstoned_pass"].get(k)]
+    if rep["big_tier_partitions"]:
+        idle += [f"{k} (the update's pass)" for k in merged
+                 if not rep["launches_update_pass"].get(k)]
+    if idle:
+        fail(f"4j(d): never launched {idle}")
+    return {k: rep["launches_update_pass"].get(k, 0)
+            + rep["launches_tombstoned_pass"].get(k, 0) for k in
+            _build.LAUNCHES}
+
+
+def drive_online(device, smi):
+    """Phase 4j (a)-(c) on bench.online's cell. Returns their searches'
+    launches."""
+    import numpy as np
+
+    from vectorsearch_rbac_tpu_torch.bench import online
+    from vectorsearch_rbac_tpu_torch.core import build_device_arena
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+    from vectorsearch_rbac_tpu_torch.ops import _build
+
+    launches = {k: 0 for k in _build.LAUNCHES}
+
+    def counted(fn):
+        _build.reset_launches()
+        out = fn()
+        for key, v in _build.LAUNCHES.items():
+            launches[key] += v
+        return out, {key: v for key, v in _build.LAUNCHES.items() if v}
+
+    with open(os.path.join(HERE, "results", "online_insert_scale.json")) as f:
+        record = json.load(f)
+    t0 = time.perf_counter()
+    cell = online.make_cell(device)
+    n, k = cell.corpus.n, PART_TOPK
+    truth_old = online.exact_topk(cell.arena, cell.queries, cell.n_old, k)
+    truth_all = online.exact_topk(cell.arena, cell.queries, n, k)
+    say(f"4j data: {n} x {cell.corpus.dim}, {cell.world.num_roles} roles, "
+        f"float32 arena {cell.arena.n_padded} rows, {len(cell.queries)} "
+        f"queries, full-access masks: {time.perf_counter() - t0:.1f} s; "
+        f"workload hash {digest(cell.queries)}, truth hash "
+        f"{digest(truth_old, truth_all)}")
+
+    # (a) the float32 cell: HNSW build, insert, refine; IVF
+    (rep_h, ix), got = counted(lambda: online.drive_hnsw(cell, truth_old,
+                                                         truth_all))
+    if not got.get("graph_merge"):
+        fail(f"4j(a): the float32 arena's sampled-entry search never "
+             f"launched KS6 (graph_merge): {got}")
+    (rep_i, ivf), _ = counted(lambda: online.drive_ivf(cell, truth_old,
+                                                       truth_all))
+    for family, rep in (("hnsw", rep_h), ("ivf", rep_i)):
+        say(f"4j(a) {family}, {cell.n_old} rows + {n - cell.n_old} inserted "
+            f"({smi}): " + "; ".join(
+                f"{key} {v} {online_predicted(family + ' ' + key)}".rstrip()
+                + (f" [TPU v5e record {record[family][key]}]"
+                   if key in record[family] else "")
+                for key, v in rep.items())
+            + (f"; launches {got}" if family == "hnsw" else ""))
+
+    # (b) the refined graph over a lossless int8 arena: the fused search
+    t0 = time.perf_counter()
+    arena8 = build_device_arena(cell.corpus, cell.world, device=device,
+                                block_rows=65536, dtype="int8")
+    ix8 = HNSWIndex(arena8, rows=ix._hrmap[:ix.n_rows], m=ix.m,
+                    ef_search=ix.ef_search, query_batch=HNSW_CHUNK,
+                    graph_state=ix.graph_state())
+    if not ix8.use_packed:
+        fail("4j(b): the int8 arena's graph does not take the packed rows")
+    (_, ids8), got = counted(lambda: ix8.search(
+        cell.queries, cell.masks, k, sampled_entry=True))
+    if not got.get("graph_search"):
+        fail(f"4j(b): the fused search never launched: {got}")
+    rec8 = online.recall_against(ids8, truth_all)
+    rng = np.random.default_rng(ONLINE_CHUNK_SEED)
+    q4 = cell.pool[rng.choice(len(cell.pool), HNSW_CHUNK)].astype(np.float32)
+    m4 = np.full((HNSW_CHUNK, cell.world.words), 0xFFFFFFFF, np.uint32)
+    row, bnd, _ = online_chunk("4j(b) the grown, refined graph", ix8, q4, m4,
+                               smi)
+    say(f"4j(b) int8 arena ({smi}): recall@{k} {rec8} "
+        f"{online_predicted('4j(b) recall')} (the float32 arena's after "
+        f"refine {rep_h['recall_after_refine']}); fused chunk {row[2]:.3f} "
+        f"ms {online_predicted('4j(b) fused chunk ms')}, plain "
+        f"{row[3]:.3f} ms, bound {bnd[0]:.6f} ms; launches {got}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) delete inserted rows: tombstone, graph repair, IVF slots
+    dels = np.sort(np.random.default_rng(0).choice(
+        np.arange(cell.n_old, n), ONLINE_DELETE, replace=False))
+    arena_f, rep_f = online.delete_leg(cell.arena, dels, [ix], [ivf])
+    arena_8, rep_8 = online.delete_leg(arena8, dels, [ix8])
+    truth_rem = online.exact_topk(cell.arena, cell.queries, n, k,
+                                  excluded=dels)
+    for name, r in (("float32", rep_f), ("int8", rep_8)):
+        say(f"4j(c) delete {ONLINE_DELETE} inserted rows, {name} arena "
+            f"({smi}): tombstone {r['tombstone_s']:.4f} s; HNSW "
+            + ", ".join(f"{key} {v} {online_predicted('4j(c) ' + key)}"
+                        .rstrip() for key, v in r["hnsw"][0].items())
+            + "".join(f"; IVF {key} {v}" for key, v in
+                      (r["ivf"][0].items() if r["ivf"] else ())))
+        if r["hnsw"][0]["deleted"] != ONLINE_DELETE:
+            fail(f"4j(c): HNSW deleted {r['hnsw'][0]['deleted']} rows")
+    if rep_f["ivf"][0]["deleted"] != ONLINE_DELETE:
+        fail(f"4j(c): IVF freed {rep_f['ivf'][0]['deleted']} slots")
+    check_repaired("4j(c) float32 graph", ix)
+    check_repaired("4j(c) int8 graph", ix8)
+    for name, index, arena_, kw in (
+            ("hnsw float32", ix, arena_f, dict(sampled_entry=True)),
+            ("hnsw int8 (fused)", ix8, arena_8, dict(sampled_entry=True)),
+            ("ivf", ivf, arena_f, {})):
+        (_, got_ids), got = counted(lambda: index.search(
+            cell.queries, cell.masks, k, **kw))
+        check_live(f"4j(c) {name}", got_ids, arena_, dels)
+        say(f"4j(c) {name} after the delete ({smi}): recall@{k} against "
+            f"the remaining rows {online.recall_against(got_ids, truth_rem)} "
+            f"{online_predicted('4j(c) recall') if 'hnsw' in name else ''}"
+            f"; launches {got}")
+    online_chunk("4j(c) the repaired graph", ix8, q4, m4, smi)
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2904,6 +3167,20 @@ def main() -> None:
     del hnsw_job
     say(f"phase 4i (e): {time.perf_counter() - t0:.1f} s ({smi})")
 
+    # ---- phase 4j: online maintenance; (d) the role cycle on 4c's plan
+    # while the SIFT corpus is alive, then (a)-(c) on bench.online's cell
+    t4j = time.perf_counter()
+    launches_4j = drive_roles(corpus, world, plan, part_workload, device,
+                              smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, v in drive_online(device, smi).items():
+        launches_4j[key] += v
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 4j: {time.perf_counter() - t4j:.1f} s "
+        f"{online_predicted('4j s')} ({smi})")
+
     # ---- phase 4h: the flat family's breadth (FlatIndex approx and exact
     # on bfloat16 and float32 arenas), the binary index, l1 on the
     # synthetic corpus, and the sparse index; the sparse corpus is drawn
@@ -3062,7 +3339,7 @@ def main() -> None:
     del plan
     paths = (launches_sift, launches_wide_world, launches_part, launches_wide,
              launches_hybrid, launches_harvest, launches_lab,
-             launches_wide_lab, launches_4i)
+             launches_wide_lab, launches_4i, launches_4j)
     launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules

@@ -1053,6 +1053,139 @@ def test_graph_step_loop_keeps_the_step_kernels(dev, packed):
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
+# ---- online maintenance: a grown, refined and repaired graph, and a
+# tombstoned arena
+
+@pytest.fixture(scope="module")
+def maintained(dev):
+    """An HNSWIndex over rows [0, 2500) of a 20,000-row SIFT-like int8
+    arena, on the card and on the CPU, each through insert_rows of rows
+    [2500, 5000) (the graph grows from 4,096 to 8,192 nodes), refine_rows
+    of them and delete_rows of 300 rows after tombstone_rows."""
+    from vectorsearch_rbac_tpu_torch import build_device_arena
+    from vectorsearch_rbac_tpu_torch.bench import make_scenario
+    from vectorsearch_rbac_tpu_torch.core import tombstone_rows
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+
+    corpus, w, wl = make_scenario(n=20000, num_queries=700, topk=10)
+    dels = np.random.default_rng(1).choice(5000, 300, replace=False)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        arena = build_device_arena(corpus, w, device=d, block_rows=2048,
+                                   dtype="int8")
+        ix = HNSWIndex(arena, np.arange(2500), m=8, ef_search=64,
+                       query_batch=4096, builder="classic", seed=0)
+        ix.insert_rows(arena, np.arange(2500, 5000))
+        ix.refine_rows(arena, np.arange(2500, 5000))
+        arena2 = tombstone_rows(arena, dels)
+        assert ix.delete_rows(arena2, dels) == 300
+        out[d.type] = (ix, arena2)
+    return out, dels, w, wl
+
+
+def test_maintained_graph_on_the_card_equals_the_cpu(maintained):
+    """Insert, refine and delete give the same graph, row map, entry and
+    deleted nodes on the card as on the CPU (the candidate searches score
+    exact integer dots on both), and the card's device graph and row map
+    equal its host mirrors after the delta scatters."""
+    out, dels, _, _ = maintained
+    (gpu, _), (cpu, _) = out["cuda"], out["cpu"]
+    assert gpu._hgraph.shape == (8192, 16) and gpu.n_rows == 5000
+    for key in ("_hgraph", "_hrmap", "_deleted_local"):
+        np.testing.assert_array_equal(getattr(gpu, key), getattr(cpu, key))
+    assert gpu.entry == cpu.entry
+    np.testing.assert_array_equal(gpu._graph.cpu().numpy(), gpu._hgraph)
+    np.testing.assert_array_equal(gpu._row_map.cpu().numpy(), gpu._hrmap)
+
+
+def test_fused_search_on_a_maintained_graph(maintained):
+    """The sampled-entry search of the grown, refined and repaired graph
+    (padded nodes past 5,000, -1 row-map entries of the 300 deleted nodes,
+    -1 graph pads) through the fused kernel: its first chunk bit-equal to
+    the plain loop in distances, ids and counts, the pass equal to the
+    CPU's, no deleted row returned."""
+    from vectorsearch_rbac_tpu_torch.index import hnsw as hnsw_mod
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    out, dels, w, wl = maintained
+    (gpu, _), (cpu, _) = out["cuda"], out["cpu"]
+    rm = gpu._hrmap
+    assert (rm[np.flatnonzero(gpu._deleted_local)] == -1).all()
+    assert (rm[gpu.n_rows:] == -1).all() and (gpu._hgraph < 0).any()
+    masks = w.user_masks[wl.user_ids]
+    calls = []
+    real = hnsw_mod.graph_beam_search_iterative
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    hnsw_mod.graph_beam_search_iterative = record
+    try:
+        before = _build.LAUNCHES["graph_search"]
+        got = gpu.search(wl.vectors, masks, 10, sampled_entry=True)
+        assert _build.LAUNCHES["graph_search"] > before
+    finally:
+        hnsw_mod.graph_beam_search_iterative = real
+    want = cpu.search(wl.vectors, masks, 10, sampled_entry=True)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert not np.isin(got[1], dels).any() and (got[1] >= 0).mean() > 0.5
+    args, kw = calls[0]
+    assert kw["packed_rows"] is not None and kw["row_map"] is gpu._row_map
+    stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    stats_p = torch.zeros_like(stats)
+    fused = graph_search.graph_search_fused(
+        args[0], *args[4:10], kw["packed_rows"], stats=stats,
+        dq_scale=kw["dq_scale"], q_center_dot=kw["q_center_dot"],
+        row_map=kw["row_map"], metric=kw["metric"])
+    plain = graph_search.graph_beam_search_iterative_plain(
+        *args[:10], **kw, stats=stats_p)
+    torch.cuda.synchronize()
+    assert torch.equal(fused[1], plain[1]) and torch.equal(fused[0],
+                                                           plain[0])
+    assert torch.equal(stats, stats_p) and int(stats[0]) > 0
+
+
+def test_scan_kernel_on_a_tombstoned_arena(maintained):
+    """K1 over a tombstoned arena's bitsets (10% of the rows zeroed in
+    place of a rebuild) bit-identical to its plain version, and an rls
+    Int8FlatIndex over that arena returns no tombstoned row, equal to the
+    CPU's."""
+    from vectorsearch_rbac_tpu_torch.core import tombstone_rows
+    from vectorsearch_rbac_tpu_torch.index.flat_int8 import Int8FlatIndex
+
+    out, _, w, wl = maintained
+    gone = np.random.default_rng(3).choice(20000, 2000, replace=False)
+    res = {}
+    for name in ("cuda", "cpu"):
+        arena = tombstone_rows(out[name][1], gone)
+        ix = Int8FlatIndex(arena, None, query_batch=512, block_rows=2048,
+                           wire="f32")
+        res[name] = ix.search(wl.vectors, w.user_masks[wl.user_ids], 10)
+        if name == "cuda":
+            q = arena.quant
+            q8, _ = q.quantize_queries(wl.vectors, with_norms=False)
+            qbits = np.ascontiguousarray(
+                w.user_masks[wl.user_ids]).view(np.int32)
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+                arena.device)
+            scan = (t(q8), q.vectors_q, q.norms_q, arena.role_bits,
+                    t(qbits))
+            kw = dict(group=ix.group, metric="l2",
+                      score_shift=q.score_shift)
+            before = _build.LAUNCHES["scan_int8"]
+            got = scan_int8.int8_group_minima(*scan, **kw)
+            assert _build.LAUNCHES["scan_int8"] == before + 1
+            want = scan_int8.int8_group_minima_plain(*scan, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+    for a, b in zip(res["cuda"], res["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    assert not np.isin(res["cuda"][1], gone).any()
+    assert (res["cuda"][1] >= 0).mean() > 0.5
+
+
 # ---- the kernel lab's kernels: K1's trim and floor epilogues (S1) and
 # trim's control (the chain), K2's slot form, the y-form extraction (S4) and
 # bitonic sort (S5)

@@ -446,7 +446,10 @@ def test_score_wrapper_on_cpu_is_the_plain_version(setup):
 
 def test_native_builds_equal_the_reference(setup):
     """The port's copy of the native builder gives the reference's arrays
-    for one seed: vsr_hnsw_build, vsr_hnsw_build_acorn and vsr_rng_prune."""
+    for one seed: vsr_hnsw_build, vsr_hnsw_build_acorn, vsr_rng_prune, and
+    vsr_insert_update fed the same candidates (insert mode: nodes 1000-1499
+    after a graph over 1000 rows, through a row map; refine mode over 300
+    existing nodes) gives the reference's graph and changed rows."""
     vec = setup["ra"].host_vectors[:1500]
     for build, kw in ((native.hnsw_build, {}),
                       (native.hnsw_build_acorn, dict(m_beta=40))):
@@ -459,6 +462,25 @@ def test_native_builds_equal_the_reference(setup):
     np.testing.assert_array_equal(
         native.rng_prune(vec, knn, m=M, alpha=1.2),
         ref_native.rng_prune(vec, knn, m=M, alpha=1.2))
+    rng = np.random.default_rng(4)
+    table = setup["ra"].host_vectors
+    vmap = np.full(2048, -1, np.int32)
+    vmap[:1500] = rng.permutation(len(table))[:1500]
+    graph = np.full((2048, 2 * M), -1, np.int32)
+    graph[:1000] = ref_native.hnsw_build(table[vmap[:1000]], m=M, seed=3)[0]
+    cand = rng.integers(-1, 1000, (500, 24)).astype(np.int32)
+    nodes = rng.choice(1500, 300, replace=False).astype(np.int32)
+    refine_cand = rng.integers(-1, 1500, (300, 24)).astype(np.int32)
+    got_g, want_g = graph.copy(), graph.copy()
+    for mode in ("insert", "refine"):
+        args, kw = ((cand, 1000, M), {}) if mode == "insert" else (
+            (refine_cand, 1500, M), dict(nodes=nodes))
+        got = native.insert_update(table, vmap, got_g, *args, alpha=1.2, **kw)
+        want = ref_native.insert_update(table, vmap, want_g, *args,
+                                        alpha=1.2, **kw)
+        np.testing.assert_array_equal(got, want, err_msg=mode)
+        np.testing.assert_array_equal(got_g, want_g, err_msg=mode)
+        assert len(got) and not np.array_equal(got_g, graph)
 
 
 def test_threaded_rng_prune_equals_the_reference():

@@ -53,6 +53,38 @@ def test_tree_world_identical(params):
         assert got.user_docs(u) == want.user_docs(u)
 
 
+@pytest.mark.parametrize("params", [
+    dict(num_users=400, num_roles=40, num_docs=163, h=3, b0=3, b1=3, seed=5),
+    dict(num_users=50, num_roles=70, num_docs=90, h=2, b0=2, b1=2, seed=1),
+], ids=["small", "overflow-roles"])
+def test_world_role_insert_and_delete_identical(params):
+    """with_new_role (the new role's id, documents and users) and
+    without_role (role ids not renumbered, the role gone from every user)
+    give the reference's worlds: mappings, masks, bits and combs."""
+    want = RefTreeGenerator(**params).generate()
+    got = port.TreeRBACGenerator(**params).generate()
+    users = [0, 3, params["num_users"] - 1]
+    docs = range(0, params["num_docs"], 7)
+    got2, r = got.with_new_role(docs, users=users)
+    want2, want_r = want.with_new_role(docs, users=users)
+    assert r == want_r == params["num_roles"]
+    victim = got.user_to_roles[0][0]
+    pairs = [(got2, want2), (got.without_role(victim),
+                             want.without_role(victim)),
+             (got2.without_role(r), want2.without_role(r))]
+    for g, w in pairs:
+        assert (g.num_roles, g.num_users, g.num_docs) == (
+            w.num_roles, w.num_users, w.num_docs)
+        assert dict(g.user_to_roles) == dict(w.user_to_roles)
+        assert dict(g.role_to_docs) == dict(w.role_to_docs)
+        assert g.words == w.words and g.combs == w.combs
+        np.testing.assert_array_equal(g.user_masks, w.user_masks)
+        np.testing.assert_array_equal(g.doc_role_bits, w.doc_role_bits)
+    assert got2.words == (params["num_roles"] + 32) // 32
+    assert all(victim not in rs for rs in pairs[1][0].user_to_roles.values())
+    assert pairs[1][0].num_roles == params["num_roles"]
+
+
 def test_tree_generator_refuses_too_few_docs():
     with pytest.raises(ValueError, match="one document per role"):
         port.TreeRBACGenerator(num_roles=10, num_docs=5)

@@ -289,8 +289,11 @@ def test_ivf_index_from_reference(ivf_setup, dtype, metric):
 def test_ivf_index_full_probe_is_exact(ivf_setup, monkeypatch):
     """The port's own build (k-means, assignment, spill and the device
     gather) at full probe returns FlatIndex's exact results; the lists
-    hold every row once; insert and delete name their ROADMAP item. l_pad
-    at the median list size makes half the lists spill."""
+    hold every row once. l_pad at the median list size makes half the
+    lists spill. Insert and delete serve: 3 rows inserted (a second copy
+    of each) and then deleted (every copy) leave the reference's lists,
+    L_pad and row count when the reference's insert and delete run on the
+    same lists."""
     s = ivf_setup
     ra = ref_arena(s["corpus"], s["world"], block_rows=512, dtype="float32")
     pa = arena_from_reference(ra, "cpu")
@@ -302,10 +305,22 @@ def test_ivf_index_full_probe_is_exact(ivf_setup, monkeypatch):
     want = FlatIndex(pa, block_rows=512).search(s["q"], s["masks"], 20)
     got = ix.search(s["q"], s["masks"], 20, nprobe=16)
     assert_same_topk(got, want)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        ix.insert_rows(pa, np.arange(3))
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        ix.delete_rows(pa, np.arange(3))
+    ref = RefIVFIndex.__new__(RefIVFIndex)
+    ref.nlist, ref.l_pad, ref.n_rows = ix.nlist, ix.l_pad, ix.n_rows
+    ref._centroids = jnp.asarray(ix._centroids.numpy())
+    ref._inv_vectors = jnp.asarray(ix._inv_vectors.numpy())
+    ref._inv_norms = jnp.asarray(ix._inv_norms.numpy())
+    ref._inv_bits = jnp.asarray(ix._inv_bits.numpy().view(np.uint32))
+    ref._inv_rows = jnp.asarray(ix._inv_rows.numpy())
+    for step in (lambda x, a: x.insert_rows(a, np.arange(3)),
+                 lambda x, a: x.delete_rows(a, np.arange(3))):
+        assert step(ix, pa) == step(ref, ra)
+        np.testing.assert_array_equal(ix._inv_rows.numpy(),
+                                      np.asarray(ref._inv_rows))
+        assert (ix.l_pad, ix.n_rows) == (ref.l_pad, ref.n_rows)
+    r = ix._inv_rows.numpy()
+    assert np.array_equal(np.sort(r[r >= 0]), np.arange(3, pa.n))
+    assert ix.n_rows == pa.n - 3
 
 
 def test_bucket_rows_spill_matches_reference_rule():

@@ -7,7 +7,10 @@ code, so that the port runs where the JAX package is absent;
 tests/test_torch_host.py holds it equal to the reference. The device half
 (`DeviceArena`, `build_device_arena`, the augmented layout's
 `augment_with_norms` and `augment_queries`) puts the tensors on an
-explicit torch device. The arena holds no augmented layout (the
+explicit torch device. Row deletes come in two phases, as in the
+reference: `tombstone_rows` zeroes the rows' role bitsets (every scan's
+permission test then rejects them), `compact_corpus` drops them from the
+corpus for a rebuild. The arena holds no augmented layout (the
 reference's `vectors_aug`): FlatIndex builds it in approx mode, the one
 scan that reads it (index/flat.py).
 
@@ -24,7 +27,7 @@ bitsets directly.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import cached_property
 from typing import Optional, Tuple
 
@@ -427,6 +430,42 @@ def packed_query_operands(arena: DeviceArena, queries: np.ndarray
         qf = qf / np.maximum(
             np.linalg.norm(qf, axis=1, keepdims=True), 1e-30)
     return 1.0 / q.scale, (qf @ q.center).astype(np.float32)
+
+
+def tombstone_rows(arena: DeviceArena, rows: np.ndarray) -> DeviceArena:
+    """Row delete, phase 1 (pgvector's delete before vacuum): a new arena
+    whose `rows` have zero role bitsets, on the device and in host_bits,
+    sharing every other buffer with `arena` (which keeps its bits). Pad
+    rows already carry zero bits, so every scan and graph admit test
+    rejects a tombstoned row with no new branch. Engines that copied the
+    bits before (the chunk engine's chunks, the IVF lists, a graph slab's
+    packed rows) serve the old bits until they are rebuilt, as an index
+    serves deleted tuples until VACUUM; the arena-backed paths see the
+    tombstone at once. The int8 one-hots the reference also zeroes are
+    not kept in the port (see the module docstring)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    bits = np.array(arena.host_bits)
+    bits[rows] = 0
+    role_bits = arena.role_bits.clone()
+    role_bits[torch.from_numpy(rows).to(role_bits.device)] = 0
+    return replace(arena, role_bits=role_bits, host_bits=bits)
+
+
+def compact_corpus(corpus: Corpus, deleted: np.ndarray
+                   ) -> Tuple[Corpus, np.ndarray]:
+    """Row delete, phase 2 (VACUUM): (the corpus without the deleted rows,
+    remap) with remap[old row] the new row, or -1 for a deleted one.
+    Rebuild the arena and indexes from the new corpus and carry persisted
+    row ids through remap."""
+    deleted = np.asarray(deleted, dtype=np.int64)
+    keep = np.ones(corpus.n, dtype=bool)
+    keep[deleted] = False
+    remap = np.full(corpus.n, -1, dtype=np.int64)
+    remap[keep] = np.arange(int(keep.sum()))
+    return Corpus(vectors=np.ascontiguousarray(corpus.vectors[keep]),
+                  doc_ids=np.ascontiguousarray(corpus.doc_ids[keep]),
+                  block_ids=np.ascontiguousarray(corpus.block_ids[keep])
+                  ), remap
 
 
 def arena_from_reference(ref, device) -> DeviceArena:

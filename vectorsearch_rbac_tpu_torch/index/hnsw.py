@@ -34,17 +34,52 @@ pure-Python stand-in for a missing compiler is not carried over.
 Search: the iterative rescan (pgvector's hnsw.iterative_scan analog) with
 per-query entries, the fixed-budget beam, or the ACORN filtered traversal
 over it, through ops/graph_search.py; packed-row scoring where an l2, ip
-or cosine arena carries a lossless int8 mirror. Insert, delete and refine
-are ROADMAP queue 1 item 13 and are not here.
+or cosine arena carries a lossless int8 mirror.
+
+Online maintenance (the reference's :433-887, pgvector's hnswinsert.c and
+hnswvacuum.c), on the host mirrors `_hgraph` / `_hrmap` with delta
+scatters into the device graph and row map:
+
+- `insert_rows`: arena rows join the graph in sub-batches of 4,096; each
+  sub-batch's candidates come from the fixed beam over the current device
+  graph (L2, every row admissible, width min(efc, 32), queries in batches
+  of 1,024), and the native edge update (vsr_insert_update) prunes them
+  and adds reverse edges; then only the new region and the changed old
+  rows are scattered. Crossing a power-of-two bucket re-uploads the graph
+  and row map once, before the first sub-batch.
+- `refine_rows`: the same update in refine mode for rows already in the
+  graph, against the final graph (a bulk insert links mostly forward in
+  its batch).
+- `delete_rows`: graph repair (each live node that pointed at a deleted
+  one re-selects its list from its live neighbours and the deleted
+  neighbour's, alpha-RNG pruned to M0), the deleted nodes' lists emptied
+  and their row-map entries set to -1, the entry moved off a deleted node.
+  The index then serves from the arena it is given (the caller's
+  tombstoned one, core.tombstone_rows) and drops its packed rows, which
+  carry the old bitsets.
+
+Each step's phases are spans for torch.profiler (hnsw.insert.search,
+.link, .scatter; hnsw.refine.*; hnsw.delete.repair, .scatter) and add
+their host seconds to `maintenance_s` (a search's include the wait for
+its results).
+
+Candidate search and prune work in L2 on the arena's rows whatever the
+metric, as the reference's do (an ip arena's raw rows, not the MIPS
+lift). A GraphProbeBatcher's slab is a copy of the graphs taken at build:
+an index changed behind it serves through the slab as it was until the
+searcher is built again, as the reference's physical copies serve old
+bits until rebuilt.
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import native
 from ..config import get_logger
@@ -64,6 +99,11 @@ CLASSIC_MAX_ROWS = 50_000   # "auto" builds larger graphs with the kNN builder
 KNN_MAX_ROWS = 200_000      # above, the IVF-assisted kNN (the reference's
                             # :366)
 KNN_IVF_CHUNK = 4096        # rows a probed scan of the IVF-assisted kNN
+INSERT_SUB_BATCH = 4096     # rows an insert links before the next ones
+                            # search (later rows see earlier inserts)
+CAND_BATCH = 1024           # queries a candidate search of insert/refine
+ALPHA = 1.2                 # the maintenance prunes' alpha (the
+                            # reference's)
 
 
 def _device_knn_graph(vec: np.ndarray, k: int, device,
@@ -192,6 +232,29 @@ def build_vectors(vec: np.ndarray, metric: str) -> np.ndarray:
     return np.concatenate([vec, lift[:, None].astype(np.float32)], axis=1)
 
 
+def _pow2_rows(n: int) -> int:
+    """The padded node count of an n-node graph: the reference's
+    power-of-two bucket, at least 1024 (the graph batcher stacks graphs of
+    one padded size into a slab)."""
+    return max(1024, 1 << (max(n, 1) - 1).bit_length())
+
+
+def _host_rows(arena: DeviceArena) -> np.ndarray:
+    """The arena's (Npad, d) float32 host rows."""
+    return (arena.host_vectors if arena.host_vectors is not None
+            else arena.vectors.float().cpu().numpy())
+
+
+def _scatter_rows(dst: torch.Tensor, idx: np.ndarray,
+                  src: np.ndarray) -> None:
+    """dst[idx] = src, in place on dst's device (the reference's donated
+    jit scatter); only the given rows travel."""
+    if len(idx):
+        dev = dst.device
+        dst.index_copy_(0, torch.from_numpy(idx.astype(np.int64)).to(dev),
+                        torch.from_numpy(np.ascontiguousarray(src)).to(dev))
+
+
 def _bits_i32(bits: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(bits, dtype=np.uint32)
                             .view(np.int32)).to(device)
@@ -219,9 +282,10 @@ class HNSWIndex:
         self._arena = arena
         self._packed = None
         self._entry_sample = None
+        self.maintenance_s: Dict[str, float] = {}
+        self.repaired_nodes = 0     # the nodes the last delete_rows rewired
 
-        host_vec = (arena.host_vectors if arena.host_vectors is not None
-                    else arena.vectors.float().cpu().numpy())
+        host_vec = _host_rows(arena)
         rows = (np.arange(arena.n, dtype=np.int64) if rows is None
                 else np.asarray(rows, dtype=np.int64))
         self.n_rows = n = len(rows)
@@ -265,17 +329,245 @@ class HNSWIndex:
         self.entry = int(entry)
         m0 = nbr.shape[1]
 
-        # pad to a power-of-two bucket (the reference's rule; the graph
-        # batcher stacks graphs of one padded size into a slab)
-        npad = max(1024, 1 << (max(n, 1) - 1).bit_length())
+        npad = _pow2_rows(n)
         pad = npad - n
         self._hgraph = np.concatenate([nbr, np.full((pad, m0), -1, np.int32)])
         self._hrmap = np.concatenate([rows, np.full(pad, -1)]).astype(np.int32)
+        # deleted local nodes (the reference creates it at the first delete)
+        self._deleted_local = np.zeros(npad, dtype=bool)
         self._graph = torch.from_numpy(self._hgraph).to(dev)
         self._row_map = torch.from_numpy(self._hrmap).to(dev)
         logger.info("HNSW built (%s): %d rows, M0=%d (avg deg %.1f), %.2fs",
                     self.builder, n, m0, float((nbr >= 0).sum(1).mean())
                     if n else 0.0, self.build_time_s)
+
+    # ------------------------------------------------------- maintenance
+
+    @contextmanager
+    def _phase(self, name: str):
+        """A maintenance phase: the span hnsw.<name>, its host seconds
+        added to maintenance_s[name]."""
+        t0 = time.perf_counter()
+        with record_function(f"hnsw.{name}"):
+            yield
+        self.maintenance_s[name] = (self.maintenance_s.get(name, 0.0)
+                                    + time.perf_counter() - t0)
+
+    def _locals_of(self, rows: np.ndarray) -> np.ndarray:
+        """The local node ids of those arena `rows` that are live nodes of
+        the graph, in `rows`' order."""
+        rmap = self._hrmap[:self.n_rows]
+        live = rmap >= 0
+        inv = np.full(max(int(rmap.max(initial=-1)),
+                          int(rows.max(initial=-1))) + 1, -1, np.int64)
+        inv[rmap[live]] = np.flatnonzero(live)
+        loc = inv[rows[rows >= 0]]
+        return loc[loc >= 0]
+
+    def _candidates(self, q: np.ndarray, width: int, ef: int) -> np.ndarray:
+        """(len(q), width) int32 local ids: the fixed beam over the current
+        device graph from the entry, in L2 with every row admissible (an
+        all-ones one-word bit table and mask), queries in batches of
+        CAND_BATCH, the deleted nodes dropped (-1)."""
+        a = self._arena
+        dev = self._graph.device
+        ones = torch.ones((a.n_padded, 1), dtype=torch.int32, device=dev)
+        masks = torch.ones((CAND_BATCH, 1), dtype=torch.int32, device=dev)
+        q_t = torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(dev)
+        found = []
+        for s in range(0, len(q), CAND_BATCH):
+            qb = q_t[s:s + CAND_BATCH]
+            found.append(graph_beam_search(
+                qb, a.vectors, a.norms, ones, self._graph, masks[:len(qb)],
+                self.entry, width, ef, row_map=self._row_map)[1])
+        cand = torch.cat(found).cpu().numpy().astype(np.int32)
+        cand[(cand >= 0) & self._deleted_local[np.maximum(cand, 0)]] = -1
+        return cand
+
+    def _grow_to(self, n_total: int) -> None:
+        """Grow the host mirrors to the power-of-two bucket of n_total
+        nodes and upload the graph and row map once (nothing if they fit).
+        No tensor of the old size stays in the index: the sampled entries
+        are drawn again."""
+        npad = _pow2_rows(n_total)
+        old = self._hgraph.shape[0]
+        if npad <= old:
+            return
+
+        def grow(a, fill):
+            out = np.full((npad,) + a.shape[1:], fill, dtype=a.dtype)
+            out[:old] = a
+            return out
+
+        self._hgraph = grow(self._hgraph, -1)
+        self._hrmap = grow(self._hrmap, -1)
+        self._deleted_local = grow(self._deleted_local, False)
+        dev = self._graph.device
+        self._graph = torch.from_numpy(self._hgraph).to(dev)
+        self._row_map = torch.from_numpy(self._hrmap).to(dev)
+        self._entry_sample = None
+
+    def insert_rows(self, arena: DeviceArena, rows: np.ndarray) -> None:
+        """Online insert of arena rows (the reference's :433; pgvector's
+        hnswinsert.c: search for neighbours, RNG prune, bidirectional
+        edges, re-prune of overflowing lists), in sub-batches of
+        INSERT_SUB_BATCH rows, so that a sub-batch's searches see the rows
+        inserted before it. `arena` is the one the index serves (its host
+        rows feed the prune); the bucket grows once, to the final size."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if len(rows) == 0:
+            return
+        efc = max(self.m * 2, 48)     # the search's ef (the reference's)
+        hv = _host_rows(arena)
+        self._grow_to(self.n_rows + len(rows))
+        for s in range(0, len(rows), INSERT_SUB_BATCH):
+            self._insert_sub_batch(rows[s:s + INSERT_SUB_BATCH], efc, hv)
+        self._entry_sample = None
+        logger.info("inserted %d rows (now %d, npad %d)", len(rows),
+                    self.n_rows, self._hgraph.shape[0])
+
+    def _insert_sub_batch(self, rows: np.ndarray, efc: int,
+                          hv: np.ndarray) -> None:
+        """Candidates for the sub-batch from the current device graph, the
+        native edge update on the host mirrors, then the device delta: the
+        new region and the changed old rows of the graph, the new region
+        of the row map."""
+        n_old, n_new = self.n_rows, len(rows)
+        n_total = n_old + n_new
+        with self._phase("insert.search"):
+            cand = self._candidates(hv[rows], min(efc, 32), efc)
+        with self._phase("insert.link"):
+            self._hrmap[n_old:n_total] = rows.astype(np.int32)
+            changed_old = native.insert_update(hv, self._hrmap, self._hgraph,
+                                               cand, n_old, self.m, ALPHA)
+        with self._phase("insert.scatter"):
+            new_ids = np.arange(n_old, n_total, dtype=np.int64)
+            gidx = np.concatenate([new_ids, np.unique(changed_old)])
+            _scatter_rows(self._graph, gidx, self._hgraph[gidx])
+            _scatter_rows(self._row_map, new_ids, self._hrmap[new_ids])
+        self.n_rows = n_total
+
+    def refine_rows(self, arena: DeviceArena, rows: np.ndarray) -> None:
+        """Re-prune the given arena rows' lists against the current graph
+        (the reference's :649, the insert path's analog of the builder's
+        refinement pass): candidates from the fixed beam over the final
+        graph, where every inserted row is visible, then the native update
+        in refine mode and a scatter of the rows it touched. Deleted nodes
+        are never linked again."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if len(rows) == 0:
+            return
+        hv = _host_rows(arena)
+        nodes = self._locals_of(rows)
+        nodes = nodes[~self._deleted_local[nodes]]
+        if len(nodes) == 0:
+            return
+        efr = max(self.m * 2, 48)
+        with self._phase("refine.search"):
+            cand = self._candidates(hv[self._hrmap[nodes]], min(efr, 32),
+                                    efr)
+        with self._phase("refine.link"):
+            touched = native.insert_update(hv, self._hrmap, self._hgraph,
+                                           cand, self.n_rows, self.m, ALPHA,
+                                           nodes=nodes)
+        with self._phase("refine.scatter"):
+            cidx = np.unique(touched).astype(np.int64)
+            _scatter_rows(self._graph, cidx, self._hgraph[cidx])
+        self._entry_sample = None
+        logger.info("refined %d rows (%d graph rows updated)", len(nodes),
+                    len(cidx))
+
+    def delete_rows(self, arena: DeviceArena, rows: np.ndarray) -> int:
+        """Row delete with graph repair (the reference's :782; pgvector's
+        hnswvacuum.c HnswRepairGraph). Each live node holding an edge to a
+        deleted one re-selects its list from its live neighbours and the
+        deleted neighbours' live neighbours, alpha-RNG pruned to M0 (the
+        reference's numpy loop; the pairwise distances of a candidate
+        against the kept ones taken in one product, the same float32
+        values); the deleted nodes' lists empty and their row-map entries
+        become -1, so they are unreachable and unreturnable; the entry
+        moves to the nearest live node of a 4,096-node sample
+        (default_rng(0)). The index then serves from `arena` (the caller's
+        tombstoned one) and builds its packed rows again, since they carry
+        the bitsets. Storage stays until a rebuild over
+        core.compact_corpus. Returns the number of rows deleted (0 for
+        rows already deleted or not in the graph) and leaves the number of
+        nodes repaired in `repaired_nodes`."""
+        self._arena = arena
+        self._packed = None
+        self.repaired_nodes = 0
+        rows = np.asarray(rows, dtype=np.int64)
+        dels = np.sort(self._locals_of(rows))
+        if len(dels) == 0:
+            return 0
+        self._deleted_local[dels] = True
+        with self._phase("delete.repair"):
+            affected = self._repair(dels, _host_rows(arena))
+        self.repaired_nodes = len(affected)
+        with self._phase("delete.scatter"):
+            self._hrmap[dels] = -1
+            _scatter_rows(self._row_map, dels, self._hrmap[dels])
+            changed = np.unique(np.concatenate([affected, dels]))
+            _scatter_rows(self._graph, changed, self._hgraph[changed])
+        self._entry_sample = None
+        logger.info("deleted %d rows (graph repaired at %d nodes)",
+                    len(dels), len(affected))
+        return len(dels)
+
+    def _repair(self, dels: np.ndarray, hv: np.ndarray) -> np.ndarray:
+        """delete_rows' work on the host mirror: each live node that holds
+        an edge to one of the deleted nodes `dels` re-selects its list (the
+        reference's loop), the deleted nodes' lists empty, the entry moves
+        to a live node. Returns the repaired nodes."""
+        graph, rmap = self._hgraph, self._hrmap
+        is_del = np.zeros(graph.shape[0], dtype=bool)
+        is_del[dels] = True
+
+        def vec_of(local_ids):
+            return hv[rmap[np.asarray(local_ids, dtype=np.int64)]].astype(
+                np.float32)
+
+        # live nodes holding an edge to a deleted node
+        hit = np.isin(graph, dels) & (graph >= 0)
+        affected = np.nonzero(hit.any(axis=1) & ~is_del)[0]
+        m0 = graph.shape[1]
+        for node in affected.tolist():
+            nbrs = graph[node]
+            cand = {int(c) for c in nbrs if c >= 0 and not is_del[c]}
+            for c in nbrs:
+                if c >= 0 and is_del[c]:
+                    cand.update(int(x) for x in graph[c]
+                                if x >= 0 and not is_del[x] and x != node)
+            cand.discard(node)
+            cids = sorted(cand)
+            if not cids:
+                graph[node, :] = -1
+                continue
+            cvecs = vec_of(cids)
+            dists = ((cvecs - vec_of([node])[0]) ** 2).sum(axis=1)
+            kept: list = []
+            for oi in np.argsort(dists, kind="stable"):
+                if len(kept) >= m0:
+                    break
+                if kept and (((cvecs[kept] - cvecs[oi]) ** 2).sum(axis=1)
+                             * ALPHA < dists[oi]).any():
+                    continue
+                kept.append(oi)
+            graph[node, :len(kept)] = [cids[oi] for oi in kept]
+            graph[node, len(kept):] = -1
+        graph[dels, :] = -1
+
+        if is_del[self.entry]:
+            live = np.nonzero(~self._deleted_local[:self.n_rows])[0]
+            if len(live):
+                ev = vec_of([self.entry])[0]
+                sub = live[np.random.default_rng(0).permutation(
+                    len(live))[:4096]]
+                self.entry = int(sub[np.argmin(
+                    ((vec_of(sub) - ev) ** 2).sum(axis=1))])
+            else:
+                self.entry = 0
+        return affected
 
     def graph_state(self) -> dict:
         """The graph to persist or hand over: neighbours and entry."""
@@ -284,15 +576,16 @@ class HNSWIndex:
 
     def _sampled_entries(self, q: np.ndarray, sample: int = 1024,
                          seed: int = 0) -> np.ndarray:
-        """Per-query entry: the nearest node of a fixed random sample by
-        the metric's score, from one matmul a chunk of 256 queries (l1:
-        the sum of |x - q|), the reference's stand-in for the upper
-        layers."""
+        """Per-query entry: the nearest node of a fixed random sample of
+        the live nodes by the metric's score, from one matmul a chunk of
+        256 queries (l1: the sum of |x - q|), the reference's stand-in for
+        the upper layers."""
         chunk = 256
         dev = self._graph.device
         if self._entry_sample is None:
             rng = np.random.default_rng(seed)
             pool = np.arange(self.n_rows, dtype=np.int32)
+            pool = pool[~self._deleted_local[:self.n_rows]]
             ids = np.sort(pool if len(pool) <= sample else
                           rng.choice(pool, sample, replace=False)
                           .astype(np.int32))

@@ -17,9 +17,18 @@ read the arena's float32 host rows, as the reference's do.
 
 Search is ops/ivf_scan.ivf_search_fn, with pgvector's iterative scan
 (ivfflat.iterative_scan): queries that come back short re-probe with a
-doubled probe count up to max_probes. Insert and delete are ROADMAP
-queue 1 item 13. `ivf_from_reference` carries a reference index's
-centroids and lists over, so that both packages search the same lists.
+doubled probe count up to max_probes. `ivf_from_reference` carries a
+reference index's centroids and lists over, so that both packages search
+the same lists.
+
+Online maintenance, the reference's (pgvector's ivfinsert.c and
+ivfvacuum.c; centroids are never trained again): `insert_rows` places
+each new row on the host, in its nearest list with a free slot (the
+lowest free slot; pads and deleted slots are free), growing L_pad
+(x1.25 + 8, or by what the rows need, a multiple of 8) where every list
+is full, then writes the new slots into the device lists; `delete_rows`
+frees the rows' slots (row -1, zero bits) for later inserts. Only the
+changed slots travel, and a growth pads the lists on the device.
 """
 
 from __future__ import annotations
@@ -218,12 +227,89 @@ class IVFIndex:
     # -------------------------------------------------------- maintenance
 
     def insert_rows(self, arena: DeviceArena, new_rows: np.ndarray) -> None:
-        raise NotImplementedError("IVF insert (pgvector ivfinsert.c) is "
-                                  "ROADMAP queue 1 item 13: not ported")
+        """Online insert (the reference's :209): each new row, in order,
+        takes the lowest free slot of the first list in its preference
+        order (centroids by the reference's float32 host distances) that
+        has one; where none has, L_pad grows once for the call to
+        max(int(L_pad * 1.25) + 8, L_pad + the most such rows a list
+        takes), a multiple of 8, and those rows fill their nearest lists'
+        new slots in order. The new slots take the rows' vectors, norms and
+        bitsets from `arena`."""
+        new_rows = np.asarray(new_rows, dtype=np.int64)
+        if new_rows.size == 0:
+            return
+        host_vec = (arena.host_vectors if arena.host_vectors is not None
+                    else arena.vectors.float().cpu().numpy())
+        vec = host_vec[new_rows].astype(np.float32)
+        inv_rows = self._inv_rows.cpu().numpy()
+        order = np.argsort(_spill_distances(
+            vec, self._centroids.cpu().numpy().astype(np.float32)), axis=1)
+        free = [np.flatnonzero(inv_rows[c] < 0).tolist()
+                for c in range(self.nlist)]
+        placements = []     # (list, slot or -1, new row index)
+        for j in range(len(new_rows)):
+            c = next((int(c) for c in order[j] if free[int(c)]), None)
+            placements.append((int(order[j, 0]), -1, j) if c is None
+                              else (c, free[c].pop(0), j))
+        unplaced = [c for c, slot, _ in placements if slot < 0]
+        if unplaced:
+            old_pad = self.l_pad
+            need = int(np.bincount(unplaced, minlength=self.nlist).max())
+            new_pad = max(int(old_pad * 1.25) + 8, old_pad + need)
+            new_pad = int(math.ceil(new_pad / 8) * 8)
+            nxt = [old_pad] * self.nlist
+            fixed = []
+            for c, slot, j in placements:
+                if slot < 0:
+                    slot, nxt[c] = nxt[c], nxt[c] + 1
+                fixed.append((c, slot, j))
+            placements = fixed
+            self._grow_lists(new_pad)
+            logger.info("IVF insert grew L_pad %d -> %d", old_pad, new_pad)
+        lists, slots, js = (np.array(x, dtype=np.int64)
+                            for x in zip(*placements))
+        dev = self._inv_rows.device
+        flat = torch.from_numpy(lists * self.l_pad + slots).to(dev)
+        src = torch.from_numpy(new_rows[js]).to(arena.device)
+        for dst, val in (
+                (self._inv_vectors, arena.vectors.index_select(0, src)),
+                (self._inv_norms, arena.norms.index_select(0, src)),
+                (self._inv_bits, arena.role_bits.index_select(0, src)),
+                (self._inv_rows, src.to(torch.int32))):
+            dst.view(self.nlist * self.l_pad, -1).index_copy_(
+                0, flat, val.to(dev, dst.dtype).view(len(js), -1))
+        self.n_rows += len(new_rows)
+
+    def _grow_lists(self, l_pad: int) -> None:
+        """Pad every list to l_pad slots on the device (pad slots: zero
+        vectors, norms and bits, row -1)."""
+        grow = l_pad - self.l_pad
+
+        def pad(t, fill=0):
+            extra = torch.full((self.nlist, grow, *t.shape[2:]), fill,
+                               dtype=t.dtype, device=t.device)
+            return torch.cat([t, extra], dim=1).contiguous()
+
+        self._inv_vectors = pad(self._inv_vectors)
+        self._inv_norms = pad(self._inv_norms)
+        self._inv_bits = pad(self._inv_bits)
+        self._inv_rows = pad(self._inv_rows, -1)
+        self.l_pad = l_pad
 
     def delete_rows(self, arena: DeviceArena, rows: np.ndarray) -> int:
-        raise NotImplementedError("IVF delete (pgvector ivfvacuum.c) is "
-                                  "ROADMAP queue 1 item 13: not ported")
+        """Row delete (the reference's :300): every slot holding one of
+        `rows` gets row -1 and zero bits, and later inserts reuse it; pair
+        it with core.tombstone_rows so the arena-backed paths agree.
+        Returns the number of slots freed."""
+        rows_t = torch.from_numpy(np.asarray(rows, dtype=np.int32)).to(
+            self._inv_rows.device)
+        hit = torch.isin(self._inv_rows, rows_t) & (self._inv_rows >= 0)
+        ndel = int(hit.sum())
+        if ndel:
+            self._inv_rows[hit] = -1
+            self._inv_bits[hit] = 0
+            self.n_rows -= ndel
+        return ndel
 
     # ------------------------------------------------------------ storage
 

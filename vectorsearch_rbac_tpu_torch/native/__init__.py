@@ -1,11 +1,12 @@
 """ctypes bindings for the native HNSW builder (native/hnsw_builder.cpp).
 
-Counterpart of vectorsearch_rbac_tpu/native/__init__.py for the three entry
+Counterpart of vectorsearch_rbac_tpu/native/__init__.py for the four entry
 points the port's HNSW index calls: `hnsw_build` (the classic builder),
-`hnsw_build_acorn` (the ACORN-gamma builder: dense layer-0 lists) and
-`rng_prune` (the alpha-RNG prune of the kNN builder). The library is built
-at first use with g++ and the reference's Makefile flags (and -pthread:
-the prune's per-node pass runs in threads) into
+`hnsw_build_acorn` (the ACORN-gamma builder: dense layer-0 lists),
+`rng_prune` (the alpha-RNG prune of the kNN builder) and `insert_update`
+(the online edge update of HNSWIndex.insert_rows and refine_rows). The
+library is built at first use with g++ and the reference's Makefile
+flags (and -pthread: the prune's per-node pass runs in threads) into
 `<checkout>/build/native/` (git-ignored), under a name that carries a hash
 of the source, the flags and the host CPU, so an edited source, or a
 checkout copied to another machine, never loads a stale build. A failed
@@ -100,6 +101,12 @@ def lib() -> ctypes.CDLL:
             handle.vsr_rng_prune.argtypes = [
                 f32p, ctypes.c_int64, ctypes.c_int, i32p, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, i32p]
+            handle.vsr_insert_update.restype = ctypes.c_int
+            handle.vsr_insert_update.argtypes = [
+                f32p, ctypes.c_int64, ctypes.c_int, i32p, i32p,
+                ctypes.c_int64, ctypes.c_int, i32p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                i32p, i32p, i32p]
             _lib = handle
     return _lib
 
@@ -164,3 +171,43 @@ def rng_prune(vectors: np.ndarray, knn: np.ndarray, m: int = 16,
     if rc != 0:
         raise RuntimeError("vsr_rng_prune failed")
     return out
+
+
+def insert_update(vec_table: np.ndarray, vmap: np.ndarray, graph: np.ndarray,
+                  cand: np.ndarray, n_old: int, m: int, alpha: float = 1.2,
+                  nodes: Optional[np.ndarray] = None) -> np.ndarray:
+    """The online edge update (the reference's insert_update): each node's
+    candidates (local ids, -1 pads) alpha-RNG pruned to m edges in L2 over
+    `vec_table[vmap[local]]`, then reverse edges into free slots, or over
+    the farthest edge where the node is nearer. `graph` ((npad, M0) int32,
+    C-contiguous) is updated in place. Insert mode (nodes None): the nodes
+    are n_old .. n_old + len(cand) - 1, and same-batch nodes that listed a
+    common candidate become each other's candidates. Refine mode (`nodes`:
+    existing local ids): candidates add the node's current list, reverse
+    edges skip targets that already link back, no peers. Returns the
+    changed rows: in insert mode the old rows only (the new ones always
+    change), in refine mode every row touched."""
+    vec = np.ascontiguousarray(vec_table, dtype=np.float32)
+    vm = np.ascontiguousarray(vmap, dtype=np.int32)
+    if graph.dtype != np.int32 or not graph.flags.c_contiguous:
+        raise ValueError("insert_update updates a C-contiguous int32 graph "
+                         "in place")
+    cd = np.ascontiguousarray(cand, dtype=np.int32)
+    n_new = cd.shape[0]
+    changed = np.empty(n_new * m + n_new, dtype=np.int32)
+    n_changed = ctypes.c_int32(len(changed))
+    nd = None
+    if nodes is not None:
+        nd = np.ascontiguousarray(nodes, dtype=np.int32)
+        if len(nd) != n_new:
+            raise ValueError(f"{len(nd)} nodes for {n_new} candidate rows")
+    rc = lib().vsr_insert_update(
+        _f32p(vec), vec.shape[0], vec.shape[1], _i32p(vm), _i32p(graph),
+        graph.shape[0], graph.shape[1], _i32p(cd), n_new, cd.shape[1],
+        n_old, m, ctypes.c_float(alpha), _i32p(changed),
+        ctypes.byref(n_changed),
+        _i32p(nd) if nd is not None
+        else ctypes.cast(None, ctypes.POINTER(ctypes.c_int32)))
+    if rc != 0:
+        raise RuntimeError(f"vsr_insert_update failed ({rc})")
+    return changed[:n_changed.value]

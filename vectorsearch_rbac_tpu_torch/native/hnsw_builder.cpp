@@ -1,13 +1,14 @@
 // HNSW graph construction and alpha-RNG pruning, the host-side native builder.
 //
 // A copy of vectorsearch_rbac_tpu/native/hnsw_builder.cpp restricted to the
-// three entry points the port's HNSW index calls: vsr_hnsw_build (the classic
+// four entry points the port's HNSW index calls: vsr_hnsw_build (the classic
 // Malkov-Yashunin construction with the neighbour-selection heuristic, the
 // "classic" builder), vsr_hnsw_build_acorn (the same construction with
-// ACORN-gamma dense layer-0 lists, the "acorn" builder) and vsr_rng_prune
+// ACORN-gamma dense layer-0 lists, the "acorn" builder), vsr_rng_prune
 // (the alpha-RNG prune that turns a kNN candidate graph into a navigable
-// one, the "tpu" builder's host half). The online-insert update and the
-// exact-kNN oracle are not copied. Every function that is copied is the
+// one, the "tpu" builder's host half) and vsr_insert_update (the online
+// edge update of HNSWIndex.insert_rows and refine_rows). The exact-kNN
+// oracle is not copied. Every function that is copied is the
 // reference's, line for line, but one: vsr_rng_prune's per-node pass runs
 // over node ranges in threads (each node reads only the inputs and writes
 // only its own row), before the reverse-edge pass, which stays serial. One
@@ -24,6 +25,7 @@
 #include <queue>
 #include <random>
 #include <thread>
+#include <unordered_map>
 #include <utility>
 #include <vector>
 
@@ -416,6 +418,159 @@ int vsr_rng_prune(const float* vecs, int64_t n, int d, const int32_t* knn,
       }
     }
   }
+  return 0;
+}
+
+// Online-insert edge update: the host-side hot loop of
+// HNSWIndex.insert_rows (forward alpha-RNG prune of each new node's
+// candidate list + reverse edges with overflow replace-worst), moved to
+// C++ for bulk-insert throughput. Graph rows are LOCAL ids; `vmap` maps a
+// local id to its row in `vecs` (the shared arena for logical/pointer
+// indexes, an identity map for physical copies). `cand` holds each new
+// node's candidate local ids from the device beam search (-1 pads). New
+// nodes are local ids n_old..n_old+n_new-1, in order. The shared-candidate
+// peer rule links same-batch nodes that listed a common candidate (they
+// are invisible to the pre-insert graph search). Changed OLD rows are
+// reported in `changed` (capacity n_new*m + n_new; count in *n_changed).
+// `nodes`: when non-null, the function runs in REFINE mode over these
+// existing local ids (insert-path Vamana refinement): candidates add the
+// node's CURRENT neighbor list, reverse edges skip targets already linked,
+// and the peer rule is off (every node is already visible in the graph).
+// In insert mode (nodes == null) the nodes are n_old..n_old+n_new-1.
+int vsr_insert_update(const float* vecs, int64_t n_vec, int d,
+                      const int32_t* vmap, int32_t* graph, int64_t npad,
+                      int m0, const int32_t* cand, int n_new, int C,
+                      int64_t n_old, int M, float alpha, int32_t* changed,
+                      int32_t* n_changed, const int32_t* nodes) {
+  const bool refine = nodes != nullptr;
+  if (d <= 0 || m0 < 1 || n_new < 1 || C < 1 || M < 1) return -1;
+  if (!refine && n_old + n_new > npad) return -2;
+  const int cap = *n_changed;
+  int n_out = 0;
+  std::vector<char> marked(npad, 0);
+  std::unordered_map<int32_t, std::vector<int32_t>> seen_by_cand;
+  std::vector<int32_t> cids;
+  std::vector<std::pair<double, int32_t>> order;
+  std::vector<int32_t> kept;
+
+  auto vrow = [&](int32_t local) -> const float* {
+    int32_t r = vmap[local];
+    return vecs + (int64_t)r * d;
+  };
+  auto l2d = [&](const float* a, const float* b) -> double {
+    double s = 0.0;
+    for (int t = 0; t < d; ++t) {
+      double diff = (double)a[t] - (double)b[t];
+      s += diff * diff;
+    }
+    return s;
+  };
+
+  for (int j = 0; j < n_new; ++j) {
+    const int32_t nid = refine ? nodes[j] : (int32_t)(n_old + j);
+    const float* vn = vrow(nid);
+    int32_t* row = graph + (int64_t)nid * m0;
+    cids.clear();
+    // candidates (+ current neighbors in refine mode; dedup via a small
+    // linear scan: candidate lists are <= C + m0 + peers, tens of entries)
+    for (int t = 0; t < C; ++t) {
+      int32_t c = cand[(int64_t)j * C + t];
+      if (c < 0 || c == nid) continue;
+      bool dup = false;
+      for (int32_t x : cids)
+        if (x == c) { dup = true; break; }
+      if (!dup) cids.push_back(c);
+    }
+    if (refine) {
+      for (int t = 0; t < m0; ++t) {
+        int32_t c = row[t];
+        if (c < 0 || c == nid) continue;
+        bool dup = false;
+        for (int32_t x : cids)
+          if (x == c) { dup = true; break; }
+        if (!dup) cids.push_back(c);
+      }
+    } else {
+      // shared-candidate peers: same-batch nodes that listed a common
+      // candidate (invisible to the pre-insert graph search)
+      size_t n_direct = cids.size();
+      for (size_t t = 0; t < n_direct; ++t) {
+        auto it = seen_by_cand.find(cids[t]);
+        if (it == seen_by_cand.end()) continue;
+        for (int32_t p : it->second) {
+          bool dup = false;
+          for (int32_t x : cids)
+            if (x == p) { dup = true; break; }
+          if (!dup && p != nid) cids.push_back(p);
+        }
+      }
+      for (size_t t = 0; t < n_direct; ++t)
+        seen_by_cand[cids[t]].push_back(nid);
+    }
+
+    if (cids.empty()) {
+      if (!refine)
+        for (int t = 0; t < m0; ++t) row[t] = -1;
+      continue;
+    }
+    for (int t = 0; t < m0; ++t) row[t] = -1;
+
+    order.clear();
+    for (int32_t c : cids) order.push_back({l2d(vn, vrow(c)), c});
+    std::stable_sort(order.begin(), order.end());
+    kept.clear();
+    for (const auto& [dist, c] : order) {
+      if ((int)kept.size() >= M) break;
+      bool dominated = false;
+      const float* vc = vrow(c);
+      for (int32_t t : kept) {
+        if (l2d(vc, vrow(t)) * alpha < dist) { dominated = true; break; }
+      }
+      if (!dominated) kept.push_back(c);
+    }
+    for (size_t t = 0; t < kept.size(); ++t) row[t] = kept[t];
+
+    // reverse edges: free slot, else replace the farthest if closer
+    // (refine mode: skip targets that already link back)
+    for (int32_t c : kept) {
+      int32_t* crow = graph + (int64_t)c * m0;
+      if (refine) {
+        bool linked = false;
+        for (int t = 0; t < m0; ++t)
+          if (crow[t] == nid) { linked = true; break; }
+        if (linked) continue;
+      }
+      int slot = -1;
+      for (int t = 0; t < m0; ++t)
+        if (crow[t] < 0) { slot = t; break; }
+      bool wrote = false;
+      if (slot >= 0) {
+        crow[slot] = nid;
+        wrote = true;
+      } else {
+        const float* vc = vrow(c);
+        double worst_d = -1.0;
+        int worst_t = -1;
+        for (int t = 0; t < m0; ++t) {
+          double dn = l2d(vrow(crow[t]), vc);
+          if (dn > worst_d) { worst_d = dn; worst_t = t; }
+        }
+        if (l2d(vn, vc) < worst_d) {
+          crow[worst_t] = nid;
+          wrote = true;
+        }
+      }
+      if (wrote && (refine || c < (int32_t)n_old) && !marked[c]) {
+        marked[c] = 1;
+        if (n_out < cap) changed[n_out++] = c;
+      }
+    }
+    if (refine && !marked[nid]) {
+      marked[nid] = 1;
+      if (n_out < cap) changed[n_out++] = nid;
+    }
+  }
+  *n_changed = n_out;
   return 0;
 }
 

@@ -19,8 +19,13 @@ per-(comb, partition) probe parameters (iterative-rescan budget, ef,
 2-hop harvest, the admissible entry nearest the comb's centroid) and the
 GraphProbeBatcher over the graph partitions. The graphs are built in a
 thread pool (each build is seeded and independent, and the native builder
-releases the GIL), so they equal a one-thread build. The incremental plan
-update (apply_plan_update) is ROADMAP slice 5.
+releases the GIL), so they equal a one-thread build.
+
+apply_plan_update puts a plan changed by a role insert or delete
+(maintenance.py) on the device: the one-index-a-partition layout rebuilds
+only the partitions whose documents changed and keeps the others' index
+objects; the TiledSearcher and PackedSearcher layouts and the hybrid
+executor are rebuilt whole, as in the reference.
 """
 
 from __future__ import annotations
@@ -114,6 +119,29 @@ def planner_inputs(corpus: Corpus, world: RBACWorld, cfg: FrameworkConfig,
     )
 
 
+def _plan_router(plan: PartitionPlan, world: RBACWorld, pids):
+    """The plan's user router: a user's comb goes to the partitions its
+    tracker names (those in `pids`); an unseen comb to the union of its
+    single roles' partitions."""
+    comb_to_pids: Dict[Comb, Tuple[int, ...]] = {
+        comb: tuple(sorted(p for p in parts if p in pids))
+        for comb, parts in plan.trackers.items()
+    }
+    user_to_roles = world.user_to_roles
+
+    def router(uid: int):
+        comb = tuple(user_to_roles.get(uid, ()))
+        found = comb_to_pids.get(comb)
+        if found:
+            return found
+        acc = []
+        for r in comb:
+            acc.extend(comb_to_pids.get((r,), ()))
+        return tuple(sorted(set(acc)))
+
+    return router
+
+
 def build_dynamic_searcher(
     corpus: Corpus,
     world: RBACWorld,
@@ -141,23 +169,7 @@ def build_dynamic_searcher(
         if len(rows):
             partition_rows[pid] = rows
 
-    comb_to_pids: Dict[Comb, Tuple[int, ...]] = {
-        comb: tuple(sorted(p for p in parts if p in partition_rows))
-        for comb, parts in plan.trackers.items()
-    }
-    user_to_roles = world.user_to_roles
-
-    def router(uid: int):
-        comb = tuple(user_to_roles.get(uid, ()))
-        pids = comb_to_pids.get(comb)
-        if pids:
-            return pids
-        # unseen comb: the union of each single role's partitions
-        acc = []
-        for r in comb:
-            acc.extend(comb_to_pids.get((r,), ()))
-        return tuple(sorted(set(acc)))
-
+    router = _plan_router(plan, world, partition_rows)
     if cfg.index.kind not in ("hnsw", "hybrid"):
         if packed and cfg.index.kind in ("flat", "flat_approx"):
             searcher = packed_searcher(arena, partition_rows, router,
@@ -280,3 +292,55 @@ def _probe_params(corpus, world, cfg, plan, partition_rows, graph_pids):
         return kw
 
     return probe_params
+
+
+def apply_plan_update(searcher, corpus: Corpus, world: RBACWorld,
+                      cfg: FrameworkConfig,
+                      new_plan: PartitionPlan) -> PartitionedSearcher:
+    """Re-materialize `searcher` (built from its `.plan` on its arena)
+    for `new_plan` after a role insert or delete (the reference's
+    incremental reload, which skips unchanged partition tables). The
+    one-index-a-partition layout keeps each partition whose documents did
+    not change (the same index object) and builds the others; the
+    TiledSearcher and PackedSearcher layouts (stacked chunks and buckets)
+    and the hybrid executor (whose per-partition index kind follows the
+    plan) are rebuilt whole through build_dynamic_searcher. As in the
+    reference, the partition-by-partition path returns a plain
+    PartitionedSearcher: an "hnsw" searcher's probe parameters and graph
+    batcher are not carried over."""
+    from ..packed import PackedSearcher
+    from ..tiled import TiledSearcher
+
+    if isinstance(searcher, (TiledSearcher, PackedSearcher)):
+        return build_dynamic_searcher(corpus, world, searcher.arena, cfg,
+                                      plan=new_plan, packed=True)
+    if cfg.index.kind == "hybrid":
+        return build_dynamic_searcher(corpus, world, searcher.arena, cfg,
+                                      plan=new_plan, packed=False)
+    old_plan: PartitionPlan = searcher.plan
+    arena = searcher.arena
+    keep: Dict[int, BuiltPartition] = {}
+    changed: Dict[int, np.ndarray] = {}
+    for pid, docs in sorted(new_plan.assignment.items()):
+        if not docs:
+            continue
+        old = searcher.partitions.get(pid)
+        if old is not None and old_plan.assignment.get(pid) == docs:
+            keep[pid] = old     # unchanged: the same index object
+            continue
+        rows = corpus.rows_for_docs(np.fromiter(docs, dtype=np.int64,
+                                                count=len(docs)))
+        if len(rows):
+            changed[pid] = rows
+    built = build_partition_indexes(arena, changed, cfg)
+    partitions = {pid: keep[pid] if pid in keep else BuiltPartition(
+        pid=pid, rows=changed[pid], index=built[pid], label=f"dynamic_{pid}")
+        for pid in sorted({*keep, *changed})}
+    logger.info("plan update: %d partitions rebuilt, %d reused",
+                len(changed), len(keep))
+
+    out = PartitionedSearcher(arena, partitions,
+                              _plan_router(new_plan, world, partitions),
+                              name="dynamic")
+    out.plan = new_plan
+    return out

@@ -3,11 +3,11 @@
 A copy of the parts of vectorsearch_rbac_tpu/rbac/ that the ported paths
 use (world.py `RBACWorld` with its combination and selectivity helpers,
 `query_masks_for`; bitset.py `pack_role_sets`; generators/tree.py
-`TreeRBACGenerator`), so that the port runs where the JAX package is
-absent. Same seed, same world: tests/test_torch_host.py holds every array
-and mapping equal to the reference's. The other generators and online
-role insertion and deletion come with the slices that use them
-(ROADMAP.md).
+`TreeRBACGenerator`; the online role insert and delete, world.py
+`with_new_role` and `without_role`), so that the port runs where the JAX
+package is absent. Same seed, same world: tests/test_torch_host.py holds
+every array and mapping equal to the reference's. The other generators
+come with the slice that uses them (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from __future__ import annotations
 from collections import defaultdict
 from dataclasses import dataclass
 from functools import cached_property
-from typing import Dict, FrozenSet, List, Mapping, Sequence, Tuple
+from typing import (Dict, FrozenSet, Iterable, List, Mapping,
+                    Sequence, Tuple)
 
 import numpy as np
 
@@ -152,6 +153,33 @@ class RBACWorld:
         of a per-role physical layout."""
         return (sum(len(d) for d in self.role_to_docs.values())
                 / max(1, self.num_docs))
+
+    def with_new_role(self, role_docs: Iterable[int],
+                      users: Sequence[int] = ()) -> Tuple["RBACWorld", int]:
+        """(a new world with one role appended, reading role_docs and
+        granted to `users`; the new role's id): online role insertion."""
+        new_role = self.num_roles
+        r2d = dict(self.role_to_docs)
+        r2d[new_role] = frozenset(role_docs)
+        u2r = dict(self.user_to_roles)
+        for u in users:
+            u2r[u] = tuple(sorted(set(u2r.get(u, ())) | {new_role}))
+        return RBACWorld(num_users=self.num_users,
+                         num_roles=self.num_roles + 1,
+                         num_docs=self.num_docs, user_to_roles=u2r,
+                         role_to_docs=r2d), new_role
+
+    def without_role(self, role_id: int) -> "RBACWorld":
+        """A new world with `role_id` taken from every user and its
+        documents' grant dropped: online role deletion. Role ids are not
+        renumbered, so bitsets and layouts stay aligned; the slot stays
+        empty."""
+        r2d = {r: d for r, d in self.role_to_docs.items() if r != role_id}
+        u2r = {u: tuple(r for r in roles if r != role_id)
+               for u, roles in self.user_to_roles.items()}
+        return RBACWorld(num_users=self.num_users, num_roles=self.num_roles,
+                         num_docs=self.num_docs, user_to_roles=u2r,
+                         role_to_docs=r2d)
 
 
 def split_into_chunks(rng: np.random.Generator, n_items: int,
