@@ -190,6 +190,24 @@ without a CUDA device or without the port's package beside it. Phases:
    row returned, every returned row live in the tombstoned arena, recall
    against the exact oracle over the remaining rows printed, and the
    fused chunk check again on the repaired graph (-1 row-map entries);
+4k. snapshots and the CLI (after 4j, while 4c's corpus, world, arena and
+   plan are alive): (a) 4c's arena saved (utils.persist) and restored in
+   the process, every tensor and host mirror equal; 4c's ROLE and AnonySys
+   TiledSearchers (AnonySys on 4c's plan, whose big tier runs the kernels)
+   saved in the light and the packed form and restored over the restored
+   arena, each restored engine's ids and distances on 4c's 4,096 queries
+   bit-equal to the live engine's and every row readable; an rls searcher
+   over the restored arena with the live arena's ids digest on the 8,192
+   queries; K1, S2, K3 and K4 launched on the restored state; (b) the CLI
+   end to end (cli.main, --device cuda) in a temporary directory at
+   200,000 SIFT-like rows: prepare, generate-queries, plan-dynamic (alpha
+   2.0), compute-ground-truth, test RLS and AnonySys on the int8 arena
+   (recall@10 >= 0.95 against the exact oracle, every returned row
+   readable), serve for 3 s at 16 clients, insert-role, delete-role of a
+   role that orphans documents, rollback, fit-params --index ivf over
+   three nprobes; then 256 requests through the BatchingServer, ids and
+   distances equal to search_batch's on the same requests; K1, K3 and K4
+   launched by the CLI's passes;
 4h. the flat family, binary and sparse (no CUDA kernel: PyTorch, as the
    reference leaves these scans to XLA): (a) on the SIFT corpus, rls
    through FlatIndex in approx mode (the augmented layout) and exact, on
@@ -2877,6 +2895,327 @@ def drive_online(device, smi):
     return launches
 
 
+# ---- phase 4k: snapshots and the CLI
+
+def arenas_equal(a, b) -> list:
+    """The names of the DeviceArena fields where b differs from a."""
+    import numpy as np
+    import torch
+
+    pairs = {
+        "vectors_q": (a.quant.vectors_q, b.quant.vectors_q),
+        "norms_q": (a.quant.norms_q, b.quant.norms_q),
+        "role_bits": (a.role_bits, b.role_bits),
+        "vectors": (a.vectors, b.vectors), "norms": (a.norms, b.norms)}
+    bad = [k for k, (x, y) in pairs.items()
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    for k in ("host_bits", "host_vectors", "host_norms", "doc_ids",
+              "block_ids"):
+        if not np.array_equal(getattr(a, k), getattr(b, k)):
+            bad.append(k)
+    for k in ("n", "metric"):
+        if getattr(a, k) != getattr(b, k):
+            bad.append(k)
+    qa, qb = a.quant, b.quant
+    if (qa.scale, qa.lossless, qa.qclip) != (qb.scale, qb.lossless, qb.qclip) \
+            or not np.array_equal(qa.center, qb.center):
+        bad.append("quant params")
+    return bad
+
+
+def drive_snapshots(corpus, world, arena, plan, workload, part_workload,
+                    cfg, device, smi):
+    """Phase 4k (a): 4c's arena saved and restored (utils.persist) and held
+    equal field by field; 4c's ROLE and AnonySys TiledSearchers (the
+    latter on 4c's plan: its big tier runs the kernels) saved light and
+    packed and restored over the restored arena, each restored engine's
+    ids and distances on 4c's 4,096 queries bit-equal to the live one's;
+    an rls searcher over the restored arena with the SIFT path's ids digest
+    on its 8,192 queries. Returns the restored engines' launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench import serving_config
+    from vectorsearch_rbac_tpu_torch.ops import _build
+    from vectorsearch_rbac_tpu_torch.partition import (TiledSearcher,
+                                                       build_searcher)
+    from vectorsearch_rbac_tpu_torch.utils.persist import (
+        load_arena_snapshot, save_arena_snapshot)
+
+    t4k = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_4k_")
+    total = {k: 0 for k in _build.LAUNCHES}
+
+    def count():
+        for k, v in _build.LAUNCHES.items():
+            total[k] += v
+        return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    try:
+        t0 = time.perf_counter()
+        save_arena_snapshot(arena, f"{tmp}/arena.npz")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arena2 = load_arena_snapshot(f"{tmp}/arena.npz", device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bad = arenas_equal(arena, arena2)
+        if bad:
+            fail(f"4k(a): the restored arena differs in {bad}")
+        say(f"4k(a) arena snapshot ({smi}): "
+            f"{os.path.getsize(f'{tmp}/arena.npz') / 1e6:.1f} MB, save "
+            f"{save_s:.2f} s, load {load_s:.2f} s; every field equal")
+        q, u, k = (part_workload.vectors, part_workload.user_ids,
+                   PART_TOPK)
+        for name in ("role", "dynamic"):
+            pcfg = serving_config(seed=0, block_rows=BLOCK_ROWS,
+                                  topk=PART_TOPK, strategy=name)
+            live = build_searcher(name, corpus, world, arena, pcfg,
+                                  **({"plan": plan} if name == "dynamic"
+                                     else {}))
+            want_d, want_i = live.search_batch(q, u, world.user_masks, k)
+            for pack in (False, True):
+                path = f"{tmp}/tiled_{name}_{int(pack)}.npz"
+                t0 = time.perf_counter()
+                live.save_snapshot(path, pack_arrays=pack)
+                save_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                got = TiledSearcher.from_snapshot(arena2, live.router, path)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                _build.reset_launches()
+                d, i = got.search_batch(q, u, world.user_masks, k)
+                fired = count()
+                form = "packed" if pack else "light"
+                if not (np.array_equal(i, want_i)
+                        and np.array_equal(d, want_d)):
+                    fail(f"4k(a) {name} {form}: the restored engine's "
+                         f"results differ on {int((i != want_i).sum())} ids")
+                check_readable(f"4k(a) {name} {form}", i, u, k, corpus,
+                               world, arena2)
+                say(f"4k(a) {name} TiledSearcher {form} snapshot ({smi}): "
+                    f"{os.path.getsize(path) / 1e6:.1f} MB, save "
+                    f"{save_s:.2f} s, restore {restore_s:.3f} s, "
+                    f"{len(got._big)} big-tier partitions; ids and "
+                    f"distances bit-equal to the live engine's on "
+                    f"{len(u)} queries; launches {fired}")
+                if name == "dynamic":
+                    idle = [x for x in ("scan_int8", "merge_extract",
+                                        "merge_bitonic") if not fired.get(x)]
+                    if idle:
+                        fail(f"4k(a) {name} {form}: never launched {idle}")
+            del live
+        for label, a in (("live", arena), ("restored", arena2)):
+            searcher = build_searcher("rls", corpus, world, a, cfg)
+            _build.reset_launches()
+            _, ids = searcher.search_batch(workload.vectors,
+                                           workload.user_ids,
+                                           world.user_masks, TOPK)
+            fired = count() if label == "restored" else None
+            if label == "live":
+                want = digest(ids)
+            elif digest(ids) != want:
+                fail(f"4k(a) rls over the restored arena: ids digest "
+                     f"{digest(ids)} != the live arena's {want}")
+            del searcher
+        say(f"4k(a) rls over the restored arena: ids digest {want} equal to "
+            f"the live arena's on {workload.num_queries} queries, top-{TOPK}"
+            f"; launches {fired}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    idle = [x for x in ("scan_int8", "scan_int8_slots", "merge_extract",
+                        "merge_bitonic") if not total[x]]
+    if idle:
+        fail(f"4k(a): the restored state never launched {idle}")
+    say(f"phase 4k (a): {time.perf_counter() - t4k:.1f} s ({smi})")
+    return total
+
+
+CLI_N = 200_000        # 4k(b): prepare --n
+CLI_QUERIES = 1000     # generate-queries' default
+CLI_SERVE_S, CLI_CLIENTS = 3, 16
+
+
+def drive_cli(device, smi):
+    """Phase 4k (b): the CLI end to end (cli.main) in a temporary artifact
+    directory: prepare (the SIFT-like twin, CLI_N rows), generate-queries,
+    plan-dynamic (alpha 2.0), compute-ground-truth, test RLS and AnonySys
+    on the int8 arena (recall >= 0.95 against the exact oracle, every
+    returned row readable: run_benchmark's per-query records), serve
+    (CLI_SERVE_S s at CLI_CLIENTS clients), insert-role, delete-role of a
+    role that orphans documents, rollback, and fit-params --index ivf over
+    three nprobes; then one served batch through the BatchingServer held
+    equal to search_batch on the same requests. Returns its launches."""
+    import pickle
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    import vectorsearch_rbac_tpu_torch.bench as bench_pkg
+    from vectorsearch_rbac_tpu_torch import cli
+    from vectorsearch_rbac_tpu_torch.config import FrameworkConfig
+    from vectorsearch_rbac_tpu_torch.core import build_device_arena
+    from vectorsearch_rbac_tpu_torch.data import resolve_dataset
+    from vectorsearch_rbac_tpu_torch.ops import _build
+    from vectorsearch_rbac_tpu_torch.partition import build_searcher
+    from vectorsearch_rbac_tpu_torch.partition.dynamic.maintenance import (
+        orphaned_docs_after_role_delete)
+    from vectorsearch_rbac_tpu_torch.serving import BatchingServer
+
+    t4k = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_cli_")
+    base = ["--artifacts", tmp, "--device", "cuda"]
+    run_benchmark = bench_pkg.run_benchmark
+    records = {}
+
+    def recording(*args, **kw):   # the CLI's run_benchmark, per query
+        kw["per_query_path"] = f"{tmp}/per_query.json"
+        res = run_benchmark(*args, **kw)
+        with open(kw["per_query_path"]) as f:
+            records[args[0].name] = json.load(f)
+        return res
+
+    def state():
+        with open(f"{tmp}/state.pkl", "rb") as f:
+            return pickle.load(f)
+
+    def readable(name, recs, world, corpus, arena):
+        ids = np.full((len(recs), PART_TOPK), -1, np.int64)
+        for j, r in enumerate(recs):
+            ids[j, :len(r["result_rows"])] = r["result_rows"]
+        users = np.asarray([r["user_id"] for r in recs])
+        check_readable(name, ids, users, PART_TOPK, corpus, world, arena)
+
+    steps = {}
+
+    def step(name, argv):
+        t0 = time.perf_counter()
+        cli.main(base + argv)
+        steps[name] = round(time.perf_counter() - t0, 2)
+
+    _build.reset_launches()
+    bench_pkg.run_benchmark = recording
+    try:
+        step("prepare", ["prepare", "--n", str(CLI_N)])
+        step("generate-queries", ["generate-queries", "--num-queries",
+                                  str(CLI_QUERIES), "--topk",
+                                  str(PART_TOPK)])
+        step("plan-dynamic", ["plan-dynamic", "--storage", str(PART_ALPHA)])
+        step("compute-ground-truth", ["compute-ground-truth", "--topk",
+                                      str(PART_TOPK)])
+        st = state()
+        corpus, _ = resolve_dataset(st["dataset"], num_vectors=st["n"],
+                                    seed=st["seed"])
+        world = st["world"]
+        arena = build_device_arena(corpus, world, device=device,
+                                   block_rows=65536, dtype="int8")
+        test = ["--efs", "40", "--topk", str(PART_TOPK), "--dtype", "int8",
+                "--storage", str(PART_ALPHA)]
+        for algo in ("RLS", "AnonySys"):
+            step(f"test {algo}", ["test", "--algorithm", algo, *test])
+            with open(f"{tmp}/{algo.lower()}_results.json") as f:
+                res = json.load(f)[-1]
+            recs = records[cli.ALGORITHM_TO_STRATEGY[algo]]
+            readable(f"4k(b) cli test {algo}", recs, world, corpus, arena)
+            say(f"4k(b) cli test {algo} ({smi}): recall@{PART_TOPK} "
+                f"{res['avg_recall']}, {res['qps']} QPS, "
+                f"{res['storage']['num_partitions']} partitions")
+            if res["avg_recall"] < RECALL_FLOOR:
+                fail(f"4k(b) cli test {algo}: recall {res['avg_recall']} < "
+                     f"{RECALL_FLOOR}")
+        step("serve", ["serve", "--clients", str(CLI_CLIENTS), "--duration",
+                       str(CLI_SERVE_S), "--topk", str(PART_TOPK)])
+        with open(f"{tmp}/serve_results.json") as f:
+            served = json.load(f)
+        if not served["requests"]:
+            fail("4k(b) cli serve answered no request")
+        step("insert-role", ["insert-role", "--seed", "11"])
+        if state()["world"].num_roles != world.num_roles + 1:
+            fail("4k(b) insert-role added no role")
+        w1 = state()["world"]
+        victim = next(r for r in range(world.num_roles)
+                      if orphaned_docs_after_role_delete(w1, r))
+        step("delete-role", ["delete-role", "--role", str(victim)])
+        if victim in state()["world"].role_to_docs \
+                or not state().get("tombstoned_docs"):
+            fail("4k(b) delete-role left its role or orphaned nothing")
+        step("rollback", ["rollback"])
+        if victim not in state()["world"].role_to_docs:
+            fail("4k(b) rollback did not restore the deleted role")
+        step("fit-params ivf", ["fit-params", "--index", "ivf", "--efs", "4",
+                                "16", "64", "--topk", str(PART_TOPK)])
+        with open(f"{tmp}/parameter_ivf.json") as f:
+            fitted = json.load(f)
+        with open(f"{tmp}/model_validation.json") as f:
+            mae = json.load(f)["recall_mae"]
+        if fitted["family"] != "ivf_coverage":
+            fail(f"4k(b) fit-params wrote the {fitted['family']} family")
+    finally:
+        bench_pkg.run_benchmark = run_benchmark
+    launches = dict(_build.LAUNCHES)
+    say(f"4k(b) cli serve ({smi}): {served['requests']} requests, "
+        f"{served['qps']:.1f} QPS, p50 {served['p50_ms']:.2f} ms, p99 "
+        f"{served['p99_ms']:.2f} ms, avg batch {served['avg_batch']:.1f}; "
+        f"fit-params ivf: k {fitted['k']:.4f}, lam {fitted['lam']:.4g}, "
+        f"sigma {fitted['sigma']:.4f}, recall MAE {mae:.4f}; steps (s) "
+        f"{steps}; launches {launches}")
+    idle = [x for x in ("scan_int8", "merge_extract", "merge_bitonic")
+            if not launches[x]]
+    if idle:
+        fail(f"4k(b): the CLI's passes never launched {idle}")
+
+    # one served batch against search_batch on the same requests; its
+    # launches are counted from 0 and added to the CLI's
+    _build.reset_launches()
+    cli_cfg = FrameworkConfig(seed=0)
+    cli_cfg.index.kind = "flat_approx"
+    cli_cfg.search.wire_dist = "f32"
+    searcher = build_searcher("rls", corpus, world, arena, cli_cfg)
+    rng = np.random.default_rng(0)
+    nq = 256
+    qv = corpus.vectors[rng.integers(0, corpus.n, nq)]
+    uids = rng.integers(0, world.num_users, nq)
+    want_d, want_i = searcher.search_batch(qv, uids, world.user_masks,
+                                           PART_TOPK)
+    results = [None] * nq
+    with BatchingServer(searcher, world.user_masks, max_batch=64,
+                        max_wait_ms=5.0) as srv:
+        def client(lo, hi):
+            tickets = [srv.submit(qv[j], uids[j], PART_TOPK)
+                       for j in range(lo, hi)]
+            for j, tk in zip(range(lo, hi), tickets):
+                results[j] = tk.result(timeout=120)
+
+        threads = [threading.Thread(target=client, args=(s, s + 32))
+                   for s in range(0, nq, 32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        stats = srv.stats()
+    got_i = np.stack([r.row_ids for r in results])
+    got_d = np.stack([r.dists for r in results])
+    if not (np.array_equal(got_i, want_i) and np.array_equal(got_d, want_d)):
+        fail(f"4k(b) served ids differ from search_batch's on "
+             f"{int((got_i != want_i).any(1).sum())} of {nq} requests")
+    check_readable("4k(b) served batch", got_i, uids, PART_TOPK, corpus,
+                   world, arena)
+    fired = {k: v for k, v in _build.LAUNCHES.items() if v}
+    say(f"4k(b) BatchingServer: {nq} requests in {stats['dispatches']} "
+        f"dispatches (avg batch {stats['avg_batch']:.1f}), ids equal to "
+        f"search_batch's; launches {fired}")
+    for k, v in _build.LAUNCHES.items():
+        launches[k] += v
+    shutil.rmtree(tmp, ignore_errors=True)
+    say(f"phase 4k (b): {time.perf_counter() - t4k:.1f} s ({smi})")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3181,6 +3520,17 @@ def main() -> None:
     say(f"phase 4j: {time.perf_counter() - t4j:.1f} s "
         f"{online_predicted('4j s')} ({smi})")
 
+    # ---- phase 4k: (a) 4c's arena and TiledSearchers through their
+    # snapshots, (b) the CLI end to end at CLI_N rows
+    launches_4k = drive_snapshots(corpus, world, arena, plan, workload,
+                                  part_workload, cfg, device, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, v in drive_cli(device, smi).items():
+        launches_4k[key] += v
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phase 4h: the flat family's breadth (FlatIndex approx and exact
     # on bfloat16 and float32 arenas), the binary index, l1 on the
     # synthetic corpus, and the sparse index; the sparse corpus is drawn
@@ -3339,7 +3689,7 @@ def main() -> None:
     del plan
     paths = (launches_sift, launches_wide_world, launches_part, launches_wide,
              launches_hybrid, launches_harvest, launches_lab,
-             launches_wide_lab, launches_4i, launches_4j)
+             launches_wide_lab, launches_4i, launches_4j, launches_4k)
     launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules

@@ -289,8 +289,11 @@ def test_resolve_dataset():
     assert np.array_equal(got.vectors, want.vectors)
     assert np.array_equal(got.doc_ids, want.doc_ids)
     assert np.array_equal(pool, want_pool)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the reference's refusal of a name it does not know
+    with pytest.raises(ValueError, match="unknown dataset arxiv"):
         port.resolve_dataset("arxiv", num_vectors=1_000)
+    with pytest.raises(ValueError, match="unknown dataset arxiv"):
+        ref_resolve("arxiv", num_vectors=1_000)
 
 
 @pytest.mark.parametrize("dist", ["normal", "uniform"])

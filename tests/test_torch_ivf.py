@@ -307,11 +307,13 @@ def test_ivf_index_full_probe_is_exact(ivf_setup, monkeypatch):
     assert_same_topk(got, want)
     ref = RefIVFIndex.__new__(RefIVFIndex)
     ref.nlist, ref.l_pad, ref.n_rows = ix.nlist, ix.l_pad, ix.n_rows
-    ref._centroids = jnp.asarray(ix._centroids.numpy())
-    ref._inv_vectors = jnp.asarray(ix._inv_vectors.numpy())
-    ref._inv_norms = jnp.asarray(ix._inv_norms.numpy())
-    ref._inv_bits = jnp.asarray(ix._inv_bits.numpy().view(np.uint32))
-    ref._inv_rows = jnp.asarray(ix._inv_rows.numpy())
+    # copies: jnp.asarray may alias a suitably aligned host buffer, and
+    # the port's insert writes its lists in place
+    ref._centroids = jnp.array(ix._centroids.numpy())
+    ref._inv_vectors = jnp.array(ix._inv_vectors.numpy())
+    ref._inv_norms = jnp.array(ix._inv_norms.numpy())
+    ref._inv_bits = jnp.array(ix._inv_bits.numpy().view(np.uint32))
+    ref._inv_rows = jnp.array(ix._inv_rows.numpy())
     for step in (lambda x, a: x.insert_rows(a, np.arange(3)),
                  lambda x, a: x.delete_rows(a, np.arange(3))):
         assert step(ix, pa) == step(ref, ra)

@@ -293,14 +293,26 @@ def test_bench_serves_the_packed_and_ivf_flags(flags, one_thread):
 
 
 @pytest.mark.parametrize("flags,why", [
-    (["--dataset", "sift10m"], "ROADMAP queue 1 item 14"),
+    # ROADMAP queue 1 item 14 (the 10M cell) is ported: its flags parse
+    pytest.param(["--dataset", "sift10m", "--n", "10000000"], None,
+                 id="flags0-ROADMAP queue 1 item 14"),
     (["--metric", "l1"], "l1 cannot ride the int8 path"),
 ])
 def test_bench_refusals_name_their_item(flags, why, capsys):
-    """What the bench refuses names the ROADMAP item that ports it, or the
-    reference's reason where no item will (l1 on the int8 arena)."""
-    from vectorsearch_rbac_tpu_torch.bench.__main__ import parse_args
+    """The bench takes every ROADMAP item's flags (--dataset sift10m at
+    --n 10000000, rls on the int8 arena), and refuses only what the
+    reference refuses, with its reason (l1 on the int8 arena)."""
+    from vectorsearch_rbac_tpu_torch.bench.__main__ import (parse_args,
+                                                            refusal)
 
+    if why is None:
+        args = parse_args(flags)
+        assert (args.dataset, args.n, args.strategy, args.dtype) == (
+            "sift10m", 10_000_000, "rls", "int8")
+        assert refusal(args) is None
+        assert parse_args(["--dataset", "sift10m", "--strategy", "dynamic",
+                           "--topk", "10", "--queries", "8192"]).topk == 10
+        return
     with pytest.raises(SystemExit):
         parse_args(flags)
     assert why in capsys.readouterr().err

@@ -19,15 +19,26 @@ a copy of the reference's native builder (`native/`, g++ at first use). The
 package imports neither jax nor the reference package: the host layers
 it needs (corpus, quantizers, RBAC world, the SIFT-like and cohere-like
 data, config, the planner and its cost model) are copies, held equal to
-the reference by tests.
+the reference by tests. Around the engines: arena and tiled-engine
+snapshots for a cold start, the micro-batching serving front-end, the
+cost models' fitting, and the CLI (`python -m
+vectorsearch_rbac_tpu_torch.cli`), whose searching subcommands run on the
+card unless given `--device cpu`.
 
 Layer map:
+    cli         the ten subcommands, --device    (reference cli.py)
     config      serving config + logger          (reference utils/)
-    rbac        RBAC world + tree generator      (reference rbac/)
-    data        SIFT-like, cohere-like,          (reference data/)
-                synthetic and sparse corpora
+    rbac        RBAC world + the generators      (reference rbac/)
+    data/       SIFT-like, cohere-like,          (reference data/)
+                synthetic and sparse corpora,
+                dataset-file readers, text
+                ingestion
     core        corpus, quantizers, device arena (reference core.py)
-    models      the planner's cost models        (reference models/)
+    models/     the planner's cost models, their (reference models/)
+                fitting and validation
+    utils/      snapshots and persistence,       (reference utils/)
+                stage timers and traces
+    serving/    the micro-batching front-end     (reference serving/)
     ops/        flat scans, int8 scans, merge,   (reference ops/)
                 rerank, chunk engine, graph
                 search and step, k-means, IVF
@@ -35,11 +46,13 @@ Layer map:
                 scans, host merge
     csrc/       the CUDA kernels                 (reference Pallas kernels)
     native/     the HNSW graph builder (C++)     (reference native/)
-    index/      flat, int8 flat, HNSW, IVF,      (reference index/)
-                binary, sparse
+    index/      the index contract; flat, int8   (reference index/)
+                flat, HNSW, IVF, binary, sparse
     partition/  RLS, ROLE, USER, AnonySys,       (reference partition/)
                 QDTree, tiled and packed
-    bench/      workload, oracle, harness, CLI   (reference bench/, bench.py)
+    bench/      workload, oracle, harness,       (reference bench/, bench.py,
+                result cache, the bench and its  scripts/)
+                cells' runners
 """
 
 from .config import FrameworkConfig

@@ -8,15 +8,16 @@ same defaults and the same single JSON line on stdout:
 The port serves --strategy rls, role, user, dynamic (AnonySys, the
 planner at cfg.optimizer's defaults) and qdtree (built as bench.py builds
 it: no workload, so the tree samples the first 64 role combinations and
-routes by the margin rule) over --dataset sift1m, cohere or synthetic,
+routes by the margin rule) over --dataset sift1m, sift10m (the
+SIFT-like twin at --n 10000000), cohere or synthetic,
 --metric l2, ip, cosine or l1 (l1 not on --dtype int8, as bench.py) and
 --dtype int8, bfloat16 or float32, with --index flat_approx, flat, ivf,
 binary or hnsw (the partitioned strategies' flat kinds take the
 TiledSearcher on an int8 l2 arena and the PackedSearcher on any other;
 ivf builds an IVFIndex a partition, binary a BinaryQuantIndex, hnsw an
 HNSW graph over the arena (rls) or a partition, the IVF-assisted kNN
-above 200,000 rows). What is left is refused, naming its ROADMAP queue 1
-item. It needs a CUDA device and exits non-zero without one.
+above 200,000 rows). Only l1 on the int8 arena is refused, with the
+reference's reason. It needs a CUDA device and exits non-zero without one.
 
 Scenario: by default a SIFT1M-shaped corpus (1M x 128-d, 100 blocks/doc);
 with --dataset cohere the cohere-like 1M x 768 unit-normalized corpus,
@@ -34,26 +35,23 @@ import json
 import sys
 import time
 
+import numpy as np
+
 BASELINE_QPS = 1000.0 / 0.118  # ~8474 QPS, physical role partition, CPU
 PORTED = {"strategy": ("rls", "role", "user", "dynamic", "qdtree"),
           "index": ("flat", "flat_approx", "ivf", "hnsw", "binary"),
           "dtype": ("int8", "bfloat16", "float32"),
-          "dataset": ("sift1m", "cohere", "synthetic"),
+          "dataset": ("sift1m", "sift10m", "cohere", "synthetic"),
           "metric": ("l2", "ip", "cosine", "l1")}
-# what is still refused, and the ROADMAP queue 1 item that ports it
-_ROADMAP = {"sift10m": "the 10M cell is ROADMAP queue 1 item 14"}
 
 
 def refusal(args):
-    """Why the port cannot serve these flags (naming the ROADMAP queue 1
-    item where one ports them), or None."""
+    """Why the port cannot serve these flags, or None."""
     off = {f: getattr(args, f) for f, v in PORTED.items()
            if getattr(args, f) not in v}
     if off:
-        why = "; ".join(_ROADMAP[v] for v in off.values() if v in _ROADMAP)
         return (f"not ported: {off}; the port serves "
-                + " ".join(f"--{f} {'|'.join(v)}" for f, v in PORTED.items())
-                + (f" ({why})" if why else ""))
+                + " ".join(f"--{f} {'|'.join(v)}" for f, v in PORTED.items()))
     if args.metric == "l1" and args.dtype == "int8":
         return ("--metric l1 --dtype int8: l1 cannot ride the int8 path (it "
                 "has no dot-product form); use --dtype float32 or bfloat16")
@@ -174,6 +172,8 @@ def main(argv=None):
         "build_s_per_1m": (build_s + strat_build_s)
         * (1_000_000 / max(corpus.n, 1)),
         "strategy": args.strategy, "index": args.index, "n": corpus.n,
+        "n_padded": arena.n_padded, "truth_max_id": int(truth.max()),
+        "truth_ids_past_2^23": float(np.mean(truth >= 1 << 23)),
         "device": res.extra["device"],
     }))
 

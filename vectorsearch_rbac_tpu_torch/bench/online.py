@@ -233,20 +233,27 @@ def run_cell(device, n: int = N, n_old: int = N_OLD, nq: int = NQ) -> Dict:
 
 # ---- the role cycle
 
-def sample_new_role(world: RBACWorld, seed: int = 0
-                    ) -> Tuple[set, np.ndarray]:
-    """The reference CLI's insert-role sampling (cli.py:233-250):
-    max(1, int(|docs| / num_roles)) of each role's documents, then 1% of
-    the users (at least one), from one default_rng(seed)."""
+def sample_new_role(world: RBACWorld, seed: int = 0, docs: int = 0,
+                    assign_users: int = 0) -> Tuple[set, np.ndarray]:
+    """The reference CLI's insert-role sampling (cli.py:232-252), from one
+    default_rng(seed): `docs` documents drawn from all of them, or (docs
+    0) max(1, int(|docs| / num_roles)) of each role's documents; then
+    `assign_users` users, or (0) 1% of them, at least one."""
     rng = np.random.default_rng(seed)
-    ratio = 1.0 / world.num_roles if world.num_roles > 0 else 0.05
-    new_docs: set = set()
-    for docs in world.role_to_docs.values():
-        docs = np.fromiter(docs, dtype=np.int64, count=len(docs))
-        take = max(1, int(len(docs) * ratio))
-        new_docs.update(int(d) for d in rng.choice(
-            docs, size=min(take, len(docs)), replace=False))
-    n_assign = max(1, world.num_users // 100)
+    if docs > 0:
+        new_docs = set(int(d) for d in rng.choice(
+            world.num_docs, size=min(docs, world.num_docs), replace=False))
+    else:
+        ratio = 1.0 / world.num_roles if world.num_roles > 0 else 0.05
+        new_docs = set()
+        for role_docs in world.role_to_docs.values():
+            role_docs = np.fromiter(role_docs, dtype=np.int64,
+                                    count=len(role_docs))
+            take = max(1, int(len(role_docs) * ratio))
+            new_docs.update(int(d) for d in rng.choice(
+                role_docs, size=min(take, len(role_docs)), replace=False))
+    n_assign = assign_users if assign_users > 0 else max(
+        1, world.num_users // 100)
     users = rng.choice(world.num_users, size=min(n_assign, world.num_users),
                        replace=False)
     return new_docs, users

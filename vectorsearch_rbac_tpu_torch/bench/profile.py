@@ -1,7 +1,8 @@
 """Where a serving pass spends its time, on the card.
 
     python -m vectorsearch_rbac_tpu_torch.bench.profile [--n N] [--queries Q]
-        [--dataset sift1m|cohere|synthetic] [--metric l2|ip|cosine|l1]
+        [--dataset sift1m|sift10m|cohere|synthetic]
+        [--metric l2|ip|cosine|l1]
         [--strategy rls|role|user|dynamic|qdtree]
         [--index flat_approx|flat|ivf|hnsw|hybrid|binary] [--filtered]
         [--dtype int8|bfloat16|float32]
@@ -121,7 +122,7 @@ def main(argv=None) -> int:
                     help="serving query batch (0 = the strategy's default)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dataset", default="sift1m",
-                    choices=["sift1m", "cohere", "synthetic"])
+                    choices=["sift1m", "sift10m", "cohere", "synthetic"])
     ap.add_argument("--metric", default="l2",
                     choices=["l2", "ip", "cosine", "l1"])
     ap.add_argument("--strategy", default="rls",

@@ -11,7 +11,9 @@ row-id dedupe, once per tuple of partitions. A strategy may expose
 and HNSW AnonySys executors' iterative-rescan budgets and entries), whose
 queries then sub-group by those kwargs, and a `graph_batcher`
 (partition/graph_batch.py) that serves the probe groups of its logical HNSW
-partitions in slab dispatches.
+partitions in slab dispatches. A searcher's StageTimer (`.timer`) keeps the
+reference's stages (route, device_scan, merge) beside the profiler spans
+partitioned.*.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..index.flat import FlatIndex
 from ..index.flat_int8 import Int8FlatIndex
 from ..ops.topk import merge_topk_host
 from ..rbac import query_masks_for
+from ..utils.tracing import StageTimer
 
 
 def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
@@ -141,6 +144,7 @@ class PartitionedSearcher:
         self.name = name
         self.batch_router: Optional[Callable] = None
         self.vector_router: Optional[Callable] = None
+        self.timer = StageTimer()
 
     def search_batch(self, queries: np.ndarray, user_ids: np.ndarray,
                      user_masks: np.ndarray,
@@ -174,7 +178,7 @@ class PartitionedSearcher:
         nq = queries.shape[0]
         pid_to_queries: Dict[int, List[int]] = {}
         per_query_pids: List[Sequence[int]] = []
-        with record_function("partitioned.route"):
+        with record_function("partitioned.route"), self.timer.stage("route"):
             routed = route_batch(self, queries, user_ids)
             for qi, pids in enumerate(routed):
                 per_query_pids.append(pids)
@@ -183,7 +187,8 @@ class PartitionedSearcher:
         probe_params = getattr(self, "probe_params", None)
         batcher = getattr(self, "graph_batcher", None)
         deferred, part_results, graph_jobs = {}, {}, []
-        with record_function("partitioned.enqueue"):
+        with record_function("partitioned.enqueue"), \
+                self.timer.stage("device_scan"):
             for pid, qidx in pid_to_queries.items():
                 part = self.partitions[pid]
                 # probe kwargs sub-group the partition's queries; None for a
@@ -216,7 +221,8 @@ class PartitionedSearcher:
                     rows = [pos[qi] for qi in qsub]
                     d[rows], i[rows] = dd, ii
         if graph_jobs:
-            with record_function("partitioned.graph"):
+            with record_function("partitioned.graph"), \
+                    self.timer.stage("device_scan"):
                 for (pid, qsub, _), (dd, ii) in zip(
                         graph_jobs,
                         batcher.run(queries, qmasks, graph_jobs, k)):
@@ -225,13 +231,24 @@ class PartitionedSearcher:
                     d[rows], i[rows] = dd, ii
 
         def finalize():
-            for pid, fin in deferred.items():
-                d, i = fin()
-                pos = {qi: j for j, qi in enumerate(pid_to_queries[pid])}
-                part_results[pid] = (d, i, pos)
-            return _merge_partitions(part_results, per_query_pids, nq, k)
+            with self.timer.stage("device_scan"):
+                for pid, fin in deferred.items():
+                    d, i = fin()
+                    pos = {qi: j for j, qi in enumerate(pid_to_queries[pid])}
+                    part_results[pid] = (d, i, pos)
+            with self.timer.stage("merge"):
+                return _merge_partitions(part_results, per_query_pids, nq, k)
 
         return finalize
+
+    def search_user(self, user_id: int, query: np.ndarray,
+                    user_masks: np.ndarray, k: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """One query of one user: (dists (k,), arena row ids (k,))."""
+        d, i = self.search_batch(
+            np.asarray(query, dtype=np.float32)[None, :],
+            np.array([user_id]), user_masks, k)
+        return d[0], i[0]
 
     def storage_report(self) -> Dict[str, float]:
         """MB accounting: the shared arena plus per-partition structures,

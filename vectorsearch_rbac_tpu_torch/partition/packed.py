@@ -46,6 +46,7 @@ from ..index.ivf import gather_lists
 from ..ops.ivf_scan import probed_topk
 from ..ops.topk import merge_topk_host
 from ..rbac import query_masks_for
+from ..utils.tracing import StageTimer
 from .base import route_batch
 
 logger = get_logger("partition.packed")
@@ -102,6 +103,7 @@ class PackedSearcher:
         self.arena = arena
         self.router = router
         self.name = name
+        self.timer = StageTimer()
         self.mode = mode
         self.batch_router: Optional[Callable] = None
         self.vector_router: Optional[Callable] = None
@@ -136,7 +138,7 @@ class PackedSearcher:
         nq = queries.shape[0]
         qmasks = query_masks_for(user_masks, user_ids)
 
-        with record_function("packed.route"):
+        with record_function("packed.route"), self.timer.stage("route"):
             per_bucket: Dict[int, Tuple[List[int], List[int]]] = {}
             n_pids = np.zeros(nq, dtype=np.int32)
             for qi, pids in enumerate(route_batch(self, queries, user_ids)):
@@ -150,7 +152,8 @@ class PackedSearcher:
                     ss.append(hit[1])
 
         results = []
-        with record_function("packed.scan"):
+        with record_function("packed.scan"), \
+                self.timer.stage("device_scan"):
             if per_bucket:
                 dev = self.arena.device
                 q_d = torch.from_numpy(queries).to(dev)
@@ -167,7 +170,7 @@ class PackedSearcher:
                             i.cpu().numpy().astype(np.int64))
                            for qidx, d, i in pending]
 
-        with record_function("packed.merge"):
+        with record_function("packed.merge"), self.timer.stage("merge"):
             return _fan_in(results, n_pids, nq, k)
 
     def storage_report(self) -> Dict[str, float]:

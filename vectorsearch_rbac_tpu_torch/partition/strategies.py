@@ -78,15 +78,21 @@ def build_role_searcher(corpus: Corpus, world: RBACWorld, arena: DeviceArena,
                                                 count=len(docs)))
         if len(rows):
             partition_rows[role] = rows
-    user_to_roles = world.user_to_roles
-
-    def router(uid: int):
-        return tuple(r for r in user_to_roles.get(uid, ())
-                     if r in partition_rows)
-
+    router = role_router(world, partition_rows)
     if packed and cfg.index.kind in ("flat", "flat_approx"):
         return packed_searcher(arena, partition_rows, router, "role", cfg)
     return unpacked_searcher(arena, partition_rows, router, "role", cfg)
+
+
+def role_router(world: RBACWorld, pids):
+    """ROLE's router: a user's roles that are among pids (the roles that
+    hold rows; membership is read at each call)."""
+    user_to_roles = world.user_to_roles
+
+    def router(uid: int):
+        return tuple(r for r in user_to_roles.get(uid, ()) if r in pids)
+
+    return router
 
 
 def build_comb_searcher(corpus: Corpus, world: RBACWorld, arena: DeviceArena,

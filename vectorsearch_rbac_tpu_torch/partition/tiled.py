@@ -1,8 +1,9 @@
 """TiledSearcher: partitioned serving over contiguous int8 chunk storage.
 
-Counterpart of vectorsearch_rbac_tpu/partition/tiled.py `TiledSearcher`
-(snapshots are ROADMAP slice 5). Each partition's rows live once,
-contiguously, as fixed-size chunks of the quantized arena, and a query
+Counterpart of vectorsearch_rbac_tpu/partition/tiled.py `TiledSearcher`,
+snapshots included (`save_snapshot` / `from_snapshot`). Each partition's
+rows live once, contiguously, as fixed-size chunks of the quantized
+arena, and a query
 batch is grouped into per-partition slots of up to q_tile queries, so that
 each partition is read once per slot instead of once per query
 (ops/tiled_scan.py). Partitions of more than big_chunks chunks form the big
@@ -24,10 +25,15 @@ upload of queries, norms and masks.
 A pass is split by profiler spans: tiled.route (host), tiled.big_enqueue
 (the big tier's scans and merges, with flat_int8.* inside),
 tiled.chunk_scan (the chunk engine, enqueue and fetch), tiled.big_fetch
-and tiled.merge (the host's fan-out merge).
+and tiled.merge (the host's fan-out merge). The searcher's StageTimer
+(`.timer`) keeps the reference's stages beside them: route, big_enqueue,
+device_scan (the chunk engine and the big tier's fetch), quantize (within
+device_scan) and merge.
 """
 
 from __future__ import annotations
+
+import json
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -41,6 +47,7 @@ from ..index.flat_int8 import Int8FlatIndex
 from ..ops.tiled_scan import tiled_bucket_topk
 from ..ops.topk import merge_topk_host
 from ..rbac import query_masks_for
+from ..utils.tracing import StageTimer
 from .base import route_batch
 
 logger = get_logger("partition.tiled")
@@ -69,6 +76,15 @@ def chunk_class(nc: int, small_cap: int) -> int:
     p = _pow2(nc)
     mid = 3 * p // 4
     return mid if nc <= mid else p
+
+
+def _big_index(arena: DeviceArena, rows, group: int,
+               logical: bool) -> Int8FlatIndex:
+    """A big-tier partition: the fused-scan index over its arena rows
+    (the constructor's and from_snapshot's)."""
+    return Int8FlatIndex(arena, np.asarray(rows), query_batch=2048,
+                         q_tile=1024, block_rows=8192, group=group,
+                         wire="f32", logical=logical)
 
 
 _SMALL_CHUNKS = 8          # small class: partitions <= 8 chunks
@@ -119,10 +135,8 @@ class TiledSearcher:
         self._big: Dict[int, Int8FlatIndex] = {}
         for pid, rows in sorted(partition_rows.items()):
             if -(-len(rows) // chunk_rows) > big_chunks:
-                self._big[pid] = Int8FlatIndex(
-                    arena, np.asarray(rows), query_batch=2048, q_tile=1024,
-                    block_rows=8192, group=big_group, wire="f32",
-                    logical=big_logical)
+                self._big[pid] = _big_index(arena, rows, big_group,
+                                            big_logical)
 
         # chunk 0 is the dummy all-masked chunk padding slots point at
         part_chunks: Dict[int, List[int]] = {}
@@ -139,6 +153,25 @@ class TiledSearcher:
             row_c[cids[0] * chunk_rows:cids[0] * chunk_rows + len(rows)] = rows
         self._rowC = torch.from_numpy(row_c).to(dev).view(
             n_chunks_total, chunk_rows)
+        self._gather_chunks()
+        self.part_chunks = part_chunks
+        self._part_nrows = {pid: len(partition_rows[pid])
+                            for pid in part_chunks}
+        self.timer = StageTimer()
+        d, w = self._vecC.shape[2], self._roleC.shape[2]
+        logger.info(
+            "tiled searcher '%s': %d chunk-engine partitions, %d chunks x %d "
+            "rows (%.1f MB), %d big-tier partitions", name, len(part_chunks),
+            n_chunks_total, chunk_rows,
+            n_chunks_total * chunk_rows * (d + 4 * w + 4 + 4) / 1e6,
+            len(self._big))
+
+    def _gather_chunks(self) -> None:
+        """The chunk arrays, gathered on the device from the arena's int8
+        tensors along the row map; -1 slots (pads and the dummy chunk)
+        get zero rows, whose zero bitsets admit no query."""
+        q, arena = self._quant, self.arena
+        n_chunks, chunk_rows = self._rowC.shape
         flat = self._rowC.reshape(-1)
         safe = flat.clamp_min(0)
         pad = (flat < 0)
@@ -148,19 +181,75 @@ class TiledSearcher:
         vec[pad] = 0
         nrm[pad] = 0
         bits[pad] = 0
-        self._vecC = vec.view(n_chunks_total, chunk_rows, -1)
-        self._normC = nrm.view(n_chunks_total, chunk_rows)
-        self._roleC = bits.view(n_chunks_total, chunk_rows, -1)
-        self.part_chunks = part_chunks
-        self._part_nrows = {pid: len(partition_rows[pid])
-                            for pid in part_chunks}
-        d, w = self._vecC.shape[2], self._roleC.shape[2]
-        self._chunk_bytes = n_chunks_total * chunk_rows * (d + 4 * w + 4 + 4)
-        logger.info(
-            "tiled searcher '%s': %d chunk-engine partitions, %d chunks x %d "
-            "rows (%.1f MB), %d big-tier partitions", name, len(part_chunks),
-            n_chunks_total, chunk_rows, self._chunk_bytes / 1e6,
-            len(self._big))
+        self._vecC = vec.view(n_chunks, chunk_rows, -1)
+        self._normC = nrm.view(n_chunks, chunk_rows)
+        self._roleC = bits.view(n_chunks, chunk_rows, -1)
+
+    # ---------------------------------------------------------- snapshot
+
+    def save_snapshot(self, path: str, pack_arrays: bool = False) -> None:
+        """Save the engine so that from_snapshot restores it over an arena
+        (utils.persist.save_arena_snapshot) and a router (the plan's, or
+        the strategy's). The light form (the default) keeps the chunk row
+        map and the routing meta, and from_snapshot gathers the chunk
+        arrays on the device along the row map, as the constructor does;
+        pack_arrays=True also ships the chunk arrays. The big tier keeps
+        each partition's rows, group and logical flag."""
+        state = dict(rowC=self._rowC.cpu().numpy())
+        if pack_arrays:
+            state.update(vecC=self._vecC.cpu().numpy(),
+                         normC=self._normC.cpu().numpy(),
+                         roleC=self._roleC.cpu().numpy())
+        big_meta = {}
+        for pid, idx8 in self._big.items():
+            state[f"big_rows_{pid}"] = \
+                idx8._row_map[:idx8.n_rows].cpu().numpy()
+            big_meta[str(pid)] = dict(group=idx8.group,
+                                      logical=bool(idx8.logical))
+        meta = dict(
+            name=self.name, chunk_rows=self.chunk_rows, q_tile=self.q_tile,
+            scan_group=self.scan_group,
+            part_chunks={str(p): c for p, c in self.part_chunks.items()},
+            part_nrows={str(p): n for p, n in self._part_nrows.items()},
+            big=big_meta)
+        np.savez(path, __meta__=json.dumps(meta), **state)
+
+    @classmethod
+    def from_snapshot(cls, arena: DeviceArena, router, path: str
+                      ) -> "TiledSearcher":
+        """A serving-ready TiledSearcher from save_snapshot's file: no
+        quantization and no packing, only uploads (and, from a light
+        snapshot, the device gather of the chunk arrays)."""
+        self = object.__new__(cls)
+        self.arena = arena
+        self._quant = arena.quant
+        self.router = router
+        self.batch_router = None
+        self.vector_router = None
+        self.timer = StageTimer()
+        dev = arena.device
+        with np.load(path, allow_pickle=False) as data:
+            meta = json.loads(str(data["__meta__"]))
+            self.name = meta["name"]
+            self.chunk_rows = int(meta["chunk_rows"])
+            self.q_tile = int(meta["q_tile"])
+            self.scan_group = int(meta["scan_group"])
+            self._rowC = torch.from_numpy(data["rowC"]).to(dev)
+            if "vecC" in data.files:
+                self._vecC = torch.from_numpy(data["vecC"]).to(dev)
+                self._normC = torch.from_numpy(data["normC"]).to(dev)
+                self._roleC = torch.from_numpy(data["roleC"]).to(dev)
+            else:
+                self._gather_chunks()
+            self._big = {
+                int(pid): _big_index(arena, data[f"big_rows_{pid}"],
+                                     int(bm["group"]), bool(bm["logical"]))
+                for pid, bm in meta["big"].items()}
+        self.part_chunks = {int(p): list(c)
+                            for p, c in meta["part_chunks"].items()}
+        self._part_nrows = {int(p): int(n)
+                            for p, n in meta["part_nrows"].items()}
+        return self
 
     # ------------------------------------------------------------- search
 
@@ -212,7 +301,8 @@ class TiledSearcher:
                 dispatches.append((slots, cb, group))
                 qsel.append(sel.reshape(-1))
                 csel.append(cid.reshape(-1))
-        q8, qn = q.quantize_queries(queries)
+        with self.timer.stage("quantize"):
+            q8, qn = q.quantize_queries(queries)
         zero = np.zeros((1, q8.shape[1]), np.int8)
         bits = np.concatenate([np.ascontiguousarray(qmasks, np.uint32),
                                np.zeros((1, qmasks.shape[1]), np.uint32)])
@@ -252,7 +342,7 @@ class TiledSearcher:
         nq = queries.shape[0]
         qmasks = query_masks_for(user_masks, user_ids)
 
-        with record_function("tiled.route"):
+        with record_function("tiled.route"), self.timer.stage("route"):
             pid_queries: Dict[int, List[int]] = {}
             n_pids = np.zeros(nq, dtype=np.int32)
             for qi, routed in enumerate(route_batch(self, queries,
@@ -266,18 +356,20 @@ class TiledSearcher:
         # the big tier first, so its device work runs while the host
         # prepares the chunk engine's dispatches
         big_pending = []
-        with record_function("tiled.big_enqueue"):
+        with record_function("tiled.big_enqueue"), \
+                self.timer.stage("big_enqueue"):
             for pid, idx8 in self._big.items():
                 qidx = pid_queries.pop(pid, None)
                 if qidx:
                     fin = idx8.search_deferred(queries[qidx], qmasks[qidx], k)
                     big_pending.append((qidx, fin))
-        with record_function("tiled.chunk_scan"):
-            results = self._chunk_engine(queries, qmasks, pid_queries, k)
-        with record_function("tiled.big_fetch"):
-            big_results = [(qidx, *fin()) for qidx, fin in big_pending]
+        with self.timer.stage("device_scan"):
+            with record_function("tiled.chunk_scan"):
+                results = self._chunk_engine(queries, qmasks, pid_queries, k)
+            with record_function("tiled.big_fetch"):
+                big_results = [(qidx, *fin()) for qidx, fin in big_pending]
 
-        with record_function("tiled.merge"):
+        with record_function("tiled.merge"), self.timer.stage("merge"):
             out_d = np.full((nq, k), np.inf)
             out_i = np.full((nq, k), -1, dtype=np.int64)
             # fan-out merge, vectorized over the multi-partition queries:
