@@ -208,6 +208,31 @@ without a CUDA device or without the port's package beside it. Phases:
    three nprobes; then 256 requests through the BatchingServer, ids and
    distances equal to search_batch's on the same requests; K1, K3 and K4
    launched by the CLI's passes;
+4l. multi-device serving (after 4k, while 4c's corpus, world, arena and
+   plan and 4d's hybrid searcher are alive) on a mesh of 4 shards that
+   all sit on cuda:0 (no collective crosses a card; no scale-out is
+   measured): (a) ShardedGlobalSearcher's int8 flagship over the SIFT
+   corpus, 4 x 262,144 rows at group 32, the 8,192 queries, top-100:
+   recall >= 0.95 against the exact oracle beside the same searcher on
+   one device (1,015,808 padded rows at group 64), every row readable, K1, K3 and K4 launched, and
+   on every shard K1 and the merge kernels bit-identical to their plain
+   versions on the shard's own operands (all 8,192 queries); (b)
+   the sharded float scan over the arena's bfloat16 mirror (exact on the
+   integer rows) against the one-device scan, distances within rtol
+   1e-5; (c) one sharded k-means step over the 1M rows, C 1,024, against
+   the one-device step, centroids within 1e-4; (d) ShardedTiledSearcher
+   on 4c's AnonySys plan against the one-device TiledSearcher, both with
+   the exact epilogue and no big tier, distances within 1e-5 on 4c's
+   4,096 queries; (e) ShardedGraphSearcher in place of 4d's
+   GraphProbeBatcher in 4d's searcher: ids equal job for job and the
+   searcher's ids and distances equal, the fused graph search launched;
+   (f) two processes on the card over gloo, each ingesting half of the
+   first 262,144 rows through multihost_quant_arena and serving 2,048
+   queries with the candidates all-gathered: both ranks' ids and
+   distances equal the in-process 2-shard mesh's (the parent built the
+   kernels before it spawned). Each QPS prints beside one device's and
+   beside the prediction written before the phase first ran
+   (MULTI_PREDICTED);
 4h. the flat family, binary and sparse (no CUDA kernel: PyTorch, as the
    reference leaves these scans to XLA): (a) on the SIFT corpus, rls
    through FlatIndex in approx mode (the augmented layout) and exact, on
@@ -356,6 +381,21 @@ ONLINE_PREDICTED = {
     "4j(c) recall": 0.95, "4j(d) arena_s": 8.0, "4j(d) old_plan_s": 9.0,
     "4j(d) apply_plan_update_s": 9.0, "4j(d) recall": 0.99,
     "4j(d) s": 45.0, "4j s": 200.0,
+}
+MESH_SHARDS = 4              # 4l: the mesh's shards, every one on cuda:0
+MESH_GROUP = 32              # 4l(a): the group a 262,144-row shard takes
+MULTI_BLOCK = 16384          # 4l(b): the float scan's row block
+KMEANS_C = 1024              # 4l(c): clusters of the k-means step
+MULTI_ROWS = 262_144         # 4l(f): the process axis's rows (a cut)
+MULTI_QUERIES = 2048         # 4l(f)'s queries
+MULTI_GROUP = 16             # 4l(f): the group a 131,072-row shard takes
+MULTI_DEADLINE_S = 120.0     # 4l(f): the two processes' whole run
+# phase 4l's predictions, written before its first run on the card
+MULTI_PREDICTED = {
+    "a recall": 0.998, "a one recall": 0.9938, "a QPS": 230000.0,
+    "a one QPS": 330000.0, "b QPS": 18000.0, "b one QPS": 20000.0,
+    "c ms": 40.0, "c one ms": 30.0, "d QPS": 12000.0, "d one QPS": 14000.0,
+    "e QPS": 150000.0, "e one QPS": 160000.0, "f s": 25.0, "4l s": 80.0,
 }
 L1_QUERIES = 1024            # 4h(b)'s l1 workload
 CHECK_QUERIES = 16           # 4h's numpy and dense recomputations
@@ -1206,7 +1246,8 @@ def drive_hybrid(plan, corpus, world, arena, workload, truth, smi):
     read just after; the same pass on the graph search's plain loop, equal
     ids and distances; then one traced pass for the device split. Returns
     the launch counts and the plain pass's recorded graph chunks (args,
-    kwargs of each graph_beam_search_iterative call)."""
+    kwargs of each graph_beam_search_iterative call), and the searcher
+    (phase 4l serves its graphs again)."""
     import collections
 
     import numpy as np
@@ -1306,8 +1347,7 @@ def drive_hybrid(plan, corpus, world, arena, workload, truth, smi):
                if launches[k]}
     if stepped:
         fail(f"{name}: the cell's graph search took the step loop {stepped}")
-    del searcher
-    return launches, calls
+    return launches, calls, searcher
 
 
 def check_graph_search(calls, smi):
@@ -3216,6 +3256,373 @@ def drive_cli(device, smi):
     return launches
 
 
+# ---- phase 4l: multi-device serving
+
+def multi_predicted(key: str) -> str:
+    return f"(predicted {MULTI_PREDICTED[key]})"
+
+
+def passes(fn, n: int = 2):
+    """One warm call of fn, then n timed ones: (the last result, mean
+    host-clock seconds a call, the card synchronized around each)."""
+    import torch
+
+    out = fn()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, sum(walls) / len(walls)
+
+
+def shard_kernels_identical(s4, queries, users, world):
+    """4l(a): on every shard of the sharded flagship, K1 and the K3/K4
+    merge against their plain versions on the shard's own operands, at the
+    shape the timed pass launches them (every query, the shard's rows and
+    group): {name: (identical, max_abs_err)} over the shards. These launches are comparisons: the caller's counts
+    exclude them."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.ops import merge, scan_int8
+
+    quant = s4._quant
+    dev = s4.mesh.devices[0][0]
+    q8, _ = quant.quantize_queries(queries)
+    q8 = torch.from_numpy(q8).to(dev)
+    m = torch.from_numpy(np.ascontiguousarray(
+        world.user_masks[users]).view(np.int32)).to(dev)
+    keep = 8 * ((TOPK + 7) // 8)
+    out = {"scan_int8": [True, 0], "merge_extract": [True, 0],
+           "merge_bitonic": [True, 0]}
+
+    def add(name, ok, err):
+        out[name][0] &= bool(ok)
+        out[name][1] = max(out[name][1], err)
+
+    for s in range(s4.n_shards):
+        args = (q8, quant.vectors_q.parts[0][s], quant.norms_q.parts[0][s],
+                s4._bits.parts[0][s], m, s4._int8_group(), "l2",
+                quant.score_shift)
+        packed = scan_int8.int8_group_minima(*args)
+        plain = scan_int8.int8_group_minima_plain(*args)
+        y, meta = merge.extract_pairs(packed, 32, 16)
+        y_p, meta_p = merge.extract_pairs_plain(packed, 32, 16)
+        ys, gs = merge.bitonic_pairs(y, meta, keep)
+        ys_p, gs_p = merge.bitonic_pairs_plain(y, meta, keep)
+        torch.cuda.synchronize()
+        live = y < scan_int8.EMPTY_I32
+        add("scan_int8", torch.equal(packed, plain),
+            max_abs_err(packed, plain))
+        add("merge_extract", torch.equal(y, y_p)
+            and torch.equal(meta[live], meta_p[live]), max_abs_err(y, y_p))
+        add("merge_bitonic", torch.equal(ys, ys_p) and torch.equal(gs, gs_p),
+            max(max_abs_err(ys, ys_p), max_abs_err(gs, gs_p)))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def drive_multi_device(corpus, world, arena, plan, hybrid, workload, truth,
+                       part_workload, part_truth, device, smi):
+    """Phase 4l: multi-device serving on a mesh of MESH_SHARDS shards, all
+    on `device` (parallel/): (a) the sharded int8 flagship through
+    ShardedGlobalSearcher on the 1M SIFT arena's corpus, against the same
+    searcher on one device (recall, readable rows, QPS; K1, K3, K4 on every
+    shard bit-identical to their plain versions); (b) the sharded float
+    scan against the one-device scan; (c) one sharded k-means step against
+    the one-device step; (d) ShardedTiledSearcher on 4c's AnonySys plan
+    against the one-device TiledSearcher, both exact and without a big
+    tier; (e) ShardedGraphSearcher in place of 4d's GraphProbeBatcher on
+    4d's hybrid searcher; (f) the process axis, two processes on the same
+    card over gloo, against the in-process two-shard mesh. Launch counts
+    are set to 0 before each driven pass and read after it. Returns the
+    phase's launch counts."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench.ground_truth import (
+        per_query_recall)
+    from vectorsearch_rbac_tpu_torch.core import ArenaQuant, quantize_corpus
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+    from vectorsearch_rbac_tpu_torch.ops import _build
+    from vectorsearch_rbac_tpu_torch.ops.kmeans import (
+        _update_step, kmeans_init, sharded_kmeans_step)
+    from vectorsearch_rbac_tpu_torch.ops.scan import masked_scan_topk
+    from vectorsearch_rbac_tpu_torch.parallel import (
+        ShardedGlobalSearcher, ShardedGraphSearcher, ShardedTiledSearcher,
+        make_mesh, shard_arena_arrays, sharded_masked_topk)
+    from vectorsearch_rbac_tpu_torch.parallel.multihost import spawn_flagship
+    from vectorsearch_rbac_tpu_torch.parallel.sharded import (
+        shard_quant_arrays, shard_rows, sharded_int8_topk)
+    from vectorsearch_rbac_tpu_torch.partition import TiledSearcher
+    from vectorsearch_rbac_tpu_torch.partition.dynamic.materialize import (
+        _plan_router)
+
+    t4l = time.perf_counter()
+    label = f"{MESH_SHARDS} shards on one H100"
+    mesh = make_mesh(MESH_SHARDS, devices=[device] * MESH_SHARDS)
+    one = make_mesh(1, devices=[device])
+    say(f"phase 4l: a mesh of {MESH_SHARDS} shards, every one on {device} "
+        f"({smi}): no collective crosses a card and no scale-out is "
+        f"measured; each QPS is \"{label}\" beside one device")
+    launches = {k: 0 for k in _build.LAUNCHES}
+
+    def counted(fn):
+        """fn() with the counts set to 0 just before and read just after;
+        the phase's totals gain them."""
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        for k, v in got.items():
+            launches[k] += v
+        return out, got
+
+    q, users = workload.vectors, workload.user_ids
+
+    # (a) the sharded int8 flagship
+    t0 = time.perf_counter()
+    s4 = ShardedGlobalSearcher(corpus, world, mesh=mesh, dtype="int8")
+    s1 = ShardedGlobalSearcher(corpus, world, mesh=one, dtype="int8")
+    build_s = time.perf_counter() - t0
+    if s4._int8_group() != MESH_GROUP:
+        fail(f"4l(a): a shard of {s4.npad // MESH_SHARDS} rows takes group "
+             f"{s4._int8_group()}, not {MESH_GROUP}")
+    ((d4, i4), wall4), la = counted(lambda: passes(
+        lambda: s4.search_batch(q, users, world.user_masks, TOPK)))
+    ((d1, i1), wall1), l1 = counted(lambda: passes(
+        lambda: s1.search_batch(q, users, world.user_masks, TOPK)))
+    rec4 = float(np.mean(per_query_recall(i4, truth)))
+    rec1 = float(np.mean(per_query_recall(i1, truth)))
+    check_readable(f"4l(a) sharded flagship ({label})", i4, users, TOPK,
+                   corpus, world, arena)
+    check_readable("4l(a) one device", i1, users, TOPK, corpus, world, arena)
+    same = shard_kernels_identical(s4, q, users, world)
+    nq = len(q)
+    say(f"4l(a) sharded int8 flagship, {nq} queries, top-{TOPK}, "
+        f"{s4.n_shards} x {s4.npad // s4.n_shards} rows, group "
+        f"{s4._int8_group()} a shard ({label}; {smi}): recall@{TOPK} {rec4} "
+        f"{multi_predicted('a recall')}, one device (group "
+        f"{s1._int8_group()}) {rec1} {multi_predicted('a one recall')}; "
+        f"{nq / wall4:.1f} QPS ({wall4 * 1e3:.3f} ms a pass) "
+        f"{multi_predicted('a QPS')} against one device's {nq / wall1:.1f} "
+        f"({wall1 * 1e3:.3f} ms) {multi_predicted('a one QPS')}; searchers "
+        f"built in {build_s:.1f} s; launches sharded "
+        f"{ {k: v for k, v in la.items() if v} }, one device "
+        f"{ {k: v for k, v in l1.items() if v} }; on every shard (all "
+        f"{nq} queries), tolerance 0, kernel vs plain "
+        f"[identical, max_abs_err]: {same}")
+    if rec4 < RECALL_FLOOR:
+        fail(f"4l(a): sharded recall {rec4:.4f} < {RECALL_FLOOR}")
+    idle = [k for k in ("scan_int8", "merge_extract", "merge_bitonic")
+            if la[k] == 0]
+    if idle:
+        fail(f"4l(a): the sharded flagship never launched {idle}")
+    if not all(ok for ok, _ in same.values()):
+        fail(f"4l(a): a shard's kernels disagree with their plain versions "
+             f"{same}")
+    del s1, d1, i1
+    torch.cuda.empty_cache()
+
+    # (b) the sharded float scan against the one-device scan
+    vb, nb, bb = shard_arena_arrays(mesh, arena.vectors, arena.norms,
+                                    arena.role_bits)
+    qf = torch.from_numpy(q).to(device)
+    mq = torch.from_numpy(np.ascontiguousarray(
+        world.user_masks[users]).view(np.int32)).to(device)
+    (db, ib), wall_b4 = passes(lambda: sharded_masked_topk(
+        mesh, qf, vb, nb, bb, mq, TOPK, block_rows=MULTI_BLOCK))
+    (do, io), wall_b1 = passes(lambda: masked_scan_topk(
+        qf, arena.vectors, arena.norms, arena.role_bits, mq, TOPK,
+        block_rows=MULTI_BLOCK))
+    db, do = db.cpu().numpy(), do.cpu().numpy()
+    fin = np.isfinite(do)
+    ok_b = bool((np.isfinite(db) == fin).all() and np.allclose(
+        db[fin], do[fin], rtol=1e-5, atol=0))
+    rec_b = float(np.mean(per_query_recall(ib.cpu().numpy(), truth)))
+    say(f"4l(b) sharded float scan ({arena.vectors.dtype} mirror, exact on "
+        f"the integer SIFT rows), {nq} queries, top-{TOPK}, block "
+        f"{MULTI_BLOCK} ({label}; {smi}): distances equal to one device's "
+        f"within rtol 1e-5 {ok_b}, max abs diff "
+        f"{float(np.abs(db[fin] - do[fin]).max()) if fin.any() else 0.0}; "
+        f"recall@{TOPK} {rec_b}; {nq / wall_b4:.1f} QPS "
+        f"{multi_predicted('b QPS')} against one device's "
+        f"{nq / wall_b1:.1f} {multi_predicted('b one QPS')}")
+    if not ok_b:
+        fail("4l(b): the sharded float scan's distances differ from one "
+             "device's")
+    del vb, nb, bb, db, ib, do, io, qf, mq
+    torch.cuda.empty_cache()
+
+    # (c) one sharded k-means step over the corpus's 1M rows
+    init = torch.from_numpy(kmeans_init(corpus.vectors, KMEANS_C, seed=0))
+    xs = shard_rows(mesh, corpus.vectors)
+    (c4, a4), t_c4 = passes(lambda: sharded_kmeans_step(mesh, xs, init), 1)
+    xd = torch.from_numpy(corpus.vectors).to(device)
+    (c1, a1), t_c1 = passes(lambda: _update_step(xd, init.to(device)), 1)
+    c4, c1 = c4.gather().numpy(), c1.cpu().numpy()
+    ok_c = bool(np.allclose(c4, c1, rtol=1e-4, atol=1e-4))
+    same_a = bool(torch.equal(a4.gather(), a1.cpu()))
+    say(f"4l(c) sharded k-means step, {corpus.n} x {corpus.dim} rows, C "
+        f"{KMEANS_C} ({label}; {smi}): centroids equal to one device's "
+        f"within rtol/atol 1e-4 {ok_c} (max abs diff "
+        f"{float(np.abs(c4 - c1).max())}), assignments equal {same_a}; "
+        f"{t_c4 * 1e3:.3f} ms a step {multi_predicted('c ms')} against one "
+        f"device's {t_c1 * 1e3:.3f} {multi_predicted('c one ms')}")
+    if not ok_c:
+        fail("4l(c): the sharded k-means step's centroids differ from one "
+             "device's")
+    del xs, xd, a4, a1
+    torch.cuda.empty_cache()
+
+    # (d) ShardedTiledSearcher on 4c's AnonySys plan
+    partition_rows = {}
+    for pid, docs in sorted(plan.assignment.items()):
+        rows = corpus.rows_for_docs(np.fromiter(docs, dtype=np.int64,
+                                                count=len(docs)))
+        if len(rows):
+            partition_rows[pid] = rows
+    router = _plan_router(plan, world, partition_rows)
+    t0 = time.perf_counter()
+    tiled4 = ShardedTiledSearcher(
+        arena, partition_rows, router, mesh, name="dynamic_sharded",
+        partition_weights={p: len(r) for p, r in partition_rows.items()},
+        scan_group=0)
+    tiled1 = TiledSearcher(arena, partition_rows, router, name="dynamic",
+                           big_chunks=1 << 30, scan_group=0)
+    tiled_s = time.perf_counter() - t0
+    pq, pu = part_workload.vectors, part_workload.user_ids
+    (dt4, it4), wall_d4 = passes(lambda: tiled4.search_batch(
+        pq, pu, world.user_masks, PART_TOPK), 1)
+    (dt1, it1), wall_d1 = passes(lambda: tiled1.search_batch(
+        pq, pu, world.user_masks, PART_TOPK), 1)
+    ok_d = bool(np.allclose(dt4, dt1, rtol=1e-5, atol=1e-5))
+    loads = [sum(len(partition_rows[p]) for p, devs in tiled4.placement.items()
+                 if devs[0] == d) for d in range(MESH_SHARDS)]
+    check_readable("4l(d) sharded tiled", it4, pu, PART_TOPK, corpus, world,
+                   arena)
+    say(f"4l(d) ShardedTiledSearcher on 4c's AnonySys plan ({len(
+        partition_rows)} partitions, rows a shard {loads}, exact epilogue), "
+        f"{len(pq)} queries, top-{PART_TOPK} ({label}; {smi}): distances "
+        f"equal to the one-device TiledSearcher's (no big tier) within "
+        f"1e-5 {ok_d}; recall@{PART_TOPK} "
+        f"{float(np.mean(per_query_recall(it4, part_truth)))}; "
+        f"{len(pq) / wall_d4:.1f} QPS {multi_predicted('d QPS')} against "
+        f"one device's {len(pq) / wall_d1:.1f} "
+        f"{multi_predicted('d one QPS')}; both built in {tiled_s:.1f} s")
+    if not ok_d:
+        fail("4l(d): the sharded tiled searcher's distances differ from one "
+             "device's")
+    del tiled4, tiled1
+    torch.cuda.empty_cache()
+
+    # (e) ShardedGraphSearcher in place of 4d's GraphProbeBatcher
+    batcher = hybrid.graph_batcher
+    recorded = []
+
+    def recording_run(queries, qmasks, jobs, k):
+        recorded.append((queries, qmasks, jobs, k))
+        return type(batcher).run(batcher, queries, qmasks, jobs, k)
+
+    batcher.run = recording_run
+    try:
+        (de1, ie1), wall_e1 = passes(lambda: hybrid.search_batch(
+            pq, pu, world.user_masks, PART_TOPK), 1)
+    finally:
+        del batcher.run
+    gparts = {pid: p.index for pid, p in hybrid.partitions.items()
+              if isinstance(p.index, HNSWIndex)}
+    graph4 = ShardedGraphSearcher(
+        arena, {pid: {"neighbors": ix._hgraph, "entry": ix.entry,
+                      "row_map": ix._hrmap} for pid, ix in gparts.items()},
+        mesh, partition_weights={pid: float(len(hybrid.partitions[pid].rows))
+                                 for pid in gparts})
+    hybrid.graph_batcher = graph4
+    try:
+        ((de4, ie4), wall_e4), le = counted(lambda: passes(
+            lambda: hybrid.search_batch(pq, pu, world.user_masks,
+                                        PART_TOPK), 1))
+    finally:
+        hybrid.graph_batcher = batcher
+    queries_e, qmasks_e, jobs_e, k_e = recorded[-1]
+    r1 = batcher.run(queries_e, qmasks_e, jobs_e, k_e)
+    r4 = graph4.run(queries_e, qmasks_e, jobs_e, k_e)
+    ok_jobs = all(np.array_equal(a[1], b[1]) for a, b in zip(r1, r4))
+    ok_e = bool(np.array_equal(ie4, ie1) and np.array_equal(de4, de1))
+    per_dev = [sum(1 for dv, _ in graph4.slot_of.values() if dv == d)
+               for d in range(MESH_SHARDS)]
+    check_readable("4l(e) sharded graphs", ie4, pu, PART_TOPK, corpus, world,
+                   arena)
+    say(f"4l(e) ShardedGraphSearcher in place of 4d's GraphProbeBatcher "
+        f"({len(gparts)} graph partitions, a shard {per_dev}, "
+        f"{'packed' if graph4.packed else 'arena'} rows; {label}; {smi}): "
+        f"ids equal to the batcher's job for job, array for array, "
+        f"{ok_jobs} ({len(jobs_e)} probe jobs); the searcher's ids and "
+        f"distances equal {ok_e}; {len(pq) / wall_e4:.1f} QPS "
+        f"{multi_predicted('e QPS')} against one device's "
+        f"{len(pq) / wall_e1:.1f} {multi_predicted('e one QPS')}; launches "
+        f"{ {k: v for k, v in le.items() if v} }")
+    if not (ok_jobs and ok_e):
+        fail("4l(e): the sharded graph searcher's ids differ from the "
+             "batcher's")
+    if le["graph_search"] == 0:
+        fail("4l(e): the sharded graph searcher never launched the fused "
+             "graph search")
+    del graph4, recorded
+    torch.cuda.empty_cache()
+
+    # (f) the process axis: two processes on this card over gloo, each
+    # ingesting half of MULTI_ROWS rows, against the in-process two-shard
+    # mesh on the same rows
+    quant = arena.quant
+    vec_f = corpus.vectors[:MULTI_ROWS]
+    bits_f = arena.host_bits[:MULTI_ROWS]
+    q_f = q[:MULTI_QUERIES]
+    qb_f = world.user_masks[users[:MULTI_QUERIES]]
+    hint = (quant.scale, quant.center, quant.qclip)
+    t0 = time.perf_counter()
+    ranks = spawn_flagship(2, 1, str(device), "gloo", vec_f, bits_f, q_f,
+                           qb_f, hint, TOPK, MULTI_GROUP, 4096,
+                           timeout_s=60.0, deadline_s=MULTI_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    mesh2 = make_mesh(2, devices=[device] * 2)
+    xq, nq_, scale, center, _, qclip = quantize_corpus(vec_f, MULTI_ROWS)
+    if (scale, qclip) != (quant.scale, quant.qclip) or not np.array_equal(
+            center, quant.center):
+        fail("4l(f): the cut's quantization is not the arena's")
+    vq, nqd, bd = shard_quant_arrays(mesh2, xq, nq_, bits_f)
+    q8, qn = ArenaQuant(vectors_q=vq, norms_q=nqd, scale=scale,
+                        center=center, lossless=True,
+                        qclip=qclip).quantize_queries(q_f)
+    (df, if_), lf = counted(lambda: sharded_int8_topk(
+        mesh2, q8, qn, vq, nqd, bd, qb_f, 1.0 / scale**2, TOPK,
+        group=MULTI_GROUP, score_shift=quant.score_shift))
+    df, if_ = df.cpu().numpy(), if_.cpu().numpy()
+    ok_f = all(np.array_equal(rd, df) and np.array_equal(ri, if_)
+               for rd, ri in ranks)
+    say(f"4l(f) the process axis: 2 processes on {device} over gloo "
+        f"(candidates through host memory), each ingesting {MULTI_ROWS // 2}"
+        f" of {MULTI_ROWS} SIFT rows through multihost_quant_arena, "
+        f"{MULTI_QUERIES} queries, top-{TOPK}, group {MULTI_GROUP} ({smi}): "
+        f"both ranks' ids and distances equal the in-process 2-shard "
+        f"mesh's {ok_f}; the spawned run took {spawn_s:.1f} s "
+        f"{multi_predicted('f s')} (the ranks' own launches count in their "
+        f"processes, not here; the in-process mesh's "
+        f"{ {k: v for k, v in lf.items() if v} }). NCCL with one rank a "
+        f"card is not run: this machine has one card")
+    if not ok_f:
+        fail("4l(f): the two processes' results differ from the in-process "
+             "mesh's")
+    del vq, nqd, bd
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 4l: {time.perf_counter() - t4l:.1f} s "
+        f"{multi_predicted('4l s')} ({smi})")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3475,7 +3882,7 @@ def main() -> None:
         fail("admit-dedup grouped no big-tier pass of the partitioned path")
     say(f"4d workload hash {digest(part_workload.vectors, part_workload.user_ids)}"
         f", truth hash {digest(part_truth)} (4c's)")
-    launches_hybrid, graph_calls = drive_hybrid(
+    launches_hybrid, graph_calls, hybrid = drive_hybrid(
         plan, corpus, world, arena, part_workload, part_truth, smi)
     search_rows, search_extra, launches_harvest = check_graph_search(
         graph_calls, smi)
@@ -3528,6 +3935,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     for key, v in drive_cli(device, smi).items():
         launches_4k[key] += v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 4l: multi-device serving on a mesh of 4 shards on this
+    # card, over 4c's corpus, arena and plan and 4d's graphs
+    launches_4l = drive_multi_device(corpus, world, arena, plan, hybrid,
+                                     workload, truth, part_workload,
+                                     part_truth, device, smi)
+    del hybrid
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3689,7 +4105,8 @@ def main() -> None:
     del plan
     paths = (launches_sift, launches_wide_world, launches_part, launches_wide,
              launches_hybrid, launches_harvest, launches_lab,
-             launches_wide_lab, launches_4i, launches_4j, launches_4k)
+             launches_wide_lab, launches_4i, launches_4j, launches_4k,
+             launches_4l)
     launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules

@@ -109,8 +109,8 @@ def test_kmeans_matches_reference():
 
 def test_kmeans_keeps_empty_clusters_and_weights():
     """An init centroid no row is nearest keeps its place, with one such
-    centroid or two. (The row weights went with the sharded step, ROADMAP
-    queue 1 item 18; no path of the port weights rows.)"""
+    centroid or two. (The row weights and the sharded step are held to the
+    reference in tests/test_torch_parallel.py.)"""
     rng = np.random.default_rng(1)
     x = rng.normal(0, 1, (400, 8)).astype(np.float32)
     far = np.full((2, 8), 1e3, np.float32)

@@ -140,6 +140,17 @@ def quantize_corpus(vectors: np.ndarray, npad: int):
     else:
         qclip = 127
         scale, lossless = qclip / span, False
+    xq, norms = quantize_rows(vectors, scale, center, qclip, npad)
+    return xq, norms, scale, center, lossless, qclip
+
+
+def quantize_rows(vectors: np.ndarray, scale: float, center: np.ndarray,
+                  qclip: int, npad: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Rows quantized with given parameters (quantize_corpus's, or a
+    corpus's global ones applied to one slice of it): (x_q (npad, d_pad)
+    int8, norms (npad,) int32 ||x_q||^2), rows past len(vectors) zero."""
+    n, d = vectors.shape
+    d_pad = ((d + 127) // 128) * 128
     xq = np.zeros((npad, d_pad), dtype=np.int8)
     norms = np.zeros(npad, dtype=np.int32)
     for r0 in range(0, n, _QUANT_ROWS):
@@ -149,7 +160,7 @@ def quantize_corpus(vectors: np.ndarray, npad: int):
                                 min(qclip, 127)).astype(np.int8)
         x64 = xq[r0:r1].astype(np.int64)
         norms[r0:r1] = np.einsum("nd,nd->n", x64, x64).astype(np.int32)
-    return xq, norms, scale, center, lossless, qclip
+    return xq, norms
 
 
 @dataclass(frozen=True)

@@ -17,7 +17,8 @@ the int8 flat scan otherwise (the mixed alpha-budget remainder); "hnsw"
 serves every partition from a graph. Both are the unpacked layout, with
 per-(comb, partition) probe parameters (iterative-rescan budget, ef,
 2-hop harvest, the admissible entry nearest the comb's centroid) and the
-GraphProbeBatcher over the graph partitions. The graphs are built in a
+GraphProbeBatcher over the graph partitions (given a device mesh, the
+ShardedGraphSearcher across its devices). The graphs are built in a
 thread pool (each build is seeded and independent, and the native builder
 releases the GIL), so they equal a one-thread build.
 
@@ -152,10 +153,18 @@ def build_dynamic_searcher(
     comb_weights: Optional[Dict[Comb, float]] = None,
     single_role_weights: Optional[Dict[int, float]] = None,
     packed: bool = True,
+    mesh=None,
 ):
     """Build the AnonySys searcher; plans first if no plan is given (a plan
     from the JAX package comes in through plan_from_reference). The
-    searcher keeps its plan as `.plan`."""
+    searcher keeps its plan as `.plan`.
+
+    mesh: a device mesh (parallel/mesh.py). The graph executors' logical
+    HNSW partitions are then placed across its devices (graph slabs per
+    device; parallel/graph_sharded.py ShardedGraphSearcher) in place of
+    the one-device GraphProbeBatcher; probe routing and merging are the
+    same (the two share run()). Other index kinds ignore it, as in the
+    reference."""
     if plan is None:
         if inputs is None:
             inputs = planner_inputs(corpus, world, cfg, comb_weights,
@@ -181,7 +190,7 @@ def build_dynamic_searcher(
         searcher.plan = plan
         return searcher
     return _graph_searcher(corpus, world, arena, cfg, plan, partition_rows,
-                           router)
+                           router, mesh)
 
 
 def hybrid_graph_pids(world: RBACWorld, plan: PartitionPlan,
@@ -204,9 +213,11 @@ def hybrid_graph_pids(world: RBACWorld, plan: PartitionPlan,
     return {pid for pid, s in sel_min.items() if s >= threshold}
 
 
-def _graph_searcher(corpus, world, arena, cfg, plan, partition_rows, router):
-    """The hybrid and HNSW executors (the reference's :175-327, one device):
-    per-partition indexes, probe parameters and the graph batcher."""
+def _graph_searcher(corpus, world, arena, cfg, plan, partition_rows, router,
+                    mesh=None):
+    """The hybrid and HNSW executors (the reference's :175-327):
+    per-partition indexes, probe parameters and the graph batcher, or with
+    a mesh the sharded graph searcher."""
     from ...index.hnsw import HNSWIndex
     from ..graph_batch import GraphProbeBatcher
 
@@ -242,7 +253,15 @@ def _graph_searcher(corpus, world, arena, cfg, plan, partition_rows, router):
                                           partition_rows, graph_pids)
     gparts = {pid: p.index for pid, p in partitions.items()
               if isinstance(p.index, HNSWIndex)}
-    if gparts:
+    if gparts and mesh is not None:
+        from ...parallel.graph_sharded import ShardedGraphSearcher
+
+        states = {pid: {"neighbors": ix._hgraph, "entry": ix.entry,
+                        "row_map": ix._hrmap} for pid, ix in gparts.items()}
+        searcher.graph_batcher = ShardedGraphSearcher(
+            arena, states, mesh, partition_weights={
+                pid: float(len(partitions[pid].rows)) for pid in gparts})
+    elif gparts:
         searcher.graph_batcher = GraphProbeBatcher(arena, gparts)
     return searcher
 

@@ -129,7 +129,7 @@ STRATEGIES = {
 def build_searcher(name: str, corpus: Corpus, world: RBACWorld,
                    arena: DeviceArena, cfg: FrameworkConfig, **kwargs):
     """Build a strategy by name; dynamic (AnonySys) takes the planner's
-    kwargs (plan, inputs, comb_weights, single_role_weights, packed),
+    kwargs (plan, inputs, comb_weights, single_role_weights, packed, mesh),
     qdtree build_qdtree_searcher's (workload, min_leaf, max_depth,
     radius_scale, tree, packed, ...)."""
     if name in STRATEGIES:
