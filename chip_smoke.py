@@ -254,6 +254,20 @@ without a CUDA device or without the port's package beside it. Phases:
    recomputation on 16 queries whose rows are densified from the corpus's
    own CSR (not the index's padded arrays or norms). The sparse corpus is drawn in a spawned
    worker process while (a)-(c) run;
+4m. the evidence runners' cells at a cut size (after 4h, each on its own
+   data: bench.graph_crossover, bench.ivf_coverage, bench.binary_1m and
+   bench.model_validation, the port's runners for the scripts whose
+   records the planner rests on), at 65,536 rows: (a) the crossover at d
+   128, selectivity 0.036 and 1.0, 1,024 queries, the flat leg (K1, K3,
+   K4) and the graph ladder at ef 40 and 80 (the fused search) with the
+   harvest legs at 0.036 (KS6, KS7); (b) IVF coverage over selectivities
+   0.05 and 0.25 x nprobe 4, 8, 16, 32; (c) the binary index's 768-d
+   cosine leg at rerank multiplier 2, 2,048 queries (512 graded); (d)
+   model validation over sizes 8,192 and 16,384 x selectivities 0.1 and
+   1.0 x ef 16, 32, 64, both cost families fitted. Every returned row must be readable by its user
+   (the runners raise otherwise; nothing catches it), every record must
+   carry its script's keys, and K1, K3, K4, the fused search, KS6 and KS7
+   must have launched in the phase;
 3b. the wide scan against its plain version at the 768-d path's geometry
    (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
    metric, score shift 3, group 128), bit-identical, beside a dots-only
@@ -397,6 +411,16 @@ MULTI_PREDICTED = {
     "c ms": 40.0, "c one ms": 30.0, "d QPS": 12000.0, "d one QPS": 14000.0,
     "e QPS": 150000.0, "e one QPS": 160000.0, "f s": 25.0, "4l s": 80.0,
 }
+EVIDENCE_ROWS = 65_536       # 4m: the cut the four runners' cells run at
+EVIDENCE_QUERIES = 1024      # 4m: the crossover's queries (its harvest legs
+                             # take the step loop) and the binary leg's graded
+EVIDENCE_MV_SIZES = (8_192, 16_384)    # 4m: model validation's index sizes
+EVIDENCE_MV_EFS = (16, 32, 64)         # and its efs (the fixed beam's loop)
+# phase 4m's prediction, written before its first run on the card
+EVIDENCE_PREDICTED = {"4m s": 35.0}
+# the second run's, written after the first (49.9 s at 4,096 crossover
+# queries, 8,192 binary queries, sizes 16,384 and 32,768, ef up to 256)
+EVIDENCE_PREDICTED_CUT = {"4m s": 22.0}
 L1_QUERIES = 1024            # 4h(b)'s l1 workload
 CHECK_QUERIES = 16           # 4h's numpy and dense recomputations
 SPARSE_DOCS, SPARSE_BLOCKS = 250_000, 4   # 4h(d): 1M sparse rows
@@ -3623,6 +3647,127 @@ def drive_multi_device(corpus, world, arena, plan, hybrid, workload, truth,
     return launches
 
 
+# ---- phase 4m: the evidence runners' cells at a cut size
+
+def drive_evidence(device, smi):
+    """Phase 4m: each evidence runner's cell function at EVIDENCE_ROWS
+    rows: the crossover at d 128, selectivity 0.036 and 1.0, ladder ef 40
+    and 80 (and the harvest legs at 0.036), EVIDENCE_QUERIES queries; IVF
+    coverage over 2 selectivities x 4 nprobes; the binary 768-d cosine
+    leg at multiplier 2; model validation over 2 sizes x 2 selectivities
+    x 3 efs. Each
+    runner raises where a returned row is not readable by its user, and
+    nothing here catches it; each record must carry its script's keys.
+    The counts are set to 0 before the phase and read after it; K1, K3,
+    K4, the fused search and the harvest's KS6/KS7 must have launched.
+    Returns the phase's launch counts."""
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench import (binary_1m,
+                                                   graph_crossover,
+                                                   ivf_coverage,
+                                                   model_validation)
+    from vectorsearch_rbac_tpu_torch.data import resolve_dataset
+    from vectorsearch_rbac_tpu_torch.ops import _build
+
+    def keys(name, record, want):
+        missing = set(want) - set(record)
+        if missing:
+            fail(f"4m {name}: the record lacks {sorted(missing)}")
+
+    t4m = time.perf_counter()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    corpus, pool = graph_crossover.corpus_for(EVIDENCE_ROWS, 128, seed=0)
+    world = graph_crossover.make_world(corpus.num_docs, seed=1)
+    out = {"config": graph_crossover.CONFIG, "cases": []}
+    graph_crossover.measure_case(corpus, pool, world, {1: 0.036, 3: 1.0},
+                                 out, device, efs=(40, 80),
+                                 nq=EVIDENCE_QUERIES, tag="4m")
+    if len(out["cases"]) != 2:
+        fail(f"4m crossover: {len(out['cases'])} cells, not 2")
+    for row in out["cases"]:
+        keys("crossover", row, (
+            "n", "d", "selectivity", "flat_qps", "flat_recall", "graph_qps",
+            "graph_recall", "graph_ef", "graph_harvest", "graph_ladder",
+            "graph_build_s", "winner", "graph_builder"))
+        say(f"4m(a) crossover {row['n']} x {row['d']}, sel "
+            f"{row['selectivity']}: flat {row['flat_qps']} QPS @ "
+            f"{row['flat_recall']} ({row['flat_kernels']}) | graph "
+            f"({row['graph_builder']}, built {row['graph_build_s']} s) "
+            f"{row['graph_qps']} QPS @ {row['graph_recall']} -> "
+            f"{row['winner']}; ladder " + json.dumps(row["graph_ladder"]))
+    say(f"4m(a): {time.perf_counter() - t0:.1f} s")
+    del corpus, pool, world
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ivf = ivf_coverage.run(device, n=EVIDENCE_ROWS,
+                           sizes=[EVIDENCE_ROWS], sels=[0.05, 0.25],
+                           nprobes=[4, 8, 16, 32])
+    keys("ivf", ivf, ("config", "cells", "heldout_recall_mae", "time_mape",
+                      "hnsw_family_reference_mae"))
+    for c in ivf["cells"]:
+        keys("ivf cell", c, ("n", "sel", "nprobes", "measured_recall",
+                             "predicted_recall", "measured_time_s",
+                             "heldout_recall_mae", "time_mape", "fit"))
+        say(f"4m(b) ivf coverage n={c['n']} nlist {c['nlist']} sel "
+            f"{c['sel']}: recall {c['measured_recall']} at nprobe "
+            f"{c['nprobes']}, held-out MAE {c['heldout_recall_mae']}, time "
+            f"MAPE {c['time_mape']}")
+    say(f"4m(b): {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    corpus, pool = resolve_dataset("cohere", num_vectors=EVIDENCE_ROWS,
+                                   seed=0)
+    rows = binary_1m.run_leg(corpus, pool, "cosine", 2 * EVIDENCE_QUERIES,
+                             binary_1m.K, EVIDENCE_QUERIES // 2, (2,),
+                             device, "cohere768_cosine")
+    keys("binary", rows.get("mult2", {}), (
+        "rerank_mult", "recall_at_100", "qps", "pass_walls_s", "build_s",
+        "bits_mb", "index_mb", "vector_copy_mb"))
+    say(f"4m(c) binary 768-d cosine at {EVIDENCE_ROWS} rows: "
+        f"{json.dumps(rows)}; {time.perf_counter() - t0:.1f} s")
+    del corpus, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mv, tpu = model_validation.run(device, n=EVIDENCE_ROWS, sels=[0.1, 1.0],
+                                   sizes=list(EVIDENCE_MV_SIZES),
+                                   efs=list(EVIDENCE_MV_EFS))
+    want = ("index", "params", "cells", "recall_mae", "time_mape",
+            "fit_cell")
+    keys("model validation", mv, want + ("corpus",))
+    keys("model validation (TPU family)", tpu, want + ("family",))
+    if len(mv["cells"]) != 4:
+        fail(f"4m model validation: {len(mv['cells'])} cells, not 4")
+    say(f"4m(d) model validation {list(EVIDENCE_MV_SIZES)} x [0.1, 1.0] x "
+        f"ef {list(EVIDENCE_MV_EFS)}: recall "
+        + str([[round(r, 4) for r in c["measured_recall"]]
+               for c in mv["cells"]])
+        + f"; reference family MAE {mv['recall_mae']:.4f}, MAPE "
+        f"{mv['time_mape']:.3f}; TPU family MAE {tpu['recall_mae']:.4f}, "
+        f"MAPE {tpu['time_mape']:.3f}; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    idle = [k for k in ("scan_int8", "merge_extract", "merge_bitonic",
+                        "graph_search", "graph_score", "graph_merge")
+            if not launches[k]]
+    if idle:
+        fail(f"4m: never launched {idle}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 4m: {time.perf_counter() - t4m:.1f} s (predicted "
+        f"{EVIDENCE_PREDICTED['4m s']}, after the cut "
+        f"{EVIDENCE_PREDICTED_CUT['4m s']}); launches "
+        f"{ {k: v for k, v in launches.items() if v} } ({smi})")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -3964,6 +4109,9 @@ def main() -> None:
     say(f"phase 4h: {time.perf_counter() - t4h:.1f} s ({smi})")
     gc.collect()
 
+    # ---- phase 4m: the evidence runners' cells at a cut size
+    launches_4m = drive_evidence(device, smi)
+
     # ---- the 768-d path: data, phase 3b, phase 4b
     t0 = time.perf_counter()
     corpus, world, workload = make_scenario(n=N_ROWS, num_queries=N_QUERIES,
@@ -4106,7 +4254,7 @@ def main() -> None:
     paths = (launches_sift, launches_wide_world, launches_part, launches_wide,
              launches_hybrid, launches_harvest, launches_lab,
              launches_wide_lab, launches_4i, launches_4j, launches_4k,
-             launches_4l)
+             launches_4l, launches_4m)
     launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules

@@ -36,7 +36,7 @@ from ..partition import build_searcher
 from ..partition.dynamic import plan_dynamic_partitions, planner_inputs
 from .ground_truth import GroundTruthOracle
 from .harness import compute_truth_sample, run_benchmark
-from .online import _card, _readable_or_raise
+from .evidence import card, readable_or_raise
 from .scenario import make_scenario, serving_config
 
 N, NQ, K, ALPHA = 10_000_000, 8192, 10, 2.0
@@ -87,8 +87,8 @@ def run(device, block_rows: int = 131072, timed_passes: int = 5) -> Dict:
                             truth=truth)
         _, ids = searcher.search_batch(wl.vectors, wl.user_ids,
                                        world.user_masks, K)
-        _readable_or_raise(f"big_logical {big_logical}", ids, wl.user_ids,
-                           world, arena)
+        readable_or_raise(f"big_logical {big_logical}", ids,
+                          world.user_masks[wl.user_ids], arena.host_bits)
         report[f"big_logical_{big_logical}"] = {
             "recall_at_10": res.avg_recall, "qps": res.qps,
             "pass_walls_ms": res.extra["pass_walls_ms"],
@@ -112,7 +112,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     report = run(torch.device("cuda", 0))
-    report["card"] = _card()
+    report["card"] = card()
     print(json.dumps(report))
     return 0
 

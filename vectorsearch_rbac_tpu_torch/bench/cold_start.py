@@ -192,7 +192,7 @@ def main(argv=None) -> int:
         return 0
 
     from ..ops import _build
-    from .online import _card
+    from .evidence import card
 
     t0 = time.perf_counter()
     _build.lib()
@@ -224,7 +224,7 @@ def main(argv=None) -> int:
     out["rebuild_s"] = (b["arena_build_s"] + b["rls_build_plus_first_query_s"]
                         + b["tiled_build_s"] + b["tiled_first_query_s"])
     out["restore_beats_rebuild"] = ld["total_cold_start_s"] < out["rebuild_s"]
-    out["card"] = _card()
+    out["card"] = card()
     print(json.dumps(out))
     return 0 if out["restored_ids_equal"] else 1
 

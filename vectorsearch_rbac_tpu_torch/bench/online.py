@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from dataclasses import dataclass
@@ -57,6 +56,7 @@ from ..index.hnsw import HNSWIndex
 from ..index.ivf import IVFIndex
 from ..ops.scan import exact_f32_matmul
 from ..rbac import RBACWorld, TreeRBACGenerator
+from .evidence import card, readable_or_raise
 
 N, N_OLD, NQ, K, EF = 300_000, 200_000, 512, 10, 64
 NLIST, NPROBE = 512, 48
@@ -313,7 +313,8 @@ def role_cycle(corpus: Corpus, world: RBACWorld, plan, cfg, device,
         queries, users, world2.user_masks, k), device)
     rep["launches_update_pass"] = {n: v for n, v in _build.LAUNCHES.items()
                                    if v}
-    _readable_or_raise("role insert", ids, users, world2, arena2)
+    readable_or_raise("role insert", ids, world2.user_masks[users],
+                      arena2.host_bits)
     gt_arena = build_device_arena(corpus, world2, device=device,
                                   block_rows=65536, dtype="float32")
     wl = QueryWorkload(vectors=queries, user_ids=users, topk=k,
@@ -376,25 +377,6 @@ def role_cycle(corpus: Corpus, world: RBACWorld, plan, cfg, device,
     return rep, dict(ids=ids, users=users, world=world2, arena=arena2)
 
 
-def _readable_or_raise(name: str, ids: np.ndarray, users: np.ndarray,
-                       world: RBACWorld, arena: DeviceArena) -> None:
-    ok = ((arena.host_bits[np.maximum(ids, 0)]
-           & world.user_masks[users][:, None, :]).any(2) | (ids < 0))
-    if not ok.all():
-        raise RuntimeError(f"{name}: {int((~ok).sum())} returned rows are "
-                           "not readable by their users")
-
-
-def _card() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=60).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return "unknown"
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=None,
@@ -437,7 +419,7 @@ def main(argv=None) -> int:
         n, n_old, nq = (v if v is not None else d
                         for v, d in zip(sizes, (N, N_OLD, NQ)))
         report = run_cell(device, n, n_old, nq)
-    report["card"] = _card()
+    report["card"] = card()
     print(json.dumps(report))
     return 0
 

@@ -79,7 +79,7 @@ def run(device, n: int = 1_000_000, window_s: float = WINDOW_S,
     from ..data import sift_like_corpus
     from ..partition import build_searcher
     from ..rbac import TreeRBACGenerator
-    from .online import _readable_or_raise
+    from .evidence import readable_or_raise
 
     corpus, pool = sift_like_corpus(num_vectors=n, seed=0)
     world = TreeRBACGenerator(num_users=10_000, num_roles=100,
@@ -99,8 +99,8 @@ def run(device, n: int = 1_000_000, window_s: float = WINDOW_S,
     for clients, wait_ms in cells:
         row, users, ids = level(searcher, world, pool, clients, wait_ms,
                                 window_s)
-        _readable_or_raise(f"C={clients} wait={wait_ms}", ids, users,
-                           world, arena)
+        readable_or_raise(f"C={clients} wait={wait_ms}", ids,
+                          world.user_masks[users], arena.host_bits)
         report["levels"].append(row)
         print(f"C={clients:4d} wait={wait_ms:4.0f}ms: {row['qps']:10.1f} QPS"
               f"  p50 {row['p50_ms']:7.2f}  p95 {row['p95_ms']:7.2f}  p99 "
@@ -118,10 +118,10 @@ def main(argv=None) -> int:
         print("bench.serving measures the card: no CUDA device",
               file=sys.stderr)
         return 2
-    from .online import _card
+    from .evidence import card
 
     report = run(torch.device("cuda", 0))
-    report["card"] = _card()
+    report["card"] = card()
     print(json.dumps(report))
     return 0
 

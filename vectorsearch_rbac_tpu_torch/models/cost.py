@@ -52,9 +52,11 @@ class CostModelParams:
     join_time: float = 0.0
     ef_offset: float = 0.0
     # n-scaling extension (absent from the reference's n-free family):
-    # measured recall at fixed (ef, sel) degrades with index size for the
-    # TPU engines (results/model_validation.json), so the model evaluates
-    # at ef_eff = (ef - ef_offset) * (n_ref / n)^gamma_n. gamma_n = 0
+    # measured recall at fixed (ef, sel) degrades with index size (the
+    # reference's TPU v5e record, results/model_validation.json; the same
+    # recalls to the last digit on an NVIDIA H100 80GB HBM3 at 700 W,
+    # bench/model_validation.py), so the model evaluates at
+    # ef_eff = (ef - ef_offset) * (n_ref / n)^gamma_n. gamma_n = 0
     # recovers the reference model exactly.
     n_ref: float = 0.0
     gamma_n: float = 0.0
@@ -146,12 +148,17 @@ class TPUCostParams:
 
     The reference's piecewise family (above) encodes pgvector behavior:
     threshold ∝ 1/sel, steepness ∝ sel, no n term, time = log(n)(a·ef+b).
-    The measured TPU engine differs on every axis
+    The reference's TPU v5e engine differs on every axis
     (results/model_validation.json): recall at fixed ef degrades with n,
     saturation sharpness grows sub-linearly with sel, and batched device
     graph search is n-independent with a dispatch floor and superlinear ef
-    cost. The family that fits (recall MAE 0.044, time MAPE 0.058 across
-    a 4-size x 5-selectivity x 5-ef grid):
+    cost. The family that fits that TPU record (recall MAE 0.044, time
+    MAPE 0.058 across a 4-size x 5-selectivity x 5-ef grid,
+    results/model_validation_tpu_family.json). On an NVIDIA H100 80GB
+    HBM3 at 700 W (bench/model_validation.py, the same grid) the recalls
+    are the TPU's to the last digit (MAE 0.044 again), but the fixed
+    beam's time has almost no floor and grows linearly in ef (c0 1.6e-5
+    s, p 1.04): time MAPE 0.141, against 0.167 for the reference family:
 
         recall(ef, sel, n) = k / (1 + exp(-s·sel^w · ln(ef / ef50)))
                   ef50      = C · (n / n_ref)^g · sel^-h
@@ -239,9 +246,18 @@ class IVFCoverageParams:
         time(nprobe, n) = log(n) * (a * nprobe * l_pad + b)
 
     sigma < 1 captures neighbors concentrating in the nearest lists; k is
-    the in-list ceiling (spill + masking losses). On the round-2 1M sweep
-    this family reproduces 0.497/0.706 at nprobe 16/32 from endpoints
-    fitted at 8/64 (piecewise family error there: saturated at 1.0)."""
+    the in-list ceiling (spill + masking losses). On the reference's
+    round-2 1M sweep (a TPU v5e record) this family reproduces
+    0.497/0.706 at nprobe 16/32 from endpoints fitted at 8/64 (piecewise
+    family error there: saturated at 1.0). Fitted on the even points of
+    an 11-nprobe sweep and scored on the odd ones (2 sizes x 4
+    selectivities at 1M): held-out recall MAE 0.0019 and time MAPE 0.024
+    on the TPU v5e (results/ivf_coverage_validation_1m.json); MAE 0.0018
+    and MAPE 0.064 on an NVIDIA H100 80GB HBM3 at 700 W
+    (bench/ivf_coverage.py), where a query takes 10-85 us against the
+    TPU's 250-8,300 and the per-batch routing read-back is a floor the
+    line log(n)(a ef + b) reads as b. The a and b defaults below are the
+    reference's."""
 
     k: float = 1.0
     lam: float = 0.08

@@ -117,7 +117,8 @@ def multi_parameter_validation(
     build one index per size (a random row subset), sweep ef at every
     selectivity, fit the recall family and (a, b) jointly across ALL
     sizes, then report recall MAE / time MAPE per cell and aggregate.
-    Returns a JSON-able dict."""
+    Raises where a search returns a row its user cannot read. Returns a
+    JSON-able dict."""
     from ..core import build_device_arena
     from ..index.hnsw import HNSWIndex
     from ..index.ivf import IVFIndex
@@ -137,11 +138,21 @@ def multi_parameter_validation(
             idx = HNSWIndex(arena, rows=rows, m=16, ef_construction=64,
                             query_batch=min(1024, len(queries)), seed=seed,
                             builder=builder)
-            search = lambda q, m, k, ef: idx.search(q, m, k, ef_search=ef)
+            width = "ef_search"
         else:
             idx = IVFIndex(arena, rows=rows, nlist=max(16, int(np.sqrt(size))),
                            query_batch=min(1024, len(queries)), seed=seed)
-            search = lambda q, m, k, ef: idx.search(q, m, k, nprobe=ef)
+            width = "nprobe"
+
+        def search(q, m, k, ef, idx=idx, width=width):
+            d, ids = idx.search(q, m, k, **{width: ef})
+            # every returned row is readable by its query's user
+            ok = (bits[np.maximum(ids, 0)] & m[:, None, :]).any(2) | (ids < 0)
+            if not ok.all():
+                raise RuntimeError(f"{int((~ok).sum())} returned rows are "
+                                   "not readable by their users")
+            return d, ids
+
         sub_vec = corpus.vectors[rows]
         sub_norm = np.einsum("nd,nd->n", sub_vec, sub_vec)
         for si, sel in enumerate(sels):
