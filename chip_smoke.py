@@ -268,6 +268,21 @@ without a CUDA device or without the port's package beside it. Phases:
    (the runners raise otherwise; nothing catches it), every record must
    carry its script's keys, and K1, K3, K4, the fused search, KS6 and KS7
    must have launched in the phase;
+4n. physical against logical HNSW partitions (inside 4i(e), on its ROLE
+   searcher, whose 100 partitions are physical under the default config:
+   each graph holds its own packed-row table of its rows; no graph is
+   built): the searcher's logical twin made from each partition's
+   graph_state() under the GraphProbeBatcher; both arms serve 4i(e)'s
+   1,024 queries with the same probe parameters (the iterative search,
+   ef 48, 256 steps, the graph's entry), the physical arm a (comb,
+   partition) group at a time through the fused search with a null row
+   map, the logical arm in the batcher's slab dispatches: ids and
+   distances equal query by query (the same graphs and scores), both
+   arms' QPS, recall and storage split printed beside PHYSICAL_PREDICTED;
+   physical partition vector bytes > 0 and equal to the copied rows
+   times the row bytes, logical 0; the fused search launched in both
+   arms; one recorded chunk of the physical arm (one partition's own
+   table, no row map) through the fused search and its plain loop, equal;
 3b. the wide scan against its plain version at the 768-d path's geometry
    (a 2048-query batch against the 1,048,576-row cosine arena, ip kernel
    metric, score shift 3, group 128), bit-identical, beside a dots-only
@@ -416,6 +431,12 @@ EVIDENCE_QUERIES = 1024      # 4m: the crossover's queries (its harvest legs
                              # take the step loop) and the binary leg's graded
 EVIDENCE_MV_SIZES = (8_192, 16_384)    # 4m: model validation's index sizes
 EVIDENCE_MV_EFS = (16, 32, 64)         # and its efs (the fixed beam's loop)
+# phase 4n: both arms' probe parameters, and its predictions, written
+# before its first run on the card
+PHYSICAL_PROBE = {"iterative": True, "ef_search": 48, "max_steps": 256}
+PHYSICAL_PREDICTED = {"physical QPS": 8000.0, "logical QPS": 50000.0,
+                      "physical recall": 0.99, "logical recall": 0.99,
+                      "4n s": 8.0}
 # phase 4m's prediction, written before its first run on the card
 EVIDENCE_PREDICTED = {"4m s": 35.0}
 # the second run's, written after the first (49.9 s at 4,096 crossover
@@ -2629,7 +2650,8 @@ def drive_hnsw_partitioned(job, device, smi):
     and the unfiltered top-1 found, each printed beside the reference
     test's floors, which it shows at 8,192 rows of 32 dimensions (both
     recalls above 0.75 and within 0.15 of each other, top-1 found on
-    0.85 of the queries). Returns the launches."""
+    0.85 of the queries). Phase 4n runs on the ROLE searcher before it is
+    freed. Returns (4i(e)'s launches, 4n's)."""
     import numpy as np
     import torch
 
@@ -2692,6 +2714,8 @@ def drive_hnsw_partitioned(job, device, smi):
             f"{workload.num_queries} queries (pass walls ms "
             f"{[round(w, 3) for w in res.extra['pass_walls_ms']]}), batch-1 "
             f"p50 {res.p50_ms} ms")
+        if name == "role":
+            launches_4n = drive_physical(searcher, job, smi)
         del searcher
         gc.collect()
         torch.cuda.empty_cache()
@@ -2743,6 +2767,119 @@ def drive_hnsw_partitioned(job, device, smi):
     del acorn, classic, arena
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, launches_4n
+
+
+# ---- phase 4n: physical HNSW partitions against their logical twins
+
+def drive_physical(searcher, job, smi):
+    """Phase 4n on 4i(e)'s ROLE searcher (physical partitions, each with
+    its packed-row table): the logical twin from each partition's
+    graph_state() under the GraphProbeBatcher, both arms over 4i(e)'s
+    queries with PHYSICAL_PROBE, the launch counts set to 0 just before
+    each arm's timed pass and read just after; equal ids and distances,
+    the storage split, and one physical chunk (a partition's own table,
+    no row map) through the fused search and its plain loop. Returns the
+    arms' launches."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.bench.ground_truth import \
+        compute_recall
+    from vectorsearch_rbac_tpu_torch.index import hnsw as hnsw_mod
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+    from vectorsearch_rbac_tpu_torch.ops import _build
+    from vectorsearch_rbac_tpu_torch.partition.base import (
+        BuiltPartition, PartitionedSearcher)
+    from vectorsearch_rbac_tpu_torch.partition.graph_batch import \
+        GraphProbeBatcher
+
+    t4n = time.perf_counter()
+    corpus, world, workload = job["corpus"], job["world"], job["workload"]
+    arena, truth = job["arena"], job["truth"]
+    parts = searcher.partitions
+    if any(p.index.logical or p.index._table is None
+           for p in parts.values()):
+        fail("4n: 4i(e)'s ROLE partitions are not physical packed copies")
+    t0 = time.perf_counter()
+    twins = {pid: BuiltPartition(pid=pid, rows=p.rows, label=p.label,
+                                 index=HNSWIndex(
+                                     arena, p.rows, m=p.index.m,
+                                     ef_search=p.index.ef_search,
+                                     query_batch=p.index.query_batch,
+                                     graph_state=p.index.graph_state(),
+                                     logical=True))
+             for pid, p in parts.items()}
+    twin = PartitionedSearcher(arena, twins, searcher.router,
+                               name="role_logical")
+    twin.graph_batcher = GraphProbeBatcher(
+        arena, {pid: p.index for pid, p in twins.items()})
+    twin_s = time.perf_counter() - t0
+    probe = lambda uid, pid: dict(PHYSICAL_PROBE)
+    searcher.probe_params = twin.probe_params = probe
+    q, users, masks = workload.vectors, workload.user_ids, world.user_masks
+    launches = {k: 0 for k in _build.LAUNCHES}
+    arms = {}
+    for label, s in (("physical", searcher), ("logical", twin)):
+        s.search_batch(q, users, masks, PART_TOPK)          # warm
+        calls, restore = hnsw_recorder(hnsw_mod)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            d, i = s.search_batch(q, users, masks, PART_TOPK)
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for key, v in _build.LAUNCHES.items():
+            launches[key] += v
+        check_readable(f"4n {label}", i, users, PART_TOPK, corpus, world,
+                       arena)
+        st = s.storage_report()
+        rec = compute_recall(i, truth)
+        arms[label] = (d, i, st, calls)
+        say(f"4n role {label} ({corpus.n} x 128, 100 partitions, "
+            f"{len(q)} queries, top-{PART_TOPK}, {PHYSICAL_PROBE}, {smi}): "
+            f"recall@{PART_TOPK} {rec} (predicted "
+            f"{PHYSICAL_PREDICTED[label + ' recall']}), "
+            f"{len(q) / wall:.1f} QPS (one pass {wall * 1e3:.1f} ms; "
+            f"predicted {PHYSICAL_PREDICTED[label + ' QPS']}); storage MB: "
+            f"partition vectors {st['partition_vectors_mb']:.3f}, partition"
+            f" index {st['partition_index_mb']:.3f}, graph slabs "
+            f"{st['graph_slab_mb']:.3f}, packed rows "
+            f"{st['packed_rows_mb']:.3f}, shared arena "
+            f"{st['arena_vectors_mb'] + st['arena_aux_mb']:.3f}, total "
+            f"{st['total_mb']:.3f}; launches {counts}")
+        if not counts.get("graph_search"):
+            fail(f"4n {label}: the fused search never launched: {counts}")
+    (dp, ip_, stp, calls), (dl, il, stl, _) = arms["physical"], \
+        arms["logical"]
+    bad = int((~((ip_ == il).all(1) & (dp == dl).all(1))).sum())
+    copied = sum(p.index._table.numel() for p in parts.values())
+    row_bytes = {p.index._table.shape[1] for p in parts.values()}
+    say(f"4n: the arms' ids and distances differ on {bad} of {len(q)} "
+        f"queries (tolerance 0); physical copies {copied} bytes "
+        f"({sum(p.index._table.shape[0] for p in parts.values())} table "
+        f"rows x {sorted(row_bytes)} bytes), logical twins built in "
+        f"{twin_s:.2f} s")
+    if bad:
+        fail(f"4n: {bad} queries differ between the physical and logical "
+             "arms")
+    if not (stp["partition_vectors_mb"] > 0
+            and stl["partition_vectors_mb"] == 0
+            and stp["partition_vectors_mb"] == copied / 2**20):
+        fail(f"4n: partition vector MB {stp['partition_vectors_mb']} "
+             f"(physical; its tables {copied / 2**20}) and "
+             f"{stl['partition_vectors_mb']} (logical)")
+    if not calls or calls[0][1]["row_map"] is not None:
+        fail("4n: the physical arm's searches carried a row map")
+    fused_chunk("4n physical (one partition's own packed table, no row "
+                "map)", calls, smi)
+    took = time.perf_counter() - t4n
+    say(f"phase 4n: {took:.1f} s (predicted {PHYSICAL_PREDICTED['4n s']}; "
+        f"{smi})")
+    del twin, twins
     return launches
 
 
@@ -4053,10 +4190,12 @@ def main() -> None:
     result.update(hnsw_rows)
     extra.update(hnsw_extra)
     t0 = time.perf_counter()
-    for key, v in drive_hnsw_partitioned(hnsw_job, device, smi).items():
+    launches_4ie, launches_4n = drive_hnsw_partitioned(hnsw_job, device,
+                                                       smi)
+    for key, v in launches_4ie.items():
         launches_4i[key] += v
     del hnsw_job
-    say(f"phase 4i (e): {time.perf_counter() - t0:.1f} s ({smi})")
+    say(f"phase 4i (e) with 4n: {time.perf_counter() - t0:.1f} s ({smi})")
 
     # ---- phase 4j: online maintenance; (d) the role cycle on 4c's plan
     # while the SIFT corpus is alive, then (a)-(c) on bench.online's cell
@@ -4254,7 +4393,7 @@ def main() -> None:
     paths = (launches_sift, launches_wide_world, launches_part, launches_wide,
              launches_hybrid, launches_harvest, launches_lab,
              launches_wide_lab, launches_4i, launches_4j, launches_4k,
-             launches_4l, launches_4m)
+             launches_4l, launches_4m, launches_4n)
     launches = {k: sum(p[k] for p in paths) for k in launches_sift}
 
     loaded = [m for m in sys.modules

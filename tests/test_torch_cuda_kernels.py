@@ -1058,8 +1058,8 @@ def test_graph_step_loop_keeps_the_step_kernels(dev, packed):
 
 @pytest.fixture(scope="module")
 def maintained(dev):
-    """An HNSWIndex over rows [0, 2500) of a 20,000-row SIFT-like int8
-    arena, on the card and on the CPU, each through insert_rows of rows
+    """A logical HNSWIndex over rows [0, 2500) of a 20,000-row SIFT-like
+    int8 arena, on the card and on the CPU, each through insert_rows of rows
     [2500, 5000) (the graph grows from 4,096 to 8,192 nodes), refine_rows
     of them and delete_rows of 300 rows after tombstone_rows."""
     from vectorsearch_rbac_tpu_torch import build_device_arena
@@ -1074,7 +1074,8 @@ def maintained(dev):
         arena = build_device_arena(corpus, w, device=d, block_rows=2048,
                                    dtype="int8")
         ix = HNSWIndex(arena, np.arange(2500), m=8, ef_search=64,
-                       query_batch=4096, builder="classic", seed=0)
+                       query_batch=4096, builder="classic", seed=0,
+                       logical=True)
         ix.insert_rows(arena, np.arange(2500, 5000))
         ix.refine_rows(arena, np.arange(2500, 5000))
         arena2 = tombstone_rows(arena, dels)
@@ -1139,6 +1140,75 @@ def test_fused_search_on_a_maintained_graph(maintained):
         args[0], *args[4:10], kw["packed_rows"], stats=stats,
         dq_scale=kw["dq_scale"], q_center_dot=kw["q_center_dot"],
         row_map=kw["row_map"], metric=kw["metric"])
+    plain = graph_search.graph_beam_search_iterative_plain(
+        *args[:10], **kw, stats=stats_p)
+    torch.cuda.synchronize()
+    assert torch.equal(fused[1], plain[1]) and torch.equal(fused[0],
+                                                           plain[0])
+    assert torch.equal(stats, stats_p) and int(stats[0]) > 0
+
+
+def test_fused_search_on_a_physical_partition(dev):
+    """A physical HNSW partition (logical=False, the default) on the card
+    serves its sampled-entry search from its own packed table with a null
+    row map: the fused kernel launches on that table, its first chunk
+    bit-equal to the plain loop in distances, ids and counts; the pass
+    equals the CPU's and the logical twin's (made from its graph_state
+    and served through the arena's packed rows and the row map)."""
+    from vectorsearch_rbac_tpu_torch import build_device_arena
+    from vectorsearch_rbac_tpu_torch.bench import make_scenario
+    from vectorsearch_rbac_tpu_torch.index import hnsw as hnsw_mod
+    from vectorsearch_rbac_tpu_torch.index.hnsw import HNSWIndex
+    from vectorsearch_rbac_tpu_torch.ops import graph_search
+
+    corpus, w, wl = make_scenario(n=20000, num_queries=700, topk=10)
+    rows = np.arange(3000, 9000)
+    masks = w.user_masks[wl.user_ids]
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        arena = build_device_arena(corpus, w, device=d, block_rows=2048,
+                                   dtype="int8")
+        ix = HNSWIndex(arena, rows, m=8, ef_search=64, query_batch=4096,
+                       builder="classic", seed=0)
+        assert not ix.logical and ix._table is not None
+        assert ix._table.shape == (8192, arena.quant.d_pad
+                                   + 4 * arena.role_bits.shape[1] + 4)
+        if d.type == "cuda":
+            calls = []
+            real = hnsw_mod.graph_beam_search_iterative
+
+            def record(*args, **kw):
+                calls.append((args, kw))
+                return real(*args, **kw)
+
+            hnsw_mod.graph_beam_search_iterative = record
+            try:
+                before = _build.LAUNCHES["graph_search"]
+                got[d.type] = ix.search(wl.vectors, masks, 10,
+                                        sampled_entry=True)
+                assert _build.LAUNCHES["graph_search"] > before
+            finally:
+                hnsw_mod.graph_beam_search_iterative = real
+            twin = HNSWIndex(arena, rows, m=8, ef_search=64,
+                             query_batch=4096, graph_state=ix.graph_state(),
+                             logical=True)
+            got["twin"] = twin.search(wl.vectors, masks, 10,
+                                      sampled_entry=True)
+        else:
+            got[d.type] = ix.search(wl.vectors, masks, 10,
+                                    sampled_entry=True)
+    for other in ("cpu", "twin"):
+        np.testing.assert_array_equal(got["cuda"][1], got[other][1])
+        np.testing.assert_array_equal(got["cuda"][0], got[other][0])
+    assert (got["cuda"][1] >= 0).mean() > 0.5
+    args, kw = calls[0]
+    assert kw["row_map"] is None and kw["packed_rows"].shape[0] == 8192
+    stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    stats_p = torch.zeros_like(stats)
+    fused = graph_search.graph_search_fused(
+        args[0], *args[4:10], kw["packed_rows"], stats=stats,
+        dq_scale=kw["dq_scale"], q_center_dot=kw["q_center_dot"],
+        row_map=None, metric=kw["metric"])
     plain = graph_search.graph_beam_search_iterative_plain(
         *args[:10], **kw, stats=stats_p)
     torch.cuda.synchronize()

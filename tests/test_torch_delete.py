@@ -205,7 +205,7 @@ def test_delete_rows_serves_the_new_bits_on_packed_rows(arenas, corpus,
     tombstoned but still linked (deleted from the arena, not from this
     graph) never return either."""
     _, pa = arenas
-    ix = HNSWIndex(pa, None, m=8, ef_construction=48, seed=3)
+    ix = HNSWIndex(pa, None, m=8, ef_construction=48, seed=3, logical=True)
     assert ix.use_packed
     q, _, masks = _workload(corpus, world, 16, seed=2)
     _, before = ix.search(q, masks, 6, sampled_entry=True)

@@ -514,11 +514,12 @@ def test_hnsw_index_matches_reference(setup, builder):
     rows = np.arange(200, 1500)
     kw = dict(m=M, ef_construction=32, ef_search=EF, builder=builder)
     ref = RefHNSWIndex(s["ra"], rows, logical=True, **kw)
-    mine = HNSWIndex(s["pa"], rows, **kw)
+    mine = HNSWIndex(s["pa"], rows, logical=True, **kw)
     state = ref.graph_state()
     for key in ("neighbors", "entry"):
         np.testing.assert_array_equal(mine.graph_state()[key], state[key])
-    fed = HNSWIndex(s["pa"], rows, m=M, ef_search=EF, graph_state=state)
+    fed = HNSWIndex(s["pa"], rows, m=M, ef_search=EF, graph_state=state,
+                    logical=True)
     assert fed.storage_bytes() == ref.storage_bytes()
     entries = np.random.default_rng(1).integers(0, len(rows), NQ)
     for search_kw in ({}, dict(iterative=True, entries=entries,

@@ -251,7 +251,8 @@ def test_hnsw_index_matches_reference(setup, metric, builder):
     proxy; the ACORN builder at m_beta 32) equals the reference's
     graph_state, and the fixed, filtered and sampled-entry searches (the
     sampled one alone on the "tpu" build) return the reference's ids
-    (logical=True, the port's only mode) and distances within 1e-5
+    (logical=True in both; tests/test_torch_physical.py holds
+    the physical mode) and distances within 1e-5
     relative; the packed rows serve the lossless ip arena."""
     s = setup
     ra, pa = s["arenas"][metric]
@@ -259,7 +260,7 @@ def test_hnsw_index_matches_reference(setup, metric, builder):
     kw = dict(m=M, ef_construction=32, ef_search=EF, builder=builder,
               m_beta=32)
     ref = RefHNSWIndex(ra, rows, logical=True, **kw)
-    mine = HNSWIndex(pa, rows, **kw)
+    mine = HNSWIndex(pa, rows, logical=True, **kw)
     assert mine.use_packed == ref.use_packed == (metric in ("l2", "ip"))
     for key in ("neighbors", "entry"):
         np.testing.assert_array_equal(mine.graph_state()[key],

@@ -255,7 +255,8 @@ def test_sharded_graph_parity(small_world, small_corpus, mine, arenas,
             ref_parts[pid] = RefHNSWIndex(ra, rows, m=8, ef_construction=48,
                                           seed=pid, logical=True)
             parts[pid] = HNSWIndex(pa, rows, m=8,
-                                   graph_state=ref_parts[pid].graph_state())
+                                   graph_state=ref_parts[pid].graph_state(),
+                                   logical=True)
         if len(parts) == 4:
             break
     assert len(parts) >= 2

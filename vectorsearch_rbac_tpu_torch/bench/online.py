@@ -149,7 +149,7 @@ def drive_hnsw(cell: Cell, truth_old: np.ndarray, truth_all: np.ndarray,
     rows_new = np.arange(cell.n_old, n, dtype=np.int64)
     ix, build_s = _timed(lambda: HNSWIndex(
         a, np.arange(cell.n_old, dtype=np.int64), m=16, ef_construction=64,
-        ef_search=ef, query_batch=256, seed=0), dev)
+        ef_search=ef, query_batch=256, seed=0, logical=True), dev)
 
     def ids():
         return ix.search(cell.queries, cell.masks, k, sampled_entry=True)[1]

@@ -3,10 +3,9 @@
 The fields of vectorsearch_rbac_tpu/utils/config.py `FrameworkConfig` that
 the ported paths read, with the reference's defaults and the same nesting
 (`cfg.search.*`, `cfg.index.*`, `cfg.optimizer.*`), so that a reference
-config object works here too. The reference's `index.hnsw_logical` is
-not here: the port's HNSW graphs always serve from the shared arena. Nor
-is `search.recall_target`, the target of the reference's approximate
-per-block top-k: every scan of the port takes the exact top-k.
+config object works here too. The reference's `search.recall_target`,
+the target of its approximate per-block top-k, is not here: every scan of
+the port takes the exact top-k.
 """
 
 from __future__ import annotations
@@ -57,6 +56,11 @@ class IndexConfig:
     binary_rerank: bool = True
     binary_rerank_mult: int = 4
     binary_bit_metric: str = "hamming"
+    # HNSW partitions serve from the shared arena through their row maps
+    # (no per-partition vector copy; batchable into the graph batcher's
+    # slabs) when True; False, the reference's default, gives each graph
+    # its own device copy of its rows (index/hnsw.py)
+    hnsw_logical: bool = False
     big_logical: bool = False    # tiled big tier: gather the partition's
                                  # rows from the shared arena per pass
                                  # instead of keeping a contiguous copy

@@ -401,12 +401,16 @@ def build_device_arena(corpus: Corpus, world: RBACWorld, *, device,
                      quant_parts, metric, device, _STORE[dtype])
 
 
-def build_packed_graph_rows(arena: DeviceArena) -> torch.Tensor:
+def build_packed_graph_rows(arena: DeviceArena,
+                            rows: Optional[np.ndarray] = None,
+                            n_pad: int = 0) -> torch.Tensor:
     """(Npad, d_pad + 4W + 4) int8 device table for the packed-row graph
     step (ops/graph_search.py packed mode): [int8 code | W uint32 bitset
     words | f32 squared norm of the dequantized row], 148 bytes at SIFT
     shape. One row gather brings a candidate's vector, permissions and
-    norm.
+    norm. `rows`: the table of those arena rows only, in their order, with
+    zero rows after them up to n_pad (a physical HNSW partition's own copy,
+    addressed by local id); the whole arena otherwise.
 
     The reference's row (core.py build_packed_graph_rows) carries the
     128-lane int8 role one-hot its TPU kernel multiplies, 260 bytes; this
@@ -417,17 +421,24 @@ def build_packed_graph_rows(arena: DeviceArena) -> torch.Tensor:
     q = arena.quant
     if q is None:
         raise ValueError("packed graph rows need the int8 quantized arena")
-    vq = q.vectors_q.cpu().numpy()
+    codes, bits, n = q.vectors_q, arena.role_bits, arena.n
+    if rows is not None:
+        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(arena.device)
+        codes, bits, n = codes[idx], bits[idx], len(idx)
+    vq = codes.cpu().numpy()
     d = len(q.center)
     nrm = np.zeros(vq.shape[0], np.float32)
-    for r0 in range(0, arena.n, _QUANT_ROWS):
-        r1 = min(r0 + _QUANT_ROWS, arena.n)
+    for r0 in range(0, n, _QUANT_ROWS):
+        r1 = min(r0 + _QUANT_ROWS, n)
         v = vq[r0:r1, :d].astype(np.float32) / q.scale + q.center[None, :]
         nrm[r0:r1] = (v * v).sum(1, dtype=np.float32)
-    bits = arena.role_bits.contiguous().view(torch.int8)
-    return torch.cat([q.vectors_q, bits,
-                      _put(nrm.view(np.int8).reshape(-1, 4), arena.device)],
-                     dim=1).contiguous()
+    table = torch.cat([codes, bits.contiguous().view(torch.int8),
+                       _put(nrm.view(np.int8).reshape(-1, 4), arena.device)],
+                      dim=1)
+    if n_pad > table.shape[0]:
+        table = torch.cat([table, table.new_zeros(
+            (n_pad - table.shape[0], table.shape[1]))])
+    return table.contiguous()
 
 
 def packed_query_operands(arena: DeviceArena, queries: np.ndarray

@@ -1,11 +1,31 @@
 """HNSW index: native graph construction and batched graph search on the card.
 
-Counterpart of vectorsearch_rbac_tpu/index/hnsw.py `HNSWIndex`, in the
-reference's logical mode only: the graph addresses the partition's rows,
-and vectors live once, in the shared arena, read through the row map (the
-graph and the row map are the index's only storage; the reference's
-per-partition copy is not carried over). Three builders; "auto" picks
-between the first two by row count as the reference does:
+Counterpart of vectorsearch_rbac_tpu/index/hnsw.py `HNSWIndex`. The graph
+addresses the partition's rows by local id; the row map takes a local id
+to its arena row. Two storage modes, the reference's (:253-259):
+
+- physical (logical=False, the reference's default and
+  cfg.index.hnsw_logical's): the index keeps its own device copy of its
+  rows, gathered once at build (rows=None too), and serves from it with no
+  row map; the row map translates the results' ids at the end. On an l2,
+  ip or cosine arena whose int8 mirror is lossless the copy is the
+  partition's own packed-row table (core.build_packed_graph_rows over its
+  rows: [int8 code | W bitset words | f32 norm], 148 bytes a row at SIFT
+  shape), which the fused search and KS7 take with a null row map and the
+  fixed-budget traversals read dequantized (ops/graph_search.py
+  PackedCopy); the reference's copy is the unpacked bfloat16 rows, the
+  same values. On every other arena the copy is the rows, norms and
+  bitsets in the arena's dtype, the reference's layout. Maintenance keeps
+  the copy in step (new rows written, deleted rows' bits zeroed) and its
+  host mirror of float32 rows feeds the native edge update through an
+  identity map;
+- logical (logical=True; AnonySys's graph executors and the
+  GraphProbeBatcher take only these): vectors live once, in the shared
+  arena, read through the row map; the graph and the row map are the
+  index's only storage.
+
+Three builders; "auto" picks between the first two by row count as the
+reference does:
 
 - "classic" (up to 50,000 rows): the native Malkov-Yashunin construction
   (native/hnsw_builder.cpp vsr_hnsw_build);
@@ -45,8 +65,9 @@ scatters into the device graph and row map:
   graph (L2, every row admissible, width min(efc, 32), queries in batches
   of 1,024), and the native edge update (vsr_insert_update) prunes them
   and adds reverse edges; then only the new region and the changed old
-  rows are scattered. Crossing a power-of-two bucket re-uploads the graph
-  and row map once, before the first sub-batch.
+  rows are scattered (and a physical index's copy of the new rows).
+  Crossing a power-of-two bucket re-uploads the graph, the row map and a
+  physical copy once, before the first sub-batch.
 - `refine_rows`: the same update in refine mode for rows already in the
   graph, against the final graph (a bulk insert links mostly forward in
   its batch).
@@ -54,18 +75,20 @@ scatters into the device graph and row map:
   one re-selects its list from its live neighbours and the deleted
   neighbour's, alpha-RNG pruned to M0), the deleted nodes' lists emptied
   and their row-map entries set to -1, the entry moved off a deleted node.
-  The index then serves from the arena it is given (the caller's
+  A logical index then serves from the arena it is given (the caller's
   tombstoned one, core.tombstone_rows) and drops its packed rows, which
-  carry the old bitsets.
+  carry the old bitsets; a physical one zeroes the deleted rows' bitsets
+  in its copy (the reference's :878-881).
 
 Each step's phases are spans for torch.profiler (hnsw.insert.search,
 .link, .scatter; hnsw.refine.*; hnsw.delete.repair, .scatter) and add
 their host seconds to `maintenance_s` (a search's include the wait for
 its results).
 
-Candidate search and prune work in L2 on the arena's rows whatever the
-metric, as the reference's do (an ip arena's raw rows, not the MIPS
-lift). A GraphProbeBatcher's slab is a copy of the graphs taken at build:
+Candidate search and prune work in L2 on the partition's rows whatever
+the metric, as the reference's do (an ip arena's raw rows, not the MIPS
+lift): a logical index reads them from the arena, a physical one from its
+copy. A GraphProbeBatcher's slab is a copy of the graphs taken at build:
 an index changed behind it serves through the slab as it was until the
 searcher is built again, as the reference's physical copies serve old
 bits until rebuilt.
@@ -84,7 +107,8 @@ from torch.profiler import record_function
 from .. import native
 from ..config import get_logger
 from ..core import DeviceArena, build_packed_graph_rows, packed_query_operands
-from ..ops.graph_search import (graph_beam_search, graph_beam_search_filtered,
+from ..ops.graph_search import (PackedCopy, graph_beam_search,
+                                graph_beam_search_filtered,
                                 graph_beam_search_iterative)
 from ..ops.graph_step import PACKED_METRICS
 from ..ops.ivf_scan import ivf_search_fn
@@ -245,14 +269,15 @@ def _host_rows(arena: DeviceArena) -> np.ndarray:
             else arena.vectors.float().cpu().numpy())
 
 
-def _scatter_rows(dst: torch.Tensor, idx: np.ndarray,
-                  src: np.ndarray) -> None:
-    """dst[idx] = src, in place on dst's device (the reference's donated
-    jit scatter); only the given rows travel."""
+def _scatter_rows(dst: torch.Tensor, idx: np.ndarray, src) -> None:
+    """dst[idx] = src (a host array or a tensor), in place on dst's device
+    (the reference's donated jit scatter); only the given rows travel."""
     if len(idx):
         dev = dst.device
+        if not torch.is_tensor(src):
+            src = torch.from_numpy(np.ascontiguousarray(src))
         dst.index_copy_(0, torch.from_numpy(idx.astype(np.int64)).to(dev),
-                        torch.from_numpy(np.ascontiguousarray(src)).to(dev))
+                        src.to(dev))
 
 
 def _bits_i32(bits: np.ndarray, device) -> torch.Tensor:
@@ -265,16 +290,20 @@ class HNSWIndex:
                  m: int = 16, ef_construction: int = 64, ef_search: int = 40,
                  query_batch: int = 256, builder: str = "auto",
                  knn_k: int = 32, alpha: float = 1.2, m_beta: int = 64,
-                 seed: int = 0, graph_state: Optional[dict] = None):
+                 seed: int = 0, graph_state: Optional[dict] = None,
+                 logical: bool = False):
         """graph_state: a graph_state() dict (this index's or the JAX
         index's: neighbours and entry) to serve instead of building. m_beta:
-        the "acorn" builder's layer-0 width. The iterative search scores
-        packed rows where an l2, ip or cosine arena's int8 mirror is
+        the "acorn" builder's layer-0 width. logical: serve from the shared
+        arena through the row map (True) or from the index's own copy of
+        its rows (False, the reference's default). The iterative search
+        scores packed rows where an l2, ip or cosine arena's int8 mirror is
         lossless."""
         self.m = m
         self.ef_search = ef_search
         self.query_batch = query_batch
         self.metric = arena.metric
+        self.logical = bool(logical)
         dev = arena.device
         self.use_packed = bool(arena.quant is not None
                                and arena.metric in PACKED_METRICS
@@ -289,9 +318,8 @@ class HNSWIndex:
         rows = (np.arange(arena.n, dtype=np.int64) if rows is None
                 else np.asarray(rows, dtype=np.int64))
         self.n_rows = n = len(rows)
-        vec = build_vectors(np.ascontiguousarray(host_vec[rows],
-                                                 dtype=np.float32),
-                            self.metric)
+        base = np.ascontiguousarray(host_vec[rows], dtype=np.float32)
+        vec = build_vectors(base, self.metric)
 
         if builder == "auto":
             builder = "tpu" if n > CLASSIC_MAX_ROWS else "classic"
@@ -337,9 +365,83 @@ class HNSWIndex:
         self._deleted_local = np.zeros(npad, dtype=bool)
         self._graph = torch.from_numpy(self._hgraph).to(dev)
         self._row_map = torch.from_numpy(self._hrmap).to(dev)
-        logger.info("HNSW built (%s): %d rows, M0=%d (avg deg %.1f), %.2fs",
-                    self.builder, n, m0, float((nbr >= 0).sum(1).mean())
-                    if n else 0.0, self.build_time_s)
+        # the physical copy: the packed table, or the unpacked rows, norms
+        # and bits; the host mirror of its float32 rows
+        self._table = self._vectors = self._norms = self._bits = None
+        self._hvec = self._center = None
+        if not self.logical:
+            self._hvec = np.zeros((npad, base.shape[1]), np.float32)
+            self._hvec[:n] = base
+            self._table, self._vectors, self._norms, self._bits = \
+                self._gather_copy(arena, rows, npad)
+            if self._table is not None:
+                self._center = torch.from_numpy(arena.quant.center).to(dev)
+        logger.info("HNSW built (%s, %s): %d rows, M0=%d (avg deg %.1f), "
+                    "%.2fs", self.builder,
+                    "logical" if self.logical else "physical", n, m0,
+                    float((nbr >= 0).sum(1).mean()) if n else 0.0,
+                    self.build_time_s)
+
+    # ------------------------------------------------------ the copy
+
+    def _gather_copy(self, arena: DeviceArena, rows: np.ndarray,
+                     n_pad: int):
+        """The physical copy of arena `rows` with zero rows after them up
+        to n_pad: (packed table, None, None, None) on a lossless packed
+        arena, else (None, rows in the arena's dtype, float32 norms, int32
+        bitsets)."""
+        if self.use_packed:
+            return build_packed_graph_rows(arena, rows, n_pad), None, None, \
+                None
+        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(arena.device)
+
+        def take(t):
+            out = t.new_zeros((n_pad,) + tuple(t.shape[1:]))
+            out[:len(idx)] = t[idx]
+            return out
+        return (None, take(arena.vectors), take(arena.norms),
+                take(arena.role_bits))
+
+    def _copy_view(self) -> PackedCopy:
+        """The packed table as ops/graph_search.py's PackedCopy."""
+        return PackedCopy(self._table, len(self._center),
+                          self._arena.quant.scale, self._center,
+                          self._arena.vectors.dtype)
+
+    def _tables(self):
+        """(vectors, norms, bits, row map) the unpacked scorers read: the
+        arena through the row map (logical), the unpacked copy, or the
+        packed copy as a PackedCopy (its own norms and bits), without a
+        row map."""
+        if self.logical:
+            a = self._arena
+            return a.vectors, a.norms, a.role_bits, self._row_map
+        if self._table is not None:
+            return self._copy_view(), None, None, None
+        return self._vectors, self._norms, self._bits, None
+
+    def _write_copy(self, arena: DeviceArena, local: np.ndarray,
+                    rows: np.ndarray) -> None:
+        """Physical mode: the copy's local rows `local` become arena rows
+        `rows` (an insert) on the device."""
+        table, vectors, norms, bits = self._gather_copy(arena, rows,
+                                                        len(rows))
+        if table is not None:
+            _scatter_rows(self._table, local, table)
+        else:
+            for dst, src in ((self._vectors, vectors), (self._norms, norms),
+                             (self._bits, bits)):
+                _scatter_rows(dst, local, src)
+
+    def _zero_copy_bits(self, local: np.ndarray) -> None:
+        """Physical mode: the copy's local rows `local` admit no query."""
+        idx = torch.from_numpy(np.asarray(local, np.int64)).to(
+            self._graph.device)
+        if self._table is not None:
+            d_pad = self._arena.quant.d_pad
+            self._table[idx, d_pad:-4] = 0
+        else:
+            self._bits[idx] = 0
 
     # ------------------------------------------------------- maintenance
 
@@ -369,26 +471,28 @@ class HNSWIndex:
         device graph from the entry, in L2 with every row admissible (an
         all-ones one-word bit table and mask), queries in batches of
         CAND_BATCH, the deleted nodes dropped (-1)."""
-        a = self._arena
+        vectors, norms, _, row_map = self._tables()
         dev = self._graph.device
-        ones = torch.ones((a.n_padded, 1), dtype=torch.int32, device=dev)
+        n_tab = (self._arena.n_padded if self.logical
+                 else self._hgraph.shape[0])
+        ones = torch.ones((n_tab, 1), dtype=torch.int32, device=dev)
         masks = torch.ones((CAND_BATCH, 1), dtype=torch.int32, device=dev)
         q_t = torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(dev)
         found = []
         for s in range(0, len(q), CAND_BATCH):
             qb = q_t[s:s + CAND_BATCH]
             found.append(graph_beam_search(
-                qb, a.vectors, a.norms, ones, self._graph, masks[:len(qb)],
-                self.entry, width, ef, row_map=self._row_map)[1])
+                qb, vectors, norms, ones, self._graph, masks[:len(qb)],
+                self.entry, width, ef, row_map=row_map)[1])
         cand = torch.cat(found).cpu().numpy().astype(np.int32)
         cand[(cand >= 0) & self._deleted_local[np.maximum(cand, 0)]] = -1
         return cand
 
     def _grow_to(self, n_total: int) -> None:
         """Grow the host mirrors to the power-of-two bucket of n_total
-        nodes and upload the graph and row map once (nothing if they fit).
-        No tensor of the old size stays in the index: the sampled entries
-        are drawn again."""
+        nodes and upload the graph, the row map and a physical copy once
+        (nothing if they fit). No tensor of the old size stays in the
+        index: the sampled entries are drawn again."""
         npad = _pow2_rows(n_total)
         old = self._hgraph.shape[0]
         if npad <= old:
@@ -405,7 +509,28 @@ class HNSWIndex:
         dev = self._graph.device
         self._graph = torch.from_numpy(self._hgraph).to(dev)
         self._row_map = torch.from_numpy(self._hrmap).to(dev)
+        if not self.logical:
+            self._hvec = grow(self._hvec, 0)
+
+            def grow_t(t):
+                if t is None:
+                    return None
+                out = t.new_zeros((npad,) + tuple(t.shape[1:]))
+                out[:old] = t
+                return out
+            self._table, self._vectors, self._norms, self._bits = map(
+                grow_t, (self._table, self._vectors, self._norms,
+                         self._bits))
         self._entry_sample = None
+
+    def _vec_map(self, hv: np.ndarray):
+        """(float32 row table, local id -> table row) for the native edge
+        update: the arena's rows through the row map (logical), or the
+        copy's host mirror through an identity map (the reference's
+        :564-568)."""
+        if self.logical:
+            return hv, self._hrmap
+        return self._hvec, np.arange(self._hgraph.shape[0], dtype=np.int32)
 
     def insert_rows(self, arena: DeviceArena, rows: np.ndarray) -> None:
         """Online insert of arena rows (the reference's :433; pgvector's
@@ -413,7 +538,8 @@ class HNSWIndex:
         edges, re-prune of overflowing lists), in sub-batches of
         INSERT_SUB_BATCH rows, so that a sub-batch's searches see the rows
         inserted before it. `arena` is the one the index serves (its host
-        rows feed the prune); the bucket grows once, to the final size."""
+        rows feed the prune, and a physical copy takes its new rows from
+        it); the bucket grows once, to the final size."""
         rows = np.asarray(rows, dtype=np.int64)
         if len(rows) == 0:
             return
@@ -421,30 +547,36 @@ class HNSWIndex:
         hv = _host_rows(arena)
         self._grow_to(self.n_rows + len(rows))
         for s in range(0, len(rows), INSERT_SUB_BATCH):
-            self._insert_sub_batch(rows[s:s + INSERT_SUB_BATCH], efc, hv)
+            self._insert_sub_batch(arena, rows[s:s + INSERT_SUB_BATCH], efc,
+                                   hv)
         self._entry_sample = None
         logger.info("inserted %d rows (now %d, npad %d)", len(rows),
                     self.n_rows, self._hgraph.shape[0])
 
-    def _insert_sub_batch(self, rows: np.ndarray, efc: int,
-                          hv: np.ndarray) -> None:
+    def _insert_sub_batch(self, arena: DeviceArena, rows: np.ndarray,
+                          efc: int, hv: np.ndarray) -> None:
         """Candidates for the sub-batch from the current device graph, the
         native edge update on the host mirrors, then the device delta: the
         new region and the changed old rows of the graph, the new region
-        of the row map."""
+        of the row map and of a physical copy."""
         n_old, n_new = self.n_rows, len(rows)
         n_total = n_old + n_new
+        new_ids = np.arange(n_old, n_total, dtype=np.int64)
         with self._phase("insert.search"):
             cand = self._candidates(hv[rows], min(efc, 32), efc)
         with self._phase("insert.link"):
             self._hrmap[n_old:n_total] = rows.astype(np.int32)
-            changed_old = native.insert_update(hv, self._hrmap, self._hgraph,
-                                               cand, n_old, self.m, ALPHA)
+            if not self.logical:
+                self._hvec[new_ids] = hv[rows]
+            changed_old = native.insert_update(*self._vec_map(hv),
+                                               self._hgraph, cand, n_old,
+                                               self.m, ALPHA)
         with self._phase("insert.scatter"):
-            new_ids = np.arange(n_old, n_total, dtype=np.int64)
             gidx = np.concatenate([new_ids, np.unique(changed_old)])
             _scatter_rows(self._graph, gidx, self._hgraph[gidx])
             _scatter_rows(self._row_map, new_ids, self._hrmap[new_ids])
+            if not self.logical:
+                self._write_copy(arena, new_ids, rows)
         self.n_rows = n_total
 
     def refine_rows(self, arena: DeviceArena, rows: np.ndarray) -> None:
@@ -467,7 +599,7 @@ class HNSWIndex:
             cand = self._candidates(hv[self._hrmap[nodes]], min(efr, 32),
                                     efr)
         with self._phase("refine.link"):
-            touched = native.insert_update(hv, self._hrmap, self._hgraph,
+            touched = native.insert_update(*self._vec_map(hv), self._hgraph,
                                            cand, self.n_rows, self.m, ALPHA,
                                            nodes=nodes)
         with self._phase("refine.scatter"):
@@ -487,9 +619,10 @@ class HNSWIndex:
         values); the deleted nodes' lists empty and their row-map entries
         become -1, so they are unreachable and unreturnable; the entry
         moves to the nearest live node of a 4,096-node sample
-        (default_rng(0)). The index then serves from `arena` (the caller's
-        tombstoned one) and builds its packed rows again, since they carry
-        the bitsets. Storage stays until a rebuild over
+        (default_rng(0)). A logical index then serves from `arena` (the
+        caller's tombstoned one) and builds its packed rows again, since
+        they carry the bitsets; a physical index zeroes the deleted rows'
+        bitsets in its copy. Storage stays until a rebuild over
         core.compact_corpus. Returns the number of rows deleted (0 for
         rows already deleted or not in the graph) and leaves the number of
         nodes repaired in `repaired_nodes`."""
@@ -509,6 +642,8 @@ class HNSWIndex:
             _scatter_rows(self._row_map, dels, self._hrmap[dels])
             changed = np.unique(np.concatenate([affected, dels]))
             _scatter_rows(self._graph, changed, self._hgraph[changed])
+            if not self.logical:
+                self._zero_copy_bits(dels)
         self._entry_sample = None
         logger.info("deleted %d rows (graph repaired at %d nodes)",
                     len(dels), len(affected))
@@ -579,7 +714,9 @@ class HNSWIndex:
         """Per-query entry: the nearest node of a fixed random sample of
         the live nodes by the metric's score, from one matmul a chunk of
         256 queries (l1: the sum of |x - q|), the reference's stand-in for
-        the upper layers."""
+        the upper layers. A logical index reads the sample's rows from the
+        arena, a physical one from its copy (the table rows are the ids,
+        the reference's :908-909)."""
         chunk = 256
         dev = self._graph.device
         if self._entry_sample is None:
@@ -589,11 +726,16 @@ class HNSWIndex:
             ids = np.sort(pool if len(pool) <= sample else
                           rng.choice(pool, sample, replace=False)
                           .astype(np.int32))
+            trows = self._hrmap[ids] if self.logical else ids
             self._entry_sample = (ids, torch.from_numpy(
-                np.ascontiguousarray(self._hrmap[ids])).to(dev).long())
+                np.ascontiguousarray(trows)).to(dev).long())
         ids, trows = self._entry_sample
-        arena = self._arena
-        x = arena.vectors[trows].float()                          # (S, d)
+        vectors, norms, _, _ = self._tables()
+        if isinstance(vectors, PackedCopy):
+            x, nrm, _ = vectors.gather(trows)
+        else:
+            x = vectors[trows].float()                            # (S, d)
+            nrm = norms[trows]
         qt = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
         if self.metric == "cosine":
             qt = qt / torch.clamp_min(
@@ -605,7 +747,7 @@ class HNSWIndex:
                 if self.metric == "l1":
                     sc = (x[None, :, :] - qc[:, None, :]).abs().sum(-1)
                 elif self.metric == "l2":
-                    sc = arena.norms[trows][None, :] - 2.0 * (qc @ x.T)
+                    sc = nrm[None, :] - 2.0 * (qc @ x.T)
                 else:
                     sc = -(qc @ x.T)
                 best.append(sc.argmin(dim=1))
@@ -635,7 +777,8 @@ class HNSWIndex:
         ACORN two-hop harvest over the fixed beam; a small k + 8 margin is
         fetched and deduplicated on the host. The queries and masks go to
         the device once; a batch is a slice of them (a query's results do
-        not depend on its batch)."""
+        not depend on its batch). A physical index searches its copy with
+        no row map; the row map translates the local ids at the end."""
         dev = self._graph.device
         ef = max(ef_search or self.ef_search, k + 1)
         q = np.asarray(queries, dtype=np.float32)
@@ -646,6 +789,7 @@ class HNSWIndex:
                 entries = self._sampled_entries(q)
         kk = min(k + 8, ef)
         a = self._arena
+        vectors, norms, bits, row_map = self._tables()
         q_t = torch.from_numpy(np.ascontiguousarray(q)).to(dev)
         m_t = _bits_i32(query_masks, dev)
         if iterative:
@@ -654,9 +798,15 @@ class HNSWIndex:
             if entries is not None:
                 ent[:] = np.asarray(entries, dtype=np.int32)
             ent_t = torch.from_numpy(ent).to(dev)
+            packed_rows = None
             if self.use_packed:
-                if self._packed is None:
-                    self._packed = build_packed_graph_rows(a)
+                if self.logical:
+                    if self._packed is None:
+                        self._packed = build_packed_graph_rows(a)
+                    packed_rows = self._packed
+                else:
+                    packed_rows = self._table
+                    vectors = norms = bits = None
                 dqs, qcd = packed_query_operands(a, q)
                 qcd_t = torch.from_numpy(qcd).to(dev)
         bs = min(self.query_batch,
@@ -665,20 +815,20 @@ class HNSWIndex:
         for s in range(0, nq, bs):
             e = min(s + bs, nq)
             if iterative:
-                packed_kw = {} if not self.use_packed else dict(
-                    packed_rows=self._packed, dq_scale=float(dqs),
+                packed_kw = {} if packed_rows is None else dict(
+                    packed_rows=packed_rows, dq_scale=float(dqs),
                     q_center_dot=qcd_t[s:e])
                 d, i = graph_beam_search_iterative(
-                    q_t[s:e], a.vectors, a.norms, a.role_bits, self._graph,
+                    q_t[s:e], vectors, norms, bits, self._graph,
                     m_t[s:e], ent_t[s:e], kk, ef, max_steps or 4 * ef,
-                    harvest_2hop, row_map=self._row_map, metric=self.metric,
+                    harvest_2hop, row_map=row_map, metric=self.metric,
                     **packed_kw)
             else:
                 fn = (graph_beam_search_filtered if filtered_traversal
                       else graph_beam_search)
-                d, i = fn(q_t[s:e], a.vectors, a.norms, a.role_bits,
-                          self._graph, m_t[s:e], self.entry, kk, ef,
-                          row_map=self._row_map, metric=self.metric)
+                d, i = fn(q_t[s:e], vectors, norms, bits, self._graph,
+                          m_t[s:e], self.entry, kk, ef, row_map=row_map,
+                          metric=self.metric)
             pending.append((s, e, d, i))
 
         def finalize():
@@ -693,6 +843,17 @@ class HNSWIndex:
         return finalize
 
     def storage_bytes(self) -> Dict[str, int]:
-        """The index's own device bytes: the graph and the row map."""
+        """The index's own device bytes: a logical index's graph and row
+        map ("index"); a physical index's copy ("vectors": the packed
+        table whole, or the unpacked rows) beside its graph and row map,
+        and the unpacked copy's norms and bitsets ("index"), the
+        reference's accounting (:1053-1066)."""
         npad, m0 = self._graph.shape
-        return {"vectors": 0, "index": int(npad * (m0 * 4 + 4))}
+        index = npad * (m0 * 4 + 4)
+        if self.logical:
+            return {"vectors": 0, "index": int(index)}
+        if self._table is not None:
+            return {"vectors": int(self._table.numel()), "index": int(index)}
+        nb = lambda t: t.numel() * t.element_size()
+        return {"vectors": int(nb(self._vectors)),
+                "index": int(index + nb(self._norms) + nb(self._bits))}

@@ -28,6 +28,11 @@ admit only rows whose bitset meets the query's mask.
 - `graph_beam_search_iterative_plain`: the step loop with the plain score
   and merge on any device, the fused kernel's plain version.
 
+A physical HNSW partition's own packed table (`PackedCopy`) serves the
+iterative search as packed rows with no row map; the fixed-budget and
+filtered traversals read it as unpacked rows, each gathered code
+dequantized (exact on the lossless arenas such a table is built for).
+
 The step loop's state layout is the reference's: a pop leaves +inf and id
 -1 in the popped slot, and every merge keeps the lower position first
 among equal values (lax.top_k's order), so ids and distances come out
@@ -50,6 +55,7 @@ PyTorch: no pallas_call lies under them in the reference.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -113,27 +119,61 @@ def _stable_smallest(d, width, *carried):
     return (v[:, :width], *(c.gather(1, pos) for c in carried))
 
 
+@dataclass(frozen=True)
+class PackedCopy:
+    """A physical HNSW partition's own packed rows (core.
+    build_packed_graph_rows over its rows, by local id) read as unpacked
+    rows: a row's code dequantized (code / scale + center), its norm and
+    bitset words read from the row. Built only on lossless int8 arenas,
+    where the dequantized rows are the values of the reference's gathered
+    bfloat16 copy exactly; queries are rounded to `dtype`, the arena's
+    row dtype, as against that copy."""
+
+    rows: torch.Tensor       # (n_pad, d_pad + 4W + 4) int8
+    d: int
+    scale: float
+    center: torch.Tensor     # (d,) float32, on the table's device
+    dtype: torch.dtype       # the arena's row dtype
+
+    def gather(self, rows: torch.Tensor):
+        """(x (..., d) float32, norms (...,) float32, bits (..., W) int32)
+        of the table rows `rows`."""
+        r = self.rows[rows]
+        d_pad = ((self.d + 127) // 128) * 128
+        x = r[..., :self.d].float() / self.scale + self.center
+        bits = r[..., d_pad:-4].contiguous().view(torch.int32)
+        return x, r[..., -4:].contiguous().view(torch.float32)[..., 0], bits
+
+
 def _unpacked_scorer(vectors, norms, role_bits, query_masks, q, row_map,
                      pids=None, metric="l2"):
     """(scores, admissible) of (Q, C) candidate ids from the separate
-    vector, norm and bitset tables (the reference's dist_to and allowed).
-    For l2, ip and cosine the query is rounded to the table's dtype, as the
-    reference's is, and the dots are float32 sums of products that are
-    exact in float32 (bfloat16 or float32 operands); l1 sums |x - q| over
-    the rows in float32 against the float32 query."""
+    vector, norm and bitset tables (the reference's dist_to and allowed),
+    or from a PackedCopy in `vectors` (its own bits unless `role_bits` is
+    given). For l2, ip and cosine the query is rounded to the table's
+    dtype, as the reference's is, and the dots are float32 sums of
+    products that are exact in float32 (bfloat16 or float32 operands); l1
+    sums |x - q| over the rows in float32 against the float32 query."""
+    copy = vectors if isinstance(vectors, PackedCopy) else None
     qc = q.to(vectors.dtype).float()
 
     def score_admit(ids):
         rows = candidate_rows(ids, row_map, pids).clamp_min(0).long()
         valid = ids >= 0
-        x = vectors[rows].float()                                 # (Q, C, d)
+        if copy is not None:
+            x, nrm, bits = copy.gather(rows)
+            if role_bits is not None:
+                bits = role_bits[rows]
+        else:
+            x = vectors[rows].float()                             # (Q, C, d)
+            nrm = norms[rows] if metric == "l2" else None
+            bits = role_bits[rows]                                # (Q, C, W)
         if metric == "l1":
             s = (x - q[:, None, :]).abs().sum(dim=-1)
         else:
             dots = torch.einsum("qd,qcd->qc", qc, x)
-            s = norms[rows] - 2.0 * dots if metric == "l2" else -dots
+            s = nrm - 2.0 * dots if metric == "l2" else -dots
         s = torch.where(valid, s, INF)
-        bits = role_bits[rows]                                    # (Q, C, W)
         ok = ((bits & query_masks[:, None, :]) != 0).any(dim=-1)
         return s, ok & valid
     return score_admit

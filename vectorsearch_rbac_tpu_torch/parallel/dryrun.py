@@ -152,7 +152,7 @@ def dryrun_multichip(n_devices: int,
     for gpid, (role, rows) in enumerate(sorted(partition_rows.items())):
         if len(rows) >= 40:
             gparts[gpid] = HNSWIndex(arena, rows, m=8, ef_construction=32,
-                                     seed=gpid)
+                                     seed=gpid, logical=True)
         if len(gparts) == 3:
             break
     gjobs = [(gpid, list(range(8)), {"ef_search": 16, "max_steps": 24})

@@ -47,7 +47,8 @@ class ShardedGraphSearcher:
 
     graph_states: pid -> {"neighbors": (n, M0) int32, "entry": int,
     "row_map": (n,) int32 arena rows}: an HNSWIndex's graph and its row
-    map (`_hgraph`, `entry`, `_hrmap`)."""
+    map (`_hgraph`, `entry`, `_hrmap`); a state whose "logical" is False
+    (a physical index's) is refused, as the batcher refuses one."""
 
     def __init__(
         self,
@@ -57,6 +58,10 @@ class ShardedGraphSearcher:
         partition_weights: Optional[Dict[int, float]] = None,
         name: str = "graph_sharded",
     ):
+        if not all(st.get("logical", True) for st in graph_states.values()):
+            raise ValueError(
+                "GraphProbeBatcher needs logical-mode HNSW partitions "
+                "(shared-arena serving; cfg.index.hnsw_logical)")
         self.arena = arena
         self.mesh = mesh
         self.name = name

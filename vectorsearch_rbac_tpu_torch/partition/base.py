@@ -11,9 +11,11 @@ row-id dedupe, once per tuple of partitions. A strategy may expose
 and HNSW AnonySys executors' iterative-rescan budgets and entries), whose
 queries then sub-group by those kwargs, and a `graph_batcher`
 (partition/graph_batch.py) that serves the probe groups of its logical HNSW
-partitions in slab dispatches. A searcher's StageTimer (`.timer`) keeps the
-reference's stages (route, device_scan, merge) beside the profiler spans
-partitioned.*.
+partitions in slab dispatches; physical HNSW partitions (each with its own
+copy of its rows) serve their probe groups one (comb, partition) group
+after another, as the reference's do. A searcher's StageTimer (`.timer`)
+keeps the reference's stages (route, device_scan, merge) beside the
+profiler spans partitioned.*.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
     exact or approx mode; "ivf" an IVFIndex over the rows
     (cfg.index.ivf_nlist lists, cfg.search.nprobe probes); "binary" a
     BinaryQuantIndex (cfg.index.binary_*); "hnsw" an HNSWIndex over the
-    rows (the ACORN builder where cfg.index.hnsw_m_beta is set). "hybrid"
+    rows (the ACORN builder where cfg.index.hnsw_m_beta is set), with its
+    own copy of the rows unless cfg.index.hnsw_logical. "hybrid"
     is the AnonySys graph executor's (partition/dynamic/materialize.py),
     an unknown kind here, as in the reference."""
     kind = cfg.index.kind
@@ -78,7 +81,8 @@ def make_partition_index(arena: DeviceArena, rows: Optional[np.ndarray],
                          ef_search=cfg.search.ef_search,
                          query_batch=cfg.search.batch_size,
                          builder="acorn" if cfg.index.hnsw_m_beta else "auto",
-                         m_beta=cfg.index.hnsw_m_beta or 64)
+                         m_beta=cfg.index.hnsw_m_beta or 64,
+                         logical=cfg.index.hnsw_logical)
     raise ValueError(f"unknown index kind {kind!r}")
 
 

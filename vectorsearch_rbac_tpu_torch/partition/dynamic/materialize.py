@@ -234,6 +234,9 @@ def _graph_searcher(corpus, world, arena, cfg, plan, partition_rows, router,
 
     cfg_graph = copy.deepcopy(cfg)
     cfg_graph.index.kind = "hnsw"
+    # both executors' graphs serve from the shared arena (logical mode),
+    # so that the batcher can stack them (the reference's :205, :213-217)
+    cfg_graph.index.hnsw_logical = True
     t0 = time.perf_counter()
     built = build_partition_indexes(
         arena, {pid: partition_rows[pid] for pid in sorted(graph_pids)},

@@ -3,12 +3,12 @@
 Counterpart of vectorsearch_rbac_tpu/partition/graph_batch.py. A hybrid
 (or HNSW) AnonySys searcher routes a query batch to many per-(comb,
 partition) probe groups; here the HNSW partitions (which all serve from
-the shared arena through their row maps) of one
-padded size stack into a (P, n_class, M0) graph slab and a (P, n_class)
-row-map slab on the device, and every probe group that shares (class,
-ef, harvest) joins ONE multi-graph iterative search (ops/graph_search.py
-`pids` mode): each query carries its partition's slot and traverses
-graph[slot], scoring rows of the shared arena. A group's step budgets ride
+the shared arena through their row maps: logical mode, which the batcher
+requires) of one padded size stack into a (P, n_class, M0) graph slab and
+a (P, n_class) row-map slab on the device, and every probe group that
+shares (class, ef, harvest) joins ONE multi-graph iterative search
+(ops/graph_search.py `pids` mode): each query carries its partition's slot
+and traverses graph[slot], scoring rows of the shared arena. A group's step budgets ride
 per query (`step_budget`), under the power-of-two bound of the group's
 largest.
 
@@ -83,6 +83,11 @@ class GraphProbeBatcher:
     serves probe groups in batched multi-graph dispatches."""
 
     def __init__(self, arena: DeviceArena, hnsw_parts: Dict[int, object]):
+        for idx in hnsw_parts.values():
+            if not getattr(idx, "logical", False):
+                raise ValueError(
+                    "GraphProbeBatcher needs logical-mode HNSW partitions "
+                    "(shared-arena serving; cfg.index.hnsw_logical)")
         self.arena = arena
         self.pids = set(hnsw_parts)
         self.metric = arena.metric
