@@ -78,7 +78,10 @@ without a CUDA device or without the port's package beside it. Phases:
    (pass walls, identical results); then one pass each on the mask-row
    wire, and on the uid wire (the path's own) with the ids, f32, bf16 and
    u8 result wires: the same ids, the distances within each wire's
-   precision of the f32 wire's;
+   precision of the f32 wire's; then one 2048-query batch through
+   Int8FlatIndex(merge="cascade") beside merge="kernel" on the same batch,
+   recall@100 of each against the oracle (the cascade's no more than 0.001
+   below the kernel merge's);
 4e. a wider world on the same corpus: the tree generator's world with 300
    roles (10k users, 10 bitset words). The narrow scan and its slot form
    at W 10 (and at W 32: the same bitsets with zero words appended)
@@ -346,6 +349,7 @@ TOPK = 100
 BATCH = 2048          # the main path's query batch
 BLOCK_ROWS = 131072   # bench.py's default arena padding
 RECALL_FLOOR = 0.95
+CASCADE_RECALL_GAP = 0.001   # the cascade merge's recall below the kernel's
 GROUP = 128           # the group width both paths' indexes pick at 1M
 RERANK_MARGIN = 32    # kk = TOPK + 32 on the 768-d path
 SLOT_SB = 16          # admit-dedup slot width (index/flat_int8.py MASK_SB)
@@ -1140,6 +1144,37 @@ def check_wires(name, searcher, workload, world, smi) -> None:
         fail(f"{name}: a wire changed the ids: {same}")
     if err["bf16"] > 2.0**-8 or err["u8"] > 0.5 * 1.0001 + 1e-3:
         fail(f"{name}: a wire's distances are off: {err}")
+
+
+def check_cascade(corpus, arena, workload, world, truth, smi) -> None:
+    """One 2048-query batch of the SIFT arena through
+    Int8FlatIndex(merge="cascade") and merge="kernel": readable rows, and
+    the cascade's recall@100 no more than CASCADE_RECALL_GAP below the
+    kernel merge's on the same batch."""
+    from vectorsearch_rbac_tpu_torch.bench import compute_recall
+    from vectorsearch_rbac_tpu_torch.index.flat_int8 import Int8FlatIndex
+
+    q = workload.vectors[:BATCH]
+    users = workload.user_ids[:BATCH]
+    recall, secs = {}, {}
+    for merge in ("kernel", "cascade"):
+        index = Int8FlatIndex(arena, None, query_batch=BATCH, wire="ids",
+                              merge=merge)
+        index.search(q, world.user_masks[users], TOPK)   # warm
+        t0 = time.perf_counter()
+        _, ids = index.search(q, world.user_masks[users], TOPK)
+        secs[merge] = time.perf_counter() - t0
+        check_readable(f"SIFT merge {merge}", ids, users, TOPK, corpus,
+                       world, arena)
+        recall[merge] = compute_recall(ids, truth[:BATCH])
+    say(f"SIFT merge legs on {BATCH} queries ({smi}): recall@{TOPK} "
+        f"cascade {recall['cascade']} beside kernel {recall['kernel']}; one "
+        f"pass {secs['cascade'] * 1e3:.1f} ms cascade, "
+        f"{secs['kernel'] * 1e3:.1f} ms kernel (host clock)")
+    if recall["cascade"] < recall["kernel"] - CASCADE_RECALL_GAP:
+        fail(f"the cascade merge's recall {recall['cascade']} is more than "
+             f"{CASCADE_RECALL_GAP} below the kernel merge's "
+             f"{recall['kernel']}")
 
 
 def check_graph_step(arena, workload, world, device, smi):
@@ -4087,6 +4122,7 @@ def main() -> None:
                                            workload.user_ids,
                                            world.user_masks, TOPK), smi)
     check_wires("SIFT", searcher, workload, world, smi)
+    check_cascade(corpus, arena, workload, world, truth, smi)
     del searcher
     gc.collect()
     torch.cuda.empty_cache()

@@ -40,9 +40,11 @@ order on the device, before they are copied to the host; `_last_dedup`
 says whether the last pass grouped.
 
 The result wire is any of the reference's four codings (ids, f32, bf16,
-u8; an odd k sends u8 on bf16, as the reference's does). The merge is the
-merge kernels' (the reference's default "pallas"); a shape their gate
-refuses takes the cascade, as the reference's does.
+u8; an odd k sends u8 on bf16, as the reference's does). The merge is
+`merge`, one of ops/scan_int8.py MERGES: "kernel" (the default, the
+reference's "pallas": the merge kernels, and the cascade on a shape their
+gate refuses, as the reference's), "cascade", "exact", "approx" or
+"auto" (the last two the exact merge, as ops/scan_int8.py says).
 
 The uid wire (`set_user_table`, then `search_deferred(..., user_ids=)`):
 the (num_users, W) mask table is resident on the device, a pass uploads
@@ -73,9 +75,9 @@ from torch.profiler import record_function
 
 from ..core import DeviceArena
 from ..ops.rerank import RERANK_MODES, rebuild_query, rerank_topk
-from ..ops.scan_int8 import (NARROW_MAX_D, WIRES, int8_group_minima,
-                             merge_group_minima, pack_results_device,
-                             unpack_results_host)
+from ..ops.scan_int8 import (MERGES, NARROW_MAX_D, WIRES,
+                             int8_group_minima, merge_group_minima,
+                             pack_results_device, unpack_results_host)
 from .flat import _pad_to_bucket
 
 MAX_GROUP = 128      # rows per packed minimum: the 7-bit lane field
@@ -141,12 +143,15 @@ class Int8FlatIndex:
         logical: bool = False,          # row subsets: gather from the
                                         # shared arena per pass, no copy
         mask_dedup: bool = True,        # admit-dedup (see the module note)
+        merge: str = "kernel",          # one of ops.scan_int8.MERGES
     ):
         q = arena.quant
         if q is None:
             raise ValueError("Int8FlatIndex needs an int8-quantized arena")
         if wire not in WIRES:
             raise ValueError(f"wire {wire!r} is not one of {WIRES}")
+        if merge not in MERGES:
+            raise ValueError(f"merge {merge!r} is not one of {MERGES}")
         if wire == "ids" and rows is not None:
             # rank pseudo-distances cannot be merged across partitions
             raise ValueError(
@@ -178,6 +183,7 @@ class Int8FlatIndex:
         self._quant = q
         self.query_batch = query_batch
         self.wire = wire
+        self.merge = merge
         self.mask_dedup = mask_dedup
         self._last_dedup = False
         self._last_uid_wire = False
@@ -393,7 +399,7 @@ class Int8FlatIndex:
                               dim=1, dtype=torch.int32))
                     dd, ii = merge_group_minima(
                         packed, qn, b.get("inv", inv_l2), kk, self.group,
-                        "kernel", self._kernel_metric, self.score_shift,
+                        self.merge, self._kernel_metric, self.score_shift,
                         b.get("bias"))
                 if self._row_map is not None:
                     # local -> arena rows BEFORE the rerank, which reads
