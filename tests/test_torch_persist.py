@@ -32,7 +32,7 @@ from vectorsearch_rbac_tpu_torch.models import cost
 from vectorsearch_rbac_tpu_torch.partition.tiled import TiledSearcher
 from vectorsearch_rbac_tpu_torch.rbac import TreeRBACGenerator
 from vectorsearch_rbac_tpu_torch.utils import persist
-from vectorsearch_rbac_tpu_torch.utils.tracing import (StageTimer, annotate,
+from vectorsearch_rbac_tpu_torch.utils.tracing import (StageTimer,
                                                        device_trace)
 
 WORLD = dict(num_users=60, num_roles=12, num_docs=100, h=3, b0=2, b1=2,
@@ -263,7 +263,7 @@ def test_searchers_report_the_reference_stages(name, kind, dtype, world):
 def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     log_dir = str(tmp_path / "trace")
     with device_trace(log_dir):
-        with annotate("smoke.span"):
+        with torch.profiler.record_function("smoke.span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     (trace,) = os.listdir(log_dir)
     with open(os.path.join(log_dir, trace)) as f:

@@ -93,7 +93,8 @@ def test_rebuilt_query_matches_reference(world, metric, mode):
     index = Int8FlatIndex(arena_from_reference(arenas[metric], "cpu"),
                           query_batch=NQ, rerank_mode=mode)
     assert index.rerank          # lossy corpus: every metric reranks
-    ops = index._quantize_upload(queries)
+    ops = {name: torch.from_numpy(a)
+           for name, a in index._quantize_host(queries).items()}
     got = rebuild_query(mode, metric, D, ops["q8"], inv=ops.get("inv"),
                         q_dequant=index._q_dequant, center=index._center,
                         residual=ops.get("res"), shipped=ops.get("qf"))

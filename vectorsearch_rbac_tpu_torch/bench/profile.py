@@ -20,9 +20,12 @@ device time by kernel and copy, and the device's busy and idle share of
 the untraced pass (busy = the summed device time of kernels and copies,
 which run one after another on the one stream). The spans split a pass:
 
-- rls: flat_int8.dedup, .quantize_upload, .enqueue (per batch .scan,
-  .merge, .rerank, .wire) and .fetch_unpack; on a bfloat16 or float32
-  arena (the flat index) or with --index binary no span: the pass is the
+- rls: partitioned.search_batch (the whole call), inside it
+  flat_int8.user_table, .masks, .dedup, .quantize_upload (.quantize, the
+  host quantizer, and .upload), .enqueue (per batch .scan, .merge,
+  .rerank, .wire) and .fetch_unpack (.fetch, the wait and the copy back,
+  and .unpack); on a bfloat16 or float32 arena (the flat index) or with
+  --index binary no span below partitioned.search_batch: the pass is the
   index's scan, split by device op;
 - role, user, dynamic, qdtree on an int8 l2 arena: tiled.route (host),
   tiled.big_enqueue (the big tier's scans and merges, flat_int8.*

@@ -58,10 +58,14 @@ the table ships mask rows; both as the reference. Admit-dedup then groups
 by the host copy of the table's rows. `_last_uid_wire` says whether the
 last pass used the table.
 
-Profiler spans mark the host's share of a pass (flat_int8.dedup,
-.quantize_upload, .gather, .enqueue, .fetch_unpack) and, inside the
-enqueue, each batch's stages (.scan, .merge, .rerank, .wire);
-bench/profile.py reads them.
+Profiler spans mark the host's share of a pass: flat_int8.user_table
+(set_user_table), .masks, .dedup, .quantize_upload (inside it .quantize,
+the host quantizer, and .upload, the copies to the device), .enqueue
+(inside it each batch's .scan, .merge, .rerank, .wire) and, in finalize(),
+.fetch_unpack (inside it .fetch, the wait and the copy back, and .unpack).
+A pass counts its queries and the query positions its scan runs
+(utils/tracing.py COUNTS: flat_int8.queries, flat_int8.positions).
+bench/profile.py and the benchmark's readers read them.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ from ..ops.rerank import RERANK_MODES, rebuild_query, rerank_topk
 from ..ops.scan_int8 import (MERGES, NARROW_MAX_D, WIRES,
                              int8_group_minima, merge_group_minima,
                              pack_results_device, unpack_results_host)
+from ..utils.tracing import count
 from .flat import _pad_to_bucket
 
 MAX_GROUP = 128      # rows per packed minimum: the 7-bit lane field
@@ -256,11 +261,12 @@ class Int8FlatIndex:
         rb[n:] = 0
         return vq, nq, rb
 
-    def _quantize_upload(self, qf: np.ndarray) -> Dict[str, torch.Tensor]:
-        """The pass's per-query operands on the device, each uploaded once
-        (a pageable copy inside the batch loop would wait for the queued
-        kernels): int8 codes, and for ip/cosine the per-query scales and
-        biases, plus the rerank mode's codes or shipped queries."""
+    def _quantize_host(self, qf: np.ndarray) -> Dict[str, np.ndarray]:
+        """The pass's per-query operands on the host, for search_deferred
+        to upload once (a pageable copy inside the batch loop would wait
+        for the queued kernels): int8 codes, and for ip/cosine the
+        per-query scales and biases, plus the rerank mode's codes or
+        shipped queries."""
         quant = self._quant
         cosine = self.metric == "cosine"
         host = {}
@@ -279,9 +285,7 @@ class Int8FlatIndex:
         elif mode in ("f16", "f32"):
             host["qf"] = np.ascontiguousarray(
                 qf, dtype=np.float16 if mode == "f16" else np.float32)
-        dev = self._arena.device
-        return {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for name, a in host.items()}
+        return host
 
     def set_user_table(self, user_masks: np.ndarray) -> None:
         """Keep the (num_users, W) uint32 mask table on the device, so that
@@ -290,19 +294,21 @@ class Int8FlatIndex:
         in-place revocation must replace the resident table. A table of
         more than 65,536 users, or not 2-D, drops the resident one, and
         passes ship mask rows."""
-        tbl = np.ascontiguousarray(np.asarray(user_masks, dtype=np.uint32))
-        if tbl.ndim != 2 or tbl.shape[0] > MAX_TABLE_USERS:
-            self._user_table = self._user_table_host = None
-            self._user_table_key = None
-            return
-        key = (tbl.shape,
-               hashlib.blake2b(tbl.tobytes(), digest_size=16).digest())
-        if self._user_table_key == key:
-            return
-        self._user_table = torch.from_numpy(tbl.view(np.int32)).to(
-            self._arena.device)
-        self._user_table_host = tbl   # admit-dedup groups by mask content
-        self._user_table_key = key
+        with record_function("flat_int8.user_table"):
+            tbl = np.ascontiguousarray(np.asarray(user_masks,
+                                                  dtype=np.uint32))
+            if tbl.ndim != 2 or tbl.shape[0] > MAX_TABLE_USERS:
+                self._user_table = self._user_table_host = None
+                self._user_table_key = None
+                return
+            key = (tbl.shape,
+                   hashlib.blake2b(tbl.tobytes(), digest_size=16).digest())
+            if self._user_table_key == key:
+                return
+            self._user_table = torch.from_numpy(tbl.view(np.int32)).to(
+                self._arena.device)
+            self._user_table_host = tbl   # admit-dedup groups by content
+            self._user_table_key = key
 
     def search_deferred(self, queries: np.ndarray, query_masks, k: int,
                         user_ids: Optional[np.ndarray] = None):
@@ -320,17 +326,18 @@ class Int8FlatIndex:
             return lambda: (np.empty((0, k), np.float32),
                             np.empty((0, k), np.int64))
         tbl = self._user_table_host
-        use_table = user_ids is not None and tbl is not None
-        if use_table:
-            uids = np.asarray(user_ids, dtype=np.int64)
-            use_table = bool(uids.min() >= 0 and uids.max() < len(tbl))
-        if use_table:
-            masks = tbl[uids]            # the host copy, for admit-dedup
-        elif query_masks is None:
-            raise ValueError("no mask rows, and no resident user table "
-                             "covering the user ids")
-        else:
-            masks = np.ascontiguousarray(query_masks, dtype=np.uint32)
+        with record_function("flat_int8.masks"):
+            use_table = user_ids is not None and tbl is not None
+            if use_table:
+                uids = np.asarray(user_ids, dtype=np.int64)
+                use_table = bool(uids.min() >= 0 and uids.max() < len(tbl))
+            if use_table:
+                masks = tbl[uids]        # the host copy, for admit-dedup
+            elif query_masks is None:
+                raise ValueError("no mask rows, and no resident user table "
+                                 "covering the user ids")
+            else:
+                masks = np.ascontiguousarray(query_masks, dtype=np.uint32)
         self._last_uid_wire = use_table
         # the reference's batch and tile for the dedup gate: a pass below
         # one batch runs as one power-of-two batch of at least 32
@@ -355,29 +362,36 @@ class Int8FlatIndex:
             # every per-query operand is row-local: quantize the caller's
             # queries once, then lay the codes out in slot order on the
             # device (the reference permutes first; the codes are the same)
-            ops = self._quantize_upload(qf)
-            if plan is not None:
-                # every position's query, and every query's real position
-                # (the wire rows go back to the caller's order on the
-                # device; pad and tail rows are dropped); both uploaded
-                # here, before the batches are queued
-                where = np.empty(nq0, np.int64)
-                where[src[valid]] = np.flatnonzero(valid)
-                src_d, where_d = (torch.from_numpy(a).to(arena.device)
-                                  for a in (src, where))
-                ops = {name: t.index_select(0, src_d)
-                       for name, t in ops.items()}
-            if use_table:
-                # 2 bytes a query (a slot) up, as u16 bits in an int16;
-                # the mask rows come from the resident table
-                u16 = torch.from_numpy(uids.astype(np.uint16).view(np.int16))
-                uid_d = u16.to(arena.device).to(torch.int32) & 0xFFFF
-                m_d = self._user_table.index_select(0, uid_d)
-            else:
-                m_d = torch.from_numpy(masks.view(np.int32)).to(arena.device)
+            with record_function("flat_int8.quantize"):
+                host = self._quantize_host(qf)
+            with record_function("flat_int8.upload"):
+                ops = {name: torch.from_numpy(np.ascontiguousarray(a)).to(
+                    arena.device) for name, a in host.items()}
+                if plan is not None:
+                    # every position's query, and every query's real
+                    # position (the wire rows go back to the caller's order
+                    # on the device; pad and tail rows are dropped); both
+                    # uploaded here, before the batches are queued
+                    where = np.empty(nq0, np.int64)
+                    where[src[valid]] = np.flatnonzero(valid)
+                    src_d, where_d = (torch.from_numpy(a).to(arena.device)
+                                      for a in (src, where))
+                    ops = {name: t.index_select(0, src_d)
+                           for name, t in ops.items()}
+                if use_table:
+                    # 2 bytes a query (a slot) up, as u16 bits in an int16;
+                    # the mask rows come from the resident table
+                    u16 = torch.from_numpy(
+                        uids.astype(np.uint16).view(np.int16))
+                    uid_d = u16.to(arena.device).to(torch.int32) & 0xFFFF
+                    m_d = self._user_table.index_select(0, uid_d)
+                else:
+                    m_d = torch.from_numpy(masks.view(np.int32)).to(
+                        arena.device)
         nq = next(iter(ops.values())).shape[0]
-        with record_function("flat_int8.gather"):
-            vq, nrm, bits = self._gather() if self.logical else self._rows
+        count("flat_int8.queries", nq0)
+        count("flat_int8.positions", nq)
+        vq, nrm, bits = self._gather() if self.logical else self._rows
         kk = k + RERANK_MARGIN if self.rerank else k
         inv_l2 = 1.0 / quant.scale**2
         # u8 packs two results to a u16: an odd k goes on bf16 (reference)
@@ -421,12 +435,15 @@ class Int8FlatIndex:
 
         def finalize():
             with record_function("flat_int8.fetch_unpack"):
-                w = torch.cat(wires)
-                if plan is not None:
-                    w = w.index_select(0, where_d)
-                d, i = unpack_results_host(w.cpu().numpy(), k,
-                                           id_bits=self._id_bits, dist=wire)
-            return d.astype(np.float32), i.astype(np.int64)
+                with record_function("flat_int8.fetch"):
+                    w = torch.cat(wires)
+                    if plan is not None:
+                        w = w.index_select(0, where_d)
+                    w = w.cpu().numpy()
+                with record_function("flat_int8.unpack"):
+                    d, i = unpack_results_host(w, k, id_bits=self._id_bits,
+                                               dist=wire)
+                    return d.astype(np.float32), i.astype(np.int64)
 
         return finalize
 

@@ -153,8 +153,12 @@ class PartitionedSearcher:
     def search_batch(self, queries: np.ndarray, user_ids: np.ndarray,
                      user_masks: np.ndarray,
                      k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Return (dists (Q, k), arena_row_ids (Q, k)); -1/inf pads."""
-        return self.search_batch_deferred(queries, user_ids, user_masks, k)()
+        """Return (dists (Q, k), arena_row_ids (Q, k)); -1/inf pads. The
+        span partitioned.search_batch covers the whole call, finalize()
+        included: the root of a request's spans."""
+        with record_function("partitioned.search_batch"):
+            return self.search_batch_deferred(queries, user_ids, user_masks,
+                                              k)()
 
     def search_batch_deferred(self, queries: np.ndarray,
                               user_ids: np.ndarray, user_masks: np.ndarray,

@@ -11,14 +11,32 @@ Counterpart of vectorsearch_rbac_tpu/utils/tracing.py:
   card, CUDA activity, written to log_dir as a Chrome trace. The
   reference's jax.profiler trace turns into a no-op where the profiler
   cannot start; this one raises.
-- `annotate(name)`: a named span in device traces (`record_function`,
-  and an NVTX range when a card is present).
+- `COUNTS`, `count(name, n)`, `reset_counts()` (the port's own): counters
+  at layer boundaries, process-wide. `Int8FlatIndex.search_deferred`
+  counts `flat_int8.queries` (the caller's queries) and
+  `flat_int8.positions` (the query positions its scan runs: admit-dedup's
+  slot pads and the tail included) once a pass. The kernel wrappers'
+  launch counts are `ops/_build.LAUNCHES`.
+
+The program's spans are `torch.profiler.record_function` ranges, on the
+profiler's clock beside the device rows of the same trace. On the global
+RLS path one `search_batch` call opens `partitioned.search_batch` (the
+whole call), inside it `flat_int8.user_table` (the uid wire's table digest,
+the upload on a miss), `flat_int8.masks` (the host mask rows),
+`flat_int8.dedup`, `flat_int8.quantize_upload` (its children
+`flat_int8.quantize`, the host quantizer, and `flat_int8.upload`, the
+host-to-device copies and the slot reorder), `flat_int8.enqueue` (per
+dispatch `.scan`, `.merge`, `.rerank`, `.wire`) and, in finalize(),
+`flat_int8.fetch_unpack` (its children `flat_int8.fetch`, the wait and
+the device-to-host copy, and `flat_int8.unpack`, the host unpack of the
+wire rows).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -92,12 +110,16 @@ def device_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named span visible in device traces."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+COUNTS: Dict[str, int] = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` in COUNTS."""
+    with _COUNTS_LOCK:
+        COUNTS[name] = COUNTS.get(name, 0) + n
+
+
+def reset_counts() -> None:
+    with _COUNTS_LOCK:
+        COUNTS.clear()
