@@ -31,7 +31,12 @@ without a CUDA device or without the port's package beside it. Phases:
    masks fill 128 slots of 16, in the contiguous layout the index uses and
    the interleaved one of the TPU kernel, bit-identical; beside them the
    per-query form's time on the same masks, and the slot form's epilogue
-   floor over the admitted pairs;
+   floor over the admitted pairs; then the slot form at the benchmark
+   cell's shape on its world (check_cell_shape: SIFT10M's 11,154,866 rows
+   in documents of 100 blocks laid out block-major as the cell's corpus,
+   the 100-role tree, 2,048 positions of admit-dedup's slots of 16 from
+   8,192 uniform users, group 128), bit-identical to its plain version,
+   timed beside the random masks above;
 3e. the kernel lab's path (bench/lab.py's entry points) on phase 3's
    operands: the first port's dp4a scan, and three forms of the narrow
    scan's tensor-core kernel: trim (the narrow scan's own per-query form),
@@ -354,6 +359,11 @@ GROUP = 128           # the group width both paths' indexes pick at 1M
 RERANK_MARGIN = 32    # kk = TOPK + 32 on the 768-d path
 SLOT_SB = 16          # admit-dedup slot width (index/flat_int8.py MASK_SB)
 SLOT_GROUP = 32       # the big tier's group width (phase 3c's geometry)
+# phase 3c's cell leg: the benchmark cell sift10m-rls-bulk's rows, blocks a
+# document and world (rbacbench/configs/sift10m-tree100-rls.json), its
+# padded rows
+CELL_ROWS, CELL_DOC_BLOCKS, CELL_PAD = 11_154_866, 100, 11_272_192
+CELL_USERS, CELL_ROLES, CELL_CALL = 10_000, 100, 8192
 PART_QUERIES = 4096   # the strategy compare's workload (4c)
 PART_TOPK = 10
 PART_ALPHA = 2.0      # AnonySys storage budget (scripts/strategy_compare_1m)
@@ -762,6 +772,67 @@ def check_slot_form(arena, workload, world, device, smi):
     if not all(rows.values()):
         fail(f"the slot form disagrees with its plain version: {rows}")
     return (True, max(errs), ms["contiguous"], plain_ms), (*bound, None)
+
+
+def check_cell_shape(device, smi, random_ms):
+    """Phase 3c's cell leg: K1's slot form at the benchmark cell's shape on
+    its world: random int8 codes; the rows' bits from the 100-role tree's
+    documents of 100 blocks, laid out block-major as the cell's corpus is
+    (rbacbench/corpora/sift_like.py: every document's block 0, then every
+    block 1, ..., so a 128-row tile holds 128 documents); the first 2,048
+    positions of admit-dedup's slots (16 a slot) over one call's 8,192
+    users drawn uniformly; group 128. Fails unless the minima equal the
+    plain version's bit for bit; prints the time beside the random masks'
+    (random_ms, this run's 3c contiguous time)."""
+    import numpy as np
+    import torch
+
+    from vectorsearch_rbac_tpu_torch.index.flat_int8 import dedup_slots
+    from vectorsearch_rbac_tpu_torch.ops import scan_int8
+    from vectorsearch_rbac_tpu_torch.rbac import TreeRBACGenerator
+
+    full, rest = divmod(CELL_ROWS, CELL_DOC_BLOCKS)
+    doc_of_row = np.concatenate([np.arange(full + (b < rest))
+                                 for b in range(CELL_DOC_BLOCKS)])
+    world = TreeRBACGenerator(num_users=CELL_USERS, num_roles=CELL_ROLES,
+                              num_docs=full + (rest > 0), seed=1).generate()
+    bits = np.zeros((CELL_PAD, world.words), np.uint32)
+    bits[:CELL_ROWS] = world.doc_role_bits[doc_of_row]
+    del doc_of_row
+    rng = np.random.default_rng(1)
+    masks = world.user_masks[rng.integers(0, CELL_USERS, CELL_CALL)]
+    src, _ = dedup_slots(masks, SLOT_SB, BATCH)
+    slots = np.ascontiguousarray(masks[src[:BATCH:SLOT_SB]])
+    gen = torch.Generator(device=device).manual_seed(1)
+    x8 = torch.randint(-128, 128, (CELL_PAD, 128), device=device,
+                       dtype=torch.int8, generator=gen)
+    x8[CELL_ROWS:] = 0
+    norms = (x8.to(torch.int32) ** 2).sum(1, dtype=torch.int32)
+    q8 = torch.randint(-128, 128, (BATCH, 128), device=device,
+                       dtype=torch.int8, generator=gen)
+    t = lambda a: torch.from_numpy(a.view(np.int32)).to(device)
+    args = (q8, x8, norms, t(bits), t(slots))
+    kw = dict(group=GROUP, metric="l2", score_shift=0,
+              mask_sub_block=SLOT_SB)
+    got = scan_int8.int8_group_minima(*args, **kw)
+    want = scan_int8.int8_group_minima_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same, err = torch.equal(got, want), max_abs_err(got, want)
+    admitted = float((want != scan_int8.MASKED_I32).float().mean())
+    del got, want
+    ms = cuda_ms(lambda: scan_int8.int8_group_minima(*args, **kw), 10)
+    say(f"K1's slot form at the cell's shape (sift10m-rls-bulk: Q={BATCH} x "
+        f"{CELL_PAD} rows, group {GROUP}, {len(np.unique(slots, axis=0))} "
+        f"distinct masks in {BATCH // SLOT_SB} slots of {SLOT_SB}, "
+        f"{world.num_roles}-role tree, documents of {CELL_DOC_BLOCKS} "
+        f"blocks, block-major; {smi}); tolerance 0: identical={same} "
+        f"max_abs_err={err}; groups with an admitted row {100 * admitted:.2f}%"
+        f"; kernel {ms:.3f} ms, beside {random_ms:.3f} ms on 3c's masks at "
+        f"{N_ROWS:,} rows")
+    if not same:
+        fail(f"K1's slot form at the cell's shape: max_abs_err={err}")
+    del args, x8
+    torch.cuda.empty_cache()
 
 
 def check_lab_path(scan_args, packed, packed_plain, smi):
@@ -4078,6 +4149,7 @@ def main() -> None:
     result["scan_int8_slots"], extra["scan_int8_slots"] = check_slot_form(
         arena, workload, world, device, smi)
     torch.cuda.empty_cache()
+    check_cell_shape(device, smi, result["scan_int8_slots"][2])
     launches_lab, lab_rows, lab_extra = check_lab_path(scan_args, packed,
                                                        packed_plain, smi)
     result.update(lab_rows)

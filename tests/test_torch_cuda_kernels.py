@@ -246,6 +246,104 @@ def test_slot_form_skips_what_no_slot_admits(dev, sb, tile):
     assert (got[4:8] != masked).any()          # tile 1: some slots
 
 
+# ---- K1's narrow forms: the group-128 close and the W <= 4 slot form
+
+def _doc_world(rng, nq, npad, w, doc_rows=100, n_masks=60, n_rows=None):
+    """A world where most row tiles hold no pair a block may read: rows in
+    documents of doc_rows contiguous rows (pad rows past n_rows zero), one
+    role each of 32 W; n_masks masks of one role each, the queries sorted
+    by mask as admit-dedup sorts them. (bits (npad, W), masks (nq, W))."""
+    roles = 32 * w
+    n_rows = npad if n_rows is None else n_rows
+    role = rng.integers(0, roles, -(-npad // doc_rows))[
+        np.arange(n_rows) // doc_rows]
+    bits = np.zeros((npad, w), np.uint32)
+    bits[np.arange(n_rows), role // 32] = np.uint32(1) << (
+        role % 32).astype(np.uint32)
+    m_role = rng.integers(0, roles, n_masks)
+    pool = np.zeros((n_masks, w), np.uint32)
+    pool[np.arange(n_masks), m_role // 32] = np.uint32(1) << (
+        m_role % 32).astype(np.uint32)
+    masks = pool[np.sort(rng.integers(0, n_masks, nq))]
+    return bits.view(np.int32), masks.view(np.int32)
+
+
+def _narrow_case(dev, nq, npad, d_pad, w, group, metric, shift, sb, tile,
+                 bits, masks):
+    """K1 on (bits, masks) against its plain version, bit for bit; the slot
+    forms also against the per-query form on the expanded masks."""
+    rng = np.random.default_rng(nq + npad)
+    x8 = rng.integers(-128, 128, size=(npad, d_pad)).astype(np.int8)
+    q8 = rng.integers(-128, 128, size=(nq, d_pad)).astype(np.int8)
+    norms = np.einsum("nd,nd->n", x8.astype(np.int64),
+                      x8.astype(np.int64)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = (t(q8), t(x8), t(norms), t(bits))
+    qbits = t(masks[::sb] if sb else masks)
+    kw = dict(group=group, metric=metric, score_shift=shift)
+    slot_kw = dict(mask_sub_block=sb, slot_tile=tile)
+    got = scan_int8.int8_group_minima(*args, qbits, **kw, **slot_kw)
+    want = scan_int8.int8_group_minima_plain(*args, qbits, **kw, **slot_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if sb:
+        per_query = qbits.index_select(0, scan_int8.slot_of_query(
+            nq, sb, tile, dev)).contiguous()
+        ctl = scan_int8.int8_group_minima(*args, per_query, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ctl)
+    return got
+
+
+@pytest.mark.parametrize("nq,npad,d_pad,w,group,metric,shift,sb,tile", [
+    # the index's layout: contiguous slots of 16 (the warp-slot path), the
+    # W <= 4 form and the W 5-8 form, group 128 and others
+    (2048, 16384, 128, 4, 128, "l2", 0, 16, 0),
+    (4096, 131072, 128, 1, 128, "l2", 0, 16, 0),    # 22 q-tiles
+    (2048, 25600, 256, 3, 32, "ip", 3, 16, 0),
+    (1008, 12800, 128, 8, 128, "ip", 9, 16, 0),
+    # per-query masks: ragged query counts, every group, W 1-8, shifts
+    (2047, 25600, 128, 2, 32, "l2", 3, 0, 0),
+    (300, 4736, 256, 8, 8, "ip", 9, 0, 0),
+    (1, 128000, 128, 3, 16, "ip", 9, 0, 0),
+    (65, 12800, 128, 6, 64, "l2", 0, 0, 0),
+    (777, 12800, 256, 4, 128, "l2", 3, 0, 0),
+    # the other slot layouts (read through their mask rows)
+    (512, 12800, 128, 5, 16, "l2", 0, 16, 256),
+    (96, 4096, 256, 1, 64, "l2", 3, 8, 0),
+    (2048, 25600, 128, 7, 128, "ip", 0, 32, 2048),
+])
+def test_narrow_forms_bit_identical(dev, nq, npad, d_pad, w, group, metric,
+                                    shift, sb, tile):
+    """K1's narrow forms on a sparse world (documents of contiguous rows,
+    one role each; one-role masks sorted as admit-dedup sorts them), where
+    most row tiles hold no pair a warpgroup may read and most of the rest
+    admit only some slices: the output equals the plain version."""
+    bits, masks = _doc_world(np.random.default_rng(npad + w), nq, npad, w,
+                             n_masks=3 if w == 1 else 60)
+    _narrow_case(dev, nq, npad, d_pad, w, group, metric, shift, sb, tile,
+                 bits, masks)
+
+
+@pytest.mark.parametrize("sb,group", [(0, 64), (16, 64), (0, 128),
+                                      (16, 128)])
+def test_q_tiles_that_admit_nothing_or_everything(dev, sb, group):
+    """Three q-tiles: the first reads no role (every minimum masked), the
+    second every role (every group of a row unmasked), the third a sparse
+    mask; 100 pad rows at the end, and ragged ends of runs."""
+    nq, npad, w = 576, 12800 + 256, 4
+    bits, masks = _doc_world(np.random.default_rng(sb + group), nq, npad, w,
+                             n_rows=npad - 100)
+    masks = masks.copy()
+    masks[:192] = 0
+    masks[192:384] = -1
+    got = _narrow_case(dev, nq, npad, 128, w, group, "l2", 0, sb, 0, bits,
+                       masks)
+    assert (got[:, :192] == scan_int8.MASKED_I32).all()
+    full = (npad - 100) // group                 # groups with no pad row
+    assert (got[:full, 192:384] != scan_int8.MASKED_I32).all()
+
+
 @pytest.mark.parametrize("w", [9, 16, 32, 33, 64, 65, 128])
 @pytest.mark.parametrize("form,sb,tile", [("per-query", 0, 0),
                                           ("slots-16", 16, 0),

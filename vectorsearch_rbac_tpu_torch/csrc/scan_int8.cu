@@ -74,10 +74,10 @@
 // layout with mask_sb a multiple of 16 -- the index's layout, mask_sb 16 --
 // a warp's 16 queries are one slot, so admission is the same for the whole
 // warp for each row. The warp takes the tile's 128 admit bits once (a lane
-// tests a row of each 32, W words, then a ballot), skips each 8-row slice
-// none of whose rows is admitted, and gates each of its two columns of a
-// slice on one bit: per admitted pair one multiply-add and one minimum.
-// Other slot layouts read their queries' slot rows in the per-query path.
+// tests a row of each 32, W words, then a ballot) and gates each of its two
+// columns of a slice on one bit: per pair one multiply-add and one
+// predicated minimum, with no branch (half_slot). Other slot layouts read
+// their queries' slot rows in the per-query path.
 //
 // The floor form (kFloor; the lab kernel scripts/r4_kernel_variants.py
 // _make_kernel_floor, S1's lower-bound probe, per-query masks only):
@@ -500,7 +500,7 @@ __device__ __forceinline__ void close_group(Epi& e) {
 // The per-query epilogue of one 64-row half of a tile: acc[4 n + 2 i + j]
 // holds query qa + 8 i and row 64 kHalf + 8 n + 2 (lane % 4) + j.
 // kWords is 4 (W <= 4: the second plane is not read) or 8.
-template <int kHalf, int kWords, int kPack>
+template <int kHalf, int kWords, int kPack, bool kWhole>
 __device__ __forceinline__ void half_pairs(const int32_t (&acc)[32],
                                            const int32_t (&qw)[2][kWords],
                                            const int4* __restrict__ planes,
@@ -534,13 +534,14 @@ __device__ __forceinline__ void half_pairs(const int32_t (&acc)[32],
                pack<kPack>(acc[4 * n + 2 * i + j], e.mul, bs, e.down, rank));
       }
     }
-    if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
+    if (kWhole ? n8 == 15 : ((n8 + 1) & (e.span - 1)) == 0) close_group(e);
   }
 }
 
 // The warp slot's admit bits of one half: adm[k] bit l says whether the
 // slot admits row 64 kHalf + 32 k + l (the same in every lane).
-template <int kHalf>
+// kWords is 4 (W <= 4: the second plane is not read) or 8.
+template <int kHalf, int kWords>
 __device__ __forceinline__ void half_admit(uint32_t (&adm)[2],
                                            const uint32_t (&sw)[kMaxWords],
                                            const int4* __restrict__ planes) {
@@ -548,18 +549,33 @@ __device__ __forceinline__ void half_admit(uint32_t (&adm)[2],
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int r = 64 * kHalf + 32 * k + lane;
-    const int4 b0 = planes[r], b1 = planes[kRows + r];
-    const uint32_t hit = (b0.x & sw[0]) | (b0.y & sw[1]) | (b0.z & sw[2]) |
-                         (b0.w & sw[3]) | (b1.x & sw[4]) | (b1.y & sw[5]) |
-                         (b1.z & sw[6]) | (b1.w & sw[7]);
+    const int4 b0 = planes[r];
+    uint32_t hit = (b0.x & sw[0]) | (b0.y & sw[1]) | (b0.z & sw[2]) |
+                   (b0.w & sw[3]);
+    if (kWords > 4) {
+      const int4 b1 = planes[kRows + r];
+      hit |= (b1.x & sw[4]) | (b1.y & sw[5]) | (b1.z & sw[6]) | (b1.w & sw[7]);
+    }
     adm[k] = __ballot_sync(0xffffffffu, hit != 0);
   }
 }
 
-// The warp-slot epilogue of one half: an 8-row slice none of whose rows
-// the slot admits is skipped by the whole warp; a thread's two rows of a
-// slice are gated by one admit bit each, no test a pair.
-template <int kHalf, int kPack>
+// The minima of b0 with v0 and of b1 with v1 where hit is nonzero: one
+// predicate, two predicated instructions.
+__device__ __forceinline__ void min2_if(int32_t& b0, int32_t& b1, int32_t hit,
+                                        int32_t v0, int32_t v1) {
+  asm("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p min.s32 %0, %0, %3;\n"
+      "@p min.s32 %1, %1, %4;\n}"
+      : "+r"(b0), "+r"(b1)
+      : "r"(hit), "r"(v0), "r"(v1));
+}
+
+// The warp-slot epilogue of one half: a thread's two rows of each 8-row
+// slice are gated by one admit bit each, the minima of both its queries
+// predicated on it, with no test a pair and no branch (a branch a slice
+// and one a row, to skip the slices and rows the slot does not admit, cost
+// more than the work they saved: PERF.md).
+template <int kHalf, int kPack, bool kWhole>
 __device__ __forceinline__ void half_slot(const int32_t (&acc)[32],
                                           const uint32_t (&adm)[2],
                                           const int32_t* __restrict__ base,
@@ -568,28 +584,28 @@ __device__ __forceinline__ void half_slot(const int32_t (&acc)[32],
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int n8 = 8 * kHalf + n;
-    const uint32_t slice = (adm[n / 4] >> (8 * (n % 4))) & 0xFFu;
-    if (slice != 0) {  // warp-uniform
-      const uint32_t mine = slice >> cl;  // bits 0, 1: this thread's rows
+    // bits 0, 1: this thread's rows of the slice
+    const uint32_t mine = adm[n / 4] >> (8 * (n % 4) + cl);
+    const int2 bs = *reinterpret_cast<const int2*>(base + 8 * n8 + cl);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = 8 * n8 + cl + j;
-        if ((mine >> j) & 1u) {
-          const uint32_t bs = (uint32_t)base[r];
-          const uint32_t rank = kPack == kFold ? 0u : (uint32_t)(r & e.gm);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            e.best[i] = min(e.best[i], pack<kPack>(acc[4 * n + 2 * i + j],
-                                                    e.mul, bs, e.down, rank));
-        }
-      }
+    for (int j = 0; j < 2; ++j) {
+      const int r = 8 * n8 + cl + j;
+      const uint32_t rank = kPack == kFold ? 0u : (uint32_t)(r & e.gm);
+      const uint32_t b = (uint32_t)(j ? bs.y : bs.x);
+      min2_if(e.best[0], e.best[1], (int32_t)(mine & (1u << j)),
+              pack<kPack>(acc[4 * n + j], e.mul, b, e.down, rank),
+              pack<kPack>(acc[4 * n + 2 + j], e.mul, b, e.down, rank));
     }
-    if (((n8 + 1) & (e.span - 1)) == 0) close_group(e);
+    if (kWhole ? n8 == 15 : ((n8 + 1) & (e.span - 1)) == 0) close_group(e);
   }
 }
 
-// One half's epilogue, in the path the template selects.
-template <int kHalf, int kWords, int kPack, bool kWarpSlot>
+// One half's epilogue, in the path the template selects. kWhole: the group
+// is the whole tile (group 128), so its one group closes after the last
+// slice; a group width known only at run time puts a test after every
+// slice, which cost the epilogue a fifth of K1's time at group 128
+// (PERF.md).
+template <int kHalf, int kWords, int kPack, bool kWarpSlot, bool kWhole>
 __device__ __forceinline__ void half_epilogue(const int32_t (&acc)[32],
                                               const int32_t (&qw)[2][kWords],
                                               const uint32_t (&sw)[kMaxWords],
@@ -597,10 +613,10 @@ __device__ __forceinline__ void half_epilogue(const int32_t (&acc)[32],
                                               const int32_t* base, Epi& e) {
   if (kWarpSlot) {
     uint32_t adm[2];
-    half_admit<kHalf>(adm, sw, planes);
-    half_slot<kHalf, kPack>(acc, adm, base, e);
+    half_admit<kHalf, kWords>(adm, sw, planes);
+    half_slot<kHalf, kPack, kWhole>(acc, adm, base, e);
   } else {
-    half_pairs<kHalf, kWords, kPack>(acc, qw, planes, base, e);
+    half_pairs<kHalf, kWords, kPack, kWhole>(acc, qw, planes, base, e);
   }
 }
 
@@ -847,11 +863,16 @@ __device__ __forceinline__ void consume(const ScanArgs& a,
                                     e);
         half_wide<1, kWords, kPack>(hi, qa_bits, sm.planes(s), sm.base(s),
                                     e);
-      } else {
-        half_epilogue<0, kWords, kPack, kWarpSlot>(lo, qw, sw, sm.planes(s),
-                                                    sm.base(s), e);
-        half_epilogue<1, kWords, kPack, kWarpSlot>(hi, qw, sw, sm.planes(s),
-                                                    sm.base(s), e);
+      } else if (kPack != kChain && a.group == kRows) {
+        half_epilogue<0, kWords, kPack, kWarpSlot, true>(
+            lo, qw, sw, sm.planes(s), sm.base(s), e);
+        half_epilogue<1, kWords, kPack, kWarpSlot, true>(
+            hi, qw, sw, sm.planes(s), sm.base(s), e);
+      } else {  // the chain (the lab's control) keeps its schedule
+        half_epilogue<0, kWords, kPack, kWarpSlot, false>(
+            lo, qw, sw, sm.planes(s), sm.base(s), e);
+        half_epilogue<1, kWords, kPack, kWarpSlot, false>(
+            hi, qw, sw, sm.planes(s), sm.base(s), e);
       }
     } else {  // no query of the warpgroup admits a row of the tile
 #pragma unroll 1
@@ -919,7 +940,9 @@ cudaError_t dispatch_tc(const CUtensorMap& q_map, const CUtensorMap& x_map,
   if (a.w > kMaxWords)
     return launch_tc<D, 16, kPack, false>(q_map, x_map, a, blocks, stream);
   if (a.mask_sb > 0 && a.slot_tile == 0 && a.mask_sb % 16 == 0)
-    return launch_tc<D, 8, kPack, true>(q_map, x_map, a, blocks, stream);
+    return a.w <= 4
+               ? launch_tc<D, 4, kPack, true>(q_map, x_map, a, blocks, stream)
+               : launch_tc<D, 8, kPack, true>(q_map, x_map, a, blocks, stream);
   if (a.w <= 4)
     return launch_tc<D, 4, kPack, false>(q_map, x_map, a, blocks, stream);
   return launch_tc<D, 8, kPack, false>(q_map, x_map, a, blocks, stream);
