@@ -420,12 +420,15 @@ def _ref_random_world():
 
 
 @pytest.mark.parametrize("world_kind,alpha", [
-    ("tree", 2.0), ("tree", 1.2), ("random", 2.5), ("random", 1.5)])
+    ("tree", 2.0), ("tree", 1.2), ("random", 2.5), ("random", 1.5),
+    ("tree100", 2.0), ("tree100", 1.5)])
 def test_planner_identical(world_kind, alpha):
     """The copied planner (greedy split, both stages, heavy-partition
     refinement, renumbering, coverage) gives the reference's plan: the
     same assignment, trackers and split log. The random world has
-    multi-role users, whose combs reach the planner's stage 2."""
+    multi-role users, whose combs reach the planner's stage 2; "tree100"
+    is the benchmark's AnonySys world (100 roles, h 4, b 3-4, one role a
+    user) over 1,000 documents."""
     from vectorsearch_rbac_tpu.core import Corpus as RefCorpus
     from vectorsearch_rbac_tpu.partition.dynamic import (
         plan_dynamic_partitions as ref_plan)
@@ -439,6 +442,10 @@ def test_planner_identical(world_kind, alpha):
     if world_kind == "tree":
         world = RefTreeGenerator(num_users=300, num_roles=30, num_docs=200,
                                  h=3, b0=2, b1=3, seed=7).generate()
+    elif world_kind == "tree100":
+        world = RefTreeGenerator(num_users=1000, num_roles=100,
+                                 num_docs=1000, h=4, b0=3, b1=4,
+                                 seed=11).generate()
     else:
         world = _ref_random_world()
     corpus = RefCorpus(vectors=np.zeros((world.num_docs * 3, 2), np.float32),

@@ -36,6 +36,7 @@ import time
 from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
 from ...config import FrameworkConfig, get_logger
 from ...core import Corpus, DeviceArena
@@ -80,19 +81,27 @@ def validate_partition_coverage(plan: PartitionPlan,
 def plan_dynamic_partitions(world: RBACWorld, inputs: PlannerInputs,
                             refine_heavy: bool = True) -> PartitionPlan:
     """Greedy split -> heavy-partition refinement -> cleanup/renumber ->
-    coverage validation."""
-    t0 = time.perf_counter()
-    plan = split_comb_roles(inputs)
-    logger.info("split_comb_roles: %d partitions, %d splits, %.2fs",
-                len(plan.assignment), len(plan.split_log),
+    coverage validation, under the span dynamic.plan (its children
+    dynamic.split and dynamic.refine)."""
+    with record_function("dynamic.plan"):
+        t0 = time.perf_counter()
+        with record_function("dynamic.split"):
+            plan = split_comb_roles(inputs)
+        logger.info("split_comb_roles: %d partitions, %d splits, %.2fs",
+                    len(plan.assignment), len(plan.split_log),
+                    time.perf_counter() - t0)
+        if refine_heavy and plan.assignment:
+            largest = max(plan.assignment,
+                          key=lambda pid: len(plan.assignment[pid]))
+            if len(plan.assignment[largest]) > 0:
+                with record_function("dynamic.refine"):
+                    plan = rebalance_heavy_partition(plan, inputs,
+                                                     target_pid=largest)
+        plan = clean_and_reindex(plan)
+        validate_partition_coverage(plan, inputs)
+    logger.info("plan_dynamic_partitions: %d partitions, load %d, %.2fs",
+                len(plan.assignment), sum(plan.loads.values()),
                 time.perf_counter() - t0)
-    if refine_heavy and plan.assignment:
-        largest = max(plan.assignment,
-                      key=lambda pid: len(plan.assignment[pid]))
-        if len(plan.assignment[largest]) > 0:
-            plan = rebalance_heavy_partition(plan, inputs, target_pid=largest)
-    plan = clean_and_reindex(plan)
-    validate_partition_coverage(plan, inputs)
     return plan
 
 

@@ -1,8 +1,9 @@
 """AnonySys dynamic-partition planner: greedy storage-budgeted splitting.
 
-A copy of vectorsearch_rbac_tpu/partition/dynamic/optimizer.py (host-only
-Python), so that the port plans where the JAX package is absent;
-tests/test_torch_host.py holds it equal to the reference.
+The port's copy of vectorsearch_rbac_tpu/partition/dynamic/optimizer.py
+(host-only Python), so that the port plans where the JAX package is
+absent; tests/test_torch_host.py holds its plans (assignment, trackers,
+split log) equal to the reference's, bit for bit.
 
 Re-implements the semantics of the reference's core optimizer
 (controller/dynamic_partition/hnsw/AnonySys_dynamic_partition.py:425-667
@@ -28,6 +29,16 @@ fresh partition; score the move by (relative query-time change) /
 
 The split loop stops when total materialized docs would exceed
 alpha * total docs (reference :440) or no improving move exists.
+
+While it plans, a partition's documents are a Python-int bitset (`DocBits`:
+bit d is document d), so a union, an intersection or a count is a few word
+operations over the whole corpus; a comb's documents are unioned once; a
+partition (`_Part`) counts its overlap with each comb once; and a candidate
+split shares every partition and tracker it leaves alone with the state it
+starts from, so that only its source and target are counted anew. The
+candidates, the heap's ties and every float sum keep the reference's
+order, so the plan is the reference's exactly. The returned plan holds
+sets, as the reference's does.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ import heapq
 import itertools
 from dataclasses import dataclass, field
 from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence, Set, Tuple
+
+import numpy as np
 
 from ...models.cost import (CostModelParams, model_ef_for_recall,
                             model_partition_time)
@@ -97,6 +110,75 @@ def plan_from_reference(plan) -> PartitionPlan:
         split_log=list(plan.split_log))
 
 
+# ------------------------------------------------------------- documents
+
+
+def union_bits(bit_sets) -> int:
+    """The union of bitsets."""
+    out = 0
+    for bits in bit_sets:
+        out |= bits
+    return out
+
+
+class DocBits:
+    """A world's documents as Python-int bitsets, bit d for document d:
+    each role's, and each comb's union, made once."""
+
+    def __init__(self, role_to_docs: Mapping[int, FrozenSet[int]]):
+        self.n_docs = 1 + max((max(d) for d in role_to_docs.values() if d),
+                              default=-1)
+        self.role: Dict[int, int] = {r: self.of(d)
+                                     for r, d in role_to_docs.items()}
+        self._comb: Dict[Comb, int] = {}
+
+    def of(self, docs) -> int:
+        """The bitset of a collection of the world's document ids."""
+        flags = np.zeros(self.n_docs, dtype=bool)
+        flags[np.fromiter(docs, dtype=np.int64, count=len(docs))] = True
+        return int.from_bytes(np.packbits(flags, bitorder="little").tobytes(),
+                              "little")
+
+    def docs(self, bits: int) -> Set[int]:
+        """The set of document ids of a bitset."""
+        raw = np.frombuffer(bits.to_bytes((self.n_docs + 7) // 8, "little"),
+                            dtype=np.uint8)
+        return set(np.flatnonzero(
+            np.unpackbits(raw, bitorder="little")).tolist())
+
+    def comb(self, comb: Comb) -> int:
+        """The union of a comb's roles' documents."""
+        bits = self._comb.get(comb)
+        if bits is None:
+            bits = self._comb[comb] = union_bits(self.role.get(r, 0)
+                                                 for r in comb)
+        return bits
+
+
+class _Part:
+    """One partition while the planner runs: its documents (a bitset), their
+    count, and their overlap with each comb, counted once. A candidate
+    split that leaves the partition alone shares this object."""
+
+    __slots__ = ("docs", "n", "overlap")
+
+    def __init__(self, docs: int):
+        self.docs = docs
+        self.n = docs.bit_count()
+        self.overlap: Dict[Comb, int] = {}
+
+
+Assignment = Dict[int, _Part]
+
+
+def _overlap(bits: DocBits, comb: Comb, part: _Part) -> int:
+    """|comb's documents ∩ the partition's|."""
+    n = part.overlap.get(comb)
+    if n is None:
+        n = part.overlap[comb] = (bits.comb(comb) & part.docs).bit_count()
+    return n
+
+
 # --------------------------------------------------------------------- cost
 
 
@@ -112,7 +194,8 @@ def _weight(comb: Comb, weights: Mapping, single: Mapping) -> float:
 
 def compute_sel_whole(
     trackers: Trackers,
-    assignment: Mapping[int, Set[int]],
+    assignment: Assignment,
+    bits: DocBits,
     inputs: PlannerInputs,
     combs_to_update: Sequence[Comb],
     weights: Mapping,
@@ -124,12 +207,11 @@ def compute_sel_whole(
     total_w = 0.0
     for comb in combs_to_update:
         parts = trackers.get(comb, {})
-        docs = inputs.comb_docs(comb)
         sels = []
         for pid in parts:
-            pdocs = assignment.get(pid, set())
-            if pdocs:
-                sels.append(len(docs & pdocs) / len(pdocs))
+            part = assignment.get(pid)
+            if part is not None and part.n:
+                sels.append(_overlap(bits, comb, part) / part.n)
         avg_sel = sum(sels) / len(sels) if sels else 0.0
         w = _weight(comb, weights, inputs.single_role_weights)
         total_w_sel += avg_sel * w
@@ -139,7 +221,7 @@ def compute_sel_whole(
 
 def compute_query_time(
     trackers: Trackers,
-    assignment: Mapping[int, Set[int]],
+    assignment: Assignment,
     sel_whole: float,
     inputs: PlannerInputs,
     combs_to_update: Sequence[Comb],
@@ -156,14 +238,18 @@ def compute_query_time(
     for comb in combs_to_update:
         w = _weight(comb, weights, inputs.single_role_weights)
         for pid in trackers.get(comb, {}):
-            n = len(assignment.get(pid, ()))
-            if n > 0:
+            part = assignment.get(pid)
+            if part is not None and part.n > 0:
                 total += w * model_partition_time(
-                    p, n * inputs.avg_blocks_per_doc + 1e-9, ef)
+                    p, part.n * inputs.avg_blocks_per_doc + 1e-9, ef)
     return total
 
 
 # ----------------------------------------------------------- tracker updates
+#
+# Both updates replace an affected comb's entry with a new dict and never
+# edit a set in place, so a candidate's trackers may share the rest with
+# the state it starts from.
 
 
 def update_tracker_stage1(
@@ -190,7 +276,7 @@ def update_tracker_stage1(
             else:
                 new_parts[pid] = prole
         if moved:
-            new_parts.setdefault(target_pid, set()).update(moved)
+            new_parts[target_pid] = new_parts.get(target_pid, set()) | moved
         trackers[other] = new_parts
 
 
@@ -198,7 +284,8 @@ def update_tracker_stage2(
     comb: Comb,
     target_pid: int,
     trackers: Trackers,
-    assignment: Mapping[int, Set[int]],
+    assignment: Assignment,
+    bits: DocBits,
     inputs: PlannerInputs,
     max_subset_candidates: int = 16,
 ) -> None:
@@ -213,8 +300,12 @@ def update_tracker_stage2(
     if comb not in affected and comb in trackers:
         affected.append(comb)
 
+    def docs_of(pid: int) -> int:
+        part = assignment.get(pid)
+        return part.docs if part is not None else 0
+
     for a_comb in affected:
-        a_docs = inputs.comb_docs(a_comb)
+        a_docs = bits.comb(a_comb)
         original = set(trackers[a_comb].keys())
         if original == {target_pid}:
             continue
@@ -223,28 +314,25 @@ def update_tracker_stage2(
             # bound the exhaustive search; keep the largest-overlap ones
             candidates = sorted(
                 candidates,
-                key=lambda pid: -len(a_docs & assignment.get(pid, set())),
+                key=lambda pid: -(a_docs & docs_of(pid)).bit_count(),
             )[:max_subset_candidates]
 
         best_subset = None
         best_time = float("inf")
         for r in range(1, len(candidates) + 1):
             for subset in itertools.combinations(candidates, r):
-                covered: Set[int] = set()
-                for pid in subset:
-                    covered |= assignment.get(pid, set())
-                if not a_docs.issubset(covered):
+                if a_docs & ~union_bits(docs_of(pid) for pid in subset):
                     continue
                 total_sel = 0.0
                 for pid in subset:
-                    pdocs = assignment[pid]
-                    total_sel += len(a_docs & pdocs) / len(pdocs)
+                    part = assignment[pid]
+                    total_sel += _overlap(bits, a_comb, part) / part.n
                 avg_sel = total_sel / len(subset)
                 ef = model_ef_for_recall(p, None, inputs.topk,
                                          max(avg_sel, 1e-6))
                 # sum of per-partition probe times (for the reference
                 # family this equals log(prod sizes) * (a*ef + b))
-                qt = sum(model_partition_time(p, len(assignment[pid]), ef)
+                qt = sum(model_partition_time(p, assignment[pid].n, ef)
                          for pid in subset)
                 if qt < best_time:
                     best_time = qt
@@ -256,11 +344,11 @@ def update_tracker_stage2(
 
         new_parts: Dict[int, Set[int]] = {pid: set() for pid in best_subset}
         for role in a_comb:
-            rdocs = inputs.role_to_docs.get(role, frozenset())
+            rdocs = bits.role.get(role, 0)
             covering = [pid for pid in best_subset
-                        if rdocs <= assignment[pid]]
+                        if (rdocs & assignment[pid].docs) == rdocs]
             if covering:
-                pick = min(covering, key=lambda pid: len(assignment[pid]))
+                pick = min(covering, key=lambda pid: assignment[pid].n)
                 new_parts[pick].add(role)
             else:
                 for pid in best_subset:
@@ -272,12 +360,9 @@ def update_tracker_stage2(
 
 
 def _role_trackers_view(trackers: Trackers) -> Trackers:
-    """Single-role sub-view of the comb trackers (reference :470-474)."""
-    view: Trackers = {}
-    for comb, parts in trackers.items():
-        if len(comb) == 1:
-            view[comb] = {pid: set(rs) for pid, rs in parts.items()}
-    return view
+    """Single-role sub-view of the comb trackers (reference :470-474), to
+    read only."""
+    return {comb: parts for comb, parts in trackers.items() if len(comb) == 1}
 
 
 def _fully_resident_combs(trackers: Trackers, pid: int) -> Set[Comb]:
@@ -289,10 +374,11 @@ def _fully_resident_combs(trackers: Trackers, pid: int) -> Set[Comb]:
 
 
 def _pick_split_partition(
-    assignment: Mapping[int, Set[int]], trackers: Trackers
+    assignment: Assignment, trackers: Trackers
 ) -> Tuple[Optional[int], Set[Comb]]:
     """Largest partition hosting >1 fully-resident comb."""
-    for pid in sorted(assignment, key=lambda p: len(assignment[p]), reverse=True):
+    for pid in sorted(assignment, key=lambda p: assignment[p].n,
+                      reverse=True):
         combs = _fully_resident_combs(trackers, pid)
         if len(combs) > 1:
             return pid, combs
@@ -300,10 +386,10 @@ def _pick_split_partition(
 
 
 def _shrink_source(
-    assignment: Dict[int, Set[int]],
+    assignment: Assignment,
     trackers: Trackers,
     source_pid: int,
-    inputs: PlannerInputs,
+    bits: DocBits,
 ) -> None:
     """After a move, keep in the source partition only documents still
     needed by roles that remain there (reference :548-561, :644-657)."""
@@ -311,10 +397,14 @@ def _shrink_source(
     for parts in trackers.values():
         if source_pid in parts:
             remaining_roles |= parts[source_pid]
-    needed: Set[int] = set()
-    for role in remaining_roles:
-        needed |= inputs.role_to_docs.get(role, frozenset())
-    assignment[source_pid] &= needed
+    needed = union_bits(bits.role.get(role, 0) for role in remaining_roles)
+    docs = assignment[source_pid].docs
+    if docs & needed != docs:
+        assignment[source_pid] = _Part(docs & needed)
+
+
+def _load(assignment: Assignment) -> int:
+    return sum(part.n for part in assignment.values())
 
 
 def split_comb_roles(
@@ -322,6 +412,7 @@ def split_comb_roles(
     combination_mode: bool = False,
     max_splits: int = 10000,
 ) -> PartitionPlan:
+    bits = DocBits(inputs.role_to_docs)
     # every comb and every single role is a split candidate (reference
     # :761-785 expands role_combinations with all single roles)
     candidate_combs: Set[Comb] = set(tuple(c) for c in inputs.combs)
@@ -329,21 +420,14 @@ def split_comb_roles(
         for r in comb:
             candidate_combs.add((r,))
 
-    all_docs: Set[int] = set()
-    for docs in inputs.role_to_docs.values():
-        all_docs |= docs
-    assignment: Dict[int, Set[int]] = {0: set(all_docs)}
-    total_docs = len(all_docs)
-    budget = inputs.alpha * total_docs
+    assignment: Assignment = {0: _Part(union_bits(bits.role.values()))}
+    budget = inputs.alpha * assignment[0].n
 
     trackers: Trackers = {comb: {0: set(comb)} for comb in candidate_combs}
-    plan = PartitionPlan(assignment=assignment, trackers=trackers)
-
-    def total_load() -> int:
-        return sum(len(d) for d in assignment.values())
+    split_log: List[Tuple[float, Comb, int]] = []
 
     splits = 0
-    while total_load() <= budget and splits < max_splits:
+    while _load(assignment) <= budget and splits < max_splits:
         source_pid, source_combs = _pick_split_partition(assignment, trackers)
         if source_pid is None:
             logger.info("no splittable partition; stopping at %d partitions",
@@ -354,11 +438,11 @@ def split_comb_roles(
         role_view = _role_trackers_view(trackers)
         involved_roles = [c for c in role_view if source_pid in role_view[c]]
 
-        sel_comb_before = compute_sel_whole(trackers, assignment, inputs,
+        sel_comb_before = compute_sel_whole(trackers, assignment, bits, inputs,
                                             involved_combs, inputs.comb_weights)
         qt_comb_before = compute_query_time(trackers, assignment, sel_comb_before,
                                             inputs, involved_combs, inputs.comb_weights)
-        sel_role_before = compute_sel_whole(role_view, assignment, inputs,
+        sel_role_before = compute_sel_whole(role_view, assignment, bits, inputs,
                                             involved_roles, inputs.single_role_weights)
         qt_role_before = compute_query_time(role_view, assignment, sel_role_before,
                                             inputs, involved_roles, inputs.single_role_weights)
@@ -366,34 +450,34 @@ def split_comb_roles(
             break
 
         target_pid = max(assignment.keys()) + 1
+        prev_storage = _load(assignment)
         heap: List[Tuple[float, float, float, Comb, int]] = []
 
         for comb in sorted(source_combs):
             if not combination_mode and len(comb) > 1:
                 continue  # stage 1 splits single roles only (reference :513)
 
-            tmp_assign = {pid: set(d) for pid, d in assignment.items()}
-            tmp_track = {c: {pid: set(rs) for pid, rs in parts.items()}
-                         for c, parts in trackers.items()}
-            prev_storage = sum(len(d) for d in tmp_assign.values())
-
-            tmp_assign.setdefault(target_pid, set()).update(inputs.comb_docs(comb))
+            # the candidate's state shares what the move leaves alone
+            tmp_assign = dict(assignment)
+            tmp_track = dict(trackers)
+            tmp_assign[target_pid] = _Part(bits.comb(comb))
             if combination_mode:
-                update_tracker_stage2(comb, target_pid, tmp_track, tmp_assign, inputs)
+                update_tracker_stage2(comb, target_pid, tmp_track, tmp_assign,
+                                      bits, inputs)
             else:
                 update_tracker_stage1(comb, target_pid, tmp_track, source_pid)
-            _shrink_source(tmp_assign, tmp_track, source_pid, inputs)
+            _shrink_source(tmp_assign, tmp_track, source_pid, bits)
 
-            new_storage = sum(len(d) for d in tmp_assign.values())
+            new_storage = _load(tmp_assign)
             storage_growth = ((new_storage - prev_storage) / prev_storage
                               if prev_storage else 0.0)
 
             tmp_role_view = _role_trackers_view(tmp_track)
-            sel_c = compute_sel_whole(tmp_track, tmp_assign, inputs,
+            sel_c = compute_sel_whole(tmp_track, tmp_assign, bits, inputs,
                                       involved_combs, inputs.comb_weights)
             qt_c = compute_query_time(tmp_track, tmp_assign, sel_c, inputs,
                                       involved_combs, inputs.comb_weights)
-            sel_r = compute_sel_whole(tmp_role_view, tmp_assign, inputs,
+            sel_r = compute_sel_whole(tmp_role_view, tmp_assign, bits, inputs,
                                       involved_roles, inputs.single_role_weights)
             qt_r = compute_query_time(tmp_role_view, tmp_assign, sel_r, inputs,
                                       involved_roles, inputs.single_role_weights)
@@ -425,16 +509,19 @@ def split_comb_roles(
             break
 
         combined, d_role, d_comb, best_comb, tpid = heapq.heappop(heap)
-        new_docs = inputs.comb_docs(best_comb)
-        assignment.setdefault(tpid, set()).update(new_docs)
+        assignment[tpid] = _Part(bits.comb(best_comb))
         if combination_mode:
-            update_tracker_stage2(best_comb, tpid, trackers, assignment, inputs)
+            update_tracker_stage2(best_comb, tpid, trackers, assignment, bits,
+                                  inputs)
         else:
             update_tracker_stage1(best_comb, tpid, trackers, source_pid)
-        _shrink_source(assignment, trackers, source_pid, inputs)
-        plan.split_log.append((combined, best_comb, tpid))
+        _shrink_source(assignment, trackers, source_pid, bits)
+        split_log.append((combined, best_comb, tpid))
         splits += 1
         logger.debug("split %s -> partition %d (delta=%.4f, load=%d/%d)",
-                     best_comb, tpid, combined, total_load(), int(budget))
+                     best_comb, tpid, combined, _load(assignment), int(budget))
 
-    return plan
+    return PartitionPlan(
+        assignment={pid: bits.docs(part.docs)
+                    for pid, part in assignment.items()},
+        trackers=trackers, split_log=split_log)

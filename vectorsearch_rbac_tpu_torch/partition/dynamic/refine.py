@@ -14,17 +14,22 @@ subsets of the top roles; a role may not end up spread over more than 3
 partitions. After the split, comb trackers are remapped so every role
 tracks exactly the sub-partitions holding its documents — preserving the
 coverage invariant.
+
+The search holds documents as the planner's bitsets (optimizer.DocBits);
+its states, their order, costs and signatures are the reference's, so the
+refined plan is the reference's exactly.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Set, Tuple
 
 from ...config import get_logger
-from .optimizer import PartitionPlan, PlannerInputs
+from .optimizer import DocBits, PartitionPlan, PlannerInputs, union_bits
 
 logger = get_logger("dynamic.refine")
 
@@ -45,30 +50,34 @@ def _role_cost(partition_size: int, docs_for_role: int) -> float:
     return math.log(max(partition_size, 1)) / sel
 
 
-def _state_cost(parts: List[Dict[int, Set[int]]]) -> float:
-    """parts: list of {role -> docs in this sub-partition}."""
+def _state_cost(parts: List[Dict[int, int]]) -> float:
+    """parts: list of {role -> docs (a bitset) in this sub-partition}."""
     total = 0.0
     for role_map in parts:
-        size = len(set().union(*role_map.values())) if role_map else 0
+        size = union_bits(role_map.values()).bit_count()
         for docs in role_map.values():
-            total += _role_cost(size, len(docs))
+            total += _role_cost(size, docs.bit_count())
     return total
 
 
 @dataclass
 class _State:
-    remaining: Dict[int, Set[int]]                 # role -> docs still in source
-    new_parts: List[Dict[int, Set[int]]]           # role -> docs per new partition
+    remaining: Dict[int, int]                      # role -> docs still in source
+    new_parts: List[Dict[int, int]]                # role -> docs per new partition
     cost: float
     depth: int
 
 
+def _proper_subset_first(a: int, b: int) -> int:
+    """The order in which sorted() puts sets: a before b when a < b, which
+    for sets is a proper subset."""
+    return -1 if a != b and (a & b) == a else 0
+
+
 def _signature(state: _State) -> Tuple:
-    rem = frozenset(itertools.chain.from_iterable(state.remaining.values()))
-    parts = tuple(sorted(
-        frozenset(itertools.chain.from_iterable(p.values()))
-        for p in state.new_parts
-    ))
+    rem = union_bits(state.remaining.values())
+    parts = tuple(sorted((union_bits(p.values()) for p in state.new_parts),
+                         key=functools.cmp_to_key(_proper_subset_first)))
     return (rem, parts)
 
 
@@ -91,18 +100,19 @@ def rebalance_heavy_partition(
     trackers = {c: {pid: set(rs) for pid, rs in parts.items()}
                 for c, parts in plan.trackers.items()}
 
-    source_docs = assignment.get(target_pid, set())
-    if not source_docs:
+    if not assignment.get(target_pid):
         return plan
+    bits = DocBits(inputs.role_to_docs)
+    source_docs = bits.of(assignment[target_pid])
 
     # roles served from the heavy partition, restricted to tracked roles
     allowed_roles: Set[int] = set()
     for parts in trackers.values():
         if target_pid in parts:
             allowed_roles |= parts[target_pid]
-    role_docs: Dict[int, Set[int]] = {}
+    role_docs: Dict[int, int] = {}
     for role in allowed_roles:
-        docs = set(inputs.role_to_docs.get(role, frozenset())) & source_docs
+        docs = bits.role.get(role, 0) & source_docs
         if docs:
             role_docs[role] = docs
     if len(role_docs) < 2:
@@ -120,7 +130,7 @@ def rebalance_heavy_partition(
         external_counts[role] = n
 
     init = _State(
-        remaining={r: set(d) for r, d in role_docs.items()},
+        remaining=dict(role_docs),
         new_parts=[],
         cost=_state_cost([role_docs]),
         depth=0,
@@ -135,20 +145,20 @@ def rebalance_heavy_partition(
             if state.depth >= MAX_DEPTH:
                 continue
             # candidate subsets: from the largest remaining roles
-            live_roles = sorted(state.remaining,
-                                key=lambda r: -len(state.remaining[r]))[:TOP_ROLE_LIMIT]
+            live_roles = sorted(
+                state.remaining,
+                key=lambda r: -state.remaining[r].bit_count())[:TOP_ROLE_LIMIT]
             candidates = []
             for size in range(1, min(MAX_SUBSET_SIZE, len(live_roles)) + 1):
                 candidates.extend(itertools.combinations(live_roles, size))
+            everything = union_bits(state.remaining.values())
             scored: List[_State] = []
             for subset in candidates:
-                moved: Set[int] = set()
-                for r in subset:
-                    moved |= state.remaining[r]
-                if not moved or moved == set().union(*state.remaining.values()):
+                moved = union_bits(state.remaining[r] for r in subset)
+                if not moved or moved == everything:
                     continue
                 new_remaining = {
-                    r: d - moved for r, d in state.remaining.items()
+                    r: d & ~moved for r, d in state.remaining.items()
                 }
                 new_remaining = {r: d for r, d in new_remaining.items() if d}
                 new_part = {
@@ -187,17 +197,14 @@ def rebalance_heavy_partition(
         return plan
 
     # apply: source keeps remaining docs; each new part becomes a partition
+    source_size = len(assignment[target_pid])
     next_pid = max(assignment.keys()) + 1
-    remaining_docs: Set[int] = set()
-    for d in best.remaining.values():
-        remaining_docs |= d
-    assignment[target_pid] = remaining_docs
+    sub_bits = {target_pid: union_bits(best.remaining.values())}
+    assignment[target_pid] = bits.docs(sub_bits[target_pid])
     new_pids: List[int] = []
     for part in best.new_parts:
-        docs: Set[int] = set()
-        for d in part.values():
-            docs |= d
-        assignment[next_pid] = docs
+        sub_bits[next_pid] = union_bits(part.values())
+        assignment[next_pid] = bits.docs(sub_bits[next_pid])
         new_pids.append(next_pid)
         next_pid += 1
 
@@ -207,15 +214,15 @@ def rebalance_heavy_partition(
     for comb, parts in trackers.items():
         roles_here = parts.pop(target_pid, set())
         for role in roles_here:
-            rdocs = set(inputs.role_to_docs.get(role, frozenset()))
+            rdocs = bits.role.get(role, 0)
             for pid in sub_pids:
-                if rdocs & assignment[pid]:
+                if rdocs & sub_bits[pid]:
                     parts.setdefault(pid, set()).add(role)
 
     logger.info(
         "refined partition %d: %d -> %d docs remaining + %s new partitions "
         "(cost %.1f -> %.1f)",
-        target_pid, len(source_docs), len(remaining_docs),
+        target_pid, source_size, len(assignment[target_pid]),
         [len(assignment[p]) for p in new_pids], init.cost, best.cost,
     )
     return PartitionPlan(assignment=assignment, trackers=trackers,

@@ -22,10 +22,14 @@ dispatch takes up to _SLOTS_PER_DISPATCH slots of one class, unpadded,
 and every slot's operands are gathered on the device from the pass's one
 upload of queries, norms and masks.
 
-A pass is split by profiler spans: tiled.route (host), tiled.big_enqueue
-(the big tier's scans and merges, with flat_int8.* inside),
-tiled.chunk_scan (the chunk engine, enqueue and fetch), tiled.big_fetch
-and tiled.merge (the host's fan-out merge). The searcher's StageTimer
+A pass is split by profiler spans under its root tiled.search_batch (the
+whole call): tiled.route (host), tiled.big_enqueue (the big tier's scans
+and merges, with flat_int8.* inside), tiled.chunk_scan (the chunk engine,
+enqueue and fetch), tiled.big_fetch and tiled.merge (the host's fan-out
+merge). Once a pass it counts (utils/tracing.py `count`) tiled.queries,
+tiled.probes (the partitions each query is routed to, summed over the
+queries), tiled.big_searches (big-tier partition searches), tiled.slots
+and tiled.chunk_dispatches (the chunk engine's). The searcher's StageTimer
 (`.timer`) keeps the reference's stages beside them: route, big_enqueue,
 device_scan (the chunk engine and the big tier's fetch), quantize (within
 device_scan) and merge.
@@ -47,7 +51,7 @@ from ..index.flat_int8 import Int8FlatIndex
 from ..ops.tiled_scan import tiled_bucket_topk
 from ..ops.topk import merge_topk_host
 from ..rbac import query_masks_for
-from ..utils.tracing import StageTimer
+from ..utils.tracing import StageTimer, count
 from .base import route_batch
 
 logger = get_logger("partition.tiled")
@@ -336,7 +340,12 @@ class TiledSearcher:
         self, queries: np.ndarray, user_ids: np.ndarray,
         user_masks: np.ndarray, k: int,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Return (dists (Q, k), arena row ids (Q, k)); -1 / +inf pads."""
+        """Return (dists (Q, k), arena row ids (Q, k)); -1 / +inf pads. The
+        span tiled.search_batch covers the whole call."""
+        with record_function("tiled.search_batch"):
+            return self._search_batch(queries, user_ids, user_masks, k)
+
+    def _search_batch(self, queries, user_ids, user_masks, k):
         queries = np.asarray(queries, dtype=np.float32)
         user_ids = np.asarray(user_ids)
         nq = queries.shape[0]
@@ -352,6 +361,8 @@ class TiledSearcher:
                 n_pids[qi] = len(pids)
                 for pid in pids:
                     pid_queries.setdefault(pid, []).append(qi)
+        count("tiled.queries", nq)
+        count("tiled.probes", int(n_pids.sum()))
 
         # the big tier first, so its device work runs while the host
         # prepares the chunk engine's dispatches
@@ -363,9 +374,12 @@ class TiledSearcher:
                 if qidx:
                     fin = idx8.search_deferred(queries[qidx], qmasks[qidx], k)
                     big_pending.append((qidx, fin))
+        count("tiled.big_searches", len(big_pending))
         with self.timer.stage("device_scan"):
             with record_function("tiled.chunk_scan"):
                 results = self._chunk_engine(queries, qmasks, pid_queries, k)
+            count("tiled.slots", sum(len(slots) for slots, _, _ in results))
+            count("tiled.chunk_dispatches", len(results))
             with record_function("tiled.big_fetch"):
                 big_results = [(qidx, *fin()) for qidx, fin in big_pending]
 

@@ -15,8 +15,11 @@ Counterpart of vectorsearch_rbac_tpu/utils/tracing.py:
   at layer boundaries, process-wide. `Int8FlatIndex.search_deferred`
   counts `flat_int8.queries` (the caller's queries) and
   `flat_int8.positions` (the query positions its scan runs: admit-dedup's
-  slot pads and the tail included) once a pass. The kernel wrappers'
-  launch counts are `ops/_build.LAUNCHES`.
+  slot pads and the tail included) once a pass, and
+  `TiledSearcher.search_batch` counts `tiled.queries`, `tiled.probes`,
+  `tiled.big_searches`, `tiled.slots` and `tiled.chunk_dispatches` once a
+  call (partition/tiled.py). The kernel wrappers' launch counts are
+  `ops/_build.LAUNCHES`.
 
 The program's spans are `torch.profiler.record_function` ranges, on the
 profiler's clock beside the device rows of the same trace. On the global
